@@ -1,9 +1,12 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu``.
 
 The package mirrors ``paddle_tpu``'s module paths (the counterpart of
-``paddle_tpu/x/y.py`` is ``paddle_tpu_torch/x/y.py``) and serves
-``LlamaForCausalLM`` through ``LLMEngine`` with hand-written CUDA
-paged-attention kernels (``ops/cuda``, sources under ``csrc/``).
+``paddle_tpu/x/y.py`` is ``paddle_tpu_torch/x/y.py``). It serves
+``LlamaForCausalLM`` through ``LLMEngine`` on hand-written CUDA
+paged-attention kernels, and trains it through
+``incubate.fused_train_step`` with AdamW on hand-written CUDA
+flash-attention forward and backward kernels (``ops/cuda``, sources under
+``csrc/``).
 
 It imports ``torch`` and never ``jax`` or ``paddle_tpu``. Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; asking for CUDA

@@ -2,14 +2,15 @@
 
 The port's modules use the reference's parameter names and layouts, so a
 ``paddle_tpu`` model's ``state_dict()`` (converted to numpy arrays by the
-caller) loads one to one — no renames, no transposes."""
+caller) loads one to one — no renames, no transposes — and
+:func:`to_numpy_state_dict` hands the port's weights back the same way."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["load_paddle_tpu_state_dict"]
+__all__ = ["load_paddle_tpu_state_dict", "to_numpy_state_dict"]
 
 
 def load_paddle_tpu_state_dict(model: torch.nn.Module, state) -> None:
@@ -39,3 +40,15 @@ def load_paddle_tpu_state_dict(model: torch.nn.Module, state) -> None:
                 arrays[name],
                 dtype=np.float32 if dst.is_floating_point() else None))
             dst.copy_(src.to(device=dst.device, dtype=dst.dtype))
+
+
+def to_numpy_state_dict(model: torch.nn.Module) -> dict:
+    """``model``'s parameters and persistent buffers as fp32 numpy arrays
+    (integer buffers keep their dtype) under the reference's names: what
+    :func:`load_paddle_tpu_state_dict` and the JAX package's
+    ``set_state_dict`` take."""
+    out = {}
+    for name, t in model.state_dict().items():
+        t = t.detach().cpu()
+        out[name] = (t.float() if t.is_floating_point() else t).numpy()
+    return out

@@ -5,10 +5,13 @@ names and shapes match the JAX package's ``state_dict`` one to one
 (``Linear.weight`` is ``[in, out]``), so weights carry across with
 :func:`paddle_tpu_torch.models.convert.load_paddle_tpu_state_dict`.
 
-``forward`` is the dense causal forward, kept for parity checks; serving
-runs through ``inference.serving.LLMEngine``, which drives the submodules
-directly over the paged KV pool. MoE, ring/sep attention, the pipeline
-variants and ``generate`` are not ported.
+``forward`` is the dense causal forward that training runs (attention
+through ``nn.functional.scaled_dot_product_attention``, on the card the
+flash-attention CUDA kernels; with ``labels`` it also returns the
+cross-entropy loss). Serving runs through ``inference.serving.LLMEngine``,
+which drives the submodules directly over the paged KV pool. MoE,
+ring/sep attention, the pipeline variants and ``generate`` are not
+ported.
 """
 
 from __future__ import annotations
@@ -148,7 +151,7 @@ class LlamaAttention(nn.Module):
         q, k, v = self.project(x)
         q = _rope_apply(q, cos, sin)
         k = _rope_apply(k, cos, sin)
-        out = F.sdpa_reference(q, k, v, causal=True)
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
@@ -247,8 +250,16 @@ class LlamaForCausalLM(nn.Module):
             return self.lm_head(h)
         return h @ self.llama.embed_tokens.weight.t()
 
-    def forward(self, input_ids):
-        return self.head(self.llama(input_ids))
+    def forward(self, input_ids, labels=None):
+        """Logits [B, S, V]; with ``labels`` [B, S], ``(loss, logits)``
+        where loss is the mean cross-entropy of the logits against the
+        labels as given (no shift: the caller shifts them)."""
+        logits = self.head(self.llama(input_ids))
+        if labels is None:
+            return logits
+        loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                               labels.reshape(-1))
+        return loss, logits
 
 
 def llama_tiny(**kw):

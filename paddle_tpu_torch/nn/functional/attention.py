@@ -1,9 +1,11 @@
 """Plain dense attention (the port of ``_sdpa_ref`` in
 ``paddle_tpu/nn/functional/flash_attention.py``).
 
-This is the numerical reference the paged-attention plain versions and the
-model's dense ``forward`` use. It is plain PyTorch tensor code, not a
-kernel: the flash-attention kernels of the JAX package are not ported yet.
+This is the numerical reference the paged-attention plain versions use,
+and the CPU path of masked or cross-length attention. It is plain PyTorch
+tensor code, not a kernel: self-attention in the model's ``forward`` goes
+through :func:`.flash_attention.scaled_dot_product_attention`, which
+launches the flash-attention CUDA kernels on the card.
 """
 
 from __future__ import annotations
