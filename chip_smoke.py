@@ -12,11 +12,14 @@ Phases, one printed line per result:
 2. kernels against their plain PyTorch versions: the paged-attention
    kernels at the serving path's shapes (llama_1b MHA and a GQA case;
    bf16, fp32 and int8 pools; decode and multi-query with T in {1, 16,
-   512}, q_start > 0 and padding rows), and the flash-attention forward,
-   dq and dkv kernels at the training shape (llama_125m: B 16, H 12,
-   S 1024, D 64, bf16, causal), at llama_1b's heads (D 128, S 2048), in
-   fp32 at D 32, 64 and 128, non-causal, at a ragged S = 1000, and GQA
-   32/8 through the autograd Function;
+   512}, q_start > 0 and padding rows); the flash-attention forward, dq
+   and dkv kernels, without rope and in their rope form (pre-rotary q and
+   k, the llama tables), at the training shape (B 16, H 12, S 1024, D 64,
+   bf16, causal), at llama_1b's heads (D 128, S 2048), in fp32 at D 32, 64
+   and 128, non-causal, at a ragged S = 1000, and GQA 32/8 through the
+   autograd Function; the MoE expert FFN at the Llama-MoE shape (E 8,
+   C 5120, h 768, I 2048) in bf16 and fp32 and at ragged small shapes; the
+   fused add + RMSNorm at 16384 x 768 in bf16 and fp32;
 3. times (CUDA events, median after warm-up) of each kernel, its plain
    version and the PyTorch library call computing the same function,
    beside the least time the card could take;
@@ -29,11 +32,18 @@ Phases, one printed line per result:
    batch, 2 warm-up and 10 timed steps through ``FusedTrainStep.drive``;
    the loss must be finite and fall, and each flash kernel must launch
    exactly layers x steps times; tokens/s, ms/step, MFU, peak memory and
-   one profiled step;
+   one profiled step; then the same for the Llama-MoE of
+   scripts/bench_moe_ffn.py (8 layers, 8 experts, top-2, MoE every 2nd
+   layer) with ``PT_FUSED_MOE``, ``PT_FUSED_NORM`` and ``PT_FUSED_ROPE``
+   set for that run only: the MoE kernel launches MoE layers x steps
+   times, the fused norm and each rope flash kernel layers x steps, the
+   flash kernels without rope never;
 6. card against CPU: the port engine on fp32 llama_tiny gives identical
-   greedy tokens on the CPU (plain versions) and on the card (kernels),
-   and three fused AdamW steps on fp32 llama_tiny give the same losses and
-   parameters on both.
+   greedy tokens on the CPU (plain versions) and on the card (kernels);
+   three fused AdamW steps on fp32 llama_tiny give the same losses and
+   parameters on both; and so do three on fp32 llama_tiny with 4 experts
+   and the three switches, after the first batch's top-k routing is found
+   identical on both.
 
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
@@ -42,7 +52,10 @@ then non-zero and no result line is printed. Without CUDA it exits 1.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -87,16 +100,43 @@ def card_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
+def sleep_cycles_per_ms():
+    """The rate of ``torch.cuda._sleep``, measured once with CUDA events."""
+    import torch
+
+    cycles = 10_000_000
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    torch.cuda.synchronize()
+    return cycles / a.elapsed_time(b)
+
+
 def time_ms(fn, warmup=3, iters=20):
+    """Median device time of one call of ``fn``, after ``warmup`` calls,
+    between two CUDA events. Each timed call is queued behind a device-side
+    sleep twice as long as the host takes to issue it (at most 50 ms), so
+    the start event fires when the call's work is already queued: without
+    it a kernel shorter than the host's launch overhead would be timed at
+    that overhead."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int(min(2 * issue_ms, 50.0) * sleep_cycles_per_ms())
     events = []
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         a.record()
         fn()
         b.record()
@@ -345,8 +385,10 @@ def report_times(out):
         t_ops = r["ops"] / PEAK_OPS_PER_S["bfloat16"] * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        lib = ("not available" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         say(f"time {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+            f"{r['plain_ms']:.4f} ms, library {lib} "
             f"({r['library']}), bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}; {r['bytes']} B, {r['ops']} ops)")
     return out
@@ -356,6 +398,7 @@ def report_times(out):
 
 FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
          "flash_attention_bwd_dkv")
+ROPE = tuple(n.replace("attention_", "attention_rope_") for n in FLASH)
 
 
 def flash_inputs(gen, bh, s, d, dtype):
@@ -375,15 +418,52 @@ def compare_grad(got, want, dtype):
     return float(diff.max()), float((diff - tol).max())
 
 
-def phase_flash_kernels(gen):
-    """Phase 2b: each flash kernel against its plain version (evaluated in
+def rope_tables(s, d):
+    """The llama rope tables for S positions, widened to fp32 [S, D] on
+    the card, as ``flash_attention_rope`` passes them to the kernels."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import _rope_cache
+    from paddle_tpu_torch.ops.cuda.flash_attention import widen_tables
+
+    cos, sin = (torch.from_numpy(t).cuda() for t in _rope_cache(s, d,
+                                                                 10000.0))
+    return widen_tables(cos, sin)
+
+
+def flash_calls(rope, s, d):
+    """(fwd, dq, dkv, plain fwd, plain dq, plain dkv) of the flash kernels
+    without or with rope, all taking (q, k, v[, out, lse, dout], scale,
+    causal); the rope forms get the llama tables for S and D."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as K
+
+    if not rope:
+        return (K.flash_attention_fwd_cuda, K.flash_attention_bwd_dq_cuda,
+                K.flash_attention_bwd_dkv_cuda, K.flash_attention_fwd_plain,
+                K.flash_attention_bwd_dq_plain,
+                K.flash_attention_bwd_dkv_plain)
+    c2, s2 = rope_tables(s, d)
+
+    def bind(fn, n):  # the tables go after the first n arguments
+        return lambda *a: fn(*a[:n], c2, s2, *a[n:])
+
+    return (bind(K.flash_attention_rope_fwd_cuda, 3),
+            bind(K.flash_attention_rope_bwd_dq_cuda, 6),
+            bind(K.flash_attention_rope_bwd_dkv_cuda, 6),
+            bind(K.flash_attention_rope_fwd_plain, 3),
+            bind(K.flash_attention_rope_bwd_dq_plain, 6),
+            bind(K.flash_attention_rope_bwd_dkv_plain, 6))
+
+
+def phase_flash_kernels(gen, rope=False):
+    """Phase 2b: each flash kernel (``rope``: its rope form, on pre-rotary
+    q and k with the llama tables) against its plain version (evaluated in
     fp32 on the exactly upcast inputs; the backward's plain versions take
     the kernel's own out and lse). Returns {kernel: max abs error}."""
     import torch
 
-    from paddle_tpu_torch.ops.cuda import flash_attention as K
-
-    worst = dict.fromkeys(FLASH, 0.0)
+    names = ROPE if rope else FLASH
+    worst = dict.fromkeys(names, 0.0)
     cases = [  # (B, H, S, D, dtype, causal, what)
         (16, 12, 1024, 64, "bfloat16", True, "llama_125m training"),
         (2, 16, 2048, 128, "bfloat16", True, "llama_1b heads"),
@@ -392,61 +472,72 @@ def phase_flash_kernels(gen):
         (2, 8, 512, 64, "bfloat16", False, "non-causal"),
         (2, 4, 1000, 64, "bfloat16", True, "ragged S"),
         (1, 4, 1000, 128, "float32", False, "ragged S fp32 D=128")]
+    tag = "flash rope" if rope else "flash"
     for b, h, s, d, dt, causal, what in cases:
+        fwd, bdq, bdkv, p_fwd, p_dq, p_dkv = flash_calls(rope, s, d)
         q, k, v, do = flash_inputs(gen, b * h, s, d, getattr(torch, dt))
         scale = d ** -0.5
         up = [t.float() for t in (q, k, v, do)]
-        out, lse = K.flash_attention_fwd_cuda(q, k, v, scale, causal)
-        w_out, w_lse = K.flash_attention_fwd_plain(*up[:3], scale, causal)
+        out, lse = fwd(q, k, v, scale, causal)
+        w_out, w_lse = p_fwd(*up[:3], scale, causal)
         e_out, x_out = compare(out, w_out, dt)
         e_lse = float((lse - w_lse).abs().max())
         del w_out, w_lse
         res = (*up[:3], out.float(), lse, up[3])
-        dq = K.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, scale,
-                                           causal)
-        e_dq, x_dq = compare_grad(dq, K.flash_attention_bwd_dq_plain(
-            *res, scale, causal), dt)
-        dk, dv = K.flash_attention_bwd_dkv_cuda(q, k, v, out, lse, do, scale,
-                                                causal)
-        w_dk, w_dv = K.flash_attention_bwd_dkv_plain(*res, scale, causal)
+        dq = bdq(q, k, v, out, lse, do, scale, causal)
+        e_dq, x_dq = compare_grad(dq, p_dq(*res, scale, causal), dt)
+        dk, dv = bdkv(q, k, v, out, lse, do, scale, causal)
+        w_dk, w_dv = p_dkv(*res, scale, causal)
         e_dk, x_dk = compare_grad(dk, w_dk, dt)
         e_dv, x_dv = compare_grad(dv, w_dv, dt)
         torch.cuda.synchronize()
-        say(f"kernel flash B={b} H={h} S={s} D={d} {dt} causal={causal} "
+        say(f"kernel {tag} B={b} H={h} S={s} D={d} {dt} causal={causal} "
             f"({what}): out {e_out:.3e} (tol {ATOL:g} + {RTOL[dt]:g}*|want|)"
             f", lse {e_lse:.3e} (tol {LSE_ATOL:g}), dq {e_dq:.3e}, dk "
             f"{e_dk:.3e}, dv {e_dv:.3e} (tol {RTOL[dt]:g}*|want| + "
             f"{GRAD_FRAC:g}*max|want|)")
-        check(x_out <= 0 and e_lse <= LSE_ATOL, f"flash fwd {what}")
-        check(x_dq <= 0, f"flash dq {what}")
-        check(x_dk <= 0 and x_dv <= 0, f"flash dkv {what}")
-        worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"],
-                                           e_out)
-        worst["flash_attention_bwd_dq"] = max(
-            worst["flash_attention_bwd_dq"], e_dq)
-        worst["flash_attention_bwd_dkv"] = max(
-            worst["flash_attention_bwd_dkv"], e_dk, e_dv)
+        check(x_out <= 0 and e_lse <= LSE_ATOL, f"{tag} fwd {what}")
+        check(x_dq <= 0, f"{tag} dq {what}")
+        check(x_dk <= 0 and x_dv <= 0, f"{tag} dkv {what}")
+        for name, e in zip(names, (e_out, e_dq, max(e_dk, e_dv))):
+            worst[name] = max(worst[name], e)
         del q, k, v, do, up, res, out, lse, dq, dk, dv, w_dk, w_dv
         torch.cuda.empty_cache()
-    flash_gqa_check(gen)
+    flash_gqa_check(gen, rope)
     return worst
 
 
-def flash_gqa_check(gen):
+def flash_gqa_check(gen, rope=False):
     """GQA 32/8 through the autograd Function (kernels, fp32) against the
-    plain dense attention differentiated by autograd on the card."""
+    plain dense attention differentiated by autograd on the card; with
+    ``rope`` the pre-rotary q and k are rotated in fp32 on the plain
+    side."""
     import torch
 
+    from paddle_tpu_torch.models.llama import _rope_cache
     from paddle_tpu_torch.nn.functional import sdpa_reference
-    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from paddle_tpu_torch.ops.cuda import flash_attention as K
 
     b, s, h, hkv, d = 1, 512, 32, 8, 128
     shapes = ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d))
     arrs = [torch.randn(sh, generator=gen, device="cuda") for sh in shapes]
     w = torch.randn(b, s, h, d, generator=gen, device="cuda")
+    cos, sin = (torch.from_numpy(t).cuda() for t in _rope_cache(s, d,
+                                                                 10000.0))
+    c2, s2 = K.widen_tables(cos, sin)
+
+    def rot(x):  # fp32 rope on [B, S, H, D]
+        return K.rope_rotate(x.transpose(1, 2), c2, s2).transpose(1, 2)
+
+    if rope:
+        fns = (lambda q, k, v: K.flash_attention_rope(q, k, v, cos, sin),
+               lambda q, k, v: sdpa_reference(rot(q), rot(k), v,
+                                              causal=True))
+    else:
+        fns = (lambda q, k, v: K.flash_attention(q, k, v, causal=True),
+               lambda q, k, v: sdpa_reference(q, k, v, causal=True))
     got = []
-    for fn in (lambda q, k, v: flash_attention(q, k, v, causal=True),
-               lambda q, k, v: sdpa_reference(q, k, v, causal=True)):
+    for fn in fns:
         ts = [a.clone().requires_grad_() for a in arrs]
         out = fn(*ts)
         (out * w).sum().backward()
@@ -455,27 +546,36 @@ def flash_gqa_check(gen):
     e_out, x_out = compare(got[0][0], got[1][0], "float32")
     errs = [compare_grad(a, b_, "float32") for a, b_ in zip(got[0][1:],
                                                             got[1][1:])]
-    say(f"kernel flash GQA {h}/{hkv} S={s} D={d} fp32 through the autograd "
+    tag = "flash rope" if rope else "flash"
+    say(f"kernel {tag} GQA {h}/{hkv} S={s} D={d} fp32 through the autograd "
         f"Function vs plain sdpa + autograd: out {e_out:.3e}, dq/dk/dv "
         f"{', '.join(f'{e:.3e}' for e, _ in errs)}")
-    check(x_out <= 0 and all(x <= 0 for _, x in errs), "flash GQA")
+    check(x_out <= 0 and all(x <= 0 for _, x in errs), f"{tag} GQA")
 
 
-def phase_flash_times(gen):
+def phase_flash_times(gen, rope=False):
     """Phase 3b, at the training shape (llama_125m: B 16, H 12, S 1024,
-    D 64, bf16, causal). Library: ``scaled_dot_product_attention`` forward
-    on [B, H, S, D], and its autograd backward (dq, dk and dv together)
-    beside dq and dkv."""
+    D 64, bf16, causal), without or with rope. Library:
+    ``scaled_dot_product_attention`` forward on [B, H, S, D] (with rope, on
+    q and k rotated beforehand, outside the timed call), and its autograd
+    backward (dq, dk and dv together) beside dq and dkv. With rope the
+    bound adds the two fp32 [S, D] tables to the bytes and the rotation of
+    q and k (6 operations an element) to the operations."""
     import torch
     import torch.nn.functional as F
 
-    from paddle_tpu_torch.ops.cuda import flash_attention as K
+    from paddle_tpu_torch.ops.cuda.flash_attention import rope_rotate
 
     b, h, s, d = 16, 12, 1024, 64
     bh, scale, el = b * h, d ** -0.5, 2
+    fwd, bdq, bdkv, p_fwd, p_dq, p_dkv = flash_calls(rope, s, d)
     q, k, v, do = flash_inputs(gen, bh, s, d, torch.bfloat16)
-    out, lse = K.flash_attention_fwd_cuda(q, k, v, scale, True)
-    lib = [t.view(b, h, s, d).clone().requires_grad_() for t in (q, k, v)]
+    out, lse = fwd(q, k, v, scale, True)
+    qk = (q, k)
+    if rope:
+        c2, s2 = rope_tables(s, d)
+        qk = tuple(rope_rotate(t, c2, s2).to(t.dtype) for t in qk)
+    lib = [t.view(b, h, s, d).clone().requires_grad_() for t in (*qk, v)]
     lib_out = F.scaled_dot_product_attention(*lib, is_causal=True)
     lib_do = do.view(b, h, s, d)
     bwd_ms = time_ms(lambda: torch.autograd.grad(
@@ -484,36 +584,155 @@ def phase_flash_times(gen):
         *lib, is_causal=True))
     pairs = bh * s * (s + 1) // 2               # causal visible pairs
     tile = bh * s * d * el                      # one [B*H, S, D] tensor
-    shape = f"B={b} H={h} S={s} D={d} bf16 causal"
+    extra_b = 2 * s * d * 4 if rope else 0      # the fp32 tables
+    extra_o = 2 * 6 * bh * s * d if rope else 0  # rotating q and k
+    shape = f"B={b} H={h} S={s} D={d} bf16 causal" + (" rope" if rope
+                                                      else "")
     res = (q, k, v, out, lse, do, scale, True)
+    names = ROPE if rope else FLASH
     times = {
-        "flash_attention_fwd": dict(
-            ms=time_ms(lambda: K.flash_attention_fwd_cuda(q, k, v, scale,
-                                                          True)),
-            plain_ms=time_ms(lambda: K.flash_attention_fwd_plain(
-                q, k, v, scale, True)),
+        names[0]: dict(
+            ms=time_ms(lambda: fwd(q, k, v, scale, True)),
+            plain_ms=time_ms(lambda: p_fwd(q, k, v, scale, True)),
             library_ms=fwd_ms, library="sdpa forward",
-            bytes=4 * tile + bh * s * 4, ops=4 * d * pairs),
-        "flash_attention_bwd_dq": dict(
-            ms=time_ms(lambda: K.flash_attention_bwd_dq_cuda(*res)),
-            plain_ms=time_ms(lambda: K.flash_attention_bwd_dq_plain(*res)),
+            bytes=4 * tile + bh * s * 4 + extra_b, ops=4 * d * pairs
+            + extra_o),
+        names[1]: dict(
+            ms=time_ms(lambda: bdq(*res)),
+            plain_ms=time_ms(lambda: p_dq(*res)),
             library_ms=bwd_ms, library="sdpa backward, dq+dk+dv",
-            bytes=6 * tile + bh * s * 4, ops=6 * d * pairs),
-        "flash_attention_bwd_dkv": dict(
-            ms=time_ms(lambda: K.flash_attention_bwd_dkv_cuda(*res)),
-            plain_ms=time_ms(lambda: K.flash_attention_bwd_dkv_plain(*res)),
+            bytes=6 * tile + bh * s * 4 + extra_b, ops=6 * d * pairs
+            + extra_o),
+        names[2]: dict(
+            ms=time_ms(lambda: bdkv(*res)),
+            plain_ms=time_ms(lambda: p_dkv(*res)),
             library_ms=bwd_ms, library="sdpa backward, dq+dk+dv",
-            bytes=7 * tile + bh * s * 4, ops=8 * d * pairs)}
+            bytes=7 * tile + bh * s * 4 + extra_b, ops=8 * d * pairs
+            + extra_o)}
     for r in times.values():
         r["shape"] = shape
     report_times(times)
-    bwd = (times["flash_attention_bwd_dq"]["ms"]
-           + times["flash_attention_bwd_dkv"]["ms"])
-    say(f"time flash backward: dq + dkv kernels {bwd:.4f} ms vs sdpa "
-        f"backward {bwd_ms:.4f} ms")
-    del q, k, v, do, out, lse, lib, lib_out
+    bwd = times[names[1]]["ms"] + times[names[2]]["ms"]
+    say(f"time {'flash rope' if rope else 'flash'} backward: dq + dkv "
+        f"kernels {bwd:.4f} ms vs sdpa backward {bwd_ms:.4f} ms")
+    del q, k, v, do, out, lse, lib, lib_out, qk
     torch.cuda.empty_cache()
     return times
+
+
+# -- MoE expert FFN and fused add + RMSNorm ---------------------------------
+
+MOE_SHAPE = (8, 5120, 768, 2048)     # Llama-MoE training: E, C, h, I
+RMS_SHAPE = (16384, 768)             # 16 x 1024 tokens, hidden 768
+RMS_EPS = 1e-5
+
+
+def moe_inputs(gen, e, c, h, i, dtype):
+    """x [E, C, h] standard normal and Wg, Wu [E, h, I], Wd [E, I, h]
+    from N(0, 0.02), as the model draws them, on the card."""
+    import torch
+
+    x = torch.randn(e, c, h, generator=gen, device="cuda").to(dtype)
+    ws = [(torch.randn(*sh, generator=gen, device="cuda") * 0.02).to(dtype)
+          for sh in ((e, h, i), (e, h, i), (e, i, h))]
+    return x, ws
+
+
+def rms_inputs(gen, rows, h, dtype):
+    import torch
+
+    x, y = (torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dtype)
+    return x, y, w
+
+
+def phase_fused_kernels(gen):
+    """Phase 2c: the MoE expert FFN kernel and the fused add + RMSNorm
+    kernel against their plain versions (fp32 on the exactly upcast
+    inputs), at the Llama-MoE training shapes and at small ragged ones.
+    Returns {kernel: max abs error}."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import moe_ffn as MF
+    from paddle_tpu_torch.ops.cuda import rms_norm as RN
+
+    worst = {"moe_ffn": 0.0, "fused_add_rms_norm": 0.0}
+    for (e, c, h, i), dt, what in ((MOE_SHAPE, "bfloat16", "training"),
+                                   (MOE_SHAPE, "float32", "training fp32"),
+                                   ((2, 20, 128, 384), "float32",
+                                    "ragged C"),
+                                   ((3, 20, 128, 100), "float32",
+                                    "ragged C and I")):
+        x, ws = moe_inputs(gen, e, c, h, i, getattr(torch, dt))
+        got = MF.moe_ffn_cuda(x, *ws)
+        err, excess = compare(got, MF.moe_ffn_plain(
+            x.float(), *(w.float() for w in ws)), dt)
+        torch.cuda.synchronize()
+        say(f"kernel moe_ffn E={e} C={c} h={h} I={i} {dt} ({what}): "
+            f"max_abs_err {err:.3e} (tol {ATOL:g} + {RTOL[dt]:g}*|want|)")
+        check(excess <= 0, f"moe_ffn {what}")
+        worst["moe_ffn"] = max(worst["moe_ffn"], err)
+        del x, ws, got
+    for (rows, h), dt in ((RMS_SHAPE, "bfloat16"), (RMS_SHAPE, "float32"),
+                          ((37, 256), "bfloat16")):
+        x, y, w = rms_inputs(gen, rows, h, getattr(torch, dt))
+        out, r = RN.fused_add_rms_norm_cuda(x, y, w, RMS_EPS)
+        _, w_r = RN.fused_add_rms_norm_plain(x, y, w, RMS_EPS)
+        same_r = bool(torch.equal(r, w_r))
+        # the norm in fp32 from the rounded residual, unrounded
+        w_out, _ = RN.fused_add_rms_norm_plain(
+            w_r.float(), torch.zeros_like(w_r, dtype=torch.float32),
+            w.float(), RMS_EPS)
+        err, excess = compare(out, w_out, dt)
+        torch.cuda.synchronize()
+        say(f"kernel fused_add_rms_norm {rows}x{h} {dt}: out max_abs_err "
+            f"{err:.3e} (tol {ATOL:g} + {RTOL[dt]:g}*|want|), residual "
+            f"identical: {same_r}")
+        check(excess <= 0 and same_r, f"fused_add_rms_norm {rows}x{h} {dt}")
+        worst["fused_add_rms_norm"] = max(worst["fused_add_rms_norm"], err)
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_fused_times(gen):
+    """Phase 3c, at the Llama-MoE training shapes in bf16. Library: the
+    expert FFN's composition in three ``torch.bmm`` calls (the [E, C, I]
+    intermediates in device memory), and the residual add followed by
+    ``torch.nn.functional.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import moe_ffn as MF
+    from paddle_tpu_torch.ops.cuda import rms_norm as RN
+
+    e, c, h, i = MOE_SHAPE
+    x, (gw, uw, dw) = moe_inputs(gen, e, c, h, i, torch.bfloat16)
+
+    def moe_library():
+        return torch.bmm(F.silu(torch.bmm(x, gw)) * torch.bmm(x, uw), dw)
+
+    times = {"moe_ffn": dict(
+        ms=time_ms(lambda: MF.moe_ffn_cuda(x, gw, uw, dw)),
+        plain_ms=time_ms(lambda: MF.moe_ffn_plain(x, gw, uw, dw)),
+        library_ms=time_ms(moe_library), library="3 x torch.bmm",
+        bytes=2 * (2 * e * c * h + 3 * e * h * i), ops=3 * 2 * e * c * h * i,
+        shape=f"E={e} C={c} h={h} I={i} bf16")}
+    del x, gw, uw, dw
+    rows, h = RMS_SHAPE
+    x, y, w = rms_inputs(gen, rows, h, torch.bfloat16)
+    lib_rms = getattr(F, "rms_norm", None)
+    times["fused_add_rms_norm"] = dict(
+        ms=time_ms(lambda: RN.fused_add_rms_norm_cuda(x, y, w, RMS_EPS)),
+        plain_ms=time_ms(lambda: RN.fused_add_rms_norm_plain(x, y, w,
+                                                             RMS_EPS)),
+        library_ms=None if lib_rms is None else time_ms(
+            lambda: lib_rms(x + y, (h,), w, RMS_EPS)),
+        library="x + y, then F.rms_norm", bytes=2 * (4 * rows * h + h),
+        ops=5 * rows * h, shape=f"{rows}x{h} bf16")
+    del x, y, w
+    torch.cuda.empty_cache()
+    return report_times(times)
 
 
 def phase_serve():
@@ -779,6 +998,211 @@ def phase_train_card_vs_cpu():
           "card and CPU training agree")
 
 
+# -- Llama-MoE training with the fused switches -----------------------------
+
+SWITCHES = ("PT_FUSED_MOE", "PT_FUSED_NORM", "PT_FUSED_ROPE")
+
+
+@contextlib.contextmanager
+def fused_switches():
+    """Set the three fused switches to "1" inside a ``with`` block and
+    restore what was there before, whatever happens inside."""
+    saved = {k: os.environ.get(k) for k in SWITCHES}
+    os.environ.update(dict.fromkeys(SWITCHES, "1"))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def llama_moe_config():
+    """The Llama-MoE of scripts/bench_moe_ffn.py:55-60: llama_125m's width
+    with 8 layers, 8 experts, top-2 routing, MoE every 2nd layer."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig(hidden_size=768, intermediate_size=2048,
+                       num_hidden_layers=8, num_attention_heads=12,
+                       num_key_value_heads=12, vocab_size=32000,
+                       max_position_embeddings=1024, num_experts=8,
+                       num_experts_per_tok=2, moe_every=2)
+
+
+def all_launch_counts():
+    from paddle_tpu_torch.ops.cuda import flash_attention, moe_ffn, rms_norm
+
+    out = {}
+    for mod in (flash_attention, moe_ffn, rms_norm):
+        out.update(mod.launch_counts())
+    return out
+
+
+def reset_all_launch_counts():
+    from paddle_tpu_torch.ops.cuda import flash_attention, moe_ffn, rms_norm
+
+    for mod in (flash_attention, moe_ffn, rms_norm):
+        mod.reset_launch_counts()
+
+
+def phase_train_moe():
+    """Phase 5b: the Llama-MoE (bf16, full width and depth, random weights
+    from a seed) trained by ``fused_train_step`` with AdamW(1e-4) on one
+    fixed 16 x 1024 batch with the three fused switches on: 2 warm-up and
+    10 timed steps through ``FusedTrainStep.drive``, then one profiled
+    step. Every new kernel launches exactly as often as the model calls
+    it; the flash kernels without rope not at all. Returns the launch
+    counts over the 12 steps."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama_moe_config()
+    batch, seq, warmup, steps = 16, 1024, 2, 10
+    L = cfg.num_hidden_layers
+    n_moe = L // cfg.moe_every
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=SEED)
+    step = fused_train_step(model, AdamW(learning_rate=1e-4,
+                                         parameters=model.parameters()))
+    rng = np.random.RandomState(SEED + 6)
+    ids, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                (batch, seq))).cuda()
+                   for _ in range(2))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == 237_933_312, f"Llama-MoE parameters {n_params}")
+    # each token runs top_k of the E experts: count those weights only
+    expert = 3 * cfg.hidden_size * cfg.intermediate_size
+    active = n_params - n_moe * (cfg.num_experts
+                                 - cfg.num_experts_per_tok) * expert
+    flops_per_token = 6.0 * active + 12.0 * L * cfg.hidden_size * seq
+    torch.cuda.synchronize()
+    say(f"train-moe setup: Llama-MoE bf16 ({n_params} params, {active} "
+        f"active per token), batch {batch} x {seq}, capacity "
+        f"{model.llama.layers[1].mlp.capacity_factor}, in "
+        f"{time.perf_counter() - t0:.2f} s")
+    with fused_switches():
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launch_counts()
+        first = step.drive([(ids, labels)] * warmup, log_every=warmup)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = step.drive([(ids, labels)] * steps, log_every=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        device_profile(lambda: step(ids, labels), "train-moe (one step)",
+                       top=10, mark=("moe_ffn", "fused_add_rms_norm",
+                                     "flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv"))
+    losses = first["loss"] + hist["loss"]
+    n = warmup + steps
+    check(all(np.isfinite(losses)), f"finite losses {losses}")
+    check(losses[-1] < losses[0], f"loss falls {losses}")
+    want = {"moe_ffn_cuda": n_moe * n, "fused_add_rms_norm_cuda": L * n}
+    want.update({f"{k}_cuda": L * n for k in ROPE})
+    want.update({f"{k}_cuda": 0 for k in FLASH})
+    check(counts == want, f"Llama-MoE launches {counts} == {want}")
+    tok_s = batch * seq * steps / wall
+    say(f"train-moe Llama-MoE: losses {[round(x, 4) for x in losses]}; "
+        f"{steps} timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} "
+        f"ms/step, {tok_s:.0f} tokens/s, MFU "
+        f"{tok_s * flops_per_token / PEAK_OPS_PER_S['bfloat16']:.4f} "
+        f"({flops_per_token / 1e6:.1f} MFLOP/token on the active "
+        f"parameters vs 989 TFLOP/s), peak memory {peak:.2f} GiB, launches "
+        f"{counts}")
+    del model, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_moe_card_vs_cpu():
+    """Phase 6c: fp32 llama_tiny with 4 experts (GQA 4/2, head_dim 32) and
+    the three fused switches on, from the same numpy weights and batches,
+    on the card (kernels) and on the CPU (plain versions). The routing of
+    the first batch is compared first, exactly: a flipped top-k choice is
+    a routing difference, reported as such. Then three fused AdamW steps
+    give the same losses and parameters on both."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        moe_capacity, top_k_capacity_gating)
+    from paddle_tpu_torch.models import (LlamaForCausalLM, LlamaMoE,
+                                         load_paddle_tpu_state_dict,
+                                         llama_tiny, to_numpy_state_dict)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama_tiny(num_experts=4)
+    rng = np.random.RandomState(SEED + 7)
+    ref = LlamaForCausalLM(cfg, device="cpu")
+    state = {k: (np.ones(v.shape, np.float32) if "norm" in k else
+                 (rng.standard_normal(v.shape) * 0.02).astype(np.float32))
+             for k, v in ref.state_dict().items()}
+    batches = [tuple(rng.randint(0, cfg.vocab_size, (4, 128))
+                     for _ in range(2)) for _ in range(3)]
+    losses, params, routes = {}, {}, {}
+    with fused_switches():
+        for dev in ("cpu", "cuda"):
+            model = LlamaForCausalLM(cfg, device=dev)
+            load_paddle_tpu_state_dict(model, state)
+            seen = []
+            hooks = [m.register_forward_hook(
+                lambda m, a, out: seen.append((m, a[0].detach())))
+                for m in model.modules() if isinstance(m, LlamaMoE)]
+            with torch.no_grad():
+                model(torch.from_numpy(batches[0][0]).to(dev))
+            for h in hooks:
+                h.remove()
+            routes[dev] = []
+            for m, x in seen:
+                t = x.shape[0] * x.shape[1]
+                probs = torch.softmax(m.router(x).reshape(t, -1).float(), -1)
+                routes[dev].append(top_k_capacity_gating(
+                    probs, m.top_k, moe_capacity(
+                        t, m.num_experts, m.top_k,
+                        m.capacity_factor))[0].cpu())
+            step = fused_train_step(model, AdamW(
+                learning_rate=1e-3, epsilon=1e-6,
+                parameters=model.parameters()))
+            reset_all_launch_counts()
+            losses[dev] = [float(step(*(torch.from_numpy(x).to(dev)
+                                        for x in b))) for b in batches]
+            if dev == "cuda":
+                counts = all_launch_counts()
+                L = cfg.num_hidden_layers
+                want = {"moe_ffn_cuda": 3 * (L // cfg.moe_every),
+                        "fused_add_rms_norm_cuda": 3 * L}
+                want.update({f"{k}_cuda": 3 * L for k in ROPE})
+                want.update({f"{k}_cuda": 0 for k in FLASH})
+                check(counts == want, f"tiny MoE launches {counts}")
+            params[dev] = to_numpy_state_dict(model)
+    flipped = sum(int((a != b).sum()) for a, b in zip(routes["cpu"],
+                                                      routes["cuda"]))
+    say(f"card vs cpu llama_tiny MoE routing of the first batch: "
+        f"{sum(r.numel() for r in routes['cpu'])} top-k choices, {flipped} "
+        "differ")
+    check(flipped == 0, f"routing difference: {flipped} top-k choices "
+          "flipped between the card and the CPU")
+    dl = max(abs(a / b - 1) for a, b in zip(losses["cuda"], losses["cpu"]))
+    dp = max(float(np.abs(params["cuda"][k] - params["cpu"][k]).max())
+             for k in params["cpu"])
+    say(f"card vs cpu training llama_tiny MoE fp32 with the fused switches, "
+        f"3 AdamW steps: losses cuda {losses['cuda']} cpu {losses['cpu']}, "
+        f"max rel diff {dl:.2e} (tol {TRAIN_LOSS_RTOL:g}); parameters max "
+        f"abs diff {dp:.2e} (tol {TRAIN_PARAM_ATOL:g})")
+    check(dl <= TRAIN_LOSS_RTOL and dp <= TRAIN_PARAM_ATOL,
+          "card and CPU MoE training agree")
+
+
 def main():
     import torch
 
@@ -806,23 +1230,38 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = phase_kernels(gen)
     worst.update(phase_flash_kernels(gen))
+    worst.update(phase_flash_kernels(gen, rope=True))
+    worst.update(phase_fused_kernels(gen))
     times = phase_times(gen)
     times.update(phase_flash_times(gen))
+    times.update(phase_flash_times(gen, rope=True))
+    times.update(phase_fused_times(gen))
     counts = phase_serve()
-    counts.update(phase_train())
+    counts.update({k: v for k, v in phase_train().items()
+                   if k in {n + "_cuda" for n in FLASH}})
+    counts.update({k: v for k, v in phase_train_moe().items()
+                   if k not in {n + "_cuda" for n in FLASH}})
     phase_card_vs_cpu()
     phase_train_card_vs_cpu()
+    phase_train_moe_card_vs_cpu()
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
-               "flash": "paddle_tpu_torch/csrc/flash_attention.cu"}
+               "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
+               "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
+               "fused": "paddle_tpu_torch/csrc/rms_norm.cu"}
+    fa = "paddle_tpu/ops/pallas/flash_attention.py"
     replaces = {
         "paged_decode_attention": "paddle_tpu/ops/pallas/paged_attention.py:157",
         "paged_multiquery_attention":
             "paddle_tpu/ops/pallas/paged_attention.py:278",
-        "flash_attention_fwd": "paddle_tpu/ops/pallas/flash_attention.py:136",
-        "flash_attention_bwd_dq":
-            "paddle_tpu/ops/pallas/flash_attention.py:280",
-        "flash_attention_bwd_dkv":
-            "paddle_tpu/ops/pallas/flash_attention.py:296"}
+        "flash_attention_fwd": f"{fa}:136",
+        "flash_attention_bwd_dq": f"{fa}:280",
+        "flash_attention_bwd_dkv": f"{fa}:296",
+        # the same three kernels with rope=True, under _flash_mha_rope
+        "flash_attention_rope_fwd": f"{fa}:348",
+        "flash_attention_rope_bwd_dq": f"{fa}:348",
+        "flash_attention_rope_bwd_dkv": f"{fa}:348",
+        "fused_add_rms_norm": "paddle_tpu/ops/pallas/rms_norm.py:66",
+        "moe_ffn": "paddle_tpu/ops/pallas/moe_ffn.py:72"}
     kernels = [dict(name=name, route="cuda",
                     source=sources[name.split("_")[0]],
                     replaces=replaces[name],

@@ -1,7 +1,8 @@
 // Flash attention, forward and backward, for Hopper (sm_90a).
 //
-// Replaces the three Pallas TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
-// (the variant without rope):
+// Replaces the three Pallas TPU kernels of paddle_tpu/ops/pallas/flash_attention.py,
+// each built without rope (ROPE = false) and with it (ROPE = true, the
+// kernels of _flash_mha_rope, :348):
 //   flash_fwd_kernel     <- _fwd_kernel     (_fwd, pallas_call :136)
 //   flash_bwd_dq_kernel  <- _bwd_dq_kernel  (_bwd, pallas_call :280)
 //   flash_bwd_dkv_kernel <- _bwd_dkv_kernel (_bwd, pallas_call :296)
@@ -15,6 +16,15 @@
 //   dk, dv   dv = p^T dO, dk = dS^T q.
 // Masked scores are the Pallas kernels' finite NEG_INF (-1e30) and their
 // probabilities are 0. Arithmetic is fp32; outputs are in the input dtype.
+//
+// Rope. With ROPE, q and k arrive before the rotary embedding, with fp32
+// tables cos, sin [S, D] (both halves filled, the reference's _widen_tables).
+// Every q and k tile is rotated in fp32 as it is staged, x c + [-x2, x1] s
+// (q is scaled after the rotation); dq and dk are rotated back with the sin
+// negated before they are stored, and dv is unchanged. Element j pairs with
+// j +- D/2, so a thread stages and stores the two halves of its 8 columns
+// together, from registers, and never rotates a shared-memory row in place.
+// Rows at or past S are zero-filled without reading the tables.
 //
 // Design. FA-2's split, as the JAX package has it: forward and dq give one
 // block to each (b*h, tile of 64 query rows) and loop over tiles of 64 keys up
@@ -63,6 +73,8 @@ struct Params {
   float* lse;        // [BH, S]: written by the forward, read by the backward
   void* res;         // forward: out; dq kernel: dq; dkv kernel: dk
   void* res2;        // dkv kernel: dv
+  const float* cs;   // rope tables [S, D] fp32 (ROPE only)
+  const float* sn;
   int S;
   float scale;
   int causal;
@@ -161,6 +173,96 @@ __device__ __forceinline__ void load_rows(const T* src, int row0, int S,
     d4[0] = make_float4(x[0], x[1], x[2], x[3]);
     d4[1] = make_float4(x[4], x[5], x[6], x[7]);
   }
+}
+
+// stage rows [row0, row0 + kTile) of one pre-rotary [S, D] slice, rotated in
+// fp32 by the tables cs, sn [S, D] and then times `mul`, into dst[kTile][LD];
+// each item is 8 columns of the first half with their partners D/2 on, both
+// read into registers before either is written; rows at or past S are zero
+template <int D, typename T>
+__device__ __forceinline__ void load_rows_rope(const T* src, const float* cs,
+                                               const float* sn, int row0,
+                                               int S, float mul, float* dst) {
+  constexpr int LD = Cfg<D>::LD, H = D / 2, H8 = H / 8;
+  for (int i = threadIdx.x; i < kTile * H8; i += kThreads) {
+    const int r = i / H8, c = (i % H8) * 8;
+    float a[8], b[8];
+    if (row0 + r < S) {
+      const size_t at = static_cast<size_t>(row0 + r) * D + c;
+      float ca[8], cb[8], sa[8], sb[8];
+      load8(src + at, a);
+      load8(src + at + H, b);
+      load8(cs + at, ca);
+      load8(cs + at + H, cb);
+      load8(sn + at, sa);
+      load8(sn + at + H, sb);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float x1 = a[j], x2 = b[j];
+        a[j] = (x1 * ca[j] - x2 * sa[j]) * mul;
+        b[j] = (x2 * cb[j] + x1 * sb[j]) * mul;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) a[j] = b[j] = 0.f;
+    }
+    float4* da = reinterpret_cast<float4*>(dst + r * LD + c);
+    float4* db = reinterpret_cast<float4*>(dst + r * LD + c + H);
+    da[0] = make_float4(a[0], a[1], a[2], a[3]);
+    da[1] = make_float4(a[4], a[5], a[6], a[7]);
+    db[0] = make_float4(b[0], b[1], b[2], b[3]);
+    db[1] = make_float4(b[4], b[5], b[6], b[7]);
+  }
+}
+
+// stage a q or k tile, rotated when ROPE
+template <int D, bool ROPE, typename T>
+__device__ __forceinline__ void stage(const T* src, const Params& p, int row0,
+                                      float mul, float* dst) {
+  if constexpr (ROPE)
+    load_rows_rope<D>(src, p.cs, p.sn, row0, p.S, mul, dst);
+  else
+    load_rows<D>(src, row0, p.S, mul, dst);
+}
+
+// store rows [row0, row0 + kTile) of a staged fp32 gradient tile src to
+// dst [S, D], rotated back through the rope (the sin negated); rows at or
+// past S are skipped
+template <int D, typename T>
+__device__ __forceinline__ void store_rows_unrope(const float* src,
+                                                  const float* cs,
+                                                  const float* sn, int row0,
+                                                  int S, T* dst) {
+  constexpr int LD = Cfg<D>::LD, H = D / 2, H8 = H / 8;
+  for (int i = threadIdx.x; i < kTile * H8; i += kThreads) {
+    const int r = i / H8, c = (i % H8) * 8;
+    if (row0 + r >= S) continue;
+    const size_t at = static_cast<size_t>(row0 + r) * D + c;
+    float a[8], b[8], ca[8], cb[8], sa[8], sb[8];
+    load8(src + r * LD + c, a);
+    load8(src + r * LD + c + H, b);
+    load8(cs + at, ca);
+    load8(cs + at + H, cb);
+    load8(sn + at, sa);
+    load8(sn + at + H, sb);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      store1(dst + at + j, a[j] * ca[j] + b[j] * sa[j]);
+      store1(dst + at + H + j, b[j] * cb[j] - a[j] * sb[j]);
+    }
+  }
+}
+
+// write a thread's [4][DPT] accumulator (rows ty + 16i) into a staged tile
+template <int D>
+__device__ __forceinline__ void acc_to_tile(const float (&acc)[4][Cfg<D>::DPT],
+                                            int ty, int tx, float* dst) {
+  constexpr int LD = Cfg<D>::LD, DPT = Cfg<D>::DPT;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int kk = 0; kk < DPT; ++kk)
+      dst[(ty + 16 * i) * LD + out_col<D>(tx, kk)] = acc[i][kk];
 }
 
 // s[i][j] = a[ty + 16i] . b[tx + 16j] over D, for staged row tiles a and b
@@ -272,7 +374,7 @@ __device__ __forceinline__ void row_stats(const T* o, const float* dos,
   }
 }
 
-template <int D, typename T>
+template <int D, typename T, bool ROPE>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   constexpr int LD = Cfg<D>::LD, DPT = Cfg<D>::DPT;
   float* qs = dyn_smem();
@@ -285,7 +387,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const size_t base = static_cast<size_t>(bh) * S * D;
   const T* k = static_cast<const T*>(p.k) + base;
   const T* v = static_cast<const T*>(p.v) + base;
-  load_rows<D>(static_cast<const T*>(p.q) + base, q0, S, p.scale, qs);
+  stage<D, ROPE>(static_cast<const T*>(p.q) + base, p, q0, p.scale, qs);
 
   float acc[4][DPT], m[4], l[4];
 #pragma unroll
@@ -298,7 +400,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const int kv_end = p.causal ? min(S, q0 + kTile) : S;
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();  // the previous tile's readers are done
-    load_rows<D>(k, k0, S, 1.f, ks);
+    stage<D, ROPE>(k, p, k0, 1.f, ks);
     load_rows<D>(v, k0, S, 1.f, vs);
     __syncthreads();
     float s[4][4];
@@ -347,7 +449,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   }
 }
 
-template <int D, typename T>
+template <int D, typename T, bool ROPE>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   constexpr int LD = Cfg<D>::LD, DPT = Cfg<D>::DPT;
   float* qs = dyn_smem();  // q * scale
@@ -362,7 +464,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   const size_t base = static_cast<size_t>(bh) * S * D;
   const T* k = static_cast<const T*>(p.k) + base;
   const T* v = static_cast<const T*>(p.v) + base;
-  load_rows<D>(static_cast<const T*>(p.q) + base, q0, S, p.scale, qs);
+  stage<D, ROPE>(static_cast<const T*>(p.q) + base, p, q0, p.scale, qs);
   load_rows<D>(static_cast<const T*>(p.dout) + base, q0, S, 1.f, dos);
   __syncthreads();
   row_stats<D>(static_cast<const T*>(p.o) + base, dos,
@@ -379,7 +481,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   const int kv_end = p.causal ? min(S, q0 + kTile) : S;
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();
-    load_rows<D>(k, k0, S, 1.f, ks);
+    stage<D, ROPE>(k, p, k0, 1.f, ks);
     load_rows<D>(v, k0, S, 1.f, vs);
     __syncthreads();
     float s[4][4], dp[4][4];
@@ -402,6 +504,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   }
 
   T* out = static_cast<T*>(p.res) + base;
+  if constexpr (ROPE) {
+    // rotate dq back: its halves live in other threads, so go through qs
+    __syncthreads();  // every reader of qs is done
+    acc_to_tile<D>(dq, ty, tx, qs);
+    __syncthreads();
+    store_rows_unrope<D>(qs, p.cs, p.sn, q0, S, out);
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
@@ -412,7 +522,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   }
 }
 
-template <int D, typename T>
+template <int D, typename T, bool ROPE>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   constexpr int LD = Cfg<D>::LD, DPT = Cfg<D>::DPT;
   float* ks = dyn_smem();  // k * scale
@@ -430,7 +540,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   const T* dout = static_cast<const T*>(p.dout) + base;
   const T* o = static_cast<const T*>(p.o) + base;
   const float* lse = p.lse + static_cast<size_t>(bh) * S;
-  load_rows<D>(static_cast<const T*>(p.k) + base, k0, S, p.scale, ks);
+  stage<D, ROPE>(static_cast<const T*>(p.k) + base, p, k0, p.scale, ks);
   load_rows<D>(static_cast<const T*>(p.v) + base, k0, S, 1.f, vs);
 
   float dk[4][DPT], dv[4][DPT];
@@ -441,7 +551,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   // the first query tile that sees this key tile
   for (int q0 = p.causal ? k0 : 0; q0 < S; q0 += kTile) {
     __syncthreads();  // the previous tile's readers are done
-    load_rows<D>(q, q0, S, 1.f, qs);
+    stage<D, ROPE>(q, p, q0, 1.f, qs);
     load_rows<D>(dout, q0, S, 1.f, dos);
     __syncthreads();
     row_stats<D>(o, dos, lse, q0, S, rs);
@@ -477,9 +587,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
 #pragma unroll
     for (int kk = 0; kk < DPT; ++kk) {
       const size_t at = static_cast<size_t>(c) * D + out_col<D>(tx, kk);
-      store1(dk_out + at, dk[j][kk]);
+      if constexpr (!ROPE) store1(dk_out + at, dk[j][kk]);
       store1(dv_out + at, dv[j][kk]);
     }
+  }
+  if constexpr (ROPE) {
+    // rotate dk back: its halves live in other threads, so go through ks
+    __syncthreads();  // every reader of ks is done
+    acc_to_tile<D>(dk, ty, tx, ks);
+    __syncthreads();
+    store_rows_unrope<D>(ks, p.cs, p.sn, k0, S, dk_out);
   }
 }
 
@@ -496,11 +613,11 @@ size_t smem_bytes(int which) {
   return floats * sizeof(float);
 }
 
-template <int D, typename T>
+template <int D, typename T, bool ROPE>
 cudaError_t launch(int which, const Params& p, int BH, cudaStream_t stream) {
-  void (*kern)(Params) = which == kFwd  ? flash_fwd_kernel<D, T>
-                         : which == kDq ? flash_bwd_dq_kernel<D, T>
-                                        : flash_bwd_dkv_kernel<D, T>;
+  void (*kern)(Params) = which == kFwd  ? flash_fwd_kernel<D, T, ROPE>
+                         : which == kDq ? flash_bwd_dq_kernel<D, T, ROPE>
+                                        : flash_bwd_dkv_kernel<D, T, ROPE>;
   const size_t smem = smem_bytes<D>(which);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -511,24 +628,25 @@ cudaError_t launch(int which, const Params& p, int BH, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool ROPE>
 cudaError_t dispatch_dim(int which, int D, const Params& p, int BH,
                          cudaStream_t s) {
   switch (D) {
-    case 32: return launch<32, T>(which, p, BH, s);
-    case 64: return launch<64, T>(which, p, BH, s);
-    case 128: return launch<128, T>(which, p, BH, s);
+    case 32: return launch<32, T, ROPE>(which, p, BH, s);
+    case 64: return launch<64, T, ROPE>(which, p, BH, s);
+    case 128: return launch<128, T, ROPE>(which, p, BH, s);
   }
   return cudaErrorInvalidValue;
 }
 
+template <bool ROPE>
 int run(int which, int dtype, int D, const Params& p, int BH, void* stream) {
   if (BH == 0 || p.S == 0) return cudaSuccess;
   if (BH > 65535) return cudaErrorInvalidValue;  // grid y limit
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return dispatch_dim<float>(which, D, p, BH, s);
-    case kBF16: return dispatch_dim<__nv_bfloat16>(which, D, p, BH, s);
+    case kF32: return dispatch_dim<float, ROPE>(which, D, p, BH, s);
+    case kBF16: return dispatch_dim<__nv_bfloat16, ROPE>(which, D, p, BH, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -537,15 +655,16 @@ int run(int which, int dtype, int D, const Params& p, int BH, void* stream) {
 
 extern "C" {
 
-// q, k, v, out [BH, S, D]; lse [BH, S] fp32. Each function returns
+// q, k, v, out [BH, S, D]; lse [BH, S] fp32; with rope, cos and sin [S, D]
+// fp32 after the other pointers, and q, k pre-rotary. Each function returns
 // cudaGetLastError() after its launch (0 = success).
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* out, void* lse, int BH, int S, int D,
                                int dtype, float scale, int causal,
                                void* stream) {
   Params p{q, k, v, nullptr, nullptr, static_cast<float*>(lse), out, nullptr,
-           S, scale, causal};
-  return run(kFwd, dtype, D, p, BH, stream);
+           nullptr, nullptr, S, scale, causal};
+  return run<false>(kFwd, dtype, D, p, BH, stream);
 }
 
 int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
@@ -555,8 +674,8 @@ int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   void* stream) {
   Params p{q, k, v, o, dout,
            const_cast<float*>(static_cast<const float*>(lse)), dq, nullptr,
-           S, scale, causal};
-  return run(kDq, dtype, D, p, BH, stream);
+           nullptr, nullptr, S, scale, causal};
+  return run<false>(kDq, dtype, D, p, BH, stream);
 }
 
 int flash_attention_bwd_dkv_launch(const void* q, const void* k,
@@ -566,9 +685,48 @@ int flash_attention_bwd_dkv_launch(const void* q, const void* k,
                                    int dtype, float scale, int causal,
                                    void* stream) {
   Params p{q, k, v, o, dout,
-           const_cast<float*>(static_cast<const float*>(lse)), dk, dv, S,
+           const_cast<float*>(static_cast<const float*>(lse)), dk, dv,
+           nullptr, nullptr, S, scale, causal};
+  return run<false>(kDkv, dtype, D, p, BH, stream);
+}
+
+int flash_attention_rope_fwd_launch(const void* q, const void* k,
+                                    const void* v, void* out, void* lse,
+                                    const void* cs, const void* sn, int BH,
+                                    int S, int D, int dtype, float scale,
+                                    int causal, void* stream) {
+  Params p{q, k, v, nullptr, nullptr, static_cast<float*>(lse), out, nullptr,
+           static_cast<const float*>(cs), static_cast<const float*>(sn), S,
            scale, causal};
-  return run(kDkv, dtype, D, p, BH, stream);
+  return run<true>(kFwd, dtype, D, p, BH, stream);
+}
+
+int flash_attention_rope_bwd_dq_launch(const void* q, const void* k,
+                                       const void* v, const void* o,
+                                       const void* dout, const void* lse,
+                                       void* dq, const void* cs,
+                                       const void* sn, int BH, int S, int D,
+                                       int dtype, float scale, int causal,
+                                       void* stream) {
+  Params p{q, k, v, o, dout,
+           const_cast<float*>(static_cast<const float*>(lse)), dq, nullptr,
+           static_cast<const float*>(cs), static_cast<const float*>(sn), S,
+           scale, causal};
+  return run<true>(kDq, dtype, D, p, BH, stream);
+}
+
+int flash_attention_rope_bwd_dkv_launch(const void* q, const void* k,
+                                        const void* v, const void* o,
+                                        const void* dout, const void* lse,
+                                        void* dk, void* dv, const void* cs,
+                                        const void* sn, int BH, int S, int D,
+                                        int dtype, float scale, int causal,
+                                        void* stream) {
+  Params p{q, k, v, o, dout,
+           const_cast<float*>(static_cast<const float*>(lse)), dk, dv,
+           static_cast<const float*>(cs), static_cast<const float*>(sn), S,
+           scale, causal};
+  return run<true>(kDkv, dtype, D, p, BH, stream);
 }
 
 }  // extern "C"

@@ -132,6 +132,10 @@ class LLMEngine:
         if not isinstance(model, LlamaForCausalLM):
             raise TypeError("LLMEngine serves LlamaForCausalLM models; got "
                             f"{type(model).__name__}")
+        if model.config.num_experts > 0:
+            raise NotImplementedError(
+                "serving a Llama-MoE model is not ported yet (ROADMAP "
+                "Queue 1); the port trains it")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self._was_training = model.training

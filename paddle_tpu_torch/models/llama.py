@@ -1,17 +1,24 @@
 """Llama-family decoder (counterpart of ``paddle_tpu/models/llama.py``).
 
-Dense MHA and GQA with RoPE and SwiGLU, in PyTorch modules whose parameter
-names and shapes match the JAX package's ``state_dict`` one to one
-(``Linear.weight`` is ``[in, out]``), so weights carry across with
+Dense MHA and GQA with RoPE and SwiGLU, and the Mixtral-style MoE layer
+(token-choice top-k with GShard capacity, every ``moe_every``-th layer),
+in PyTorch modules whose parameter names and shapes match the JAX
+package's ``state_dict`` one to one (``Linear.weight`` is ``[in, out]``,
+expert stacks ``[E, h, I]``/``[E, I, h]``), so weights carry across with
 :func:`paddle_tpu_torch.models.convert.load_paddle_tpu_state_dict`.
 
-``forward`` is the dense causal forward that training runs (attention
-through ``nn.functional.scaled_dot_product_attention``, on the card the
-flash-attention CUDA kernels; with ``labels`` it also returns the
-cross-entropy loss). Serving runs through ``inference.serving.LLMEngine``,
-which drives the submodules directly over the paged KV pool. MoE,
-ring/sep attention, the pipeline variants and ``generate`` are not
-ported.
+``forward`` is the causal forward that training runs (with ``labels`` it
+also returns the cross-entropy loss plus the router's load-balancing
+term). The reference's opt-in fused switches are read at call time, as
+there: ``PT_FUSED_ROPE=1`` takes attention through the rope-fused flash
+kernels (``LlamaAttention.forward_pre_rope``), ``PT_FUSED_NORM=1`` fuses
+the residual add into the post-attention RMSNorm, ``PT_FUSED_MOE=1`` runs
+the expert FFN in its kernel. Without them attention goes through
+``nn.functional.scaled_dot_product_attention`` (on the card the flash
+kernels). Serving runs through ``inference.serving.LLMEngine``, which
+drives the submodules directly over the paged KV pool (dense models
+only). ``PT_ATTN_EINSUM``, ring/sep attention, the pipeline variants and
+``generate`` are not ported.
 """
 
 from __future__ import annotations
@@ -23,12 +30,18 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
+from ..incubate.distributed.models.moe.moe_layer import (
+    combine_from_experts, dispatch_to_experts, moe_capacity,
+    top_k_capacity_gating)
 from ..nn import functional as F
 from ..nn.layer.common import Embedding, Linear
 from ..nn.layer.norm import RMSNorm
+from ..ops.cuda.moe_ffn import (moe_expert_ffn, moe_ffn_shapes_ok,
+                                use_fused_moe_ffn)
+from ..ops.cuda.rms_norm import fused_add_rms_norm, use_fused_rms_norm
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
-           "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
+           "LlamaAttention", "LlamaMLP", "LlamaMoE", "LlamaDecoderLayer",
            "sample_next_tokens", "greedy_tokens_in_graph",
            "llama_tiny", "llama_small", "llama_125m",
            "llama_1b", "llama_7b", "llama_13b"]
@@ -48,6 +61,12 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    # MoE; 0 experts = dense
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_every: int = 2  # every Nth layer is MoE when num_experts > 0
+    moe_capacity_factor: float = 1.25
+    router_aux_loss_coef: float = 0.01
 
     @property
     def head_dim(self):
@@ -154,6 +173,20 @@ class LlamaAttention(nn.Module):
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
+    def forward_pre_rope(self, x, cos, sin):
+        """Projections, then rope-fused flash attention (rope applied
+        inside the kernels); None when the fused path is not taken. The
+        gate runs before the projections, so a refusal costs nothing."""
+        b, s = x.shape[0], x.shape[1]
+        if not F.fused_rope_attention_enabled(b, s, self.num_heads,
+                                              self.head_dim):
+            return None
+        q, k, v = self.project(x)
+        out = F.fused_rope_attention(q, k, v, cos, sin, is_causal=True)
+        if out is None:
+            return None
+        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+
 
 class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
@@ -170,8 +203,63 @@ class LlamaMLP(nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-class LlamaDecoderLayer(nn.Module):
+def _moe_topk_capacity(x, logits, gate_w, up_w, down_w, top_k=2,
+                       capacity_factor=1.25):
+    """Token-choice top-k MoE with GShard capacity dispatch on x [b, s, h]
+    and router logits [b, s, E]: softmax in fp32, gating, scatter into
+    [E, C, h], the SwiGLU experts (the fused kernel under ``PT_FUSED_MOE``
+    when h and I are multiples of 128, else the einsum composition in the
+    activation dtype), gather back. Returns (out [b, s, h], aux)."""
+    b, s, h = x.shape
+    e = gate_w.shape[0]
+    xf = x.reshape(b * s, h)
+    probs = torch.softmax(logits.reshape(b * s, e).float(), dim=-1)
+    cap = moe_capacity(b * s, e, top_k, capacity_factor)
+    ei, si, keep, w, aux = top_k_capacity_gating(probs, top_k, cap)
+    expert_in = dispatch_to_experts(xf, ei, si, keep, e, cap)
+    if use_fused_moe_ffn() and moe_ffn_shapes_ok(h, gate_w.shape[-1]):
+        expert_out = moe_expert_ffn(expert_in, gate_w, up_w, down_w)
+    else:
+        hidden = F.silu(torch.einsum("ech,ehi->eci", expert_in, gate_w)) \
+            * torch.einsum("ech,ehi->eci", expert_in, up_w)
+        expert_out = torch.einsum("eci,eih->ech", hidden, down_w)
+    out = combine_from_experts(expert_out, ei, si, keep, w)
+    return out.reshape(b, s, h), aux
+
+
+class LlamaMoE(nn.Module):
+    """Mixtral-style token-choice MoE: a router ``Linear(h, E)`` and stacked
+    SwiGLU experts ``gate_w``/``up_w`` [E, h, I] and ``down_w`` [E, I, h].
+    ``forward`` stores the load-balancing loss of its call in ``l_aux``."""
+
     def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+        super().__init__()
+        c = config
+        self.num_experts = c.num_experts
+        self.top_k = c.num_experts_per_tok
+        self.capacity_factor = c.moe_capacity_factor
+        self.l_aux = None
+        kw = dict(device=device, dtype=dtype)
+        self.router = Linear(c.hidden_size, c.num_experts, **kw)
+        e, h, i = c.num_experts, c.hidden_size, c.intermediate_size
+        self.gate_w = nn.Parameter(torch.empty(e, h, i, **kw))
+        self.up_w = nn.Parameter(torch.empty(e, h, i, **kw))
+        self.down_w = nn.Parameter(torch.empty(e, i, h, **kw))
+
+    def forward(self, x):
+        out, self.l_aux = _moe_topk_capacity(
+            x, self.router(x), self.gate_w, self.up_w, self.down_w,
+            top_k=self.top_k, capacity_factor=self.capacity_factor)
+        return out
+
+
+class LlamaDecoderLayer(nn.Module):
+    """One decoder block; layer ``layer_idx`` is MoE when
+    ``layer_idx % moe_every == moe_every - 1`` (and the config has
+    experts), else dense."""
+
+    def __init__(self, config: LlamaConfig, layer_idx: int = 0, *,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.input_layernorm = RMSNorm(config.hidden_size,
@@ -179,10 +267,22 @@ class LlamaDecoderLayer(nn.Module):
         self.self_attn = LlamaAttention(config, **kw)
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 config.rms_norm_eps, **kw)
-        self.mlp = LlamaMLP(config, **kw)
+        use_moe = (config.num_experts > 0 and layer_idx % config.moe_every
+                   == config.moe_every - 1)
+        self.mlp = (LlamaMoE if use_moe else LlamaMLP)(config, **kw)
+        self._fusable_norm = config.hidden_size % 128 == 0
 
     def forward(self, x, cos, sin):
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin)
+        h = self.input_layernorm(x)
+        attn_out = self.self_attn.forward_pre_rope(h, cos, sin)
+        if attn_out is None:
+            attn_out = self.self_attn(h, cos, sin)
+        if use_fused_rms_norm() and self._fusable_norm:
+            ln = self.post_attention_layernorm
+            n2, resid = fused_add_rms_norm(x, attn_out, ln.weight,
+                                           epsilon=ln._epsilon)
+            return resid + self.mlp(n2)
+        x = x + attn_out
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -194,8 +294,8 @@ class LlamaModel(nn.Module):
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       **kw)
         self.layers = nn.ModuleList([
-            LlamaDecoderLayer(config, **kw)
-            for _ in range(config.num_hidden_layers)])
+            LlamaDecoderLayer(config, i, **kw)
+            for i in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
         cos, sin = _rope_cache(config.max_position_embeddings,
                                config.head_dim, config.rope_theta)
@@ -215,9 +315,9 @@ class LlamaModel(nn.Module):
 
 class LlamaForCausalLM(nn.Module):
     """The causal LM. Built on ``device`` (default ``cuda``; raises when
-    CUDA is absent) in ``dtype``, with every projection and embedding
-    drawn from N(0, 0.02) by a ``torch.Generator`` seeded with ``seed``
-    and the norm weights at one."""
+    CUDA is absent) in ``dtype``, with every projection, embedding and
+    expert stack drawn from N(0, 0.02) by a ``torch.Generator`` seeded
+    with ``seed`` and the norm weights at one."""
 
     def __init__(self, config: LlamaConfig, *, device=None,
                  dtype=torch.float32, seed=0):
@@ -234,6 +334,9 @@ class LlamaForCausalLM(nn.Module):
             for mod in self.modules():
                 if isinstance(mod, (Linear, Embedding)):
                     mod.weight.normal_(0.0, INIT_STD, generator=gen)
+                elif isinstance(mod, LlamaMoE):
+                    for w in (mod.gate_w, mod.up_w, mod.down_w):
+                        w.normal_(0.0, INIT_STD, generator=gen)
 
     @property
     def device(self):
@@ -253,12 +356,20 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids, labels=None):
         """Logits [B, S, V]; with ``labels`` [B, S], ``(loss, logits)``
         where loss is the mean cross-entropy of the logits against the
-        labels as given (no shift: the caller shifts them)."""
+        labels as given (no shift: the caller shifts them), plus
+        ``router_aux_loss_coef`` times each MoE layer's load-balancing
+        loss."""
         logits = self.head(self.llama(input_ids))
         if labels is None:
             return logits
         loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
                                labels.reshape(-1))
+        coef = self.config.router_aux_loss_coef
+        if self.config.num_experts > 0 and coef > 0:
+            for layer in self.llama.layers:
+                aux = getattr(layer.mlp, "l_aux", None)
+                if aux is not None:
+                    loss = loss + coef * aux
         return loss, logits
 
 

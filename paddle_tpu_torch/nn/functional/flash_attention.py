@@ -13,20 +13,35 @@ follows the device of the query, not the reference's TPU gate:
   for) with head_dim in :data:`HEAD_DIMS` and a float32 or bfloat16 dtype
   goes to the CUDA flash-attention kernels, at any sequence length;
 * any other CUDA call raises ``NotImplementedError``. Nothing falls back.
+
+:func:`fused_rope_attention` is the rope-fused path the Llama decoder takes
+under ``PT_FUSED_ROPE=1``: q and k arrive before the rotary embedding and
+the flash kernels' rope form rotates them. Its gate is the switch plus the
+kernels' own rule (head_dim in :data:`HEAD_DIMS` and even, float32 or
+bfloat16, ``seq_q == seq_k``, tables covering the sequence); outside it the
+call returns None and the caller takes the unfused path, as in the
+reference. Inside it a CPU tensor takes the plain versions and a CUDA
+tensor the kernels, or the call raises: the reference's warning fallback
+is not ported.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from ...ops.cuda.flash_attention import HEAD_DIMS, flash_attention
+from ...ops.cuda.flash_attention import (HEAD_DIMS, flash_attention,
+                                         flash_attention_rope)
 from .attention import sdpa_reference
 
-__all__ = ["scaled_dot_product_attention", "LAST_PATH"]
+__all__ = ["scaled_dot_product_attention", "fused_rope_attention_enabled",
+           "fused_rope_attention", "LAST_PATH"]
 
 #: which path the last :func:`scaled_dot_product_attention` call took:
 #: "cuda" (the flash kernels), "plain" (their plain versions, CPU) or
-#: "reference" (:func:`sdpa_reference`, CPU)
+#: "reference" (:func:`sdpa_reference`, CPU); :func:`fused_rope_attention`
+#: sets "cuda_rope" or "plain_rope"
 LAST_PATH = None
 
 _QUEUED = ("is not ported to the CUDA kernels yet (ROADMAP Queue 1, item 1: "
@@ -59,3 +74,30 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             f" has no kernel (head_dim {HEAD_DIMS}, float32 or bfloat16)")
     LAST_PATH = "cuda"
     return flash_attention(query, key, value, causal=bool(is_causal))
+
+
+def fused_rope_attention_enabled(batch, seq, heads, head_dim):
+    """The pre-projection gate of the rope-fused path (shapes alone, so a
+    caller can skip building q/k/v for it): ``PT_FUSED_ROPE=1`` and an even
+    head_dim the kernels are built for."""
+    if os.environ.get("PT_FUSED_ROPE", "0") != "1":
+        return False
+    return head_dim in HEAD_DIMS and head_dim % 2 == 0
+
+
+def fused_rope_attention(query, key, value, cos, sin, is_causal=True,
+                         training=True):
+    """Rope-fused flash attention: pre-rotary q [B, S, H, D], k/v
+    [B, S, Hkv, D] and rope tables cos/sin [S, D/2] -> [B, S, H, D]. Returns
+    None when the fused path is not taken (switch off, or shapes or dtype
+    outside the kernels' rule); the caller then applies rope and
+    :func:`scaled_dot_product_attention`."""
+    global LAST_PATH
+    b, s, h, d = query.shape
+    if not (fused_rope_attention_enabled(b, s, h, d)
+            and key.shape[1] == s and cos.shape[0] == s
+            and query.dtype in (torch.float32, torch.bfloat16)):
+        return None
+    LAST_PATH = "plain_rope" if query.device.type == "cpu" else "cuda_rope"
+    return flash_attention_rope(query, key, value, cos, sin,
+                                causal=bool(is_causal))

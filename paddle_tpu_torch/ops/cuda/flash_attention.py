@@ -18,6 +18,16 @@ dispatchers (:func:`flash_attention_fwd` etc.) take the plain version only
 for a tensor on the CPU; a CUDA tensor launches the kernel or raises.
 :func:`flash_attention` is the array-level entry (``_flash_attention_arrays``)
 on ``[B, S, H, D]``. Each CUDA wrapper counts its launches in ``launches``.
+
+The rope variant (``_flash_mha_rope``, :348) is the same three kernels
+built with rope inside (``flash_attention_rope_*_cuda``): q and k arrive
+*before* the rotary embedding, with the tables widened to fp32 [S, D]
+(:func:`widen_tables`, the reference's ``_widen_tables``). Each kernel
+rotates every q and k tile it stages in fp32 (``x c + [-x2, x1] s``; q is
+scaled after the rotation) and dq and dk are rotated back with the sin
+negated. Its autograd Function saves the pre-rotary q and k.
+:func:`flash_attention_rope` is the array-level entry
+(``_flash_attention_rope_arrays``).
 """
 
 from __future__ import annotations
@@ -36,6 +46,13 @@ __all__ = ["flash_attention", "FlashAttentionFunction",
            "flash_attention_bwd_dkv_plain",
            "flash_attention_fwd_cuda", "flash_attention_bwd_dq_cuda",
            "flash_attention_bwd_dkv_cuda",
+           "flash_attention_rope", "FlashAttentionRopeFunction",
+           "widen_tables", "rope_rotate",
+           "flash_attention_rope_fwd_plain",
+           "flash_attention_rope_bwd_dq_plain",
+           "flash_attention_rope_bwd_dkv_plain",
+           "flash_attention_rope_fwd_cuda", "flash_attention_rope_bwd_dq_cuda",
+           "flash_attention_rope_bwd_dkv_cuda",
            "reset_launch_counts", "launch_counts", "HEAD_DIMS", "NEG_INF"]
 
 NEG_INF = -1e30
@@ -99,6 +116,49 @@ def flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, scale, causal):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def widen_tables(cos, sin):
+    """[S, D/2] rope tables -> contiguous fp32 [S, D] (both halves)."""
+    return (torch.cat([cos, cos], dim=-1).float().contiguous(),
+            torch.cat([sin, sin], dim=-1).float().contiguous())
+
+
+def rope_rotate(x, c2, s2):
+    """x c2 + [-x2, x1] s2 in fp32 on x [..., S, D] with widened tables
+    [S, D]; with -s2 it is the inverse rotation."""
+    xf = x.float()
+    d2 = xf.shape[-1] // 2
+    return xf * c2 + torch.cat([-xf[..., d2:], xf[..., :d2]], dim=-1) * s2
+
+
+def flash_attention_rope_fwd_plain(q, k, v, c2, s2, scale, causal):
+    """(out, lse) of the rope kernel: q and k rotated in fp32, then the
+    forward above; out in q's dtype."""
+    out, lse = flash_attention_fwd_plain(
+        rope_rotate(q, c2, s2), rope_rotate(k, c2, s2), v, scale, causal)
+    return out.to(q.dtype), lse
+
+
+def flash_attention_rope_bwd_dq_plain(q, k, v, out, lse, dout, c2, s2,
+                                      scale, causal):
+    """dq of the rope kernel: dS k_rot, rotated back (sin negated)."""
+    kr = rope_rotate(k, c2, s2)
+    _, ds = _ds(rope_rotate(q, c2, s2), kr, v, out, lse, dout, scale,
+                causal)
+    return rope_rotate(torch.matmul(ds, kr), c2, -s2).to(q.dtype)
+
+
+def flash_attention_rope_bwd_dkv_plain(q, k, v, out, lse, dout, c2, s2,
+                                       scale, causal):
+    """(dk, dv) of the rope kernel: dk = dS^T q_rot rotated back, dv as
+    without rope."""
+    qr = rope_rotate(q, c2, s2)
+    p, ds = _ds(qr, rope_rotate(k, c2, s2), v, out, lse, dout, scale,
+                causal)
+    dk = rope_rotate(torch.matmul(ds.transpose(-1, -2), qr), c2, -s2)
+    dv = torch.matmul(p.transpose(-1, -2), dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -106,15 +166,13 @@ def flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, scale, causal):
 def _lib():
     lib = load("flash_attention")
     if not getattr(lib, "_fa_typed", False):
-        lib.flash_attention_fwd_launch.argtypes = (
-            [_P] * 5 + [_I] * 4 + [ctypes.c_float, _I, _P])
-        lib.flash_attention_bwd_dq_launch.argtypes = (
-            [_P] * 7 + [_I] * 4 + [ctypes.c_float, _I, _P])
-        lib.flash_attention_bwd_dkv_launch.argtypes = (
-            [_P] * 8 + [_I] * 4 + [ctypes.c_float, _I, _P])
-        for fn in (lib.flash_attention_fwd_launch,
-                   lib.flash_attention_bwd_dq_launch,
-                   lib.flash_attention_bwd_dkv_launch):
+        tail = [_I] * 4 + [ctypes.c_float, _I, _P]
+        for name, n_ptr in (("fwd", 5), ("bwd_dq", 7), ("bwd_dkv", 8)):
+            fn = getattr(lib, f"flash_attention_{name}_launch")
+            fn.argtypes = [_P] * n_ptr + tail
+            fn.restype = _I
+            fn = getattr(lib, f"flash_attention_rope_{name}_launch")
+            fn.argtypes = [_P] * (n_ptr + 2) + tail
             fn.restype = _I
         lib._fa_typed = True
     return lib
@@ -152,6 +210,17 @@ def _check(q, *others, lse=None):
     return bh, s, d
 
 
+def _check_tables(q, c2, s2):
+    """The widened rope tables: contiguous fp32 [S, D] on q's device."""
+    _, s, d = q.shape
+    for name, t in (("cos", c2), ("sin", s2)):
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != (s, d) or not t.is_contiguous()):
+            raise ValueError(f"{name} table must be contiguous float32 "
+                             f"{(s, d)} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -161,55 +230,102 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
+def _launch(name, q, ptrs, tables, scale, causal):
+    """Call ``flash_attention[_rope]_<name>_launch`` on the pointers of
+    ``ptrs`` (then the tables' with rope) and raise on a failed launch."""
+    bh, s, d = q.shape
+    if tables is not None:
+        _check_tables(q, *tables)
+        ptrs = ptrs + [t.data_ptr() for t in tables]
+        name = "rope_" + name
+    fn = getattr(_lib(), f"flash_attention_{name}_launch")
+    err = fn(*ptrs, bh, s, d, _DTYPE_CODE[q.dtype], float(scale),
+             int(bool(causal)), _stream(q))
+    _raise_on(err, f"flash_attention_{name}")
+
+
+def _fwd_cuda(q, k, v, scale, causal, tables=None):
+    bh, s, _ = _check(q, ("k", k), ("v", v))
+    out = torch.empty_like(q)
+    lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
+    _launch("fwd", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), lse.data_ptr()], tables, scale,
+            causal)
+    return out, lse
+
+
+def _bwd_dq_cuda(q, k, v, out, lse, dout, scale, causal, tables=None):
+    _check(q, ("k", k), ("v", v), ("out", out), ("dout", dout), lse=lse)
+    dq = torch.empty_like(q)
+    _launch("bwd_dq", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                          dq.data_ptr()], tables, scale, causal)
+    return dq
+
+
+def _bwd_dkv_cuda(q, k, v, out, lse, dout, scale, causal, tables=None):
+    _check(q, ("k", k), ("v", v), ("out", out), ("dout", dout), lse=lse)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("bwd_dkv", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr()], tables, scale,
+            causal)
+    return dk, dv
+
+
 def flash_attention_fwd_cuda(q, k, v, scale, causal):
     """Forward kernel: q, k, v [BH, S, D] -> (out [BH, S, D] in q's dtype,
     lse [BH, S] fp32)."""
-    bh, s, d = _check(q, ("k", k), ("v", v))
-    out = torch.empty_like(q)
-    lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
-    err = _lib().flash_attention_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), bh, s, d, _DTYPE_CODE[q.dtype], float(scale),
-        int(bool(causal)), _stream(q))
-    _raise_on(err, "flash_attention_fwd")
+    res = _fwd_cuda(q, k, v, scale, causal)
     flash_attention_fwd_cuda.launches += 1
-    return out, lse
+    return res
 
 
 def flash_attention_bwd_dq_cuda(q, k, v, out, lse, dout, scale, causal):
     """dq kernel -> dq [BH, S, D] in q's dtype."""
-    bh, s, d = _check(q, ("k", k), ("v", v), ("out", out), ("dout", dout),
-                      lse=lse)
-    dq = torch.empty_like(q)
-    err = _lib().flash_attention_bwd_dq_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), bh, s, d,
-        _DTYPE_CODE[q.dtype], float(scale), int(bool(causal)), _stream(q))
-    _raise_on(err, "flash_attention_bwd_dq")
+    res = _bwd_dq_cuda(q, k, v, out, lse, dout, scale, causal)
     flash_attention_bwd_dq_cuda.launches += 1
-    return dq
+    return res
 
 
 def flash_attention_bwd_dkv_cuda(q, k, v, out, lse, dout, scale, causal):
     """dkv kernel -> (dk, dv) [BH, S, D] in k's dtype."""
-    bh, s, d = _check(q, ("k", k), ("v", v), ("out", out), ("dout", dout),
-                      lse=lse)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    err = _lib().flash_attention_bwd_dkv_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s,
-        d, _DTYPE_CODE[q.dtype], float(scale), int(bool(causal)), _stream(q))
-    _raise_on(err, "flash_attention_bwd_dkv")
+    res = _bwd_dkv_cuda(q, k, v, out, lse, dout, scale, causal)
     flash_attention_bwd_dkv_cuda.launches += 1
-    return dk, dv
+    return res
 
 
-flash_attention_fwd_cuda.launches = 0
-flash_attention_bwd_dq_cuda.launches = 0
-flash_attention_bwd_dkv_cuda.launches = 0
+def flash_attention_rope_fwd_cuda(q, k, v, c2, s2, scale, causal):
+    """Rope forward kernel: pre-rotary q, k, v [BH, S, D] and widened
+    tables c2/s2 [S, D] fp32 -> (out, lse)."""
+    res = _fwd_cuda(q, k, v, scale, causal, (c2, s2))
+    flash_attention_rope_fwd_cuda.launches += 1
+    return res
+
+
+def flash_attention_rope_bwd_dq_cuda(q, k, v, out, lse, dout, c2, s2, scale,
+                                     causal):
+    """Rope dq kernel (pre-rotary q, k) -> dq with respect to pre-rotary q."""
+    res = _bwd_dq_cuda(q, k, v, out, lse, dout, scale, causal, (c2, s2))
+    flash_attention_rope_bwd_dq_cuda.launches += 1
+    return res
+
+
+def flash_attention_rope_bwd_dkv_cuda(q, k, v, out, lse, dout, c2, s2, scale,
+                                      causal):
+    """Rope dkv kernel -> (dk with respect to pre-rotary k, dv)."""
+    res = _bwd_dkv_cuda(q, k, v, out, lse, dout, scale, causal, (c2, s2))
+    flash_attention_rope_bwd_dkv_cuda.launches += 1
+    return res
+
+
 _WRAPPERS = (flash_attention_fwd_cuda, flash_attention_bwd_dq_cuda,
-             flash_attention_bwd_dkv_cuda)
+             flash_attention_bwd_dkv_cuda, flash_attention_rope_fwd_cuda,
+             flash_attention_rope_bwd_dq_cuda,
+             flash_attention_rope_bwd_dkv_cuda)
+for _w in _WRAPPERS:
+    _w.launches = 0
 
 
 def reset_launch_counts():
@@ -308,3 +424,68 @@ def flash_attention(q, k, v, causal=True, scale=None):
         v = v.repeat_interleave(h // hk, dim=2)
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     return FlashAttentionFunction.apply(q, k, v, float(s), bool(causal))
+
+
+def flash_attention_rope_fwd(q, k, v, c2, s2, scale, causal):
+    """Rope forward on [BH, S, D], dispatched by device."""
+    if _on_cpu(q):
+        return flash_attention_rope_fwd_plain(q, k, v, c2, s2, scale, causal)
+    return flash_attention_rope_fwd_cuda(q, k, v, c2, s2, scale, causal)
+
+
+def flash_attention_rope_bwd_dq(q, k, v, out, lse, dout, c2, s2, scale,
+                                causal):
+    """Rope dq on [BH, S, D], dispatched by device."""
+    fn = (flash_attention_rope_bwd_dq_plain if _on_cpu(q)
+          else flash_attention_rope_bwd_dq_cuda)
+    return fn(q, k, v, out, lse, dout, c2, s2, scale, causal)
+
+
+def flash_attention_rope_bwd_dkv(q, k, v, out, lse, dout, c2, s2, scale,
+                                 causal):
+    """Rope (dk, dv) on [BH, S, D], dispatched by device."""
+    fn = (flash_attention_rope_bwd_dkv_plain if _on_cpu(q)
+          else flash_attention_rope_bwd_dkv_cuda)
+    return fn(q, k, v, out, lse, dout, c2, s2, scale, causal)
+
+
+class FlashAttentionRopeFunction(torch.autograd.Function):
+    """Rope-fused self-attention on pre-rotary q, k and v [B, S, H, D]
+    with widened tables c2/s2 [S, D] (the port of ``_flash_mha_rope`` and
+    its ``custom_vjp``). The forward saves the *pre-rotary* q and k with
+    v, out, lse and the tables; the tables get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, c2, s2, scale, causal):
+        b, _, h, _ = q.shape
+        qt, kt, vt = _heads_first(q), _heads_first(k), _heads_first(v)
+        out, lse = flash_attention_rope_fwd(qt, kt, vt, c2, s2, scale, causal)
+        ctx.save_for_backward(qt, kt, vt, out, lse, c2, s2)
+        ctx.scale, ctx.causal, ctx.bh = scale, causal, (b, h)
+        return _heads_last(out, b, h)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qt, kt, vt, out, lse, c2, s2 = ctx.saved_tensors
+        b, h = ctx.bh
+        dot = _heads_first(dout)
+        res = (qt, kt, vt, out, lse, dot, c2, s2, ctx.scale, ctx.causal)
+        dq = flash_attention_rope_bwd_dq(*res)
+        dk, dv = flash_attention_rope_bwd_dkv(*res)
+        return (_heads_last(dq, b, h), _heads_last(dk, b, h),
+                _heads_last(dv, b, h), None, None, None, None)
+
+
+def flash_attention_rope(q, k, v, cos, sin, causal=True, scale=None):
+    """Pre-rotary q [B, S, H, D], k/v [B, S, Hkv, D] and rope tables
+    cos/sin [S, D/2] -> [B, S, H, D] (the port of
+    ``_flash_attention_rope_arrays``). GQA repeats the kv heads first, as
+    :func:`flash_attention` does; the default scale is 1/sqrt(D)."""
+    h, hk = q.shape[2], k.shape[2]
+    if h != hk:
+        k = k.repeat_interleave(h // hk, dim=2)
+        v = v.repeat_interleave(h // hk, dim=2)
+    s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    c2, s2 = widen_tables(cos, sin)
+    return FlashAttentionRopeFunction.apply(q, k, v, c2, s2, float(s),
+                                            bool(causal))

@@ -19,6 +19,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.models\n"
             "import paddle_tpu_torch.optimizer\n"
             "import paddle_tpu_torch.incubate\n"
+            "import paddle_tpu_torch.incubate.nn\n"
+            "import paddle_tpu_torch.incubate.distributed\n"
+            "import paddle_tpu_torch.incubate.distributed.models.moe\n"
             "import paddle_tpu_torch.nn.functional\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
@@ -86,4 +89,40 @@ def test_training_needs_cuda_unless_asked_for_the_cpu():
     losses = [float(step(ids, labels)) for _ in range(3)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert all(n == 0 for n in FA.launch_counts().values())
+    assert model.device == torch.device("cpu")
+
+
+def test_moe_training_with_the_switches_stays_on_the_cpu(monkeypatch):
+    """The Llama-MoE with ``PT_FUSED_MOE``, ``PT_FUSED_NORM`` and
+    ``PT_FUSED_ROPE`` trains on ``device="cpu"`` through the plain
+    versions: no wrapper of a CUDA kernel launches."""
+    import numpy as np
+
+    from paddle_tpu_torch import incubate, optimizer
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    from paddle_tpu_torch.ops.cuda import moe_ffn as MF
+    from paddle_tpu_torch.ops.cuda import paged_attention as PA
+    from paddle_tpu_torch.ops.cuda import rms_norm as RN
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    for name in ("PT_FUSED_MOE", "PT_FUSED_NORM", "PT_FUSED_ROPE"):
+        monkeypatch.setenv(name, "1")
+    with pytest.raises(RuntimeError, match="cuda"):
+        LlamaForCausalLM(llama_tiny(num_experts=4))
+    model = LlamaForCausalLM(llama_tiny(num_experts=4), device="cpu")
+    step = incubate.fused_train_step(
+        model, optimizer.AdamW(learning_rate=1e-3,
+                               parameters=model.parameters()))
+    rng = np.random.RandomState(1)
+    ids, labels = (torch.from_numpy(rng.randint(0, 512, (2, 32)))
+                   for _ in range(2))
+    mods = (FA, MF, RN, PA)
+    for mod in mods:
+        mod.reset_launch_counts()
+    losses = [float(step(ids, labels)) for _ in range(3)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    counts = {k: v for mod in mods for k, v in mod.launch_counts().items()}
+    assert len(counts) == 10 and not any(counts.values()), counts
     assert model.device == torch.device("cpu")
