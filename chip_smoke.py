@@ -16,10 +16,12 @@ Phases, one printed line per result:
    and dkv kernels, without rope and in their rope form (pre-rotary q and
    k, the llama tables), at the training shape (B 16, H 12, S 1024, D 64,
    bf16, causal), at llama_1b's heads (D 128, S 2048), in fp32 at D 32, 64
-   and 128, non-causal, at a ragged S = 1000, and GQA 32/8 through the
+   and 128, non-causal, at BERT-base's shape (B 128, H 12, S 128, D 64,
+   bf16, non-causal), at a ragged S = 1000, and GQA 32/8 through the
    autograd Function; the MoE expert FFN at the Llama-MoE shape (E 8,
    C 5120, h 768, I 2048) in bf16 and fp32 and at ragged small shapes; the
-   fused add + RMSNorm at 16384 x 768 in bf16 and fp32;
+   fused add + RMSNorm and the fused add + LayerNorm at 16384 x 768 in bf16
+   and fp32 and at ragged shapes (the residual bit for bit);
 3. times (CUDA events, median after warm-up) of each kernel, its plain
    version and the PyTorch library call computing the same function,
    beside the least time the card could take;
@@ -37,13 +39,19 @@ Phases, one printed line per result:
    layer) with ``PT_FUSED_MOE``, ``PT_FUSED_NORM`` and ``PT_FUSED_ROPE``
    set for that run only: the MoE kernel launches MoE layers x steps
    times, the fused norm and each rope flash kernel layers x steps, the
-   flash kernels without rope never;
+   flash kernels without rope never; then BERT-base sequence-
+   classification fine-tuning as ``bench.py bert`` sets it up (bf16, both
+   dropouts 0, AdamW(2e-5), 128 x 128 random ids and labels) with
+   ``PT_FUSED_NORM`` set for that run only: the fused add + LayerNorm
+   launches 2 x layers x steps times, each flash kernel without rope
+   layers x steps, every other kernel never;
 6. card against CPU: the port engine on fp32 llama_tiny gives identical
    greedy tokens on the CPU (plain versions) and on the card (kernels);
    three fused AdamW steps on fp32 llama_tiny give the same losses and
    parameters on both; and so do three on fp32 llama_tiny with 4 experts
    and the three switches, after the first batch's top-k routing is found
-   identical on both.
+   identical on both; three on fp32 bert_tiny with ``PT_FUSED_NORM``, and
+   one padded (masked) ``BertModel`` forward.
 
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
@@ -470,6 +478,7 @@ def phase_flash_kernels(gen, rope=False):
         (2, 4, 512, 32, "float32", True, "fp32 D=32"),
         (2, 4, 512, 64, "float32", True, "fp32 D=64"),
         (2, 8, 512, 64, "bfloat16", False, "non-causal"),
+        (128, 12, 128, 64, "bfloat16", False, "BERT-base training"),
         (2, 4, 1000, 64, "bfloat16", True, "ragged S"),
         (1, 4, 1000, 128, "float32", False, "ragged S fp32 D=128")]
     tag = "flash rope" if rope else "flash"
@@ -620,11 +629,13 @@ def phase_flash_times(gen, rope=False):
     return times
 
 
-# -- MoE expert FFN and fused add + RMSNorm ---------------------------------
+# -- MoE expert FFN, fused add + RMSNorm and fused add + LayerNorm ---------
 
 MOE_SHAPE = (8, 5120, 768, 2048)     # Llama-MoE training: E, C, h, I
 RMS_SHAPE = (16384, 768)             # 16 x 1024 tokens, hidden 768
 RMS_EPS = 1e-5
+LN_SHAPE = (16384, 768)              # BERT-base: 128 x 128 tokens, hidden 768
+LN_EPS = 1e-12                       # BertConfig.layer_norm_eps
 
 
 def moe_inputs(gen, e, c, h, i, dtype):
@@ -647,6 +658,16 @@ def rms_inputs(gen, rows, h, dtype):
     return x, y, w
 
 
+def ln_inputs(gen, rows, h, dtype):
+    """x, y with a mean of 1 (so the variance's two passes matter), the
+    weight near 1 and the bias near 0, on the card."""
+    import torch
+
+    x, y, w = rms_inputs(gen, rows, h, dtype)
+    b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(dtype)
+    return x + 1, y, w, b
+
+
 def phase_fused_kernels(gen):
     """Phase 2c: the MoE expert FFN kernel and the fused add + RMSNorm
     kernel against their plain versions (fp32 on the exactly upcast
@@ -657,7 +678,8 @@ def phase_fused_kernels(gen):
     from paddle_tpu_torch.ops.cuda import moe_ffn as MF
     from paddle_tpu_torch.ops.cuda import rms_norm as RN
 
-    worst = {"moe_ffn": 0.0, "fused_add_rms_norm": 0.0}
+    worst = {"moe_ffn": 0.0, "fused_add_rms_norm": 0.0,
+             "fused_add_layer_norm": 0.0}
     for (e, c, h, i), dt, what in ((MOE_SHAPE, "bfloat16", "training"),
                                    (MOE_SHAPE, "float32", "training fp32"),
                                    ((2, 20, 128, 384), "float32",
@@ -691,15 +713,34 @@ def phase_fused_kernels(gen):
             f"identical: {same_r}")
         check(excess <= 0 and same_r, f"fused_add_rms_norm {rows}x{h} {dt}")
         worst["fused_add_rms_norm"] = max(worst["fused_add_rms_norm"], err)
+    for (rows, h), dt in ((LN_SHAPE, "bfloat16"), (LN_SHAPE, "float32"),
+                          ((37, 200), "bfloat16"), ((9, 13000), "float32")):
+        x, y, w, b = ln_inputs(gen, rows, h, getattr(torch, dt))
+        out, r = RN.fused_add_layer_norm_cuda(x, y, w, b, LN_EPS)
+        _, w_r = RN.fused_add_layer_norm_plain(x, y, w, b, LN_EPS)
+        same_r = bool(torch.equal(r, w_r))
+        # the norm in fp32 from the rounded residual, unrounded
+        w_out, _ = RN.fused_add_layer_norm_plain(
+            w_r.float(), torch.zeros_like(w_r, dtype=torch.float32),
+            w.float(), b.float(), LN_EPS)
+        err, excess = compare(out, w_out, dt)
+        torch.cuda.synchronize()
+        say(f"kernel fused_add_layer_norm {rows}x{h} {dt}: out max_abs_err "
+            f"{err:.3e} (tol {ATOL:g} + {RTOL[dt]:g}*|want|), residual "
+            f"identical: {same_r}")
+        check(excess <= 0 and same_r,
+              f"fused_add_layer_norm {rows}x{h} {dt}")
+        worst["fused_add_layer_norm"] = max(worst["fused_add_layer_norm"],
+                                            err)
     torch.cuda.empty_cache()
     return worst
 
 
 def phase_fused_times(gen):
-    """Phase 3c, at the Llama-MoE training shapes in bf16. Library: the
-    expert FFN's composition in three ``torch.bmm`` calls (the [E, C, I]
-    intermediates in device memory), and the residual add followed by
-    ``torch.nn.functional.rms_norm``."""
+    """Phase 3c, at the Llama-MoE and BERT-base training shapes in bf16.
+    Library: the expert FFN's composition in three ``torch.bmm`` calls (the
+    [E, C, I] intermediates in device memory), and the residual add
+    followed by ``torch.nn.functional.rms_norm`` or ``layer_norm``."""
     import torch
     import torch.nn.functional as F
 
@@ -731,6 +772,16 @@ def phase_fused_times(gen):
         library="x + y, then F.rms_norm", bytes=2 * (4 * rows * h + h),
         ops=5 * rows * h, shape=f"{rows}x{h} bf16")
     del x, y, w
+    rows, h = LN_SHAPE
+    x, y, w, b = ln_inputs(gen, rows, h, torch.bfloat16)
+    times["fused_add_layer_norm"] = dict(
+        ms=time_ms(lambda: RN.fused_add_layer_norm_cuda(x, y, w, b, LN_EPS)),
+        plain_ms=time_ms(lambda: RN.fused_add_layer_norm_plain(x, y, w, b,
+                                                               LN_EPS)),
+        library_ms=time_ms(lambda: F.layer_norm(x + y, (h,), w, b, LN_EPS)),
+        library="x + y, then F.layer_norm", bytes=2 * (4 * rows * h + 2 * h),
+        ops=8 * rows * h, shape=f"{rows}x{h} bf16")
+    del x, y, w, b
     torch.cuda.empty_cache()
     return report_times(times)
 
@@ -1004,11 +1055,11 @@ SWITCHES = ("PT_FUSED_MOE", "PT_FUSED_NORM", "PT_FUSED_ROPE")
 
 
 @contextlib.contextmanager
-def fused_switches():
-    """Set the three fused switches to "1" inside a ``with`` block and
+def fused_switches(names=SWITCHES):
+    """Set the fused switches ``names`` to "1" inside a ``with`` block and
     restore what was there before, whatever happens inside."""
-    saved = {k: os.environ.get(k) for k in SWITCHES}
-    os.environ.update(dict.fromkeys(SWITCHES, "1"))
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update(dict.fromkeys(names, "1"))
     try:
         yield
     finally:
@@ -1031,20 +1082,31 @@ def llama_moe_config():
                        num_experts_per_tok=2, moe_every=2)
 
 
-def all_launch_counts():
-    from paddle_tpu_torch.ops.cuda import flash_attention, moe_ffn, rms_norm
+def kernel_modules():
+    from paddle_tpu_torch.ops.cuda import (flash_attention, moe_ffn,
+                                           paged_attention, rms_norm)
 
+    return flash_attention, moe_ffn, paged_attention, rms_norm
+
+
+def all_launch_counts():
     out = {}
-    for mod in (flash_attention, moe_ffn, rms_norm):
+    for mod in kernel_modules():
         out.update(mod.launch_counts())
     return out
 
 
 def reset_all_launch_counts():
-    from paddle_tpu_torch.ops.cuda import flash_attention, moe_ffn, rms_norm
-
-    for mod in (flash_attention, moe_ffn, rms_norm):
+    for mod in kernel_modules():
         mod.reset_launch_counts()
+
+
+def launches_want(**nonzero):
+    """Every kernel wrapper's expected count: ``nonzero`` as given (by
+    wrapper name), 0 for the rest."""
+    want = dict.fromkeys(all_launch_counts(), 0)
+    want.update(nonzero)
+    return want
 
 
 def phase_train_moe():
@@ -1106,9 +1168,9 @@ def phase_train_moe():
     n = warmup + steps
     check(all(np.isfinite(losses)), f"finite losses {losses}")
     check(losses[-1] < losses[0], f"loss falls {losses}")
-    want = {"moe_ffn_cuda": n_moe * n, "fused_add_rms_norm_cuda": L * n}
-    want.update({f"{k}_cuda": L * n for k in ROPE})
-    want.update({f"{k}_cuda": 0 for k in FLASH})
+    want = launches_want(moe_ffn_cuda=n_moe * n,
+                         fused_add_rms_norm_cuda=L * n,
+                         **{f"{k}_cuda": L * n for k in ROPE})
     check(counts == want, f"Llama-MoE launches {counts} == {want}")
     tok_s = batch * seq * steps / wall
     say(f"train-moe Llama-MoE: losses {[round(x, 4) for x in losses]}; "
@@ -1179,10 +1241,10 @@ def phase_train_moe_card_vs_cpu():
             if dev == "cuda":
                 counts = all_launch_counts()
                 L = cfg.num_hidden_layers
-                want = {"moe_ffn_cuda": 3 * (L // cfg.moe_every),
-                        "fused_add_rms_norm_cuda": 3 * L}
-                want.update({f"{k}_cuda": 3 * L for k in ROPE})
-                want.update({f"{k}_cuda": 0 for k in FLASH})
+                want = launches_want(
+                    moe_ffn_cuda=3 * (L // cfg.moe_every),
+                    fused_add_rms_norm_cuda=3 * L,
+                    **{f"{k}_cuda": 3 * L for k in ROPE})
                 check(counts == want, f"tiny MoE launches {counts}")
             params[dev] = to_numpy_state_dict(model)
     flipped = sum(int((a != b).sum()) for a, b in zip(routes["cpu"],
@@ -1201,6 +1263,169 @@ def phase_train_moe_card_vs_cpu():
         f"abs diff {dp:.2e} (tol {TRAIN_PARAM_ATOL:g})")
     check(dl <= TRAIN_LOSS_RTOL and dp <= TRAIN_PARAM_ATOL,
           "card and CPU MoE training agree")
+
+
+# -- BERT-base fine-tuning with the fused add + LayerNorm -------------------
+
+BERT_PARAMS = 109_483_778
+
+
+def bert_tiny_state(model, rng):
+    """Random fp32 weights for ``model``'s state dict: LayerNorm weights
+    near one, everything else N(0, 0.02)."""
+    import numpy as np
+
+    return {k: ((1 + 0.1 * rng.standard_normal(v.shape)) if "norm" in k
+                and k.endswith(".weight") else
+                rng.standard_normal(v.shape) * 0.02).astype(np.float32)
+            for k, v in model.state_dict().items()}
+
+
+def phase_train_bert():
+    """Phase 5c: BERT-base sequence classification (bf16, full width and
+    depth, random weights from a seed) fine-tuned as ``bench.py bert`` sets
+    it up (``bench.py:401-466``: both dropouts 0, AdamW(2e-5) through
+    ``fused_train_step`` with loss ``o[0]`` and labels by keyword) on one
+    fixed 128 x 128 batch of random ids and labels, with ``PT_FUSED_NORM``
+    on for this run only: 2 warm-up and 10 timed steps through
+    ``FusedTrainStep.drive`` (dict batches), then one profiled step. The
+    fused add + LayerNorm launches twice a layer a step, each flash kernel
+    without rope once; no other kernel. Returns the launch counts over the
+    12 steps."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         bert_base)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = bert_base(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    batch, seq, warmup, steps = 128, 128, 2, 10
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = BertForSequenceClassification(cfg, device="cuda",
+                                          dtype=torch.bfloat16, seed=SEED)
+    step = fused_train_step(model, AdamW(learning_rate=2e-5,
+                                         parameters=model.parameters()),
+                            loss_fn=lambda out: out[0])
+    rng = np.random.RandomState(SEED + 8)
+    data = {"input_ids": torch.from_numpy(
+                rng.randint(0, cfg.vocab_size, (batch, seq))).cuda(),
+            "labels": torch.from_numpy(
+                rng.randint(0, cfg.num_labels, batch)).cuda()}
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == BERT_PARAMS, f"BERT-base parameters {n_params}")
+    # PaLM-appendix accounting, as bench.py's _train_flops_per_token
+    flops_per_token = 6.0 * n_params + 12.0 * L * cfg.hidden_size * seq
+    torch.cuda.synchronize()
+    say(f"train-bert setup: BERT-base bf16 ({n_params} params), batch "
+        f"{batch} x {seq}, in {time.perf_counter() - t0:.2f} s")
+    with fused_switches(("PT_FUSED_NORM",)):
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launch_counts()
+        first = step.drive([data] * warmup, log_every=warmup)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = step.drive([data] * steps, log_every=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        device_profile(lambda: step(**data), "train-bert (one step)",
+                       top=10, mark=("fused_add_layer_norm", "flash_fwd",
+                                     "flash_bwd_dq", "flash_bwd_dkv"))
+    losses = first["loss"] + hist["loss"]
+    n = warmup + steps
+    check(all(np.isfinite(losses)), f"finite losses {losses}")
+    want = launches_want(fused_add_layer_norm_cuda=2 * L * n,
+                         **{f"{k}_cuda": L * n for k in FLASH})
+    check(counts == want, f"BERT-base launches {counts} == {want}")
+    tok_s = batch * seq * steps / wall
+    say(f"train-bert BERT-base: losses {[round(x, 4) for x in losses]}; "
+        f"{steps} timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} "
+        f"ms/step, {tok_s:.0f} tokens/s, MFU "
+        f"{tok_s * flops_per_token / PEAK_OPS_PER_S['bfloat16']:.4f} "
+        f"({flops_per_token / 1e6:.1f} MFLOP/token vs 989 TFLOP/s), peak "
+        f"memory {peak:.2f} GiB, launches {counts}")
+    del model, step, data
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_bert_card_vs_cpu():
+    """Phase 6d: fp32 bert_tiny with ``PT_FUSED_NORM`` from the same numpy
+    weights and batches on the card (kernels) and on the CPU (plain
+    versions): three fused AdamW steps give the same losses and
+    parameters; then one ``BertModel`` forward of a padded batch (the
+    additive mask; plain dense attention on both) gives the same hidden
+    states and pooled output."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         BertModel, bert_tiny,
+                                         load_paddle_tpu_state_dict,
+                                         to_numpy_state_dict)
+    from paddle_tpu_torch.nn.functional import flash_attention as sdpa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = bert_tiny(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(SEED + 9)
+    state = bert_tiny_state(BertForSequenceClassification(cfg, device="cpu"),
+                            rng)
+    batches = [(rng.randint(0, cfg.vocab_size, (4, 128)),
+                rng.randint(0, cfg.num_labels, 4)) for _ in range(3)]
+    losses, params = {}, {}
+    with fused_switches(("PT_FUSED_NORM",)):
+        for dev in ("cpu", "cuda"):
+            model = BertForSequenceClassification(cfg, device=dev)
+            load_paddle_tpu_state_dict(model, state)
+            step = fused_train_step(model, AdamW(
+                learning_rate=1e-3, epsilon=1e-6,
+                parameters=model.parameters()), loss_fn=lambda out: out[0])
+            reset_all_launch_counts()
+            losses[dev] = [float(step(torch.from_numpy(i).to(dev),
+                                      labels=torch.from_numpy(l).to(dev)))
+                           for i, l in batches]
+            if dev == "cuda":
+                counts = all_launch_counts()
+                want = launches_want(fused_add_layer_norm_cuda=3 * 2 * L,
+                                     **{f"{k}_cuda": 3 * L for k in FLASH})
+                check(counts == want, f"bert_tiny launches {counts}")
+            params[dev] = to_numpy_state_dict(model)
+    dl = max(abs(a / b - 1) for a, b in zip(losses["cuda"], losses["cpu"]))
+    dp = max(float(np.abs(params["cuda"][k] - params["cpu"][k]).max())
+             for k in params["cpu"])
+    say(f"card vs cpu training bert_tiny fp32 with PT_FUSED_NORM, 3 AdamW "
+        f"steps: losses cuda {losses['cuda']} cpu {losses['cpu']}, max rel "
+        f"diff {dl:.2e} (tol {TRAIN_LOSS_RTOL:g}); parameters max abs diff "
+        f"{dp:.2e} (tol {TRAIN_PARAM_ATOL:g})")
+    check(dl <= TRAIN_LOSS_RTOL and dp <= TRAIN_PARAM_ATOL,
+          "card and CPU BERT training agree")
+    enc = bert_tiny_state(BertModel(cfg, device="cpu"), rng)
+    ids = rng.randint(0, cfg.vocab_size, (4, 128))
+    mask = np.ones((4, 128), np.int64)
+    mask[1:, 96:] = 0       # padding in the last quarter
+    mask[3, 64:] = 0
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = BertModel(cfg, device=dev)
+        load_paddle_tpu_state_dict(model, enc)
+        with torch.no_grad():
+            outs[dev] = [t.cpu() for t in model(
+                torch.from_numpy(ids).to(dev),
+                attention_mask=torch.from_numpy(mask).to(dev))]
+        check(sdpa.LAST_PATH == "reference", f"masked attention on {dev} "
+              f"took {sdpa.LAST_PATH}")
+    dh = max(float((a - b).abs().max()) for a, b in zip(outs["cuda"],
+                                                        outs["cpu"]))
+    say(f"card vs cpu BertModel bert_tiny fp32, padded batch (additive "
+        f"mask, plain dense attention): hidden and pooled max abs diff "
+        f"{dh:.2e} (tol {TRAIN_PARAM_ATOL:g})")
+    check(dh <= TRAIN_PARAM_ATOL, "card and CPU masked BERT forward agree")
 
 
 def main():
@@ -1236,14 +1461,20 @@ def main():
     times.update(phase_flash_times(gen))
     times.update(phase_flash_times(gen, rope=True))
     times.update(phase_fused_times(gen))
+    # each kernel's launches from the main path that runs it
     counts = phase_serve()
-    counts.update({k: v for k, v in phase_train().items()
-                   if k in {n + "_cuda" for n in FLASH}})
-    counts.update({k: v for k, v in phase_train_moe().items()
-                   if k not in {n + "_cuda" for n in FLASH}})
+    train = phase_train()
+    counts.update({f"{n}_cuda": train[f"{n}_cuda"] for n in FLASH})
+    moe = phase_train_moe()
+    counts.update({k: moe[k] for k in ("moe_ffn_cuda",
+                                       "fused_add_rms_norm_cuda",
+                                       *(f"{n}_cuda" for n in ROPE))})
+    bert = phase_train_bert()
+    counts["fused_add_layer_norm_cuda"] = bert["fused_add_layer_norm_cuda"]
     phase_card_vs_cpu()
     phase_train_card_vs_cpu()
     phase_train_moe_card_vs_cpu()
+    phase_bert_card_vs_cpu()
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
@@ -1261,6 +1492,7 @@ def main():
         "flash_attention_rope_bwd_dq": f"{fa}:348",
         "flash_attention_rope_bwd_dkv": f"{fa}:348",
         "fused_add_rms_norm": "paddle_tpu/ops/pallas/rms_norm.py:66",
+        "fused_add_layer_norm": "paddle_tpu/ops/pallas/rms_norm.py:155",
         "moe_ffn": "paddle_tpu/ops/pallas/moe_ffn.py:72"}
     kernels = [dict(name=name, route="cuda",
                     source=sources[name.split("_")[0]],

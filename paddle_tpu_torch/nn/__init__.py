@@ -1,9 +1,12 @@
 """Layers and functions of the port (``paddle_tpu.nn`` counterparts)."""
 
-from . import functional  # noqa: F401
+from . import functional, initializer  # noqa: F401
 from .clip import ClipGradByGlobalNorm
-from .layer.common import Embedding, Linear
-from .layer.norm import RMSNorm
+from .layer.common import Dropout, Embedding, Linear
+from .layer.norm import LayerNorm, RMSNorm
+from .layer.transformer import (MultiHeadAttention, TransformerEncoder,
+                                TransformerEncoderLayer)
 
-__all__ = ["functional", "ClipGradByGlobalNorm", "Embedding", "Linear",
-           "RMSNorm"]
+__all__ = ["functional", "initializer", "ClipGradByGlobalNorm", "Dropout",
+           "Embedding", "LayerNorm", "Linear", "MultiHeadAttention",
+           "RMSNorm", "TransformerEncoder", "TransformerEncoderLayer"]

@@ -1,12 +1,30 @@
-"""Activations (counterpart of ``paddle_tpu/nn/functional/activation.py``)."""
+"""Activations (counterpart of ``paddle_tpu/nn/functional/activation.py``).
+
+Each returns a tensor of x's dtype. They are elementwise tensor code, as
+the reference leaves them to XLA; no TPU kernel stands behind them."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["silu"]
+__all__ = ["gelu", "relu", "silu", "tanh"]
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)``, in x's dtype."""
     return torch.nn.functional.silu(x)
+
+
+def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
+    """``x * Phi(x)``: the erf form, or with ``approximate`` the tanh form
+    (``jax.nn.gelu``'s two forms)."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)

@@ -2,10 +2,12 @@
 ``paddle_tpu/nn/functional/flash_attention.py``).
 
 This is the numerical reference the paged-attention plain versions use,
-and the CPU path of masked or cross-length attention. It is plain PyTorch
-tensor code, not a kernel: self-attention in the model's ``forward`` goes
-through :func:`.flash_attention.scaled_dot_product_attention`, which
-launches the flash-attention CUDA kernels on the card.
+and the path of masked or cross-length attention on the CPU and on the
+card alike: the reference computes those in XLA einsums outside any Pallas
+kernel. It is plain PyTorch tensor code, not a kernel: unmasked
+self-attention goes through
+:func:`.flash_attention.scaled_dot_product_attention`, which launches the
+flash-attention CUDA kernels on the card.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ def sdpa_reference(q, k, v, attn_mask=None, causal=False, scale=None):
     Logits in the promoted input dtype, cast to fp32 and scaled; masked
     logits are set to -1e30; softmax in fp32, probabilities cast to q's
     dtype before the product with V. GQA repeats kv heads
-    (``repeat_interleave``, ``jnp.repeat``'s mapping). A bool
-    ``attn_mask`` broadcastable to [B, H, S, Sk] marks visible pairs."""
+    (``repeat_interleave``, ``jnp.repeat``'s mapping). ``attn_mask``
+    broadcasts to [B, H, S, Sk]: a bool mask marks visible pairs, a float
+    mask is added to the fp32 logits (BERT's 0 / -1e4 padding mask)."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     hq, hk = qt.shape[1], kt.shape[1]
@@ -41,7 +44,10 @@ def sdpa_reference(q, k, v, attn_mask=None, causal=False, scale=None):
                           device=logits.device).tril(sk - sq)
         logits = logits.masked_fill(~keep, NEG_INF)
     if attn_mask is not None:
-        logits = logits.masked_fill(~attn_mask, NEG_INF)
+        if attn_mask.dtype == torch.bool:
+            logits = logits.masked_fill(~attn_mask, NEG_INF)
+        else:
+            logits = logits + attn_mask.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     cv = torch.promote_types(probs.dtype, vt.dtype)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(cv), vt.to(cv))

@@ -4,15 +4,19 @@
 Layout follows paddle: [batch, seqlen, num_heads, head_dim]. Routing
 follows the device of the query, not the reference's TPU gate:
 
-* a CPU tensor takes the plain versions: unmasked self-attention goes
-  through :func:`~paddle_tpu_torch.ops.cuda.flash_attention.flash_attention`
-  (whose plain forward and backward are what the kernels compute), any
-  other call through :func:`.attention.sdpa_reference`;
-* a CUDA tensor that is unmasked, dropout-free self-attention
-  (``seq_q == seq_k``, the case the kernels' top-left causal mask is right
-  for) with head_dim in :data:`HEAD_DIMS` and a float32 or bfloat16 dtype
-  goes to the CUDA flash-attention kernels, at any sequence length;
-* any other CUDA call raises ``NotImplementedError``. Nothing falls back.
+* unmasked self-attention (``seq_q == seq_k``, the case the kernels'
+  top-left causal mask is right for) goes through
+  :func:`~paddle_tpu_torch.ops.cuda.flash_attention.flash_attention`: on
+  the CPU its plain forward and backward (what the kernels compute), on
+  the card the CUDA flash-attention kernels, at any sequence length, for
+  head_dim in :data:`HEAD_DIMS` and float32 or bfloat16; another head_dim
+  or dtype on the card raises ``NotImplementedError``;
+* a call with an ``attn_mask`` (bool or additive float, as BERT's padding
+  mask) or with ``seq_q != seq_k`` goes to :func:`.attention.sdpa_reference`
+  on the tensors' own device. The reference computes these in XLA einsums
+  outside any Pallas kernel (``_sdpa_ref``), so this is the stated route
+  on both devices, not a fallback;
+* attention dropout raises ``NotImplementedError`` (ROADMAP Queue 1).
 
 :func:`fused_rope_attention` is the rope-fused path the Llama decoder takes
 under ``PT_FUSED_ROPE=1``: q and k arrive before the rotary embedding and
@@ -40,12 +44,9 @@ __all__ = ["scaled_dot_product_attention", "fused_rope_attention_enabled",
 
 #: which path the last :func:`scaled_dot_product_attention` call took:
 #: "cuda" (the flash kernels), "plain" (their plain versions, CPU) or
-#: "reference" (:func:`sdpa_reference`, CPU); :func:`fused_rope_attention`
-#: sets "cuda_rope" or "plain_rope"
+#: "reference" (:func:`sdpa_reference`, CPU or card);
+#: :func:`fused_rope_attention` sets "cuda_rope" or "plain_rope"
 LAST_PATH = None
-
-_QUEUED = ("is not ported to the CUDA kernels yet (ROADMAP Queue 1, item 1: "
-           "masked, cross-length and dropout attention)")
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -55,18 +56,15 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     k/v [B, Sk, Hkv, D] -> [B, S, H, D], scale 1/sqrt(D)."""
     global LAST_PATH
     if dropout_p > 0.0 and training:
-        raise NotImplementedError(f"attention dropout {_QUEUED}")
-    self_attn = attn_mask is None and query.shape[1] == key.shape[1]
-    if query.device.type == "cpu":
-        if self_attn:
-            LAST_PATH = "plain"
-            return flash_attention(query, key, value, causal=bool(is_causal))
+        raise NotImplementedError(
+            "attention dropout is not ported yet (ROADMAP Queue 1, item 1)")
+    if attn_mask is not None or query.shape[1] != key.shape[1]:
         LAST_PATH = "reference"
         return sdpa_reference(query, key, value, attn_mask=attn_mask,
                               causal=bool(is_causal))
-    if not self_attn:
-        raise NotImplementedError(
-            f"attention with a mask or seq_q != seq_k {_QUEUED}")
+    if query.device.type == "cpu":
+        LAST_PATH = "plain"
+        return flash_attention(query, key, value, causal=bool(is_causal))
     if query.shape[-1] not in HEAD_DIMS or query.dtype not in (
             torch.float32, torch.bfloat16):
         raise NotImplementedError(

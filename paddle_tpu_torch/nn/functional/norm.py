@@ -1,11 +1,12 @@
 """Normalisation functions (counterpart of
-``paddle_tpu/nn/functional/norm.py``)."""
+``paddle_tpu/nn/functional/norm.py``). Statistics are fp32 whatever the
+input dtype, and the result is cast back to it."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rms_norm"]
+__all__ = ["layer_norm", "rms_norm"]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
@@ -17,4 +18,24 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
     out = xf * torch.rsqrt(var + epsilon)
     if weight is not None:
         out = out * weight.float()
+    return out.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the trailing ``normalized_shape`` axes: fp32 mean,
+    then the variance as the mean of squared deviations (two passes, never
+    E[x^2] - mean^2), the weight multiply and bias add in fp32, one cast
+    back to x's dtype at the end."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    axes = tuple(range(x.dim() - len(normalized_shape), x.dim()))
+    xf = x.float()
+    xc = xf - xf.mean(dim=axes, keepdim=True)
+    var = xc.square().mean(dim=axes, keepdim=True)
+    out = xc * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
     return out.to(x.dtype)

@@ -5,9 +5,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..functional.norm import rms_norm
+from ..functional.norm import layer_norm, rms_norm
 
-__all__ = ["RMSNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
 
 
 class RMSNorm(nn.Module):
@@ -22,3 +22,27 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return rms_norm(x, self.weight, self._epsilon)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the trailing ``normalized_shape`` axes with a weight
+    (ones) and a bias (zeros) of that shape."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, *, device=None,
+                 dtype=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = float(epsilon)
+        self.weight = nn.Parameter(torch.ones(
+            self._normalized_shape, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(
+            self._normalized_shape, device=device, dtype=dtype))
+
+    def forward(self, x):
+        return layer_norm(x, self._normalized_shape, self.weight, self.bias,
+                          self._epsilon)
+
+    def extra_repr(self):
+        return f"normalized_shape={self._normalized_shape}"

@@ -1,23 +1,26 @@
-"""Fused residual add + RMSNorm: the CUDA kernel of
-``paddle_tpu_torch/csrc/rms_norm.cu``, its plain PyTorch version, and the
-``torch.autograd.Function`` around it.
+"""Fused residual add + RMSNorm and fused residual add + LayerNorm: the
+CUDA kernels of ``paddle_tpu_torch/csrc/rms_norm.cu``, their plain PyTorch
+versions, and the ``torch.autograd.Function``s around them.
 
-The port of the RMSNorm half of ``paddle_tpu/ops/pallas/rms_norm.py``:
+The port of ``paddle_tpu/ops/pallas/rms_norm.py``:
 :func:`fused_add_rms_norm_cuda` replaces ``_fwd_kernel`` (``_fwd``,
-``pallas_call`` at :66). Both compute, on rows of x and y [rows, h] and a
-weight [h]::
+``pallas_call`` at :66) and :func:`fused_add_layer_norm_cuda` replaces
+``_ln_fwd_kernel`` (``_ln_fwd``, ``pallas_call`` at :155). On rows of x and
+y [rows, h], a weight [h] and, for LayerNorm, a bias [h]::
 
     resid = round(x + y)                 (fp32 sum, rounded to x's dtype)
-    out   = resid * rsqrt(mean(resid^2) + eps) * w     (fp32, then rounded)
+    RMSNorm:   out = resid * rsqrt(mean(resid^2) + eps) * w
+    LayerNorm: out = (resid - mu) * rsqrt(var + eps) * w + b
+               mu = mean(resid), var = mean((resid - mu)^2)  (two passes)
 
-and return ``(out, resid)``; the norm reads the rounded residual, as the
-unfused composition does. The backward is the reference's ``_fused_bwd``
-in plain PyTorch (fp32; dx = dy, dw summed over rows). The wrapper takes
-the plain version for a CPU tensor and launches the kernel for a CUDA
-tensor (or raises), and counts its launches in
-``fused_add_rms_norm_cuda.launches``. :func:`use_fused_rms_norm`
-(``PT_FUSED_NORM=1``, read at call time, default off) is the model's
-switch. The LayerNorm half (``_ln_fwd_kernel``) is not ported yet.
+both in fp32 and rounded once, returning ``(out, resid)``; the norm reads
+the rounded residual, as the unfused composition does. The backwards are
+the reference's ``_fused_bwd`` and ``_ln_vjp_bwd`` in plain PyTorch (fp32;
+dx = dy, dw and db summed over rows): they are XLA in the JAX package, not
+Pallas. Each wrapper takes the plain version for a CPU tensor and launches
+its kernel for a CUDA tensor (or raises), and counts its launches in
+``<wrapper>.launches``. :func:`use_fused_rms_norm` (``PT_FUSED_NORM=1``,
+read at call time, default off) is the models' switch for both.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from ._build import load
 
 __all__ = ["fused_add_rms_norm", "FusedAddRMSNormFunction",
            "fused_add_rms_norm_plain", "fused_add_rms_norm_cuda",
+           "fused_add_layer_norm", "FusedAddLayerNormFunction",
+           "fused_add_layer_norm_plain", "fused_add_layer_norm_cuda",
            "use_fused_rms_norm", "reset_launch_counts", "launch_counts"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,7 +44,8 @@ _I = ctypes.c_int
 
 
 def use_fused_rms_norm():
-    """``PT_FUSED_NORM=1`` routes the decoder's post-attention norm here."""
+    """``PT_FUSED_NORM=1`` routes the decoder's post-attention RMSNorm and
+    the post-norm encoder's add + LayerNorm here."""
     return os.environ.get("PT_FUSED_NORM", "0") == "1"
 
 
@@ -52,19 +58,34 @@ def fused_add_rms_norm_plain(x, y, w, eps):
     return (rf * inv * w.float()).to(x.dtype), r
 
 
+def fused_add_layer_norm_plain(x, y, w, b, eps):
+    """The LayerNorm kernel's function in plain PyTorch on [rows, h] ->
+    (out, resid) in x's dtype."""
+    r = (x.float() + y.float()).to(x.dtype)
+    rf = r.float()
+    xc = rf - rf.mean(dim=-1, keepdim=True)
+    var = xc.square().mean(dim=-1, keepdim=True)
+    out = xc * torch.rsqrt(var + eps) * w.float() + b.float()
+    return out.to(x.dtype), r
+
+
 def _lib():
     lib = load("rms_norm")
     if not getattr(lib, "_rms_typed", False):
         lib.fused_add_rms_norm_launch.argtypes = (
             [_P] * 5 + [_I] * 3 + [ctypes.c_float, _P])
         lib.fused_add_rms_norm_launch.restype = _I
+        lib.fused_add_layer_norm_launch.argtypes = (
+            [_P] * 6 + [_I] * 3 + [ctypes.c_float, _P])
+        lib.fused_add_layer_norm_launch.restype = _I
         lib._rms_typed = True
     return lib
 
 
-def fused_add_rms_norm_cuda(x, y, w, eps):
-    """The kernel on x, y [rows, h] and w [h] -> (out, resid) [rows, h]
-    in x's dtype."""
+def _launch(name, x, y, params, eps):
+    """Check x, y [rows, h] and the [h] ``params`` for kernel ``name``,
+    launch it (C entry ``<name>_launch``) on x's current stream and return
+    (out, resid)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, x is on {dev}")
@@ -74,38 +95,56 @@ def fused_add_rms_norm_cuda(x, y, w, eps):
     if x.dim() != 2:
         raise ValueError(f"x must be [rows, h], got {tuple(x.shape)}")
     rows, h = x.shape
-    for name, t, shape in (("x", x, (rows, h)), ("y", y, (rows, h)),
-                           ("w", w, (h,))):
+    named = [("x", x, (rows, h)), ("y", y, (rows, h))]
+    named += [(n, t, (h,)) for n, t in params]
+    for n, t, shape in named:
         if t.device != dev or t.dtype != x.dtype:
-            raise ValueError(f"{name} must be {x.dtype} on {dev}, got "
+            raise ValueError(f"{n} must be {x.dtype} on {dev}, got "
                              f"{t.dtype} on {t.device}")
         if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {shape}, got "
+            raise ValueError(f"{n} must be contiguous {shape}, got "
                              f"{tuple(t.shape)}")
     if rows * h >= 2 ** 31:
         raise ValueError(f"{rows} x {h} exceeds the kernel's 32-bit indexing")
     out = torch.empty_like(x)
     resid = torch.empty_like(x)
-    err = _lib().fused_add_rms_norm_launch(
-        x.data_ptr(), y.data_ptr(), w.data_ptr(), out.data_ptr(),
-        resid.data_ptr(), rows, h, _DTYPE_CODE[x.dtype], float(eps),
-        torch.cuda.current_stream(dev).cuda_stream)
+    err = getattr(_lib(), name + "_launch")(
+        x.data_ptr(), y.data_ptr(), *(t.data_ptr() for _, t in params),
+        out.data_ptr(), resid.data_ptr(), rows, h, _DTYPE_CODE[x.dtype],
+        float(eps), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(
-            f"fused_add_rms_norm kernel launch failed: cudaError {err}")
-    fused_add_rms_norm_cuda.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return out, resid
 
 
-fused_add_rms_norm_cuda.launches = 0
+def fused_add_rms_norm_cuda(x, y, w, eps):
+    """The RMSNorm kernel on x, y [rows, h] and w [h] -> (out, resid)
+    [rows, h] in x's dtype."""
+    res = _launch("fused_add_rms_norm", x, y, [("w", w)], eps)
+    fused_add_rms_norm_cuda.launches += 1
+    return res
+
+
+def fused_add_layer_norm_cuda(x, y, w, b, eps):
+    """The LayerNorm kernel on x, y [rows, h], w and b [h] -> (out, resid)
+    [rows, h] in x's dtype."""
+    res = _launch("fused_add_layer_norm", x, y, [("w", w), ("b", b)], eps)
+    fused_add_layer_norm_cuda.launches += 1
+    return res
+
+
+_WRAPPERS = (fused_add_rms_norm_cuda, fused_add_layer_norm_cuda)
+for _w in _WRAPPERS:
+    _w.launches = 0
 
 
 def reset_launch_counts():
-    fused_add_rms_norm_cuda.launches = 0
+    for w in _WRAPPERS:
+        w.launches = 0
 
 
 def launch_counts():
-    return {"fused_add_rms_norm_cuda": fused_add_rms_norm_cuda.launches}
+    return {w.__name__: w.launches for w in _WRAPPERS}
 
 
 class FusedAddRMSNormFunction(torch.autograd.Function):
@@ -145,4 +184,49 @@ def fused_add_rms_norm(x, y, weight, epsilon=1e-6):
     out, r = FusedAddRMSNormFunction.apply(
         x.reshape(-1, h).contiguous(), y.reshape(-1, h).contiguous(),
         weight.reshape(h).contiguous(), float(epsilon))
+    return out.reshape(*lead, h), r.reshape(*lead, h)
+
+
+class FusedAddLayerNormFunction(torch.autograd.Function):
+    """The port of ``_fused_add_layer_norm``'s ``custom_vjp`` on [rows, h]:
+    saves the rounded residual and the weight; the backward
+    (``_ln_vjp_bwd``) recomputes the statistics from them in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, y, w, b, eps):
+        if x.device.type == "cpu":
+            out, r = fused_add_layer_norm_plain(x, y, w, b, eps)
+        else:
+            out, r = fused_add_layer_norm_cuda(x, y, w, b, eps)
+        ctx.save_for_backward(r, w)
+        ctx.eps = eps
+        return out, r
+
+    @staticmethod
+    def backward(ctx, d_out, d_r):
+        r, w = ctx.saved_tensors
+        rf = r.float()
+        xc = rf - rf.mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(xc.square().mean(dim=-1, keepdim=True) + ctx.eps)
+        xhat = xc * inv
+        dof = d_out.float()
+        g = dof * w.float()
+        dr = inv * (g - g.mean(dim=-1, keepdim=True)
+                    - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+        dr = dr + d_r.float()
+        dx = dr.to(r.dtype)
+        return (dx, dx, (dof * xhat).sum(dim=0).to(w.dtype),
+                dof.sum(dim=0).to(w.dtype), None)
+
+
+def fused_add_layer_norm(x, y, weight, bias, epsilon=1e-12):
+    """``(normed, resid) = LayerNorm(x + y)`` over the last axis of x, y
+    [..., h] with weight and bias [h] (the reference's
+    ``_fused_add_layer_norm_nd``)."""
+    h = x.shape[-1]
+    lead = x.shape[:-1]
+    out, r = FusedAddLayerNormFunction.apply(
+        x.reshape(-1, h).contiguous(), y.reshape(-1, h).contiguous(),
+        weight.reshape(h).contiguous(), bias.reshape(h).contiguous(),
+        float(epsilon))
     return out.reshape(*lead, h), r.reshape(*lead, h)

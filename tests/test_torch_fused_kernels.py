@@ -151,7 +151,8 @@ def test_fused_add_rms_norm_forward_and_grads_match_jax(dtype):
     out, res = RN.fused_add_rms_norm(*ts, epsilon=eps)
     ((out.float() * torch.from_numpy(r1)).sum()
      + (res.float() * torch.from_numpy(r2)).sum()).backward()
-    assert RN.launch_counts() == {"fused_add_rms_norm_cuda": 0}
+    assert RN.launch_counts() == {"fused_add_rms_norm_cuda": 0,
+                                  "fused_add_layer_norm_cuda": 0}
     # the residual is x + y rounded once: exact on both sides
     np.testing.assert_array_equal(res.detach().float().numpy(), _f32(jres))
     _close(out.detach().float().numpy(), _f32(jout), dtype)

@@ -23,6 +23,10 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.incubate.distributed\n"
             "import paddle_tpu_torch.incubate.distributed.models.moe\n"
             "import paddle_tpu_torch.nn.functional\n"
+            "import paddle_tpu_torch.nn.initializer\n"
+            "import paddle_tpu_torch.nn.layer.transformer\n"
+            "import paddle_tpu_torch.models.bert\n"
+            "import paddle_tpu_torch.incubate.nn.functional\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"
@@ -124,5 +128,43 @@ def test_moe_training_with_the_switches_stays_on_the_cpu(monkeypatch):
     losses = [float(step(ids, labels)) for _ in range(3)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     counts = {k: v for mod in mods for k, v in mod.launch_counts().items()}
-    assert len(counts) == 10 and not any(counts.values()), counts
+    assert len(counts) == 11 and not any(counts.values()), counts
     assert model.device == torch.device("cpu")
+
+
+def test_bert_training_with_the_fused_norm_stays_on_the_cpu(monkeypatch):
+    """BERT needs CUDA unless asked for the CPU; on ``device="cpu"`` with
+    ``PT_FUSED_NORM`` it trains through the plain versions (the fused add
+    + LayerNorm and the flash attention), and no CUDA wrapper launches."""
+    import numpy as np
+
+    from paddle_tpu_torch import incubate, optimizer
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         bert_tiny)
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    from paddle_tpu_torch.ops.cuda import moe_ffn as MF
+    from paddle_tpu_torch.ops.cuda import paged_attention as PA
+    from paddle_tpu_torch.ops.cuda import rms_norm as RN
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    monkeypatch.setenv("PT_FUSED_NORM", "1")
+    cfg = bert_tiny(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        BertForSequenceClassification(cfg)
+    model = BertForSequenceClassification(cfg, device="cpu")
+    step = incubate.fused_train_step(
+        model, optimizer.AdamW(learning_rate=1e-3,
+                               parameters=model.parameters()),
+        loss_fn=lambda out: out[0])
+    rng = np.random.RandomState(2)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (4, 32)))
+    labels = torch.from_numpy(rng.randint(0, cfg.num_labels, 4))
+    mods = (FA, MF, RN, PA)
+    for mod in mods:
+        mod.reset_launch_counts()
+    losses = [float(step(ids, labels=labels)) for _ in range(3)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    counts = {k: v for mod in mods for k, v in mod.launch_counts().items()}
+    assert len(counts) == 11 and not any(counts.values()), counts
+    assert next(model.parameters()).device == torch.device("cpu")
