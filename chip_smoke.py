@@ -8,7 +8,8 @@ Phases, one printed line per result:
 
 1. card: name and power limit (``nvidia-smi``); builds every CUDA source
    of the port with ``nvcc`` (one process per source, all at once) and
-   prints the build time and each source's registers and spills;
+   prints the build time, each source's registers and spills, and each
+   tensor-core kernel's registers, spills and dynamic shared memory;
 2. kernels against their plain PyTorch versions: the paged-attention
    kernels at the serving path's shapes (llama_1b MHA and a GQA case;
    bf16, fp32 and int8 pools; decode and multi-query with T in {1, 16,
@@ -19,12 +20,14 @@ Phases, one printed line per result:
    and 128, non-causal, at BERT-base's shape (B 128, H 12, S 128, D 64,
    bf16, non-causal), at a ragged S = 1000, and GQA 32/8 through the
    autograd Function; the MoE expert FFN at the Llama-MoE shape (E 8,
-   C 5120, h 768, I 2048) in bf16 and fp32 and at ragged small shapes; the
+   C 5120, h 768, I 2048) in bf16 and fp32 and at ragged small shapes in
+   both dtypes (bf16: the tensor-core body, fp32: the CUDA-core body); the
    fused add + RMSNorm and the fused add + LayerNorm at 16384 x 768 in bf16
    and fp32 and at ragged shapes (the residual bit for bit);
 3. times (CUDA events, median after warm-up) of each kernel, its plain
    version and the PyTorch library call computing the same function,
-   beside the least time the card could take;
+   beside the least time the card could take, with the achieved TFLOP/s
+   (and, for the MoE kernel, the bytes its design reads through L2);
 4. serving end to end: ``LLMEngine`` serves llama_1b (bf16, random weights
    from a seed) to 8 greedy requests; the paged kernels' launch counts
    over that run must equal layers x decode steps and layers x prefill
@@ -352,6 +355,8 @@ def phase_times(gen):
     (T=2048 bucket rows, 1536 real, q_start 0)."""
     import numpy as np
 
+    from paddle_tpu_torch.ops.cuda import paged_attention as K
+
     rng = np.random.RandomState(SEED + 1)
     H = Hkv = 16
     D, bs, P = 128, 16, 128
@@ -381,7 +386,8 @@ def phase_times(gen):
         plain_ms=time_ms(lambda: mq_plain(mc)),
         library_ms=time_ms(library_call(mc)), bytes=byt, ops=ops,
         library="sdpa on gathered K/V",
-        shape=f"B=1 T={T} (real {real}) q_start=0 H={H} D={D} bf16")
+        shape=f"B=1 T={T} (real {real}) q_start=0 H={H} D={D} bf16",
+        note=f"{K.multiquery_route(mc.q.dtype, mc.k.dtype, T, D)} body")
     return report_times(out)
 
 
@@ -398,7 +404,9 @@ def report_times(out):
         say(f"time {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib} "
             f"({r['library']}), bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}; {r['bytes']} B, {r['ops']} ops)")
+            f"({r['bound_by']}; {r['bytes']} B, {r['ops']} ops); achieved "
+            f"{r['ops'] / r['ms'] / 1e9:.1f} TFLOP/s"
+            + (f"; {r['note']}" if r.get("note") else ""))
     return out
 
 
@@ -685,6 +693,10 @@ def phase_fused_kernels(gen):
                                    ((2, 20, 128, 384), "float32",
                                     "ragged C"),
                                    ((3, 20, 128, 100), "float32",
+                                    "ragged C and I"),
+                                   ((2, 20, 128, 384), "bfloat16",
+                                    "ragged C"),
+                                   ((3, 20, 128, 100), "bfloat16",
                                     "ragged C and I")):
         x, ws = moe_inputs(gen, e, c, h, i, getattr(torch, dt))
         got = MF.moe_ffn_cuda(x, *ws)
@@ -736,6 +748,16 @@ def phase_fused_kernels(gen):
     return worst
 
 
+def moe_l2_bytes(e, c, h, i):
+    """(all, weights): bytes the MoE kernel's bf16 body reads through L2 in
+    one call. Each cluster (64 tokens, 768 output columns) reads its
+    expert's three bf16 weights once and its x tile once per 128-column I
+    tile (csrc/moe_ffn.cu)."""
+    clusters = e * -(-c // 64) * -(-h // 768)
+    weights = clusters * 3 * h * i * 2
+    return weights + clusters * 2 * -(-i // 128) * 64 * h * 2, weights
+
+
 def phase_fused_times(gen):
     """Phase 3c, at the Llama-MoE and BERT-base training shapes in bf16.
     Library: the expert FFN's composition in three ``torch.bmm`` calls (the
@@ -758,7 +780,9 @@ def phase_fused_times(gen):
         plain_ms=time_ms(lambda: MF.moe_ffn_plain(x, gw, uw, dw)),
         library_ms=time_ms(moe_library), library="3 x torch.bmm",
         bytes=2 * (2 * e * c * h + 3 * e * h * i), ops=3 * 2 * e * c * h * i,
-        shape=f"E={e} C={c} h={h} I={i} bf16")}
+        shape=f"E={e} C={c} h={h} I={i} bf16",
+        note=f"{MF.moe_ffn_route(x.dtype)} body, L2 reads %d B of which "
+             "weights %d B" % moe_l2_bytes(e, c, h, i))}
     del x, gw, uw, dw
     rows, h = RMS_SHAPE
     x, y, w = rms_inputs(gen, rows, h, torch.bfloat16)
@@ -1428,6 +1452,32 @@ def phase_bert_card_vs_cpu():
     check(dh <= TRAIN_PARAM_ATOL, "card and CPU masked BERT forward agree")
 
 
+def tensor_core_ptxas(built):
+    """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
+    ``tcr`` namespace of moe_ffn.cu and paged_attention.cu), and their
+    dynamic shared memory from the sources' size functions."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import moe_ffn as MF
+    from paddle_tpu_torch.ops.cuda import paged_attention as K
+
+    for stem in ("moe_ffn", "paged_attention"):
+        for entry in built[stem][1].split("Compiling entry function '")[1:]:
+            name = entry.split("'")[0]
+            if "tcr" not in name:
+                continue
+            regs = entry.split("Used ")[1].split()[0]
+            spill = next(ln.strip() for ln in entry.splitlines()
+                         if "spill stores" in ln)
+            say(f"  ptxas {name}: {regs} registers, {spill}")
+    tc = ", ".join(f"D={d} {kv}: {K.multiquery_tc_smem_bytes(d, kv)} B"
+                   for d in K.TC_HEAD_DIMS
+                   for kv in (torch.bfloat16, torch.int8))
+    say(f"  dynamic shared memory: moe_ffn_bf16_kernel "
+        f"{MF._lib().moe_ffn_smem_bytes(768, 1)} B; "
+        f"paged_multiquery_tc_kernel {tc}")
+
+
 def main():
     import torch
 
@@ -1452,6 +1502,7 @@ def main():
         say(f"  ptxas {stem}: {len(regs)} kernels, registers "
             f"{min(regs, default=0)}-{max(regs, default=0)}, "
             f"{spills} with spills")
+    tensor_core_ptxas(built)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = phase_kernels(gen)
     worst.update(phase_flash_kernels(gen))

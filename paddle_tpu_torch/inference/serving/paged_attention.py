@@ -94,8 +94,10 @@ def paged_multiquery_attention(q, k_pool, v_pool, block_tables, context_lens,
     q [B, T, H, D] at positions ``q_start[b] + t``; context_lens [B] int32
     counts visible tokens INCLUDING the last real query row. Rows past
     ``context_lens - q_start`` are padding: their output is unspecified
-    (the kernel gives 0, the plain version a uniform average) and callers
-    ignore it. Returns [B, T, H, D] in q's dtype."""
+    and callers ignore it (the plain version gives an attention over the
+    whole context; the kernel's CUDA-core body 0; its tensor-core body 0
+    in a tile of 64 query rows made only of padding, else the attention
+    over the whole context). Returns [B, T, H, D] in q's dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:

@@ -106,8 +106,8 @@ class BertEmbeddings(nn.Module):
 class BertPooler(nn.Module):
     def __init__(self, c: BertConfig, *, device=None, dtype=None):
         super().__init__()
-        self.dense = Linear(c.hidden_size, c.hidden_size, bias=True,
-                            device=device, dtype=dtype)
+        self.dense = Linear(c.hidden_size, c.hidden_size, device=device,
+                            dtype=dtype)
 
     def forward(self, hidden):
         return F.tanh(self.dense(hidden[:, 0]))
@@ -160,7 +160,7 @@ class BertForSequenceClassification(nn.Module):
         self.bert = BertModel(config, device=dev, dtype=dtype, seed=seed)
         self.dropout = Dropout(config.hidden_dropout_prob)
         self.classifier = Linear(config.hidden_size, config.num_labels,
-                                 bias=True, device=dev, dtype=dtype)
+                                 device=dev, dtype=dtype)
         _init_weights(self.classifier, config.initializer_range, seed + 1)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
@@ -182,8 +182,8 @@ class BertForMaskedLM(nn.Module):
         c = config
         dev = resolve_device(device)
         self.bert = BertModel(c, device=dev, dtype=dtype, seed=seed)
-        self.transform = Linear(c.hidden_size, c.hidden_size, bias=True,
-                                device=dev, dtype=dtype)
+        self.transform = Linear(c.hidden_size, c.hidden_size, device=dev,
+                                dtype=dtype)
         self.transform_norm = LayerNorm(c.hidden_size, c.layer_norm_eps,
                                         device=dev, dtype=dtype)
         self.vocab_size = c.vocab_size

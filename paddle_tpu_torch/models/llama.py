@@ -147,7 +147,7 @@ class LlamaAttention(nn.Module):
         self.num_heads = c.num_attention_heads
         self.num_kv_heads = c.num_key_value_heads
         self.head_dim = c.head_dim
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(bias_attr=False, device=device, dtype=dtype)
         self.q_proj = Linear(c.hidden_size, self.num_heads * self.head_dim,
                              **kw)
         self.k_proj = Linear(c.hidden_size,
@@ -191,7 +191,7 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(bias_attr=False, device=device, dtype=dtype)
         self.gate_proj = Linear(config.hidden_size, config.intermediate_size,
                                 **kw)
         self.up_proj = Linear(config.hidden_size, config.intermediate_size,
@@ -240,7 +240,8 @@ class LlamaMoE(nn.Module):
         self.capacity_factor = c.moe_capacity_factor
         self.l_aux = None
         kw = dict(device=device, dtype=dtype)
-        self.router = Linear(c.hidden_size, c.num_experts, **kw)
+        self.router = Linear(c.hidden_size, c.num_experts, bias_attr=False,
+                             **kw)
         e, h, i = c.num_experts, c.hidden_size, c.intermediate_size
         self.gate_w = nn.Parameter(torch.empty(e, h, i, **kw))
         self.up_w = nn.Parameter(torch.empty(e, h, i, **kw))
@@ -328,7 +329,7 @@ class LlamaForCausalLM(nn.Module):
         self.llama = LlamaModel(config, **kw)
         self.lm_head = (None if config.tie_word_embeddings
                         else Linear(config.hidden_size, config.vocab_size,
-                                    **kw))
+                                    bias_attr=False, **kw))
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         with torch.no_grad():
             for mod in self.modules():

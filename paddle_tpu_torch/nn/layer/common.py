@@ -9,27 +9,48 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...core.device import resolve_device
 from ..functional.common import dropout, linear
+from ..initializer import Constant, XavierUniform
 
 __all__ = ["Dropout", "Embedding", "Linear"]
 
 
-class Linear(nn.Module):
-    """``y = x @ weight (+ bias)`` with ``weight`` [in, out]. Without
-    ``bias`` (the llama projections) there is no ``bias`` parameter; with
-    it (BERT) the bias [out] starts at zero. The weight is allocated
-    uninitialised; the owning model initialises it."""
+def _param_init(attr, default, what):
+    """The initializer of a ``weight_attr``/``bias_attr``: None takes the
+    reference's default, an initializer (a callable filling a tensor in
+    place) is used as given."""
+    if attr is None:
+        return default
+    if callable(attr):
+        return attr
+    raise TypeError(f"{what} must be None, False or an initializer, got "
+                    f"{attr!r}")
 
-    def __init__(self, in_features, out_features, *, bias=False,
-                 device=None, dtype=None):
+
+class Linear(nn.Module):
+    """``y = x @ weight + bias`` with ``weight`` [in, out] and ``bias``
+    [out], as the reference's ``Linear``: the weight from ``weight_attr``
+    (default XavierUniform), the bias from ``bias_attr`` (default zeros;
+    ``bias_attr=False`` leaves no ``bias`` parameter, as llama's
+    projections). Built on ``device`` (default ``cuda``, raising without
+    it)."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None):
         super().__init__()
+        dev = resolve_device(device)
         self.in_features = int(in_features)
         self.out_features = int(out_features)
         self.weight = nn.Parameter(torch.empty(
-            in_features, out_features, device=device, dtype=dtype))
-        self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
-                                              dtype=dtype))
-                     if bias else None)
+            in_features, out_features, device=dev, dtype=dtype))
+        _param_init(weight_attr, XavierUniform(), "weight_attr")(self.weight)
+        if bias_attr is False:
+            self.bias = None
+        else:
+            self.bias = nn.Parameter(torch.empty(out_features, device=dev,
+                                                 dtype=dtype))
+            _param_init(bias_attr, Constant(0.0), "bias_attr")(self.bias)
 
     def forward(self, x):
         return linear(x, self.weight, self.bias)
@@ -41,16 +62,41 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Lookup table ``weight`` [num_embeddings, embedding_dim]."""
+    """Lookup table ``weight`` [num_embeddings, embedding_dim] from
+    ``weight_attr`` (default XavierUniform, the reference's). With
+    ``padding_idx`` (negative counts from the end) that row starts at zero
+    and looking it up gives zeros, as the reference's ``embedding``.
+    ``sparse=True`` (row-sparse gradients) is not ported and raises."""
 
-    def __init__(self, num_embeddings, embedding_dim, *, device=None,
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *, device=None,
                  dtype=None):
         super().__init__()
+        if sparse:
+            raise NotImplementedError(
+                "Embedding(sparse=True): row-sparse gradients are not "
+                "ported; use sparse=False")
+        dev = resolve_device(device)
+        self.num_embeddings = int(num_embeddings)
+        self.embedding_dim = int(embedding_dim)
+        self.padding_idx = (None if padding_idx is None
+                            else padding_idx if padding_idx >= 0
+                            else num_embeddings + padding_idx)
         self.weight = nn.Parameter(torch.empty(
-            num_embeddings, embedding_dim, device=device, dtype=dtype))
+            num_embeddings, embedding_dim, device=dev, dtype=dtype))
+        _param_init(weight_attr, XavierUniform(), "weight_attr")(self.weight)
+        if self.padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self.padding_idx] = 0
 
     def forward(self, ids):
-        return torch.nn.functional.embedding(ids, self.weight)
+        out = torch.nn.functional.embedding(ids, self.weight)
+        if self.padding_idx is not None:
+            out = out.masked_fill((ids == self.padding_idx)[..., None], 0)
+        return out
+
+    def extra_repr(self):
+        return f"{self.num_embeddings}, {self.embedding_dim}"
 
 
 class Dropout(nn.Module):

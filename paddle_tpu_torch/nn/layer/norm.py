@@ -1,10 +1,12 @@
-"""Normalisation layers (counterpart of ``paddle_tpu/nn/layer/norm.py``)."""
+"""Normalisation layers (counterpart of ``paddle_tpu/nn/layer/norm.py``),
+built on ``device`` (default ``cuda``, raising without it)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ...core.device import resolve_device
 from ..functional.norm import layer_norm, rms_norm
 
 __all__ = ["LayerNorm", "RMSNorm"]
@@ -18,7 +20,8 @@ class RMSNorm(nn.Module):
         super().__init__()
         self._epsilon = float(epsilon)
         self.weight = nn.Parameter(
-            torch.ones(hidden_size, device=device, dtype=dtype))
+            torch.ones(hidden_size, device=resolve_device(device),
+                       dtype=dtype))
 
     def forward(self, x):
         return rms_norm(x, self.weight, self._epsilon)
@@ -35,10 +38,11 @@ class LayerNorm(nn.Module):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = float(epsilon)
+        dev = resolve_device(device)
         self.weight = nn.Parameter(torch.ones(
-            self._normalized_shape, device=device, dtype=dtype))
+            self._normalized_shape, device=dev, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(
-            self._normalized_shape, device=device, dtype=dtype))
+            self._normalized_shape, device=dev, dtype=dtype))
 
     def forward(self, x):
         return layer_norm(x, self._normalized_shape, self.weight, self.bias,

@@ -16,8 +16,9 @@ LayerNorm kernel under ``PT_FUSED_NORM=1`` when d_model is a multiple of
 the encoder's final norm, ``TransformerDecoder`` and ``Transformer`` are
 not ported yet (ROADMAP Queue 1).
 
-Weights are allocated uninitialised (biases at zero, norms at one and
-zero); the owning model draws them.
+Weights start at the reference's defaults (XavierUniform, biases at zero,
+norms at one and zero); BERT draws its own. The layers are built on
+``device`` (default ``cuda``, raising without it).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import copy
 
 from torch import nn
 
+from ...core.device import resolve_device
 from .. import functional as F
 from ...ops.cuda.rms_norm import fused_add_layer_norm, use_fused_rms_norm
 from .common import Dropout, Linear
@@ -50,7 +52,7 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
         self.dropout = dropout
-        kw = dict(bias=True, device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
         self.k_proj = Linear(embed_dim, embed_dim, **kw)
         self.v_proj = Linear(embed_dim, embed_dim, **kw)
@@ -90,12 +92,12 @@ class TransformerEncoderLayer(nn.Module):
         super().__init__()
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
                                             **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, bias=True, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, **kw)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, bias=True, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, **kw)
         self.norm1 = LayerNorm(d_model, layer_norm_eps, **kw)
         self.norm2 = LayerNorm(d_model, layer_norm_eps, **kw)
         self.dropout1 = Dropout(dropout)

@@ -6,8 +6,9 @@ C interface, into ``paddle_tpu_torch/csrc/build/<stem>-<hash>.so``::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <lib> <source>
 
-The hash covers the source text and the flags, so an edited source
-rebuilds and an unchanged one is reused. All sources that need a build are
+The hash covers the source text, every ``csrc/*.cuh`` header and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. All sources that need a build are
 compiled at once, one ``nvcc`` process each. ``nvcc`` comes from the CUDA
 toolkit that PyTorch finds (``CUDA_HOME``) or from ``PATH``. Nothing here
 runs at import time: the first :func:`load` builds.
@@ -51,8 +52,16 @@ def _nvcc():
 
 
 def _lib_path(source):
-    with open(source, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``source``: named by a hash of its text, of every
+    header (``*.cuh``) beside it, which any source may include, and of the
+    flags."""
+    src_dir = os.path.dirname(os.path.abspath(source))
+    headers = sorted(f for f in os.listdir(src_dir) if f.endswith(".cuh"))
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [source] + [os.path.join(src_dir, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + f.read())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:12]}.so")
 

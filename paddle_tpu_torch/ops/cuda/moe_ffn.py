@@ -16,6 +16,13 @@ kernel. :func:`use_fused_moe_ffn` (``PT_FUSED_MOE=1``, read at call time,
 default off) and :func:`moe_ffn_shapes_ok` (h and I multiples of 128) are
 the reference's routing rule, ported as they stand. The CUDA wrapper
 counts its launches in ``moe_ffn_cuda.launches``.
+
+The kernel has two bodies, chosen by x's dtype alone (:func:`moe_ffn_route`,
+never on a failure): bf16 takes the tensor-core body (``mma.sync`` with the
+fp32 ``act`` split into bf16 hi + lo for the down projection; a cluster of
+two blocks per 64 tokens), fp32 the CUDA-core body of the first port, whose
+fp32 products the card-vs-CPU checks at 1e-5 rely on. Both count in
+``moe_ffn_cuda.launches``.
 """
 
 from __future__ import annotations
@@ -28,10 +35,12 @@ import torch
 from ._build import load
 
 __all__ = ["moe_expert_ffn", "MoEExpertFFNFunction", "moe_ffn_plain",
-           "moe_ffn_cuda", "use_fused_moe_ffn", "moe_ffn_shapes_ok",
-           "reset_launch_counts", "launch_counts"]
+           "moe_ffn_cuda", "moe_ffn_route", "use_fused_moe_ffn",
+           "moe_ffn_shapes_ok", "reset_launch_counts", "launch_counts"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry's body codes: 0 the fp32 CUDA-core body, 1 the bf16 tensor-core
+_ROUTE_CODE = {"cuda_core": 0, "tensor_core": 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -55,12 +64,22 @@ def moe_ffn_plain(x, gate_w, up_w, down_w):
     return torch.bmm(act, down_w.float()).to(x.dtype)
 
 
+def moe_ffn_route(dtype):
+    """The kernel body x's dtype takes: ``"tensor_core"`` for bf16,
+    ``"cuda_core"`` for fp32."""
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise TypeError(f"dtype {dtype}: the kernel takes float32 and bfloat16")
+
+
 def _lib():
     lib = load("moe_ffn")
     if not getattr(lib, "_moe_typed", False):
         lib.moe_ffn_launch.argtypes = [_P] * 5 + [_I] * 5 + [_P]
         lib.moe_ffn_launch.restype = _I
-        lib.moe_ffn_smem_bytes.argtypes = [_I]
+        lib.moe_ffn_smem_bytes.argtypes = [_I, _I]
         lib.moe_ffn_smem_bytes.restype = ctypes.c_long
         lib._moe_typed = True
     return lib
@@ -92,6 +111,8 @@ def _check(x, gate_w, up_w, down_w):
             raise ValueError(f"{name} {tuple(t.shape)} != {want[name]}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     if e > 65535 or max(e * c * h, e * h * i) >= 2 ** 31:
         raise ValueError(f"shape {(e, c, h, i)} exceeds the kernel's "
                          "32-bit indexing")
@@ -100,17 +121,17 @@ def _check(x, gate_w, up_w, down_w):
 
 def moe_ffn_cuda(x, gate_w, up_w, down_w):
     """The kernel: x [E, C, h], gate_w/up_w [E, h, I], down_w [E, I, h]
-    -> [E, C, h] in x's dtype."""
+    -> [E, C, h] in x's dtype, by the body :func:`moe_ffn_route` names."""
     e, c, h, i = _check(x, gate_w, up_w, down_w)
     lib = _lib()
-    smem = lib.moe_ffn_smem_bytes(h)
+    smem = lib.moe_ffn_smem_bytes(h, _DTYPE_CODE[x.dtype])
     if smem > MAX_SMEM:
         raise ValueError(f"hidden {h} needs {smem} bytes of shared memory "
                          f"per block, more than {MAX_SMEM}")
     out = torch.empty_like(x)
     err = lib.moe_ffn_launch(
         x.data_ptr(), gate_w.data_ptr(), up_w.data_ptr(), down_w.data_ptr(),
-        out.data_ptr(), e, c, h, i, _DTYPE_CODE[x.dtype],
+        out.data_ptr(), e, c, h, i, _ROUTE_CODE[moe_ffn_route(x.dtype)],
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"moe_ffn kernel launch failed: cudaError {err}")

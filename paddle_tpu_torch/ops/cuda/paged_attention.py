@@ -6,8 +6,15 @@
 * :func:`paged_multiquery_attention_cuda` replaces ``_mq_kernel``
   (``pallas_call`` at :278).
 
-Both are bound by the K/V bytes they stream on an H100 (3.35 TB/s): each
-block reads every visible K/V row of its (request, kv head) once. Each
+The decode kernel is bound by the K/V bytes it streams on an H100 (3.35
+TB/s): each block reads every visible K/V row of its (request, kv head)
+once; a long prefill chunk is bound by operations. The multi-query wrapper
+takes one of two bodies, chosen by :func:`multiquery_route` from q's and
+the pool's dtypes, T and head_dim alone (never on a failure): bf16 q over
+a bf16 or int8 pool with T > 1 and head_dim in ``TC_HEAD_DIMS`` takes the
+tensor-core body (``mma.sync``, P split into bf16 hi + lo); every other
+call, T = 1 included, the decode kernel's CUDA-core body. Both count in
+``paged_multiquery_attention_cuda.launches``. Each
 wrapper checks device, dtype, contiguity, alignment and shapes and raises
 on anything the kernel does not take, allocates the output with
 ``torch.empty``, launches on the current stream and raises if the launch
@@ -23,11 +30,15 @@ import torch
 from ._build import load
 
 __all__ = ["paged_decode_attention_cuda", "paged_multiquery_attention_cuda",
-           "reset_launch_counts", "launch_counts", "MAX_ROWS"]
+           "multiquery_route", "multiquery_tc_smem_bytes",
+           "reset_launch_counts", "launch_counts", "MAX_ROWS",
+           "TC_HEAD_DIMS"]
 
 #: query rows (query tile x GQA group) one block holds; at head_dim 256
 #: that is 206 KB of shared memory, inside Hopper's 227 KB per block
 MAX_ROWS = 64
+#: head dims the multi-query tensor-core body is built for
+TC_HEAD_DIMS = (32, 64, 128)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P = ctypes.c_void_p
@@ -41,8 +52,10 @@ def _lib():
             [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P])
         lib.paged_decode_attention_launch.restype = _I
         lib.paged_multiquery_attention_launch.argtypes = (
-            [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P])
+            [_P] * 9 + [_I] * 11 + [ctypes.c_float, _P])
         lib.paged_multiquery_attention_launch.restype = _I
+        lib.paged_multiquery_tc_smem_bytes.argtypes = [_I, _I]
+        lib.paged_multiquery_tc_smem_bytes.restype = ctypes.c_long
         lib._pa_typed = True
     return lib
 
@@ -133,6 +146,22 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables,
     return out
 
 
+def multiquery_route(q_dtype, kv_dtype, t, head_dim):
+    """The multi-query body a call takes: ``"tensor_core"`` for bf16 q
+    over a bf16 or int8 pool with ``t`` > 1 query rows and ``head_dim`` in
+    ``TC_HEAD_DIMS``, else ``"cuda_core"`` (the decode kernel's body)."""
+    if (q_dtype == torch.bfloat16 and t > 1 and head_dim in TC_HEAD_DIMS
+            and kv_dtype in (torch.bfloat16, torch.int8)):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def multiquery_tc_smem_bytes(head_dim, kv_dtype):
+    """Dynamic shared memory of one block of the tensor-core body."""
+    return _lib().paged_multiquery_tc_smem_bytes(head_dim,
+                                                  _DTYPE_CODE[kv_dtype])
+
+
 def _query_tile(t, groups):
     return max(1, min(t, MAX_ROWS // groups))
 
@@ -142,7 +171,10 @@ def paged_multiquery_attention_cuda(q, k_pool, v_pool, block_tables,
                                     k_scale=None, v_scale=None):
     """q [B, T, H, D] at positions ``q_start[b] + t`` (q_start [B]
     int32); the rest as :func:`paged_decode_attention_cuda`. Returns
-    [B, T, H, D]; rows that see no token are 0."""
+    [B, T, H, D]; rows that see no token are 0. Padding rows (past
+    ``context_lens - q_start``) are unspecified: the CUDA-core body gives
+    0, the tensor-core body 0 in a tile of 64 rows that holds only padding
+    and an attention over the whole context otherwise."""
     b, h, hkv, d, bs, p = _common(q, k_pool, v_pool, block_tables,
                                   context_lens, k_scale, v_scale, 4)
     _check("q_start", q_start, (torch.int32,), 1, q.device)
@@ -150,12 +182,14 @@ def paged_multiquery_attention_cuda(q, k_pool, v_pool, block_tables,
         raise ValueError("q_start batch must match q")
     t = q.shape[1]
     tq = _query_tile(t, h // hkv)
+    tensor_core = multiquery_route(q.dtype, k_pool.dtype, t,
+                                   d) == "tensor_core"
     out = torch.empty_like(q)
     err = _lib().paged_multiquery_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), block_tables.data_ptr(), context_lens.data_ptr(),
         q_start.data_ptr(), out.data_ptr(), b, t, h, hkv, d, bs, p, tq,
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], float(scale),
+        int(tensor_core), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_multiquery_attention")
     paged_multiquery_attention_cuda.launches += 1

@@ -129,15 +129,95 @@ def test_biased_linear_matches_jax():
     b = rng.randn(24).astype(np.float32)
     want = JF.linear(paddle.to_tensor(x), paddle.to_tensor(w),
                      paddle.to_tensor(b))
-    lin = Linear(48, 24, bias=True)
+    lin = Linear(48, 24, device="cpu")
     assert torch.equal(lin.bias, torch.zeros(24))
     with torch.no_grad():
         lin.weight.copy_(torch.from_numpy(w))
         lin.bias.copy_(torch.from_numpy(b))
     np.testing.assert_allclose(lin(torch.from_numpy(x)).detach().numpy(),
                                _np(want), rtol=0, atol=OUT_ATOL)
-    assert Linear(48, 24).bias is None
-    assert sorted(Linear(48, 24).state_dict()) == ["weight"]
+    # the reference's default: a bias unless bias_attr=False
+    assert Linear(48, 24, bias_attr=False, device="cpu").bias is None
+    assert sorted(Linear(48, 24, bias_attr=False,
+                         device="cpu").state_dict()) == ["weight"]
+    assert sorted(Linear(48, 24, device="cpu").state_dict()) == [
+        "bias", "weight"]
+
+
+def test_default_linear_is_the_reference_layer():
+    """The Queue 3 fault's test: ``Linear(4, 8)`` has the reference's
+    parameter names and shapes, a zero bias and XavierUniform weights
+    (inside sqrt(6 / (in + out)), spread over that range)."""
+    paddle.seed(0)
+    jl = paddle.nn.Linear(4, 8)
+    torch.manual_seed(0)
+    tl = Linear(4, 8, device="cpu")
+    want = {k: tuple(v.shape) for k, v in jl.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in tl.state_dict().items()}
+    assert got == want == {"weight": (4, 8), "bias": (8,)}
+    assert torch.equal(tl.bias, torch.zeros(8))
+    limit = (6.0 / (4 + 8)) ** 0.5
+    w = tl.weight.detach()
+    assert float(w.abs().max()) <= limit
+    assert float(w.abs().max()) > 0.5 * limit and float(w.std()) > 0.2
+    assert float(np.abs(_np(jl.weight)).max()) <= limit
+
+
+def test_linear_initialisers_follow_the_attrs():
+    from paddle_tpu_torch.nn.initializer import Constant, Normal
+
+    lin = Linear(64, 32, weight_attr=Constant(0.5), bias_attr=Normal(0, 1),
+                 device="cpu")
+    assert torch.equal(lin.weight, torch.full((64, 32), 0.5))
+    assert float(lin.bias.detach().abs().sum()) > 0
+    with pytest.raises(TypeError, match="weight_attr"):
+        Linear(4, 8, weight_attr="w", device="cpu")
+
+
+def test_layers_without_device_need_cuda():
+    """The device rule: a bare layer defaults to ``cuda``; without CUDA it
+    raises rather than building on the CPU."""
+    from paddle_tpu_torch.nn import (Embedding, LayerNorm,
+                                     MultiHeadAttention, RMSNorm,
+                                     TransformerEncoderLayer)
+
+    builds = [lambda: Linear(4, 8), lambda: Embedding(10, 4),
+              lambda: RMSNorm(8), lambda: LayerNorm(8),
+              lambda: MultiHeadAttention(8, 2),
+              lambda: TransformerEncoderLayer(8, 2, 16)]
+    for build in builds:
+        if torch.cuda.is_available():
+            assert all(p.device.type == "cuda"
+                       for p in build().parameters())
+        else:
+            with pytest.raises(RuntimeError, match="cuda"):
+                build()
+
+
+def test_embedding_padding_idx_matches_jax():
+    """``padding_idx`` (here negative, counted from the end) zeroes its row
+    and its lookups, as the reference's ``Embedding``; ``sparse=True`` is
+    refused."""
+    from paddle_tpu_torch.nn import Embedding
+
+    paddle.seed(1)
+    je = paddle.nn.Embedding(10, 6, padding_idx=-1)
+    te = Embedding(10, 6, padding_idx=-1, device="cpu")
+    assert te.padding_idx == 9
+    assert torch.equal(te.weight[9], torch.zeros(6))
+    limit = (6.0 / (10 + 6)) ** 0.5
+    assert float(te.weight.detach().abs().max()) <= limit
+    w = np.random.RandomState(2).randn(10, 6).astype(np.float32)
+    je.weight.set_value(w)
+    with torch.no_grad():
+        te.weight.copy_(torch.from_numpy(w))
+    ids = np.array([[0, 9, 3], [9, 9, 1]])
+    want = _np(je(paddle.to_tensor(ids)))
+    got = te(torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.detach().numpy(), want)
+    assert not got[0, 1].any()
+    with pytest.raises(NotImplementedError, match="sparse"):
+        Embedding(10, 6, sparse=True, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["float", "bool", "float_gqa"])

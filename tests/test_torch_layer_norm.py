@@ -203,7 +203,7 @@ def test_layer_norm_layer_matches_jax_and_keeps_its_names():
     x = rng.randn(2, 5, 64).astype(np.float32)
     paddle.seed(0)
     jl = paddle.nn.LayerNorm(64, 1e-12)
-    tl = LayerNorm(64, 1e-12)
+    tl = LayerNorm(64, 1e-12, device="cpu")
     assert sorted(tl.state_dict()) == sorted(jl.state_dict()) == [
         "bias", "weight"]
     assert torch.equal(tl.weight, torch.ones(64))

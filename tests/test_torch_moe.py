@@ -244,3 +244,78 @@ def test_three_fused_adamw_steps_match_jax(monkeypatch):
     for k in want_p:
         np.testing.assert_allclose(got_p[k], want_p[k], rtol=0,
                                    atol=STATE_ATOL, err_msg=k)
+
+
+# -- the bf16 tensor-core design of the MoE kernel, emulated on the CPU -----
+
+# chip_smoke.py's kernel tolerance: |got - want| <= ATOL + RTOL * |want|
+CHIP_ATOL, CHIP_RTOL = 1e-4, 2.0 ** -8
+
+
+def _bf16_expert(seed, c, h, i):
+    """x [1, C, h] ~ N(0, 1) and Wg, Wu [1, h, I], Wd [1, I, h] ~ N(0, 0.02)
+    from a numpy seed, rounded to bf16 (as chip_smoke.py draws them)."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(1, c, h).astype(np.float32))
+    ws = [torch.from_numpy((rng.randn(1, *sh) * 0.02).astype(np.float32))
+          for sh in ((h, i), (h, i), (i, h))]
+    return x.bfloat16(), [w.bfloat16() for w in ws]
+
+
+def _tensor_core_ffn(x, gw, uw, dw, split=True):
+    """The bf16 body's arithmetic: g and u from exact bf16 products summed
+    in fp32, act in fp32, then act split into bf16 hi + lo (or rounded to
+    bf16 alone) and hi Wd + lo Wd summed in fp32, rounded to bf16."""
+    g = torch.bmm(x.float(), gw.float())
+    u = torch.bmm(x.float(), uw.float())
+    act = g / (1.0 + torch.exp(-g)) * u
+    hi = act.bfloat16().float()
+    out = torch.bmm(hi, dw.float())
+    if split:
+        out = out + torch.bmm((act - hi).bfloat16().float(), dw.float())
+    return out.bfloat16()
+
+
+def _chip_excess(got, want):
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() - CHIP_ATOL - CHIP_RTOL
+                  * want.abs()).max())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tensor_core_down_split_keeps_the_chip_tolerance(seed):
+    """At the Llama-MoE widths (h 768, I 2048), a few tokens of one expert:
+    the split down projection stays inside chip_smoke.py's tolerance
+    against the fp32 plain version; act rounded to bf16 alone does not."""
+    x, (gw, uw, dw) = _bf16_expert(seed, 12, 768, 2048)
+    want = MF.moe_ffn_plain(x.float(), gw.float(), uw.float(), dw.float())
+    got = _tensor_core_ffn(x, gw, uw, dw)
+    assert got.dtype == torch.bfloat16
+    assert _chip_excess(got, want) <= 0
+    assert _chip_excess(_tensor_core_ffn(x, gw, uw, dw, split=False),
+                        want) > 0
+
+
+def test_split_is_act_to_about_2_to_the_minus_16():
+    rng = np.random.RandomState(3)
+    act = torch.from_numpy((rng.randn(4096) * 10.0 ** rng.uniform(
+        -3, 2, 4096)).astype(np.float32))
+    hi = act.bfloat16().float()
+    lo = (act - hi).bfloat16().float()
+    rel = ((hi + lo - act).abs() / act.abs()).max()
+    assert float(rel) <= 2.0 ** -16
+    assert float(((hi - act).abs() / act.abs()).max()) > 2.0 ** -10
+
+
+def test_moe_ffn_route_follows_the_dtype_alone():
+    """bf16 takes the tensor-core body, fp32 the CUDA-core body; the choice
+    needs no card and no shape."""
+    assert MF.moe_ffn_route(torch.bfloat16) == "tensor_core"
+    assert MF.moe_ffn_route(torch.float32) == "cuda_core"
+    with pytest.raises(TypeError):
+        MF.moe_ffn_route(torch.float16)
+    x = torch.zeros(1, 4, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        MF.moe_ffn_cuda(x, torch.zeros(1, 128, 128, dtype=torch.bfloat16),
+                        torch.zeros(1, 128, 128, dtype=torch.bfloat16),
+                        torch.zeros(1, 128, 128, dtype=torch.bfloat16))

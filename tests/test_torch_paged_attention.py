@@ -154,3 +154,134 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         paged_multiquery_attention_cuda(_t(q), *args[1:], _t(lens - 1), 0.1)
     assert paged_decode_attention_cuda.launches == before
+
+
+# -- the tensor-core design of the multi-query kernel, emulated on the CPU --
+
+CHIP_ATOL, CHIP_RTOL = 1e-4, 2.0 ** -8   # chip_smoke.py's bf16 tolerance
+TC_TILE = 64                             # tokens per K/V tile of the kernel
+
+
+def _bf16_case(kv, seed, *, b=2, t=80, h=4, hkv=2, d=128, block=16, p=12):
+    """q [B, T, H, D] ~ N(0, 1) in bf16 and a pool as chip_smoke.py draws
+    it (bf16 N(0, 1), or int8 codes with scales in [1e-3, 2.1e-2]), from a
+    numpy seed; request 0 starts at 0 with padding rows, request 1 later."""
+    rng = np.random.RandomState(seed)
+    n = b * p + 1
+    shape = (n, block, hkv, d)
+    q = torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).bfloat16()
+    if kv == "int8":
+        kp, vp = (torch.from_numpy(rng.randint(-127, 128, shape)
+                                   .astype(np.int8)) for _ in range(2))
+        ks, vs = (torch.from_numpy((rng.rand(*shape[:-1]) * 0.02 + 1e-3)
+                                   .astype(np.float32)) for _ in range(2))
+    else:
+        kp, vp = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                  .bfloat16() for _ in range(2))
+        ks = vs = None
+    tables = torch.from_numpy(rng.permutation(np.arange(1, n))[:b * p]
+                              .reshape(b, p).astype(np.int32))
+    starts = torch.tensor([0, 37], dtype=torch.int32)[:b]
+    lens = starts + torch.tensor([t - 23, t], dtype=torch.int32)[:b]
+    return q, kp, vp, ks, vs, tables, lens, starts
+
+
+def _tensor_core_multiquery(q, kp, vp, ks, vs, tables, lens, starts, scale,
+                            split=True):
+    """The tensor-core body's arithmetic: per (request, kv head) and tile of
+    64 tokens, S = q K (exact bf16 products, fp32 sums) times scale and
+    k_scale; the online softmax in fp32; P with v_scale folded in, split
+    into bf16 hi + lo (or rounded alone); O += hi V + lo V on the codes;
+    O / l rounded to bf16. Padding rows are left at 0."""
+    b, t, h, d = q.shape
+    hkv = kp.shape[2]
+    g = h // hkv
+    out = torch.zeros(b, t, h, d)
+    kg = _gather_codes(kp, tables).float()       # [B, S, Hkv, D]
+    vg = _gather_codes(vp, tables).float()
+    kscale = None if ks is None else _gather_codes(ks, tables)
+    vscale = None if vs is None else _gather_codes(vs, tables)
+    for bi in range(b):
+        ctx, st = int(lens[bi]), int(starts[bi])
+        for hk in range(hkv):
+            qr = q[bi, :, hk * g:(hk + 1) * g].float().reshape(t * g, d)
+            row_t = torch.arange(t * g) // g
+            m = torch.full((t * g,), -1e30)
+            l = torch.zeros(t * g)
+            o = torch.zeros(t * g, d)
+            for t0 in range(0, ctx, TC_TILE):
+                tok = torch.arange(t0, min(t0 + TC_TILE, ctx))
+                s = qr @ kg[bi, tok, hk].T * scale
+                if kscale is not None:
+                    s = s * kscale[bi, tok, hk]
+                ok = tok[None, :] <= st + row_t[:, None]
+                s = torch.where(ok, s, torch.tensor(-1e30))
+                m_new = torch.maximum(m, s.max(1).values)
+                pr = torch.where(ok, torch.exp(s - m_new[:, None]),
+                                 torch.tensor(0.0))
+                corr = torch.exp(m - m_new)
+                l = l * corr + pr.sum(1)
+                m = m_new
+                if vscale is not None:
+                    pr = pr * vscale[bi, tok, hk]
+                hi = pr.bfloat16().float()
+                pv = hi @ vg[bi, tok, hk]
+                if split:
+                    pv = pv + (pr - hi).bfloat16().float() @ vg[bi, tok, hk]
+                o = o * corr[:, None] + pv
+            res = (o / torch.clamp(l, min=1e-30)[:, None]).reshape(t, g, d)
+            out[bi, :, hk * g:(hk + 1) * g] = res
+    return out.bfloat16()
+
+
+def _gather_codes(pool, tables):
+    """[B, P*block, ...] of the pool's rows (codes stay codes)."""
+    b, p = tables.shape
+    g = pool[tables.long()]
+    return g.reshape(b, p * pool.shape[1], *pool.shape[2:])
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_tensor_core_multiquery_keeps_the_chip_tolerance(kv):
+    """The split P (with v_scale folded in for int8 pools) keeps the
+    kernel's arithmetic inside chip_smoke.py's tolerance against the fp32
+    plain version on the valid rows; P rounded to bf16 alone does not."""
+    from paddle_tpu_torch.inference.serving.paged_attention import (
+        _torch_multiquery_fallback)
+
+    q, kp, vp, ks, vs, tables, lens, starts = _bf16_case(kv, seed=11)
+    scale = q.shape[-1] ** -0.5
+    up = (kp, vp) if kv == "int8" else (kp.float(), vp.float())
+    want = _torch_multiquery_fallback(q.float(), *up, tables, lens, starts,
+                                      scale, k_scale=ks, v_scale=vs)
+    excess = {}
+    for split in (True, False):
+        got = _tensor_core_multiquery(q, kp, vp, ks, vs, tables, lens,
+                                      starts, scale, split=split)
+        worst = -1.0
+        for bi in range(q.shape[0]):
+            n = int(lens[bi] - starts[bi])
+            diff = (got[bi, :n].float() - want[bi, :n]).abs()
+            worst = max(worst, float((diff - CHIP_ATOL - CHIP_RTOL
+                                      * want[bi, :n].abs()).max()))
+        excess[split] = worst
+    assert excess[True] <= 0
+    assert excess[False] > 0
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,t,d,want", [
+    (torch.bfloat16, torch.bfloat16, 2048, 128, "tensor_core"),
+    (torch.bfloat16, torch.int8, 16, 64, "tensor_core"),
+    (torch.bfloat16, torch.bfloat16, 2, 32, "tensor_core"),
+    (torch.bfloat16, torch.bfloat16, 1, 128, "cuda_core"),   # decode step
+    (torch.float32, torch.float32, 512, 128, "cuda_core"),
+    (torch.float32, torch.int8, 512, 128, "cuda_core"),
+    (torch.bfloat16, torch.float32, 512, 128, "cuda_core"),
+    (torch.bfloat16, torch.bfloat16, 512, 96, "cuda_core"),
+    (torch.bfloat16, torch.bfloat16, 512, 256, "cuda_core"),
+])
+def test_multiquery_route(q_dtype, kv_dtype, t, d, want):
+    """The multi-query wrapper's body, from dtypes, T and head_dim alone."""
+    from paddle_tpu_torch.ops.cuda.paged_attention import multiquery_route
+
+    assert multiquery_route(q_dtype, kv_dtype, t, d) == want
