@@ -16,10 +16,12 @@ Phases, one printed line per result:
    512}, q_start > 0 and padding rows); the flash-attention forward, dq
    and dkv kernels, without rope and in their rope form (pre-rotary q and
    k, the llama tables), at the training shape (B 16, H 12, S 1024, D 64,
-   bf16, causal), at llama_1b's heads (D 128, S 2048), in fp32 at D 32, 64
-   and 128, non-causal, at BERT-base's shape (B 128, H 12, S 128, D 64,
-   bf16, non-causal), at a ragged S = 1000, and GQA 32/8 through the
-   autograd Function; the MoE expert FFN at the Llama-MoE shape (E 8,
+   bf16, causal), at llama_1b's heads (D 128, S 2048), in bf16 at D 32
+   (with D 64 and 128 above: the backward's bf16 tensor-core bodies at
+   every head dim), in fp32 at D 32, 64 and 128 (the CUDA-core bodies),
+   non-causal, at BERT-base's shape (B 128, H 12, S 128, D 64, bf16,
+   non-causal), at a ragged S = 1000, and GQA 32/8 through the autograd
+   Function; the MoE expert FFN at the Llama-MoE shape (E 8,
    C 5120, h 768, I 2048) in bf16 and fp32 and at ragged small shapes in
    both dtypes (bf16: the tensor-core body, fp32: the CUDA-core body); the
    fused add + RMSNorm and the fused add + LayerNorm at 16384 x 768 in bf16
@@ -478,11 +480,14 @@ def phase_flash_kernels(gen, rope=False):
     the kernel's own out and lse). Returns {kernel: max abs error}."""
     import torch
 
+    from paddle_tpu_torch.ops.cuda import flash_attention as K
+
     names = ROPE if rope else FLASH
     worst = dict.fromkeys(names, 0.0)
     cases = [  # (B, H, S, D, dtype, causal, what)
         (16, 12, 1024, 64, "bfloat16", True, "llama_125m training"),
         (2, 16, 2048, 128, "bfloat16", True, "llama_1b heads"),
+        (2, 4, 512, 32, "bfloat16", True, "bf16 D=32"),
         (2, 4, 512, 32, "float32", True, "fp32 D=32"),
         (2, 4, 512, 64, "float32", True, "fp32 D=64"),
         (2, 8, 512, 64, "bfloat16", False, "non-causal"),
@@ -508,8 +513,12 @@ def phase_flash_kernels(gen, rope=False):
         e_dk, x_dk = compare_grad(dk, w_dk, dt)
         e_dv, x_dv = compare_grad(dv, w_dv, dt)
         torch.cuda.synchronize()
+        route = K.flash_bwd_route(getattr(torch, dt), d)
+        check(route == ("tensor_core" if dt == "bfloat16" else "cuda_core"),
+              f"{tag} backward route {route} for {dt}")
         say(f"kernel {tag} B={b} H={h} S={s} D={d} {dt} causal={causal} "
-            f"({what}): out {e_out:.3e} (tol {ATOL:g} + {RTOL[dt]:g}*|want|)"
+            f"({what}; backward {route}): out {e_out:.3e} (tol {ATOL:g} + "
+            f"{RTOL[dt]:g}*|want|)"
             f", lse {e_lse:.3e} (tol {LSE_ATOL:g}), dq {e_dq:.3e}, dk "
             f"{e_dk:.3e}, dv {e_dv:.3e} (tol {RTOL[dt]:g}*|want| + "
             f"{GRAD_FRAC:g}*max|want|)")
@@ -521,7 +530,31 @@ def phase_flash_kernels(gen, rope=False):
         del q, k, v, do, up, res, out, lse, dq, dk, dv, w_dk, w_dv
         torch.cuda.empty_cache()
     flash_gqa_check(gen, rope)
+    if not rope:
+        sdpa_route_check(gen)
     return worst
+
+
+def sdpa_route_check(gen):
+    """On the card, ``F.scaled_dot_product_attention`` at a head_dim or
+    dtype the flash kernels are not built for (96 in bf16, 64 in fp16)
+    takes the plain dense attention, as the reference's ``_sdpa_ref``, and
+    equals it."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.functional import flash_attention as sdpa
+
+    for d, dt in ((96, torch.bfloat16), (64, torch.float16)):
+        q, k, v = (torch.randn(2, 256, 4, d, generator=gen, device="cuda")
+                   .to(dt) for _ in range(3))
+        got = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        path = sdpa.LAST_PATH
+        want = F.sdpa_reference(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        say(f"kernel sdpa route D={d} {dt}: {path}")
+        check(path == "reference" and torch.equal(got, want),
+              f"sdpa at D={d} {dt} takes the plain dense attention")
 
 
 def flash_gqa_check(gen, rope=False):
@@ -630,8 +663,19 @@ def phase_flash_times(gen, rope=False):
         r["shape"] = shape
     report_times(times)
     bwd = times[names[1]]["ms"] + times[names[2]]["ms"]
+    # the bf16 tensor-core bodies' products per visible pair: S, dP and
+    # dq (dS split: 2 products) = 8 D; S, dP, dv and dk (P, dS split) =
+    # 12 D; with rope S, dq and dk take 3 products (rotated q, k split)
+    tc_ops = (14 * d, 18 * d) if rope else (8 * d, 12 * d)
+    rates = [(times[n]["ops"] / times[n]["ms"] / 1e9,
+              per * pairs / times[n]["ms"] / 1e9)
+             for n, per in zip(names[1:], tc_ops)]
     say(f"time {'flash rope' if rope else 'flash'} backward: dq + dkv "
-        f"kernels {bwd:.4f} ms vs sdpa backward {bwd_ms:.4f} ms")
+        f"kernels {bwd:.4f} ms vs sdpa backward {bwd_ms:.4f} ms; achieved "
+        f"dq {rates[0][0]:.1f}, dkv {rates[1][0]:.1f} TFLOP/s of the counted "
+        f"work; tensor-core work with the splits ({tc_ops[0] // d}*D, "
+        f"{tc_ops[1] // d}*D a pair): dq {rates[0][1]:.1f}, dkv "
+        f"{rates[1][1]:.1f} TFLOP/s")
     del q, k, v, do, out, lse, lib, lib_out, qk
     torch.cuda.empty_cache()
     return times
@@ -1454,14 +1498,16 @@ def phase_bert_card_vs_cpu():
 
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
-    ``tcr`` namespace of moe_ffn.cu and paged_attention.cu), and their
-    dynamic shared memory from the sources' size functions."""
+    ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
+    flash_attention.cu), and their dynamic shared memory from the sources'
+    size functions."""
     import torch
 
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
     from paddle_tpu_torch.ops.cuda import moe_ffn as MF
     from paddle_tpu_torch.ops.cuda import paged_attention as K
 
-    for stem in ("moe_ffn", "paged_attention"):
+    for stem in ("moe_ffn", "paged_attention", "flash_attention"):
         for entry in built[stem][1].split("Compiling entry function '")[1:]:
             name = entry.split("'")[0]
             if "tcr" not in name:
@@ -1473,9 +1519,13 @@ def tensor_core_ptxas(built):
     tc = ", ".join(f"D={d} {kv}: {K.multiquery_tc_smem_bytes(d, kv)} B"
                    for d in K.TC_HEAD_DIMS
                    for kv in (torch.bfloat16, torch.int8))
+    fa = ", ".join(f"{w}{' rope' if r else ''} D={d}: "
+                   f"{FA.tc_smem_bytes(w, d, r)} B"
+                   for w in ("dq", "dkv") for r in (False, True)
+                   for d in FA.HEAD_DIMS)
     say(f"  dynamic shared memory: moe_ffn_bf16_kernel "
         f"{MF._lib().moe_ffn_smem_bytes(768, 1)} B; "
-        f"paged_multiquery_tc_kernel {tc}")
+        f"paged_multiquery_tc_kernel {tc}; flash_bwd_*_tc_kernel {fa}")
 
 
 def main():

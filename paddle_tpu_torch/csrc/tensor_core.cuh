@@ -1,5 +1,5 @@
 // Tensor-core building blocks for Hopper (sm_90a), shared by the port's bf16
-// kernels (moe_ffn.cu, paged_attention.cu). Every PTX instruction the
+// kernels (moe_ffn.cu, paged_attention.cu, flash_attention.cu). Every PTX instruction the
 // kernels use beyond plain CUDA sits behind one inline function here, so a
 // host emulation can supply a twin of each.
 //
@@ -24,7 +24,8 @@
 // 2 (l % 4), +1). Rows are 16 bytes and must be 16-byte aligned.
 //
 // cp.async.cg copies 16 bytes from device to shared memory without passing
-// through registers; a source size of 0 fills the 16 bytes with zeros.
+// through registers (cp.async.ca 4 bytes, for rows that are not 16-byte
+// aligned); a source size of 0 fills the destination with zeros.
 
 #pragma once
 
@@ -70,6 +71,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :
                : "r"(smem_u32(dst)), "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes, likewise (src and dst 4-byte aligned)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(full ? 4 : 0)
                : "memory");
 }
 

@@ -9,13 +9,14 @@ follows the device of the query, not the reference's TPU gate:
   :func:`~paddle_tpu_torch.ops.cuda.flash_attention.flash_attention`: on
   the CPU its plain forward and backward (what the kernels compute), on
   the card the CUDA flash-attention kernels, at any sequence length, for
-  head_dim in :data:`HEAD_DIMS` and float32 or bfloat16; another head_dim
-  or dtype on the card raises ``NotImplementedError``;
+  head_dim in :data:`HEAD_DIMS` and float32 or bfloat16;
 * a call with an ``attn_mask`` (bool or additive float, as BERT's padding
-  mask) or with ``seq_q != seq_k`` goes to :func:`.attention.sdpa_reference`
+  mask) or with ``seq_q != seq_k``, and on the card a head_dim or dtype
+  the kernels are not built for, goes to :func:`.attention.sdpa_reference`
   on the tensors' own device. The reference computes these in XLA einsums
-  outside any Pallas kernel (``_sdpa_ref``), so this is the stated route
-  on both devices, not a fallback;
+  outside any Pallas kernel (``_sdpa_ref``, which takes every shape its
+  ``_use_pallas`` gate refuses), so this is the stated route on both
+  devices, not a fallback. :func:`sdpa_route` holds the decision;
 * attention dropout raises ``NotImplementedError`` (ROADMAP Queue 1).
 
 :func:`fused_rope_attention` is the rope-fused path the Llama decoder takes
@@ -39,14 +40,31 @@ from ...ops.cuda.flash_attention import (HEAD_DIMS, flash_attention,
                                          flash_attention_rope)
 from .attention import sdpa_reference
 
-__all__ = ["scaled_dot_product_attention", "fused_rope_attention_enabled",
-           "fused_rope_attention", "LAST_PATH"]
+__all__ = ["scaled_dot_product_attention", "sdpa_route",
+           "fused_rope_attention_enabled", "fused_rope_attention",
+           "LAST_PATH"]
 
 #: which path the last :func:`scaled_dot_product_attention` call took:
 #: "cuda" (the flash kernels), "plain" (their plain versions, CPU) or
 #: "reference" (:func:`sdpa_reference`, CPU or card);
 #: :func:`fused_rope_attention` sets "cuda_rope" or "plain_rope"
 LAST_PATH = None
+
+
+def sdpa_route(device_type, dtype, head_dim, masked, same_length):
+    """The path :func:`scaled_dot_product_attention` takes, from the
+    query's device type, dtype and head_dim, whether a mask is given and
+    whether ``seq_q == seq_k``: ``"reference"`` (:func:`sdpa_reference`)
+    for a mask, a cross-length call, or on the card a head_dim or dtype
+    the kernels are not built for; else ``"plain"`` on the CPU and
+    ``"cuda"`` on the card."""
+    if masked or not same_length:
+        return "reference"
+    if device_type == "cpu":
+        return "plain"
+    if head_dim in HEAD_DIMS and dtype in (torch.float32, torch.bfloat16):
+        return "cuda"
+    return "reference"
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -58,19 +76,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
             "attention dropout is not ported yet (ROADMAP Queue 1, item 1)")
-    if attn_mask is not None or query.shape[1] != key.shape[1]:
-        LAST_PATH = "reference"
+    LAST_PATH = sdpa_route(query.device.type, query.dtype, query.shape[-1],
+                           attn_mask is not None,
+                           query.shape[1] == key.shape[1])
+    if LAST_PATH == "reference":
         return sdpa_reference(query, key, value, attn_mask=attn_mask,
                               causal=bool(is_causal))
-    if query.device.type == "cpu":
-        LAST_PATH = "plain"
-        return flash_attention(query, key, value, causal=bool(is_causal))
-    if query.shape[-1] not in HEAD_DIMS or query.dtype not in (
-            torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"flash attention at head_dim {query.shape[-1]} in {query.dtype}"
-            f" has no kernel (head_dim {HEAD_DIMS}, float32 or bfloat16)")
-    LAST_PATH = "cuda"
     return flash_attention(query, key, value, causal=bool(is_causal))
 
 
