@@ -17,8 +17,9 @@ Phases, one printed line per result:
    and dkv kernels, without rope and in their rope form (pre-rotary q and
    k, the llama tables), at the training shape (B 16, H 12, S 1024, D 64,
    bf16, causal), at llama_1b's heads (D 128, S 2048), in bf16 at D 32
-   (with D 64 and 128 above: the backward's bf16 tensor-core bodies at
-   every head dim), in fp32 at D 32, 64 and 128 (the CUDA-core bodies),
+   (with D 64 and 128 above: the bf16 tensor-core bodies of all three
+   kernels at every head dim), in fp32 at D 32, 64 and 128 (the CUDA-core
+   bodies),
    non-causal, at BERT-base's shape (B 128, H 12, S 128, D 64, bf16,
    non-causal), at a ragged S = 1000, and GQA 32/8 through the autograd
    Function; the MoE expert FFN at the Llama-MoE shape (E 8,
@@ -513,11 +514,12 @@ def phase_flash_kernels(gen, rope=False):
         e_dk, x_dk = compare_grad(dk, w_dk, dt)
         e_dv, x_dv = compare_grad(dv, w_dv, dt)
         torch.cuda.synchronize()
-        route = K.flash_bwd_route(getattr(torch, dt), d)
+        route = K.flash_route(getattr(torch, dt), d)
         check(route == ("tensor_core" if dt == "bfloat16" else "cuda_core"),
-              f"{tag} backward route {route} for {dt}")
+              f"{tag} forward and backward route {route} for {dt}")
         say(f"kernel {tag} B={b} H={h} S={s} D={d} {dt} causal={causal} "
-            f"({what}; backward {route}): out {e_out:.3e} (tol {ATOL:g} + "
+            f"({what}; forward, dq and dkv {route}): out {e_out:.3e} "
+            f"(tol {ATOL:g} + "
             f"{RTOL[dt]:g}*|want|)"
             f", lse {e_lse:.3e} (tol {LSE_ATOL:g}), dq {e_dq:.3e}, dk "
             f"{e_dk:.3e}, dv {e_dv:.3e} (tol {RTOL[dt]:g}*|want| + "
@@ -662,6 +664,16 @@ def phase_flash_times(gen, rope=False):
     for r in times.values():
         r["shape"] = shape
     report_times(times)
+    # the forward's bf16 tensor-core products per visible pair: S (2 D;
+    # with rope 3 products, the rotated q and k split: 6 D) and P V (P
+    # split: 4 D)
+    tc_fwd = (10 if rope else 6) * d
+    f = times[names[0]]
+    say(f"time {'flash rope' if rope else 'flash'} forward: kernel "
+        f"{f['ms']:.4f} ms vs sdpa forward {fwd_ms:.4f} ms; achieved "
+        f"{f['ops'] / f['ms'] / 1e9:.1f} TFLOP/s of the counted work; "
+        f"tensor-core work with the splits ({tc_fwd // d}*D a pair): "
+        f"{tc_fwd * pairs / f['ms'] / 1e9:.1f} TFLOP/s")
     bwd = times[names[1]]["ms"] + times[names[2]]["ms"]
     # the bf16 tensor-core bodies' products per visible pair: S, dP and
     # dq (dS split: 2 products) = 8 D; S, dP, dv and dk (P, dS split) =
@@ -1521,11 +1533,11 @@ def tensor_core_ptxas(built):
                    for kv in (torch.bfloat16, torch.int8))
     fa = ", ".join(f"{w}{' rope' if r else ''} D={d}: "
                    f"{FA.tc_smem_bytes(w, d, r)} B"
-                   for w in ("dq", "dkv") for r in (False, True)
+                   for w in ("fwd", "dq", "dkv") for r in (False, True)
                    for d in FA.HEAD_DIMS)
     say(f"  dynamic shared memory: moe_ffn_bf16_kernel "
         f"{MF._lib().moe_ffn_smem_bytes(768, 1)} B; "
-        f"paged_multiquery_tc_kernel {tc}; flash_bwd_*_tc_kernel {fa}")
+        f"paged_multiquery_tc_kernel {tc}; flash_*_tc_kernel {fa}")
 
 
 def main():

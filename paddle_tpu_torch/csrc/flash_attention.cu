@@ -6,8 +6,8 @@
 //   flash_fwd_kernel     <- _fwd_kernel     (_fwd, pallas_call :136)
 //   flash_bwd_dq_kernel  <- _bwd_dq_kernel  (_bwd, pallas_call :280)
 //   flash_bwd_dkv_kernel <- _bwd_dkv_kernel (_bwd, pallas_call :296)
-//   flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel: the bf16 tensor-core
-//     bodies of the two backward kernels
+// and, for bf16, their tensor-core bodies flash_fwd_tc_kernel,
+// flash_bwd_dq_tc_kernel and flash_bwd_dkv_tc_kernel (namespace tcr).
 //
 // What they compute, on q, k, v [BH, S, D] (bf16 or fp32) with a scale and an
 // optional causal mask (key c visible to query row r when c <= r):
@@ -17,61 +17,70 @@
 //            dS = p (dO v^T - delta) scale, dq = dS k;
 //   dk, dv   dv = p^T dO, dk = dS^T q.
 // Masked scores are the Pallas kernels' finite NEG_INF (-1e30) and their
-// probabilities are 0. Arithmetic is fp32; outputs are in the input dtype.
+// probabilities are 0. Sums are fp32; outputs are in the input dtype.
 //
 // Rope. With ROPE, q and k arrive before the rotary embedding, with fp32
 // tables cos, sin [S, D] (both halves filled, the reference's _widen_tables).
 // Every q and k tile is rotated in fp32 as it is staged, x c + [-x2, x1] s
 // (q is scaled after the rotation); dq and dk are rotated back with the sin
-// negated before they are stored, and dv is unchanged. Element j pairs with
-// j +- D/2, so a thread stages and stores the two halves of its 8 columns
-// together, from registers, and never rotates a shared-memory row in place.
-// Rows at or past S are zero-filled without reading the tables.
+// negated before they are stored, and dv and the forward's out are
+// unchanged. Element j pairs with j +- D/2, so a thread stages and stores the
+// two halves of its 8 columns together, from registers, and never rotates a
+// shared-memory row in place. Rows at or past S are zero-filled without
+// reading the tables.
 //
 // Design. FA-2's split, as the JAX package has it: forward and dq give one
 // block to each (b*h, tile of 64 query rows) and loop over tiles of 64 keys up
 // to the causal bound (the TPU's sequential grid axis becomes a loop inside
 // the block); dkv gives one block to each (b*h, tile of 64 keys) and loops
 // over the query tiles that see it. No two blocks write the same element, so
-// there are no atomics and results are the same from run to run. Tiles are
-// staged in shared memory as fp32 rows with stride D + 4, so that the float4
-// reads of neighbouring threads fall on distinct banks. The 256 threads form
-// a 16 x 16 grid: each holds a 4 x 4 micro-tile of the 64 x 64 score tile
-// (rows ty + 16i, keys tx + 16j) and 4 rows x D/16 columns of its output
-// accumulator in registers; the online-softmax row statistics are reduced
-// over the 16 threads of a half-warp with shuffles. A ragged last tile (S not
-// a multiple of 64) is zero-filled when staged and masked. Causal query tiles
-// are scheduled longest first.
+// there are no atomics and results are the same from run to run. Causal
+// query tiles are scheduled longest first; a ragged last tile (S not a
+// multiple of 64) is zero-filled when staged and masked.
 //
 // Bound on an H100 at the training shape (B 16, H 12, S 1024, D 64, bf16):
 // by its roofline each kernel is bound by memory bytes (each input read once:
-// about 101, 152 and 177 MB). The CUDA-core bodies above run their products
-// as fp32 FMAs out of shared memory, so the FMA issue rate bounds them in
-// practice; they take the forward (both dtypes) and the fp32 backward, whose
-// fp32 products the card-vs-CPU training checks rely on. They read K/V once
-// per query tile (Q, dO, O once per key tile in dkv), mostly from the 50 MB
-// L2.
+// about 101, 152 and 177 MB). Each kernel has two bodies, chosen by dtype in
+// the wrapper:
 //
-// Tensor-core bodies of the backward (namespace tcr), which every bf16
-// backward call takes (the wrapper chooses by dtype): FlashAttention-2's
-// backward on csrc/tensor_core.cuh, the same split and grid as above but
-// 4 warps of 16 rows a block. Tiles stay bf16 in shared memory (row stride
-// D + 8) and stream by cp.async into two-stage rings; products are
-// mma.sync m16n8k16 (bf16 in, fp32 sums) with operands from ldmatrix. The
-// scale multiplies the fp32 scores, so without rope every operand of S =
-// q k^T and dP = dO v^T is an exact bf16 value. dq: queries are the M rows,
-// so dS leaves the score registers as the A fragments of dS K (the C -> A
-// identity), K through ldmatrix.trans. dkv: keys are the M rows, S^T = K Q^T
-// and dP^T = V dO^T, and P^T and dS^T feed dV += P^T dO and dK += dS^T Q
-// from registers the same way. P and dS are fp32 values: each is split into
-// bf16 hi + lo (two products; rounded alone they fail the tolerance, CPU
-// test). With ROPE each q or k tile is rotated in fp32 as it is staged (by
-// plain loads) and stored as hi and lo tiles; S, dq and dk take hi.hi +
-// hi.lo + lo.hi, and dq and dk are rotated back in registers, where each
-// thread holds both partner columns c and c + D/2. delta = rowsum(dO O) is
-// formed in fp32 from the staged bf16 tiles (dkv: once per query tile).
-// D 128 takes the streamed tile in two halves of 32 rows to keep the
-// accumulators in registers.
+// CUDA-core bodies (fp32, whose fp32 products the card-vs-CPU training
+// checks rely on). Tiles are staged in shared memory as fp32 rows with
+// stride D + 4, so that the float4 reads of neighbouring threads fall on
+// distinct banks. The 256 threads form a 16 x 16 grid: each holds a 4 x 4
+// micro-tile of the 64 x 64 score tile (rows ty + 16i, keys tx + 16j) and
+// 4 rows x D/16 columns of its output accumulator in registers; the
+// online-softmax row statistics are reduced over the 16 threads of a
+// half-warp with shuffles. Products are fp32 FMAs out of shared memory, so
+// the FMA issue rate bounds them in practice. They read K/V once per query
+// tile (Q, dO, O once per key tile in dkv), mostly from the 50 MB L2.
+//
+// Tensor-core bodies (bf16, namespace tcr): FlashAttention-2's forward and
+// backward on csrc/tensor_core.cuh, the same split and grid but 4 warps of
+// 16 rows a block. Tiles stay bf16 in shared memory (row stride D + 8) and
+// stream by cp.async into two-stage rings; products are mma.sync m16n8k16
+// (bf16 in, fp32 sums) with operands from ldmatrix. The scale multiplies the
+// fp32 scores, so without rope every operand of S = q k^T and dP = dO v^T
+// is an exact bf16 value. forward: the online softmax runs on the score
+// registers in the exp2 domain (row max and sum over the 4 lanes of a quad,
+// the correction rescales the accumulator), and P leaves them as the A
+// fragments of P V (the C -> A identity), V through ldmatrix.trans. dq:
+// queries are the M rows, so dS feeds dS K the same way, K through
+// ldmatrix.trans. dkv: keys are the M rows, S^T = K Q^T and dP^T = V dO^T,
+// and P^T and dS^T feed dV += P^T dO and dK += dS^T Q from registers the
+// same way. P and dS are fp32 values: each is split into bf16 hi + lo (two
+// products; rounded alone they fail the tolerance, CPU tests). With ROPE
+// each q or k tile is rotated in fp32 as it is staged (by plain loads) and
+// stored as hi and lo tiles; S, dq and dk take hi.hi + hi.lo + lo.hi, and
+// dq and dk are rotated back in registers, where each thread holds both
+// partner columns c and c + D/2. delta = rowsum(dO O) is formed in fp32
+// from the staged bf16 tiles (dkv: once per query tile). D 128 takes the
+// streamed tile in two halves of 32 rows to keep the accumulators in
+// registers. Masks are applied only in blocks on the causal diagonal or
+// past S, chosen warp-uniformly. In practice these bodies are bound by
+// neither bytes nor tensor-core rate: the mma.sync products take two
+// fifths to a half of their time, the rest goes to every warp's ldmatrix
+// reads of each streamed tile, the softmax epilogue, the lo products and
+// the stream (scripts/flash_fwd_ablation.py, scripts/flash_bwd_ablation.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,14 +147,8 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // VW adjacent floats from shared memory (VW * 4-byte aligned)
 template <int VW>
@@ -627,16 +630,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
-// -- tensor-core bodies of the backward kernels (bf16) -----------------------
+// -- tensor-core bodies (bf16) -----------------------------------------------
 
 namespace tcr {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;  // 4 warps x 16 rows of the block's own tile
-constexpr int kRows = 64;      // the block's own rows: queries (dq), keys (dkv)
-constexpr int kCols = 64;      // rows of a streamed tile: keys (dq), queries (dkv)
+constexpr int kRows = 64;  // the block's own rows: queries (fwd, dq), keys (dkv)
+constexpr int kCols = 64;  // rows of a streamed tile: keys (fwd, dq), queries (dkv)
 constexpr float kLog2e = 1.4426950408889634f;  // p = 2^(s log2e - lse log2e)
+constexpr float kLn2 = 0.6931471805599453f;    // lse = m2 ln 2 + log(l)
 
 template <int D>
 struct Cfg {
@@ -834,18 +838,174 @@ __device__ __forceinline__ void store_acc(const float (&acc)[D / 8][4],
   }
 }
 
-// shared memory of the two bodies (bf16 tiles [kCols][LD], then fp32 rows):
-//   dq:  q (hi, lo with ROPE), dO, O; K (hi, lo) and V rings of 2 stages;
-//        lse and delta of the block's rows
+// shared memory of the three bodies (bf16 tiles [kCols][LD], then fp32
+// rows):
+//   fwd: q (hi, lo with ROPE); K (hi, lo) and V rings of 2 stages
+//   dq:  q (hi, lo), dO, O; K (hi, lo) and V rings of 2 stages; lse and
+//        delta of the block's rows
 //   dkv: K (hi, lo), V; Q (hi, lo), dO and O rings of 2 stages; lse and
 //        delta of each stage's query rows
 template <int D, bool ROPE>
 constexpr size_t smem_bytes(int which) {
   constexpr int R = ROPE ? 2 : 1;
-  const int tiles = which == kDq ? R + 2 + 2 * R + 2 : R + 1 + 2 * R + 4;
-  const int floats = which == kDq ? 2 * kRows : 4 * kCols;
+  const int tiles = which == kFwd  ? R + 2 * R + 2
+                    : which == kDq ? R + 2 + 2 * R + 2
+                                   : R + 1 + 2 * R + 4;
+  const int floats = which == kFwd ? 0 : which == kDq ? 2 * kRows : 4 * kCols;
   return static_cast<size_t>(tiles) * Cfg<D>::TILE * sizeof(bf16)
          + floats * sizeof(float);
+}
+
+// forward: one block per (b*h, tile of 64 query rows), 16 rows a warp;
+// loops over the key tiles up to the causal bound with FA-2's online
+// softmax on the score registers, in the exp2 domain
+template <int D, bool ROPE>
+__global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(Params p) {
+  constexpr int LD = Cfg<D>::LD, TILE = Cfg<D>::TILE, NT = Cfg<D>::NT;
+  constexpr int NC = Cfg<D>::NC, R = ROPE ? 2 : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // q (rotated hi, then lo)
+  bf16* kb = qs + R * TILE;          // [2 stages][R tiles]
+  bf16* vb = kb + 2 * R * TILE;      // [2 stages]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, quad = lane & 3;
+  const int S = p.S, bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest first
+  const size_t base = static_cast<size_t>(bh) * S * D;
+  const bf16* q = static_cast<const bf16*>(p.q) + base;
+  const bf16* k = static_cast<const bf16*>(p.k) + base;
+  const bf16* v = static_cast<const bf16*>(p.v) + base;
+  const int kv_end = p.causal ? min(S, q0 + kRows) : S;
+  const int n_tiles = (kv_end + kCols - 1) / kCols;
+
+  if constexpr (ROPE) {
+    stage_rope<D>(q, p.cs, p.sn, q0, S, qs, qs + TILE);
+    stage_rope<D>(k, p.cs, p.sn, 0, S, kb, kb + TILE);
+  } else {
+    issue_rows<D>(q, q0, S, qs);
+    issue_rows<D>(k, 0, S, kb);
+  }
+  issue_rows<D>(v, 0, S, vb);
+  tc::cp_async_commit();
+
+  const int row = q0 + warp * 16 + grp;  // this thread's rows: row, row + 8
+  const int r_lo = q0 + warp * 16;
+  const float sl2 = p.scale * kLog2e;
+  float m2[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  const bf16* qw = qs + warp * 16 * LD;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1, k0 = j * kCols;
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile j landed; every reader of tile j - 1 is done
+    if (j + 1 < n_tiles) {
+      if constexpr (!ROPE) issue_rows<D>(k, k0 + kCols, S, kb + (st ^ 1) * TILE);
+      issue_rows<D>(v, k0 + kCols, S, vb + (st ^ 1) * TILE);
+    }
+    tc::cp_async_commit();
+    const bf16* kt = kb + st * R * TILE;
+    const bf16* vt = vb + st * TILE;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kCols; c0 += NC) {
+      const int c_lo = k0 + c0;
+      if (p.causal && c_lo > r_lo + 15) continue;  // the warp sees no key
+      float sc[NC / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < NC / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+      dots<D, NC>(qw, kt + c0 * LD, sc);
+      if constexpr (ROPE) {
+        dots<D, NC>(qw, kt + TILE + c0 * LD, sc);
+        dots<D, NC>(qw + TILE, kt + c0 * LD, sc);
+      }
+      // the online softmax in place: t = s scale log2e, the row max m2
+      // over the quad's 4 lanes, p = 2^(t - m2), and the correction
+      // 2^(m2_old - m2) on l and the accumulator; only a block of pairs on
+      // the causal diagonal or past S (warp-uniform) tests each pair
+      auto to_p = [&](auto mask) {
+        auto masked = [&](int nt, int e) {
+          const int r = row + 8 * (e >> 1), c = c_lo + nt * 8 + 2 * quad
+                                                 + (e & 1);
+          return !(c < S && (!p.causal || c <= r));
+        };
+        float mx[2] = {m2[0], m2[1]}, sum[2] = {0.f, 0.f}, corr[2];
+#pragma unroll
+        for (int nt = 0; nt < NC / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float t = sc[nt][e] * sl2;
+            if constexpr (decltype(mask)::value)
+              if (masked(nt, e)) t = kNegInf;
+            sc[nt][e] = t;
+            mx[e >> 1] = fmaxf(mx[e >> 1], t);
+          }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+          mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+          corr[hf] = exp2f(m2[hf] - mx[hf]);
+          m2[hf] = mx[hf];
+        }
+#pragma unroll
+        for (int nt = 0; nt < NC / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float pr = exp2f(sc[nt][e] - mx[e >> 1]);
+            if constexpr (decltype(mask)::value)
+              if (masked(nt, e)) pr = 0.f;
+            sc[nt][e] = pr;
+            sum[e >> 1] += pr;
+          }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 1);
+          sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 2);
+          l[hf] = l[hf] * corr[hf] + sum[hf];
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] *= corr[e >> 1];
+      };
+      if ((p.causal && c_lo + NC - 1 > r_lo) || c_lo + NC > S)
+        to_p(std::true_type{});
+      else
+        to_p(std::false_type{});
+      mul_x<D, NC, false>(sc, vt + c0 * LD, nullptr, acc);
+    }
+    if constexpr (ROPE) {
+      // stage k tile j + 1 into the other stage, read last in tile j - 1
+      if (j + 1 < n_tiles) {
+        bf16* kn = kb + (st ^ 1) * R * TILE;
+        stage_rope<D>(k, p.cs, p.sn, k0 + kCols, S, kn, kn + TILE);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+  // out = acc / max(l, 1e-30), not rotated back; lse = m2 ln 2 +
+  // log(max(l, 1e-30)) from the first lane of each quad
+  float den[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) den[hf] = fmaxf(l[hf], 1e-30f);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] /= den[e >> 1];
+  store_acc<D, false>(acc, p, row, static_cast<bf16*>(p.res) + base);
+  if (quad == 0) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = row + 8 * hf;
+      if (r < S)
+        p.lse[static_cast<size_t>(bh) * S + r] = m2[hf] * kLn2 + logf(den[hf]);
+    }
+  }
 }
 
 // dq: one block per (b*h, tile of 64 query rows), 16 rows a warp; loops over
@@ -1086,8 +1246,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(Params p) {
 
 template <int D, bool ROPE>
 cudaError_t launch(int which, const Params& p, int BH, cudaStream_t stream) {
-  void (*kern)(Params) = which == kDq ? flash_bwd_dq_tc_kernel<D, ROPE>
-                                      : flash_bwd_dkv_tc_kernel<D, ROPE>;
+  void (*kern)(Params) = which == kFwd  ? flash_fwd_tc_kernel<D, ROPE>
+                         : which == kDq ? flash_bwd_dq_tc_kernel<D, ROPE>
+                                        : flash_bwd_dkv_tc_kernel<D, ROPE>;
   const size_t smem = smem_bytes<D, ROPE>(which);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1102,9 +1263,9 @@ template <bool ROPE>
 cudaError_t dispatch_dim(int which, int D, const Params& p, int BH,
                          cudaStream_t s) {
   switch (D) {
-    case 32: return launch<32, ROPE>(which, p, BH, s);
-    case 64: return launch<64, ROPE>(which, p, BH, s);
-    case 128: return launch<128, ROPE>(which, p, BH, s);
+    case 32: return tcr::launch<32, ROPE>(which, p, BH, s);
+    case 64: return tcr::launch<64, ROPE>(which, p, BH, s);
+    case 128: return tcr::launch<128, ROPE>(which, p, BH, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1124,15 +1285,12 @@ size_t smem_bytes(int which) {
   return floats * sizeof(float);
 }
 
-template <int D, typename T, bool ROPE>
+// the CUDA-core bodies, which take fp32 only (bf16 takes tcr)
+template <int D, bool ROPE>
 cudaError_t launch(int which, const Params& p, int BH, cudaStream_t stream) {
-  void (*kern)(Params) = flash_fwd_kernel<D, T, ROPE>;
-  if constexpr (sizeof(T) == sizeof(float)) {  // bf16 backward: tcr
-    if (which == kDq) kern = flash_bwd_dq_kernel<D, T, ROPE>;
-    if (which == kDkv) kern = flash_bwd_dkv_kernel<D, T, ROPE>;
-  } else if (which != kFwd) {
-    return cudaErrorInvalidValue;
-  }
+  void (*kern)(Params) = which == kFwd  ? flash_fwd_kernel<D, float, ROPE>
+                         : which == kDq ? flash_bwd_dq_kernel<D, float, ROPE>
+                                        : flash_bwd_dkv_kernel<D, float, ROPE>;
   const size_t smem = smem_bytes<D>(which);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1143,35 +1301,28 @@ cudaError_t launch(int which, const Params& p, int BH, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, bool ROPE>
+template <bool ROPE>
 cudaError_t dispatch_dim(int which, int D, const Params& p, int BH,
                          cudaStream_t s) {
   switch (D) {
-    case 32: return launch<32, T, ROPE>(which, p, BH, s);
-    case 64: return launch<64, T, ROPE>(which, p, BH, s);
-    case 128: return launch<128, T, ROPE>(which, p, BH, s);
+    case 32: return launch<32, ROPE>(which, p, BH, s);
+    case 64: return launch<64, ROPE>(which, p, BH, s);
+    case 128: return launch<128, ROPE>(which, p, BH, s);
   }
   return cudaErrorInvalidValue;
 }
 
-// tensor_core: the bf16 tensor-core body of a backward kernel (tcr), which
-// bf16 backward calls must take; else the CUDA-core body (fp32 backward,
-// and the forward in both dtypes)
+// tensor_core: the bf16 tensor-core body (tcr), which bf16 calls of every
+// kernel must take; else the CUDA-core body, which takes fp32 only
 template <bool ROPE>
 int run(int which, int dtype, int D, const Params& p, int BH, int tensor_core,
         void* stream) {
   if (BH == 0 || p.S == 0) return cudaSuccess;
   if (BH > 65535) return cudaErrorInvalidValue;  // grid y limit
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tensor_core) {
-    if (which == kFwd || dtype != kBF16) return cudaErrorInvalidValue;
-    return tcr::dispatch_dim<ROPE>(which, D, p, BH, s);
-  }
-  switch (dtype) {
-    case kF32: return dispatch_dim<float, ROPE>(which, D, p, BH, s);
-    case kBF16: return dispatch_dim<__nv_bfloat16, ROPE>(which, D, p, BH, s);
-  }
-  return cudaErrorInvalidValue;
+  if (dtype != (tensor_core ? kBF16 : kF32)) return cudaErrorInvalidValue;
+  return tensor_core ? tcr::dispatch_dim<ROPE>(which, D, p, BH, s)
+                     : dispatch_dim<ROPE>(which, D, p, BH, s);
 }
 
 }  // namespace
@@ -1179,14 +1330,14 @@ int run(int which, int dtype, int D, const Params& p, int BH, int tensor_core,
 extern "C" {
 
 // q, k, v, out [BH, S, D]; lse [BH, S] fp32; with rope, cos and sin [S, D]
-// fp32 after the other pointers, and q, k pre-rotary. The backward entries
-// take tensor_core: 1 for the bf16 tensor-core body (bf16 inputs only), 0
-// for the CUDA-core body (fp32 inputs only). Each function returns
+// fp32 after the other pointers, and q, k pre-rotary. Every entry takes
+// tensor_core: 1 for the bf16 tensor-core body (bf16 inputs only), 0 for
+// the CUDA-core body (fp32 inputs only). Each function returns
 // cudaGetLastError() after its launch (0 = success).
 
-// dynamic shared memory of a tensor-core body (which: 1 dq, 2 dkv)
+// dynamic shared memory of a tensor-core body (which: 0 fwd, 1 dq, 2 dkv)
 long flash_attention_tc_smem_bytes(int which, int D, int rope) {
-  if (which != kDq && which != kDkv) return -1;
+  if (which != kFwd && which != kDq && which != kDkv) return -1;
   switch (D) {
     case 32: return rope ? tcr::smem_bytes<32, true>(which)
                          : tcr::smem_bytes<32, false>(which);
@@ -1201,10 +1352,10 @@ long flash_attention_tc_smem_bytes(int which, int D, int rope) {
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* out, void* lse, int BH, int S, int D,
                                int dtype, float scale, int causal,
-                               void* stream) {
+                               int tensor_core, void* stream) {
   Params p{q, k, v, nullptr, nullptr, static_cast<float*>(lse), out, nullptr,
            nullptr, nullptr, S, scale, causal};
-  return run<false>(kFwd, dtype, D, p, BH, 0, stream);
+  return run<false>(kFwd, dtype, D, p, BH, tensor_core, stream);
 }
 
 int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
@@ -1234,11 +1385,12 @@ int flash_attention_rope_fwd_launch(const void* q, const void* k,
                                     const void* v, void* out, void* lse,
                                     const void* cs, const void* sn, int BH,
                                     int S, int D, int dtype, float scale,
-                                    int causal, void* stream) {
+                                    int causal, int tensor_core,
+                                    void* stream) {
   Params p{q, k, v, nullptr, nullptr, static_cast<float*>(lse), out, nullptr,
            static_cast<const float*>(cs), static_cast<const float*>(sn), S,
            scale, causal};
-  return run<true>(kFwd, dtype, D, p, BH, 0, stream);
+  return run<true>(kFwd, dtype, D, p, BH, tensor_core, stream);
 }
 
 int flash_attention_rope_bwd_dq_launch(const void* q, const void* k,

@@ -19,12 +19,12 @@ for a tensor on the CPU; a CUDA tensor launches the kernel or raises.
 :func:`flash_attention` is the array-level entry (``_flash_attention_arrays``)
 on ``[B, S, H, D]``. Each CUDA wrapper counts its launches in ``launches``.
 
-The backward kernels have two bodies each, chosen in Python by
-:func:`flash_bwd_route` from the dtype alone: bf16 takes the tensor-core
-body (bf16 tiles, ``mma.sync`` with fp32 sums, P and dS split into bf16
-hi + lo), fp32 the CUDA-core body (fp32 products, which the card-vs-CPU
-training checks at 1e-5 rely on). A wrapper counts both bodies in its one
-counter. The forward has the CUDA-core body in both dtypes.
+Each of the three kernels has two bodies, chosen in Python by
+:func:`flash_route` from the dtype alone: bf16 takes the tensor-core body
+(bf16 tiles, ``mma.sync`` with fp32 sums, P, and in the backward dS,
+split into bf16 hi + lo), fp32 the CUDA-core body (fp32 products, which
+the card-vs-CPU training checks at 1e-5 rely on). A wrapper counts both
+bodies in its one counter.
 
 The rope variant (``_flash_mha_rope``, :348) is the same three kernels
 built with rope inside (``flash_attention_rope_*_cuda``): q and k arrive
@@ -60,7 +60,7 @@ __all__ = ["flash_attention", "FlashAttentionFunction",
            "flash_attention_rope_bwd_dkv_plain",
            "flash_attention_rope_fwd_cuda", "flash_attention_rope_bwd_dq_cuda",
            "flash_attention_rope_bwd_dkv_cuda",
-           "flash_bwd_route", "tc_smem_bytes",
+           "flash_route", "tc_smem_bytes",
            "reset_launch_counts", "launch_counts", "HEAD_DIMS", "NEG_INF"]
 
 NEG_INF = -1e30
@@ -171,10 +171,11 @@ def flash_attention_rope_bwd_dkv_plain(q, k, v, out, lse, dout, c2, s2,
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-def flash_bwd_route(dtype, head_dim):
-    """The body the backward kernels (dq, dk/dv, with or without rope)
-    take: ``"tensor_core"`` for bf16, ``"cuda_core"`` for fp32, at every
-    head_dim in ``HEAD_DIMS``; anything else has no body and raises."""
+def flash_route(dtype, head_dim):
+    """The body the three kernels (forward, dq, dk/dv, with or without
+    rope) take: ``"tensor_core"`` for bf16, ``"cuda_core"`` for fp32, at
+    every head_dim in ``HEAD_DIMS``; anything else has no body and
+    raises."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head_dim {head_dim} is not one of {HEAD_DIMS}")
     if dtype == torch.bfloat16:
@@ -187,10 +188,9 @@ def flash_bwd_route(dtype, head_dim):
 def _lib():
     lib = load("flash_attention")
     if not getattr(lib, "_fa_typed", False):
+        # ... BH, S, D, dtype, scale, causal, tensor_core, stream
+        tail = [_I] * 4 + [ctypes.c_float, _I, _I, _P]
         for name, n_ptr in (("fwd", 5), ("bwd_dq", 7), ("bwd_dkv", 8)):
-            # ... BH, S, D, dtype, scale, causal[, tensor_core], stream
-            tail = ([_I] * 4 + [ctypes.c_float, _I]
-                    + ([_I] if name != "fwd" else []) + [_P])
             fn = getattr(lib, f"flash_attention_{name}_launch")
             fn.argtypes = [_P] * n_ptr + tail
             fn.restype = _I
@@ -205,9 +205,9 @@ def _lib():
 
 def tc_smem_bytes(which, head_dim, rope):
     """Dynamic shared memory of one block of a tensor-core body
-    (``which``: "dq" or "dkv")."""
+    (``which``: "fwd", "dq" or "dkv")."""
     return _lib().flash_attention_tc_smem_bytes(
-        {"dq": 1, "dkv": 2}[which], head_dim, int(bool(rope)))
+        {"fwd": 0, "dq": 1, "dkv": 2}[which], head_dim, int(bool(rope)))
 
 
 def _check(q, *others, lse=None):
@@ -264,18 +264,17 @@ def _raise_on(err, name):
 
 def _launch(name, q, ptrs, tables, scale, causal):
     """Call ``flash_attention[_rope]_<name>_launch`` on the pointers of
-    ``ptrs`` (then the tables' with rope) and raise on a failed launch; a
-    backward kernel takes the body :func:`flash_bwd_route` names."""
+    ``ptrs`` (then the tables' with rope) and raise on a failed launch;
+    the kernel takes the body :func:`flash_route` names."""
     bh, s, d = q.shape
-    route = ([] if name == "fwd" else
-             [int(flash_bwd_route(q.dtype, d) == "tensor_core")])
+    tensor_core = int(flash_route(q.dtype, d) == "tensor_core")
     if tables is not None:
         _check_tables(q, *tables)
         ptrs = ptrs + [t.data_ptr() for t in tables]
         name = "rope_" + name
     fn = getattr(_lib(), f"flash_attention_{name}_launch")
     err = fn(*ptrs, bh, s, d, _DTYPE_CODE[q.dtype], float(scale),
-             int(bool(causal)), *route, _stream(q))
+             int(bool(causal)), tensor_core, _stream(q))
     _raise_on(err, f"flash_attention_{name}")
 
 

@@ -79,8 +79,9 @@ def variant_source(src, cuts):
     return src
 
 
-def build(out_dir):
-    """Build every variant at once; returns {name: library path}."""
+def build(out_dir, variants=None):
+    """Build every variant ({name: cuts}, default ``CUTS``) at once;
+    returns {name: library path}."""
     from paddle_tpu_torch.ops.cuda import _build
 
     src = open(os.path.join(_build.CSRC, "flash_attention.cu")).read()
@@ -89,7 +90,7 @@ def build(out_dir):
         if f.endswith(".cuh"):
             shutil.copy(os.path.join(_build.CSRC, f), out_dir)
     procs = {}
-    for name, cuts in CUTS.items():
+    for name, cuts in (CUTS if variants is None else variants).items():
         path = os.path.join(out_dir, f"flash_attention_{name}.cu")
         with open(path, "w") as f:
             f.write(variant_source(src, cuts))

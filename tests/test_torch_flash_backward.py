@@ -1,6 +1,6 @@
 """Numerics of the flash-attention backward's bf16 tensor-core bodies.
 
-The bf16 dq and dk/dv kernels (``flash_bwd_route`` -> "tensor_core") form
+The bf16 dq and dk/dv kernels (``flash_route`` -> "tensor_core") form
 every product on bf16 tensor cores with fp32 sums. This file emulates that
 arithmetic in plain PyTorch and holds it against the fp32 plain versions
 (``flash_attention[_rope]_bwd_*_plain``) under ``chip_smoke.py``'s gradient
@@ -145,11 +145,11 @@ def test_rotated_qk_rounded_alone_fail(bh, s, d, causal):
 ])
 def test_flash_bwd_route(dtype, head_dim, want):
     """The backward wrappers' body, from the dtype and head_dim alone."""
-    assert FA.flash_bwd_route(dtype, head_dim) == want
+    assert FA.flash_route(dtype, head_dim) == want
 
 
 @pytest.mark.parametrize("dtype,head_dim", [
     (torch.float16, 64), (torch.bfloat16, 96), (torch.float32, 16)])
 def test_flash_bwd_route_refuses_what_no_body_takes(dtype, head_dim):
     with pytest.raises((TypeError, ValueError)):
-        FA.flash_bwd_route(dtype, head_dim)
+        FA.flash_route(dtype, head_dim)
