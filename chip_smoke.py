@@ -12,8 +12,11 @@ Phases, one printed line per result:
    tensor-core kernel's registers, spills and dynamic shared memory;
 2. kernels against their plain PyTorch versions: the paged-attention
    kernels at the serving path's shapes (llama_1b MHA and a GQA case;
-   bf16, fp32 and int8 pools; decode and multi-query with T in {1, 16,
-   512}, q_start > 0 and padding rows); the flash-attention forward, dq
+   bf16, fp32 and int8 pools; decode with contexts of 1, kSplit,
+   kSplit + 1 and the whole table, each request decoded alone equal to
+   its row of the batch (tolerance 0); multi-query with T in {1, 16,
+   512}, q_start > 0 and padding rows, T = 1 equal to decode); the
+   flash-attention forward, dq
    and dkv kernels, without rope and in their rope form (pre-rotary q and
    k, the llama tables), at the training shape (B 16, H 12, S 1024, D 64,
    bf16, causal), at llama_1b's heads (D 128, S 2048), in bf16 at D 32
@@ -30,7 +33,9 @@ Phases, one printed line per result:
 3. times (CUDA events, median after warm-up) of each kernel, its plain
    version and the PyTorch library call computing the same function,
    beside the least time the card could take, with the achieved TFLOP/s
-   (and, for the MoE kernel, the bytes its design reads through L2);
+   (and, for the MoE kernel, the bytes its design reads through L2); the
+   decode kernel also over an int8 pool, each decode line naming its
+   body;
 4. serving end to end: ``LLMEngine`` serves llama_1b (bf16, random weights
    from a seed) to 8 greedy requests; the paged kernels' launch counts
    over that run must equal layers x decode steps and layers x prefill
@@ -231,6 +236,18 @@ def decode_plain(c, upcast=False):
                            k_scale=ks, v_scale=vs)[:, 0]
 
 
+def one_request(c, b):
+    """Case ``c`` cut to its request ``b`` alone (same pools)."""
+    import copy
+
+    one = copy.copy(c)
+    one.q, one.tables, one.lens = (t[b:b + 1].contiguous()
+                                   for t in (c.q, c.tables, c.lens))
+    if c.starts is not None:
+        one.starts = c.starts[b:b + 1].contiguous()
+    return one
+
+
 def mq_kernel(c):
     from paddle_tpu_torch.ops.cuda.paged_attention import (
         paged_multiquery_attention_cuda)
@@ -294,23 +311,35 @@ def phase_kernels(gen):
     """Phase 2. Returns {kernel: max abs error over every case}."""
     import numpy as np
 
+    from paddle_tpu_torch.ops.cuda.paged_attention import split_tokens
+
     rng = np.random.RandomState(SEED)
     worst = {"paged_decode_attention": 0.0,
              "paged_multiquery_attention": 0.0}
     B, bs, P, D = 8, 16, 128, 128
+    split = split_tokens()
     for H, Hkv in ((16, 16), (32, 8)):
         for q_dtype, kv in (("bfloat16", "bfloat16"), ("float32", "float32"),
                             ("bfloat16", "int8"), ("float32", "int8")):
             tol = f"{ATOL:g} + {RTOL[q_dtype]:g}*|want|"
             lens = rng.randint(1, bs * P + 1, B)
             lens[0], lens[1] = 1, bs * P
+            lens[2], lens[3] = split, split + 1   # a span's edge
             c = Case(gen, B=B, H=H, Hkv=Hkv, D=D, bs=bs, P=P,
                      q_dtype=q_dtype, kv=kv, lens=lens)
             got = decode_kernel(c)
             err, excess = compare(got, decode_plain(c, upcast=True), q_dtype)
             say(f"kernel decode H={H} Hkv={Hkv} q={q_dtype} kv={kv}: "
-                f"max_abs_err {err:.3e} (tol {tol})")
+                f"max_abs_err {err:.3e} (tol {tol}; contexts "
+                f"{sorted(int(x) for x in lens)}, kSplit {split})")
             check(excess <= 0, f"decode {H}/{Hkv} {q_dtype}/{kv}")
+            # each request decoded alone is its row of the batch
+            alone = max(float((decode_kernel(one_request(c, b))[0].float()
+                               - got[b].float()).abs().max())
+                        for b in range(B))
+            say(f"kernel decode alone vs batch H={H} q={q_dtype} kv={kv}: "
+                f"max_abs_diff {alone:.3e} over {B} requests (tol 0)")
+            check(alone == 0.0, "decode alone equals decode in a batch")
             worst["paged_decode_attention"] = max(
                 worst["paged_decode_attention"], err)
             # T = 1 multi-query at q_start = ctx - 1 is the decode step
@@ -368,15 +397,22 @@ def phase_times(gen):
     dc = Case(gen, B=8, H=H, Hkv=Hkv, D=D, bs=bs, P=P, q_dtype="bfloat16",
               kv="bfloat16", lens=lens)
     tokens = int(lens.sum())
-    byt = dc.kv_bytes(tokens) + 2 * dc.q.numel() * 2 \
-        + 4 * (int(np.ceil(lens / bs).sum()) + 8)
     ops = 4 * tokens * H * D
-    out["paged_decode_attention"] = dict(
-        ms=time_ms(lambda: decode_kernel(dc)),
-        plain_ms=time_ms(lambda: decode_plain(dc)),
-        library_ms=time_ms(library_call(dc)), bytes=byt, ops=ops,
-        library="sdpa on gathered K/V",
-        shape=f"B=8 H={H} D={D} bs={bs} ctx_sum={tokens} bf16")
+    body = (f"{K.multiquery_route(dc.q.dtype, dc.k.dtype, 1, D)} body: "
+            f"split-KV, kSplit {K.split_tokens()}, then the combine")
+    for name, c in (("paged_decode_attention", dc),
+                    ("paged_decode_attention int8",
+                     Case(gen, B=8, H=H, Hkv=Hkv, D=D, bs=bs, P=P,
+                          q_dtype="bfloat16", kv="int8", lens=lens))):
+        byt = c.kv_bytes(tokens) + 2 * c.q.numel() * 2 \
+            + 4 * (int(np.ceil(lens / bs).sum()) + 8)
+        out[name] = dict(
+            ms=time_ms(lambda: decode_kernel(c)),
+            plain_ms=time_ms(lambda: decode_plain(c)),
+            library_ms=time_ms(library_call(c)), bytes=byt, ops=ops,
+            library="sdpa on gathered K/V",
+            shape=f"B=8 H={H} D={D} bs={bs} ctx_sum={tokens} bf16 q, "
+                  f"{c.kv} pool", note=body)
     T, real = 2048, 1536
     mc = Case(gen, B=1, H=H, Hkv=Hkv, D=D, bs=bs, P=P, q_dtype="bfloat16",
               kv="bfloat16", lens=[real], T=T, starts=[0])
@@ -907,7 +943,8 @@ def phase_serve():
     m = engine.metrics()
     device_profile(lambda: engine.generate(
         prompts, SamplingParams(max_new_tokens=new)),
-        "serve (same batch again)", mark=("paged_",))
+        "serve (same batch again)",
+        mark=("paged_decode", "paged_multiquery"))
     engine.close()
     L = cfg.num_hidden_layers
     for p, o in zip(prompts, outs):

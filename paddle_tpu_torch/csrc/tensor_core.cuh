@@ -23,9 +23,13 @@
 // columns 2 (l % 4), +1 of matrix i (with .trans: column l / 4, rows
 // 2 (l % 4), +1). Rows are 16 bytes and must be 16-byte aligned.
 //
+// griddepcontrol (programmatic dependent launch) lets a kernel launched
+// with cudaLaunchAttributeProgrammaticStreamSerialization become resident
+// before the kernel ahead of it in the stream ends, and wait for it there.
+//
 // cp.async.cg copies 16 bytes from device to shared memory without passing
-// through registers (cp.async.ca 4 bytes, for rows that are not 16-byte
-// aligned); a source size of 0 fills the destination with zeros.
+// through registers (cp.async.ca 8 or 4 bytes, for rows that are not
+// 16-byte aligned); a source size of 0 fills the destination with zeros.
 
 #pragma once
 
@@ -74,6 +78,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 8 bytes, likewise (src and dst 8-byte aligned)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(full ? 8 : 0)
+               : "memory");
+}
+
 // 4 bytes, likewise (src and dst 4-byte aligned)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool full) {
@@ -108,6 +121,20 @@ __device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
   const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// -- programmatic dependent launch --------------------------------------------
+
+// let the next kernel of the stream (launched with programmatic stream
+// serialization) start launching: its blocks may become resident early
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// wait until the preceding kernel of the stream has completed and its
+// writes are visible
+__device__ __forceinline__ void wait_on_prerequisite() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // -- thread block clusters ---------------------------------------------------

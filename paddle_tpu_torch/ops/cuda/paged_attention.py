@@ -7,13 +7,19 @@
   (``pallas_call`` at :278).
 
 The decode kernel is bound by the K/V bytes it streams on an H100 (3.35
-TB/s): each block reads every visible K/V row of its (request, kv head)
-once; a long prefill chunk is bound by operations. The multi-query wrapper
-takes one of two bodies, chosen by :func:`multiquery_route` from q's and
-the pool's dtypes, T and head_dim alone (never on a failure): bf16 q over
-a bf16 or int8 pool with T > 1 and head_dim in ``TC_HEAD_DIMS`` takes the
+TB/s). Its body is split-KV: a block per ``split_tokens()`` tokens of one
+request's context (and kv head) streams them by ``cp.async`` and writes a
+partial softmax state to an fp32 workspace ``[B, H, n_split, D + 2]``
+that the wrapper allocates; a second kernel combines the partials in
+split order, so a request's output depends on its own context alone
+(bit-identical alone and in a batch, and from run to run). One C call
+launches both, and the wrapper counts it once. A long prefill chunk is
+bound by operations. The multi-query wrapper takes one of three bodies,
+chosen by :func:`multiquery_route` from q's and the pool's dtypes, T and
+head_dim alone (never on a failure): T = 1 the decode body; bf16 q over
+a bf16 or int8 pool with T > 1 and head_dim in ``TC_HEAD_DIMS`` the
 tensor-core body (``mma.sync``, P split into bf16 hi + lo); every other
-call, T = 1 included, the decode kernel's CUDA-core body. Both count in
+call the CUDA-core body. All count in
 ``paged_multiquery_attention_cuda.launches``. Each
 wrapper checks device, dtype, contiguity, alignment and shapes and raises
 on anything the kernel does not take, allocates the output with
@@ -30,7 +36,7 @@ import torch
 from ._build import load
 
 __all__ = ["paged_decode_attention_cuda", "paged_multiquery_attention_cuda",
-           "multiquery_route", "multiquery_tc_smem_bytes",
+           "multiquery_route", "multiquery_tc_smem_bytes", "split_tokens",
            "reset_launch_counts", "launch_counts", "MAX_ROWS",
            "TC_HEAD_DIMS"]
 
@@ -41,6 +47,7 @@ MAX_ROWS = 64
 TC_HEAD_DIMS = (32, 64, 128)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_BODY_CODE = {"cuda_core": 0, "tensor_core": 1, "decode": 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -49,13 +56,15 @@ def _lib():
     lib = load("paged_attention")
     if not getattr(lib, "_pa_typed", False):
         lib.paged_decode_attention_launch.argtypes = (
-            [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P])
+            [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P])
         lib.paged_decode_attention_launch.restype = _I
         lib.paged_multiquery_attention_launch.argtypes = (
-            [_P] * 9 + [_I] * 11 + [ctypes.c_float, _P])
+            [_P] * 10 + [_I] * 12 + [ctypes.c_float, _P])
         lib.paged_multiquery_attention_launch.restype = _I
         lib.paged_multiquery_tc_smem_bytes.argtypes = [_I, _I]
         lib.paged_multiquery_tc_smem_bytes.restype = ctypes.c_long
+        lib.paged_decode_split_tokens.argtypes = []
+        lib.paged_decode_split_tokens.restype = _I
         lib._pa_typed = True
     return lib
 
@@ -76,11 +85,20 @@ def _check(name, t, dtypes, ndim, device, aligned=False):
         raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
+def _require_cuda(q):
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, q is on "
+                         f"{q.device}")
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
 def _common(q, k_pool, v_pool, block_tables, context_lens, k_scale, v_scale,
             q_ndim):
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, q is on {dev}")
+    _require_cuda(q)
     _check("q", q, (torch.float32, torch.bfloat16), q_ndim, dev, True)
     _check("k_pool", k_pool, (torch.float32, torch.bfloat16, torch.int8), 4,
            dev, True)
@@ -100,6 +118,9 @@ def _common(q, k_pool, v_pool, block_tables, context_lens, k_scale, v_scale,
         raise ValueError(f"{h} query heads do not divide over {hkv} kv heads")
     if h // hkv > MAX_ROWS:
         raise ValueError(f"GQA group {h // hkv} exceeds {MAX_ROWS}")
+    if n * block_size * hkv >= 2 ** 31:
+        raise ValueError(f"the pools hold {n * block_size * hkv} rows; the "
+                         "kernels index rows with 32 bits")
     b = q.shape[0]
     if block_tables.shape[0] != b or context_lens.shape[0] != b:
         raise ValueError("block_tables/context_lens batch must match q")
@@ -126,6 +147,20 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
+def split_tokens():
+    """Context tokens of one block of the decode body (``kSplit``)."""
+    return _lib().paged_decode_split_tokens()
+
+
+def _decode_workspace(b, h, d, tokens, device):
+    """The decode body's fp32 partials [B, H, n_split, D + 2] and
+    n_split = ceil(tokens / split_tokens())."""
+    n_split = -(-tokens // split_tokens())
+    work = torch.empty(b, h, n_split, d + 2, dtype=torch.float32,
+                       device=device)
+    return work, n_split
+
+
 def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables,
                                 context_lens, scale, k_scale=None,
                                 v_scale=None):
@@ -135,22 +170,26 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables,
     b, h, hkv, d, bs, p = _common(q, k_pool, v_pool, block_tables,
                                   context_lens, k_scale, v_scale, 3)
     out = torch.empty_like(q)
+    work, n_split = _decode_workspace(b, h, d, p * bs, q.device)
     err = _lib().paged_decode_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), block_tables.data_ptr(), context_lens.data_ptr(),
-        out.data_ptr(), b, h, hkv, d, bs, p, _DTYPE_CODE[q.dtype],
-        _DTYPE_CODE[k_pool.dtype], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), work.data_ptr(), b, h, hkv, d, bs, p, n_split,
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], float(scale),
+        _stream(q))
     _raise_on(err, "paged_decode_attention")
     paged_decode_attention_cuda.launches += 1
     return out
 
 
 def multiquery_route(q_dtype, kv_dtype, t, head_dim):
-    """The multi-query body a call takes: ``"tensor_core"`` for bf16 q
+    """The multi-query body a call takes: ``"decode"`` (the decode
+    kernel's split-KV body) for ``t`` = 1; ``"tensor_core"`` for bf16 q
     over a bf16 or int8 pool with ``t`` > 1 query rows and ``head_dim`` in
-    ``TC_HEAD_DIMS``, else ``"cuda_core"`` (the decode kernel's body)."""
-    if (q_dtype == torch.bfloat16 and t > 1 and head_dim in TC_HEAD_DIMS
+    ``TC_HEAD_DIMS``; else ``"cuda_core"``."""
+    if t == 1:
+        return "decode"
+    if (q_dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
             and kv_dtype in (torch.bfloat16, torch.int8)):
         return "tensor_core"
     return "cuda_core"
@@ -174,7 +213,8 @@ def paged_multiquery_attention_cuda(q, k_pool, v_pool, block_tables,
     [B, T, H, D]; rows that see no token are 0. Padding rows (past
     ``context_lens - q_start``) are unspecified: the CUDA-core body gives
     0, the tensor-core body 0 in a tile of 64 rows that holds only padding
-    and an attention over the whole context otherwise."""
+    and an attention over the whole context otherwise, the decode body
+    (T = 1) an attention over the whole context."""
     b, h, hkv, d, bs, p = _common(q, k_pool, v_pool, block_tables,
                                   context_lens, k_scale, v_scale, 4)
     _check("q_start", q_start, (torch.int32,), 1, q.device)
@@ -182,15 +222,17 @@ def paged_multiquery_attention_cuda(q, k_pool, v_pool, block_tables,
         raise ValueError("q_start batch must match q")
     t = q.shape[1]
     tq = _query_tile(t, h // hkv)
-    tensor_core = multiquery_route(q.dtype, k_pool.dtype, t,
-                                   d) == "tensor_core"
+    body = multiquery_route(q.dtype, k_pool.dtype, t, d)
+    work, n_split = (_decode_workspace(b, h, d, p * bs, q.device)
+                     if body == "decode" else (None, 0))
     out = torch.empty_like(q)
     err = _lib().paged_multiquery_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), block_tables.data_ptr(), context_lens.data_ptr(),
-        q_start.data_ptr(), out.data_ptr(), b, t, h, hkv, d, bs, p, tq,
-        int(tensor_core), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q_start.data_ptr(), out.data_ptr(), _ptr(work), b, t, h, hkv, d, bs,
+        p, n_split, tq, _BODY_CODE[body], _DTYPE_CODE[q.dtype],
+        _DTYPE_CODE[k_pool.dtype], float(scale),
+        _stream(q))
     _raise_on(err, "paged_multiquery_attention")
     paged_multiquery_attention_cuda.launches += 1
     return out

@@ -79,19 +79,19 @@ def variant_source(src, cuts):
     return src
 
 
-def build(out_dir, variants=None):
-    """Build every variant ({name: cuts}, default ``CUTS``) at once;
-    returns {name: library path}."""
+def build(out_dir, variants=None, stem="flash_attention"):
+    """Build every variant ({name: cuts}, default ``CUTS``) of
+    ``csrc/<stem>.cu`` at once; returns {name: library path}."""
     from paddle_tpu_torch.ops.cuda import _build
 
-    src = open(os.path.join(_build.CSRC, "flash_attention.cu")).read()
+    src = open(os.path.join(_build.CSRC, stem + ".cu")).read()
     os.makedirs(out_dir, exist_ok=True)
     for f in os.listdir(_build.CSRC):
         if f.endswith(".cuh"):
             shutil.copy(os.path.join(_build.CSRC, f), out_dir)
     procs = {}
     for name, cuts in (CUTS if variants is None else variants).items():
-        path = os.path.join(out_dir, f"flash_attention_{name}.cu")
+        path = os.path.join(out_dir, f"{stem}_{name}.cu")
         with open(path, "w") as f:
             f.write(variant_source(src, cuts))
         lib = path[:-3] + ".so"

@@ -273,7 +273,8 @@ def test_tensor_core_multiquery_keeps_the_chip_tolerance(kv):
     (torch.bfloat16, torch.bfloat16, 2048, 128, "tensor_core"),
     (torch.bfloat16, torch.int8, 16, 64, "tensor_core"),
     (torch.bfloat16, torch.bfloat16, 2, 32, "tensor_core"),
-    (torch.bfloat16, torch.bfloat16, 1, 128, "cuda_core"),   # decode step
+    (torch.bfloat16, torch.bfloat16, 1, 128, "decode"),      # decode step
+    (torch.float32, torch.int8, 1, 64, "decode"),
     (torch.float32, torch.float32, 512, 128, "cuda_core"),
     (torch.float32, torch.int8, 512, 128, "cuda_core"),
     (torch.bfloat16, torch.float32, 512, 128, "cuda_core"),
