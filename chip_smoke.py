@@ -37,15 +37,23 @@ Phases, one printed line per result:
    decode kernel also over an int8 pool, each decode line naming its
    body;
 4. serving end to end: ``LLMEngine`` serves llama_1b (bf16, random weights
-   from a seed) to 8 greedy requests; the paged kernels' launch counts
-   over that run must equal layers x decode steps and layers x prefill
-   chunks; one profiled repeat;
+   from a seed) to 8 greedy requests, per step (host sampling) and then
+   with decode windows of 8 (``decode_steps_per_sync=8``: one CUDA graph
+   replay a window) on the same model; the paged kernels' launch counts
+   over each run must equal layers x decode iterations (through graph
+   replays for the windows) and layers x prefill chunks, and in a
+   profiled repeat the profiler's count of the split kernel; the window's
+   tokens must equal the per-step run's, with one host sync a window;
+   tokens/s, ITL p50, busy time and idle share of both;
 5. training end to end: ``fused_train_step`` with AdamW(1e-4) trains
    llama_125m (bf16, random weights from a seed) on one fixed 16 x 1024
    batch, 2 warm-up and 10 timed steps through ``FusedTrainStep.drive``;
    the loss must be finite and fall, and each flash kernel must launch
    exactly layers x steps times; tokens/s, ms/step, MFU, peak memory and
-   one profiled step; then the same for the Llama-MoE of
+   one profiled step; the same again with ``PT_ATTN_EINSUM`` set for
+   that run only (the head-major attention block), with ms/step and the
+   copy kernels' share beside the default run's; then the same for the
+   Llama-MoE of
    scripts/bench_moe_ffn.py (8 layers, 8 experts, top-2, MoE every 2nd
    layer) with ``PT_FUSED_MOE``, ``PT_FUSED_NORM`` and ``PT_FUSED_ROPE``
    set for that run only: the MoE kernel launches MoE layers x steps
@@ -55,14 +63,21 @@ Phases, one printed line per result:
    dropouts 0, AdamW(2e-5), 128 x 128 random ids and labels) with
    ``PT_FUSED_NORM`` set for that run only: the fused add + LayerNorm
    launches 2 x layers x steps times, each flash kernel without rope
-   layers x steps, every other kernel never;
+   layers x steps, every other kernel never; and again with BERT's
+   default 0.1 dropouts in training mode (attention takes the plain dense
+   route with its keep mask: the flash kernels never launch, the fused
+   add + LayerNorm 2 x layers x steps; the loss finite);
 6. card against CPU: the port engine on fp32 llama_tiny gives identical
-   greedy tokens on the CPU (plain versions) and on the card (kernels);
+   greedy tokens on the CPU (plain versions) and on the card (kernels),
+   per step and in decode windows (graph replays on the card), and the
+   window equals the per-step path over an int8 pool on the card;
    three fused AdamW steps on fp32 llama_tiny give the same losses and
-   parameters on both; and so do three on fp32 llama_tiny with 4 experts
+   parameters on both, with and without ``PT_ATTN_EINSUM``; and so do
+   three on fp32 llama_tiny with 4 experts
    and the three switches, after the first batch's top-k routing is found
    identical on both; three on fp32 bert_tiny with ``PT_FUSED_NORM``, and
-   one padded (masked) ``BertModel`` forward.
+   one padded (masked) ``BertModel`` forward; attention dropout's keep
+   rate, scaling and seeding on the card.
 
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
@@ -902,36 +917,29 @@ def phase_fused_times(gen):
     return report_times(times)
 
 
-def phase_serve():
-    """Phase 4: llama_1b through LLMEngine; returns the paged kernels'
-    launch counts over the measured run."""
+SERVE_WINDOW = 8   # decode_steps_per_sync of the window run
+
+
+def serve_run(model, prompts, new, label, **engine_kw):
+    """One llama_1b serving run: a fresh engine (2048 blocks of 16, batch
+    8), a warm-up request outside the counted run (cuBLAS handles, the
+    allocator, and for a window engine the graph's capture), the counted
+    run, then one profiled repeat whose decode launches (counted through
+    graph replays) must equal the profiler's count of the split kernel.
+    Returns (outputs, wall s, launch counts, metrics, profile)."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b
     from paddle_tpu_torch.ops.cuda import paged_attention as K
 
-    cfg = llama_1b()
-    t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                             seed=SEED)
     engine = LLMEngine(model, num_blocks=2048, block_size=16,
-                       max_batch_size=8, max_model_len=2048, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    say(f"serve setup: llama_1b bf16 ({n_params} params) + 2048-block "
-        f"pool in {time.perf_counter() - t0:.2f} s")
+                       max_batch_size=8, max_model_len=2048, device="cuda",
+                       **engine_kw)
     rng = np.random.RandomState(SEED + 2)
-    # warm-up request (cuBLAS handles, allocator), outside the counted run
-    engine.generate([rng.randint(0, cfg.vocab_size, 64)],
+    engine.generate([rng.randint(0, model.config.vocab_size, 64)],
                     SamplingParams(max_new_tokens=2))
     engine.reset_metrics()
-    lens = rng.randint(64, 1537, 8)
-    lens[0] = 1536
-    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
-               for n in lens]
-    new = 32
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     torch.cuda.synchronize()
@@ -941,16 +949,25 @@ def phase_serve():
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
     m = engine.metrics()
-    device_profile(lambda: engine.generate(
+    K.reset_launch_counts()
+    prof = device_profile(lambda: engine.generate(
         prompts, SamplingParams(max_new_tokens=new)),
-        "serve (same batch again)",
+        f"serve {label} (same batch again)",
         mark=("paged_decode", "paged_multiquery"))
+    if prof is not None:
+        seen = sum(n for name, (_, n) in prof["kernels"].items()
+                   if "paged_decode_split_kernel" in name)
+        launched = K.launch_counts()["paged_decode_attention_cuda"]
+        say(f"serve {label}: profiler saw {seen} paged_decode_split_kernel "
+            f"launches, the wrapper counted {launched}")
+        check(seen == launched and seen > 0,
+              f"decode launches {launched} == profiler's {seen}")
     engine.close()
-    L = cfg.num_hidden_layers
+    L = model.config.num_hidden_layers
     for p, o in zip(prompts, outs):
         check(len(o) == len(p) + new, "every request finished")
         gen_toks = o[len(p):]
-        check(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all(),
+        check(((gen_toks >= 0) & (gen_toks < model.config.vocab_size)).all(),
               "tokens inside the vocab")
     check(m["finished"] == len(prompts), "all requests finished")
     check(counts["paged_decode_attention_cuda"] == L * m["decode_steps"]
@@ -960,13 +977,74 @@ def phase_serve():
           == L * m["prefill_chunks"] and m["prefill_chunks"] > 0,
           f"multi-query launches {counts} == {L} x {m['prefill_chunks']}")
     toks = len(prompts) * new
-    say(f"serve llama_1b: {len(prompts)} requests, prompts "
-        f"{sorted(int(x) for x in lens)}, {new} new tokens each: wall "
+    say(f"serve llama_1b {label}: {len(prompts)} requests, prompts "
+        f"{sorted(len(p) for p in prompts)}, {new} new tokens each: wall "
         f"{wall:.3f} s, {toks / wall:.1f} tokens/s, ttft p50 "
         f"{m['ttft_ms'].get('p50')} ms, itl p50 {m['itl_ms'].get('p50')} "
-        f"ms, decode steps {m['decode_steps']}, prefill chunks "
-        f"{m['prefill_chunks']}, launches {counts}, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"ms, decode steps {m['decode_steps']}, host syncs "
+        f"{m['host_syncs']}, fetch bytes {m['decode_fetch_bytes']}, "
+        f"prefill chunks {m['prefill_chunks']}, launches {counts}, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return outs, wall, counts, m, prof
+
+
+def phase_serve():
+    """Phase 4: llama_1b through LLMEngine, per step (host sampling), then
+    with decode windows of ``SERVE_WINDOW`` (one CUDA graph replay each) on
+    the same model and prompts; returns the paged kernels' launch counts
+    over the per-step run."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b
+
+    cfg = llama_1b()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"serve setup: llama_1b bf16 ({n_params} params) + 2048-block "
+        f"pool in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.RandomState(SEED + 2)
+    rng.randint(0, cfg.vocab_size, 64)   # the warm-up prompt's draw
+    lens = rng.randint(64, 1537, 8)
+    lens[0] = 1536
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    new = 32
+    step_out, step_wall, counts, ms, ps = serve_run(model, prompts, new,
+                                                    "per-step")
+    win_out, win_wall, _, mw, pw = serve_run(
+        model, prompts, new, f"window {SERVE_WINDOW}",
+        decode_steps_per_sync=SERVE_WINDOW)
+    same = all((a == b).all() for a, b in zip(step_out, win_out))
+    check(same, "window tokens equal the per-step run's")
+    check(ms["host_syncs"] == ms["decode_steps"]
+          and mw["decode_steps"] == SERVE_WINDOW * mw["host_syncs"]
+          and mw["host_syncs"] < ms["host_syncs"],
+          f"host syncs: per-step {ms['host_syncs']} (one a step), window "
+          f"{mw['host_syncs']} (one a window of {SERVE_WINDOW})")
+    if ps is not None and pw is not None:
+        # cuBLAS must choose the same GEMM kernels under capture as eagerly
+        gemms = [sorted(n for n in p["kernels"] if "nvjet" in n
+                        or "gemm" in n.lower()) for p in (ps, pw)]
+        say(f"serve GEMM kernels, per-step vs window: {gemms[0]} vs "
+            f"{gemms[1]}")
+        check(gemms[0] == gemms[1], "the window's GEMMs are the per-step "
+              "run's")
+    toks = len(prompts) * new
+
+    def busy(p):
+        return ("not measured" if p is None else
+                f"busy {p['busy_ms']:.1f} ms, idle share {p['idle']:.3f}")
+
+    say(f"serve per-step vs window {SERVE_WINDOW}: greedy tokens identical: "
+        f"{same}; tokens/s {toks / step_wall:.1f} vs {toks / win_wall:.1f}; "
+        f"itl p50 {ms['itl_ms'].get('p50')} vs {mw['itl_ms'].get('p50')} "
+        f"ms; host syncs {ms['host_syncs']} vs {mw['host_syncs']}; decode "
+        f"iterations {ms['decode_steps']} vs {mw['decode_steps']}; "
+        f"{busy(ps)} vs {busy(pw)}")
     del model
     torch.cuda.empty_cache()
     return counts
@@ -977,8 +1055,8 @@ def device_profile(run, label, top=8, mark=None):
     union of its kernel and copy intervals, so nothing is counted twice)
     and idle share of the wall time, and the top kernels by device time.
     ``mark`` names kernels whose shares are printed as well. Returns
-    ``{kernel name: device us}``, or None when the profiler recorded no
-    device time."""
+    ``{"busy_ms", "idle", "kernels": {name: (device us, launches)}}``, or
+    None when the profiler recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1015,7 +1093,8 @@ def device_profile(run, label, top=8, mark=None):
     for key in mark or ():
         us = sum(u for u, name, _ in rows if key in name)
         say(f"  {key}*: {us / total:.3f} of device time, {us / 1e3:.2f} ms")
-    return {name: us for us, name, _ in rows}
+    return {"busy_ms": busy / 1e3, "idle": 1 - busy / wall_us,
+            "kernels": {name: (us, cnt) for us, name, cnt in rows}}
 
 
 def phase_card_vs_cpu():
@@ -1050,19 +1129,61 @@ def phase_card_vs_cpu():
         say(f"card vs cpu llama_tiny fp32 (chunk budget {chunk}): greedy "
             f"tokens identical: {same}")
         check(same, "card and CPU greedy tokens agree")
+    # decode windows: eager on the CPU, graph replays on the card; equal to
+    # the per-step path on both, and over an int8 pool on the card
+    outs = {}
+    for dev, kv, k in (("cpu", None, 1), ("cpu", None, SERVE_WINDOW),
+                       ("cuda", None, 1), ("cuda", None, SERVE_WINDOW),
+                       ("cuda", "int8", 1), ("cuda", "int8", SERVE_WINDOW)):
+        m = LlamaForCausalLM(cfg, device=dev)
+        load_paddle_tpu_state_dict(m, state)
+        with LLMEngine(m, num_blocks=64, block_size=16, max_batch_size=3,
+                       kv_dtype=kv, decode_steps_per_sync=k,
+                       device=dev) as eng:
+            outs[dev, kv, k] = eng.generate(
+                prompts, SamplingParams(max_new_tokens=16))
+            if k > 1 and dev == "cuda":
+                check(eng._window.graph is not None
+                      and eng._window.replays == eng.metrics()["host_syncs"],
+                      "every window was one graph replay")
+
+    def agree(a, b):
+        return all((x == y).all() for x, y in zip(outs[a], outs[b]))
+
+    fp = [key for key in outs if key[1] is None]
+    same = all(agree(fp[0], key) for key in fp[1:])
+    same8 = agree(("cuda", "int8", 1), ("cuda", "int8", SERVE_WINDOW))
+    say(f"card vs cpu llama_tiny fp32, decode windows of {SERVE_WINDOW}: "
+        f"window and per-step tokens identical on the card and the CPU: "
+        f"{same}; int8 pool on the card, window vs per-step: {same8}")
+    check(same and same8, "window tokens agree with the per-step path")
 
 
-def phase_train():
+def copy_share(prof):
+    """Share of device time in copy kernels (names holding "copy"), or
+    None when the profiler recorded no device time."""
+    if prof is None:
+        return None
+    kernels = prof["kernels"].items()
+    total = sum(us for _, (us, _) in kernels)
+    return sum(us for name, (us, _) in kernels
+               if "copy" in name.lower()) / total
+
+
+def phase_train(switch=None):
     """Phase 5: llama_125m (bf16, full width and depth, random weights
     from a seed) trained by ``fused_train_step`` with AdamW(1e-4) on one
     fixed 16 x 1024 batch: 2 warm-up and 10 timed steps through
-    ``FusedTrainStep.drive``, then one profiled step. Returns the flash
-    kernels' launch counts over the 12 steps."""
+    ``FusedTrainStep.drive``, then one profiled step; with ``switch`` (an
+    environment switch such as ``PT_ATTN_EINSUM``) set to 1 for this run
+    only. Returns the flash kernels' launch counts over the 12 steps,
+    ms/step and the copy kernels' share of device time."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.incubate import fused_train_step
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_125m
+    from paddle_tpu_torch.nn.functional import flash_attention as sdpa
     from paddle_tpu_torch.observability import metrics
     from paddle_tpu_torch.ops.cuda import flash_attention as K
     from paddle_tpu_torch.optimizer import AdamW
@@ -1083,21 +1204,30 @@ def phase_train():
     flops_per_token = 6.0 * n_params + 12.0 * cfg.num_hidden_layers \
         * cfg.hidden_size * seq
     torch.cuda.synchronize()
-    say(f"train setup: llama_125m bf16 ({n_params} params), batch "
+    label = f"llama_125m {switch}=1" if switch else "llama_125m"
+    say(f"train setup: {label} bf16 ({n_params} params), batch "
         f"{batch} x {seq}, in {time.perf_counter() - t0:.2f} s")
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    first = step.drive([(ids, labels)] * warmup, log_every=warmup)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    hist = step.drive([(ids, labels)] * steps, log_every=steps)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = K.launch_counts()
+    with fused_switches((switch,) if switch else ()):
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        first = step.drive([(ids, labels)] * warmup, log_every=warmup)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = step.drive([(ids, labels)] * steps, log_every=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        path = sdpa.LAST_PATH
+        prof = device_profile(lambda: step(ids, labels),
+                              f"train {label} (one step)", top=10,
+                              mark=("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"))
     losses = first["loss"] + hist["loss"]
     L = cfg.num_hidden_layers
     check(all(np.isfinite(losses)), f"finite losses {losses}")
     check(losses[-1] < losses[0], f"loss falls {losses}")
+    want_path = "einsum_block" if switch == "PT_ATTN_EINSUM" else "cuda"
+    check(path == want_path, f"attention took {path}, not {want_path}")
     for name in FLASH:
         check(counts[name + "_cuda"] == L * (warmup + steps),
               f"{name} launches {counts} == {L} x {warmup + steps} steps")
@@ -1105,24 +1235,25 @@ def phase_train():
     tok_s = tokens / wall
     gauge = metrics.REGISTRY.get("train_items_per_sec").value(
         instance=step._stats_name)
-    say(f"train llama_125m: losses {[round(x, 4) for x in losses]}; "
+    share = copy_share(prof)
+    say(f"train {label}: losses {[round(x, 4) for x in losses]}; "
         f"{steps} timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} "
         f"ms/step, {tok_s:.0f} tokens/s (train_items_per_sec {gauge:.0f}), "
         f"MFU {tok_s * flops_per_token / PEAK_OPS_PER_S['bfloat16']:.4f} "
         f"({flops_per_token / 1e6:.1f} MFLOP/token vs 989 TFLOP/s), peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"launches {counts}")
-    device_profile(lambda: step(ids, labels), "train (one step)", top=10,
-                   mark=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+        f"copy kernels {'not measured' if share is None else f'{share:.3f}'}"
+        f" of device time, launches {counts}")
     del model, step
     torch.cuda.empty_cache()
-    return counts
+    return counts, wall / steps * 1e3, share
 
 
-def phase_train_card_vs_cpu():
+def phase_train_card_vs_cpu(switch=None):
     """Phase 6b: three fused AdamW steps on fp32 llama_tiny (GQA 4/2,
     head_dim 32) from the same numpy weights and batches, on the card
-    (kernels) and on the CPU (plain versions)."""
+    (kernels) and on the CPU (plain versions); with ``switch`` (such as
+    ``PT_ATTN_EINSUM``) set to 1 for this run only."""
     import numpy as np
     import torch
 
@@ -1130,6 +1261,7 @@ def phase_train_card_vs_cpu():
     from paddle_tpu_torch.models import (LlamaForCausalLM,
                                          load_paddle_tpu_state_dict,
                                          llama_tiny, to_numpy_state_dict)
+    from paddle_tpu_torch.nn.functional import flash_attention as sdpa
     from paddle_tpu_torch.ops.cuda import flash_attention as K
     from paddle_tpu_torch.optimizer import AdamW
 
@@ -1148,8 +1280,12 @@ def phase_train_card_vs_cpu():
         step = fused_train_step(model, AdamW(
             learning_rate=1e-3, epsilon=1e-6, parameters=model.parameters()))
         K.reset_launch_counts()
-        losses[dev] = [float(step(*(torch.from_numpy(x).to(dev)
-                                    for x in b))) for b in batches]
+        with fused_switches((switch,) if switch else ()):
+            losses[dev] = [float(step(*(torch.from_numpy(x).to(dev)
+                                        for x in b))) for b in batches]
+        if switch == "PT_ATTN_EINSUM":
+            check(sdpa.LAST_PATH == "einsum_block",
+                  f"attention on {dev} took {sdpa.LAST_PATH}")
         if dev == "cuda":
             counts = K.launch_counts()
             check(all(counts[n + "_cuda"] == 3 * cfg.num_hidden_layers
@@ -1158,7 +1294,9 @@ def phase_train_card_vs_cpu():
     dl = max(abs(a / b - 1) for a, b in zip(losses["cuda"], losses["cpu"]))
     dp = max(float(np.abs(params["cuda"][k] - params["cpu"][k]).max())
              for k in params["cpu"])
-    say(f"card vs cpu training llama_tiny fp32, 3 AdamW steps: losses cuda "
+    label = f" with {switch}=1" if switch else ""
+    say(f"card vs cpu training llama_tiny fp32{label}, 3 AdamW steps: "
+        f"losses cuda "
         f"{losses['cuda']} cpu {losses['cpu']}, max rel diff {dl:.2e} (tol "
         f"{TRAIN_LOSS_RTOL:g}); parameters max abs diff {dp:.2e} (tol "
         f"{TRAIN_PARAM_ATOL:g})")
@@ -1398,7 +1536,7 @@ def bert_tiny_state(model, rng):
             for k, v in model.state_dict().items()}
 
 
-def phase_train_bert():
+def phase_train_bert(dropout=False):
     """Phase 5c: BERT-base sequence classification (bf16, full width and
     depth, random weights from a seed) fine-tuned as ``bench.py bert`` sets
     it up (``bench.py:401-466``: both dropouts 0, AdamW(2e-5) through
@@ -1407,8 +1545,10 @@ def phase_train_bert():
     on for this run only: 2 warm-up and 10 timed steps through
     ``FusedTrainStep.drive`` (dict batches), then one profiled step. The
     fused add + LayerNorm launches twice a layer a step, each flash kernel
-    without rope once; no other kernel. Returns the launch counts over the
-    12 steps."""
+    without rope once; no other kernel. With ``dropout`` the config keeps
+    its default 0.1 dropouts (training mode): attention takes the plain
+    dense route with its keep mask, so the flash kernels never launch.
+    Returns the launch counts over the 12 steps."""
     import numpy as np
     import torch
 
@@ -1417,7 +1557,12 @@ def phase_train_bert():
                                          bert_base)
     from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = bert_base(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    from paddle_tpu_torch.nn.functional import flash_attention as sdpa
+
+    cfg = (bert_base() if dropout else
+           bert_base(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0))
+    label = "BERT-base dropout 0.1" if dropout else "BERT-base"
     batch, seq, warmup, steps = 128, 128, 2, 10
     L = cfg.num_hidden_layers
     t0 = time.perf_counter()
@@ -1436,7 +1581,7 @@ def phase_train_bert():
     # PaLM-appendix accounting, as bench.py's _train_flops_per_token
     flops_per_token = 6.0 * n_params + 12.0 * L * cfg.hidden_size * seq
     torch.cuda.synchronize()
-    say(f"train-bert setup: BERT-base bf16 ({n_params} params), batch "
+    say(f"train-bert setup: {label} bf16 ({n_params} params), batch "
         f"{batch} x {seq}, in {time.perf_counter() - t0:.2f} s")
     with fused_switches(("PT_FUSED_NORM",)):
         torch.cuda.reset_peak_memory_stats()
@@ -1448,18 +1593,23 @@ def phase_train_bert():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = all_launch_counts()
+        path = sdpa.LAST_PATH
         peak = torch.cuda.max_memory_allocated() / 2**30
-        device_profile(lambda: step(**data), "train-bert (one step)",
-                       top=10, mark=("fused_add_layer_norm", "flash_fwd",
-                                     "flash_bwd_dq", "flash_bwd_dkv"))
+        device_profile(lambda: step(**data),
+                       f"train-bert {label} (one step)", top=10,
+                       mark=("fused_add_layer_norm", "flash_fwd",
+                             "flash_bwd_dq", "flash_bwd_dkv"))
     losses = first["loss"] + hist["loss"]
     n = warmup + steps
     check(all(np.isfinite(losses)), f"finite losses {losses}")
     want = launches_want(fused_add_layer_norm_cuda=2 * L * n,
-                         **{f"{k}_cuda": L * n for k in FLASH})
-    check(counts == want, f"BERT-base launches {counts} == {want}")
+                         **{f"{k}_cuda": 0 if dropout else L * n
+                            for k in FLASH})
+    check(counts == want, f"{label} launches {counts} == {want}")
+    want_path = "reference" if dropout else "cuda"
+    check(path == want_path, f"attention took {path}, not {want_path}")
     tok_s = batch * seq * steps / wall
-    say(f"train-bert BERT-base: losses {[round(x, 4) for x in losses]}; "
+    say(f"train-bert {label}: losses {[round(x, 4) for x in losses]}; "
         f"{steps} timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} "
         f"ms/step, {tok_s:.0f} tokens/s, MFU "
         f"{tok_s * flops_per_token / PEAK_OPS_PER_S['bfloat16']:.4f} "
@@ -1545,6 +1695,55 @@ def phase_bert_card_vs_cpu():
     check(dh <= TRAIN_PARAM_ATOL, "card and CPU masked BERT forward agree")
 
 
+def phase_dropout_card():
+    """Phase 6e: attention dropout on the card (``sdpa_reference`` with a
+    CUDA generator): with q = k = 0 every probability is 1/S and V the
+    identity makes each output row the dropped probability row, so the
+    keep rate must lie within 4 sigma of 1 - p, kept values equal
+    (1/S) / (1 - p) and one seed give one mask; a training call routes to
+    the reference, a call at p = 0 or in eval mode to the kernels, with
+    the output of a call without dropout."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.functional import flash_attention as sdpa
+
+    b, h, n, p = 4, 8, 128, 0.1
+    q = torch.zeros(b, n, h, n, device="cuda")
+    v = torch.eye(n, device="cuda")[None, :, None, :].expand(
+        b, n, h, n).contiguous()
+
+    def draw(seed, prob=p):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return F.scaled_dot_product_attention(q, q, v, dropout_p=prob,
+                                              generator=gen)
+
+    out = draw(SEED)
+    check(sdpa.LAST_PATH == "reference", f"dropout took {sdpa.LAST_PATH}")
+    kept = out != 0
+    rate = kept.float().mean().item()
+    sigma = (p * (1 - p) / kept.numel()) ** 0.5
+    scale_err = (out[kept] - (1.0 / n) / (1 - p)).abs().max().item()
+    same_seed = torch.equal(out, draw(SEED))
+    other_seed = not torch.equal(out, draw(SEED + 1))
+    # p = 0 and eval calls route as without dropout (the kernels)
+    plain = F.scaled_dot_product_attention(q, q, v)
+    zero = torch.equal(draw(SEED, 0.0), plain)
+    zero_path = sdpa.LAST_PATH
+    ev = F.scaled_dot_product_attention(q, q, v, dropout_p=p,
+                                        training=False)
+    eval_path = sdpa.LAST_PATH
+    zero = zero and zero_path == "cuda" and torch.equal(ev, plain)
+    say(f"card dropout p={p}: keep rate {rate:.5f} (1 - p within 4 sigma "
+        f"= {4 * sigma:.5f}), kept values off (1/S)/(1-p) by "
+        f"{scale_err:.2e}; one seed one mask {same_seed}, another seed "
+        f"another {other_seed}; p = 0 and eval give the output without "
+        f"dropout: {zero} (routes {zero_path}, {eval_path})")
+    check(abs(rate - (1 - p)) <= 4 * sigma and scale_err <= 1e-7
+          and same_seed and other_seed and zero and eval_path == "cuda",
+          "attention dropout semantics on the card")
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -1575,6 +1774,17 @@ def tensor_core_ptxas(built):
     say(f"  dynamic shared memory: moe_ffn_bf16_kernel "
         f"{MF._lib().moe_ffn_smem_bytes(768, 1)} B; "
         f"paged_multiquery_tc_kernel {tc}; flash_*_tc_kernel {fa}")
+
+
+def timed(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, then a line with its wall time (what each
+    phase adds to the command's time)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    named = ", ".join([repr(a) for a in args if isinstance(a, str)]
+                      + [f"{k}={v!r}" for k, v in kwargs.items()])
+    say(f"wall {fn.__name__}({named}): {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main():
@@ -1612,19 +1822,30 @@ def main():
     times.update(phase_flash_times(gen, rope=True))
     times.update(phase_fused_times(gen))
     # each kernel's launches from the main path that runs it
-    counts = phase_serve()
-    train = phase_train()
+    counts = timed(phase_serve)
+    train, train_ms, train_copy = timed(phase_train)
     counts.update({f"{n}_cuda": train[f"{n}_cuda"] for n in FLASH})
-    moe = phase_train_moe()
+    _, einsum_ms, einsum_copy = timed(phase_train, "PT_ATTN_EINSUM")
+
+    def share(x):
+        return "not measured" if x is None else f"{x:.3f}"
+
+    say(f"train llama_125m default vs PT_ATTN_EINSUM=1: {train_ms:.1f} vs "
+        f"{einsum_ms:.1f} ms/step; copy kernels {share(train_copy)} vs "
+        f"{share(einsum_copy)} of device time")
+    moe = timed(phase_train_moe)
     counts.update({k: moe[k] for k in ("moe_ffn_cuda",
                                        "fused_add_rms_norm_cuda",
                                        *(f"{n}_cuda" for n in ROPE))})
-    bert = phase_train_bert()
+    bert = timed(phase_train_bert)
     counts["fused_add_layer_norm_cuda"] = bert["fused_add_layer_norm_cuda"]
-    phase_card_vs_cpu()
-    phase_train_card_vs_cpu()
-    phase_train_moe_card_vs_cpu()
-    phase_bert_card_vs_cpu()
+    timed(phase_train_bert, dropout=True)
+    timed(phase_card_vs_cpu)
+    timed(phase_train_card_vs_cpu)
+    timed(phase_train_card_vs_cpu, "PT_ATTN_EINSUM")
+    timed(phase_train_moe_card_vs_cpu)
+    timed(phase_bert_card_vs_cpu)
+    timed(phase_dropout_card)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",

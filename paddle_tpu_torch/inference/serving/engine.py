@@ -13,16 +13,27 @@ server over a paged KV pool on one device (``cuda`` by default):
 * prefill chunks attend through ``paged_multiquery_attention`` and decode
   through ``paged_decode_attention``: the hand-written CUDA kernels on the
   card, their plain PyTorch versions on the CPU;
-* decode fetches ``[B, V]`` logits and samples on the host with
-  ``models.llama.sample_next_tokens``;
+* by default decode fetches ``[B, V]`` logits and samples on the host
+  with ``models.llama.sample_next_tokens`` (``capture_logits=True`` keeps
+  the last row sampled from as ``Request.last_logits``);
+* **device-resident decode** (``in_graph_sampling=True``, or
+  ``decode_steps_per_sync=k > 1``): one window runs k decode iterations
+  with greedy argmax on the device and per-row ``active``, ``budget`` and
+  ``eos`` freezing, and fetches ``[B, k]`` int32 tokens once. On the card
+  the window is captured once per engine into a ``torch.cuda.CUDAGraph``
+  and replayed once per window (static input buffers filled by
+  ``copy_``; block, offset and context lengths computed on the device);
+  on the CPU the same function runs eagerly. A batch holding a
+  ``do_sample`` request takes the per-step host path (one warning per
+  engine);
 * ``stream`` yields tokens as they are produced, ``generate`` runs a batch
   to completion.
 
-The engine runs eagerly; pools are written in place (see ``kv_cache``).
-Sharding plans, speculative decoding, prefill-only/disaggregated serving,
-the host KV tier, the prefix store, fused decode windows and in-graph
-sampling, logit capture, integrity checks, deadlines and tenants are not
-ported, and the constructor does not take their arguments.
+Prefill chunks and the per-step decode run eagerly; pools are written in
+place (see ``kv_cache``). Sharding plans, speculative decoding,
+prefill-only/disaggregated serving, the host KV tier, the prefix store,
+integrity checks, deadlines and tenants are not ported, and the
+constructor does not take their arguments.
 """
 
 from __future__ import annotations
@@ -38,9 +49,10 @@ import torch
 
 from ...core.device import resolve_device
 from ...models.llama import (LlamaForCausalLM, _rope_apply, _rotate,
-                             sample_next_tokens)
+                             greedy_tokens_in_graph, sample_next_tokens)
 from ...observability import metrics as _obs_metrics
 from ...observability import trace as _obs_trace
+from ...ops.cuda import paged_attention as _decode_kernels
 from .errors import EngineClosedError
 from .kv_cache import PagedKVCache, PrefixCache, quantize_kv_rows
 from .paged_attention import (paged_decode_attention,
@@ -67,7 +79,8 @@ _M_PREFILL_CHUNKS = _obs_metrics.counter(
     "block-aligned prefill chunk executions")
 _M_DECODE_STEPS = _obs_metrics.counter(
     "serving_decode_steps_total",
-    "batched decode steps run (one paged-decode attention per layer each)")
+    "batched decode iterations run (one paged-decode attention per layer "
+    "each; a window of k iterations counts k)")
 _G_KV_UTIL = _obs_metrics.gauge(
     "serving_kv_block_utilization",
     "fraction of usable KV pool blocks in use after the last step")
@@ -84,10 +97,12 @@ _G_QUANT_BLOCKS = _obs_metrics.gauge(
     "step")
 _M_HOST_SYNCS = _obs_metrics.counter(
     "serving_host_syncs_total",
-    "blocking device->host logits fetches made by the decode loop")
+    "blocking device->host fetches made by the decode loop (logits per "
+    "step, or tokens per window)")
 _M_FETCH_BYTES = _obs_metrics.counter(
     "serving_decode_fetch_bytes_total",
-    "bytes fetched device->host by the decode loop (B*V logits per step)")
+    "bytes fetched device->host by the decode loop (B*V fp32 logits per "
+    "step, or B*k int32 tokens per window)")
 
 # every serving metric an engine instance owns: metrics(), reset_metrics()
 # and close() iterate this one list
@@ -116,6 +131,64 @@ def _default_buckets(block_size, max_model_len):
     return buckets
 
 
+class _DecodeWindow:
+    """One engine's decode window over static device buffers: ``meta``
+    int64 [5, B] (ids, positions, active, budget, eos ids; filled by
+    ``copy_`` before each run) and the engine's persistent block-table
+    buffer. On the CPU :meth:`run` calls the window function eagerly. On
+    the card the first run warms the function up on a side stream with
+    every row inactive (first launches set kernel attributes; cuBLAS takes
+    its workspace for that stream), then captures it into a
+    ``torch.cuda.CUDAGraph``; every run replays it. The capture launches
+    nothing, so it records each decode-kernel wrapper's launch count and
+    puts the counts back; each replay adds the recorded counts. A failed
+    capture or replay raises: there is no eager fallback on the card."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.meta = torch.zeros(5, engine.max_batch_size, dtype=torch.int64,
+                                device=engine.device)
+        self.graph = None
+        self.tokens = None
+        self.launches = {}
+        self.replays = 0
+
+    @torch.inference_mode()
+    def _capture(self):
+        dev = self.engine.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.engine._window_forward(self.meta, self.engine._tables_dev)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = {w: w.launches for w in _decode_kernels._WRAPPERS}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            tokens = self.engine._window_forward(self.meta,
+                                                 self.engine._tables_dev)
+        for w, n in before.items():
+            self.launches[w] = w.launches - n
+            w.launches = n
+        self.graph, self.tokens = graph, tokens
+
+    @torch.inference_mode()
+    def run(self, meta):
+        """One window on ``meta`` (host int64 [5, B]); returns the tokens
+        as a host int32 array [B, k] (the window's one fetch)."""
+        if self.engine.device.type != "cuda":
+            self.meta.copy_(torch.from_numpy(meta))
+            return self.engine._window_forward(
+                self.meta, self.engine._tables_dev).numpy()
+        if self.graph is None:
+            self._capture()  # on the inactive rows the buffer starts with
+        self.meta.copy_(torch.from_numpy(meta))
+        self.graph.replay()
+        self.replays += 1
+        for w, n in self.launches.items():
+            w.launches += n
+        return self.tokens.cpu().numpy()
+
+
 class LLMEngine:
     """Continuous-batching paged-KV serving engine over a llama model.
 
@@ -128,7 +201,8 @@ class LLMEngine:
                  max_batch_size=4, max_model_len=None, prefill_buckets=None,
                  max_prefills_per_step=1, enable_prefix_cache=False,
                  max_prefill_tokens_per_step=None, kv_dtype=None,
-                 device=None):
+                 decode_steps_per_sync=1, in_graph_sampling=None,
+                 capture_logits=False, device=None):
         if not isinstance(model, LlamaForCausalLM):
             raise TypeError("LLMEngine serves LlamaForCausalLM models; got "
                             f"{type(model).__name__}")
@@ -189,11 +263,35 @@ class LLMEngine:
             for b in buckets})
         attn = model.llama.layers[0].self_attn
         self._scale = 1.0 / math.sqrt(attn.head_dim)
-        # device block tables of the decode slots, cached against the
-        # scheduler's table version and slot readiness
+        k = int(decode_steps_per_sync)
+        if k < 1:
+            raise ValueError(f"decode_steps_per_sync must be >= 1, got {k}")
+        if in_graph_sampling is None:
+            in_graph_sampling = k > 1
+        in_graph_sampling = bool(in_graph_sampling)
+        if k > 1 and not in_graph_sampling:
+            raise ValueError(
+                "decode_steps_per_sync > 1 requires in_graph_sampling: a "
+                "fused window cannot round-trip logits to the host between "
+                "its iterations")
+        if capture_logits and in_graph_sampling:
+            raise ValueError(
+                "capture_logits=True requires host-side sampling "
+                "(in_graph_sampling=False, decode_steps_per_sync=1): "
+                "device-resident decode never fetches the logits rows")
+        self._decode_window = k
+        self._in_graph = in_graph_sampling
+        self.capture_logits = bool(capture_logits)
+        self._warned_do_sample = False
+        # built on the first window (a CUDA graph on the card)
+        self._window = None
+        # the decode slots' block tables: one persistent device buffer
+        # (the window's graph reads it at every replay), refilled when the
+        # scheduler's table version or the slots' readiness moves
         self._tables_key = None
         self._tables_np = None
-        self._tables_dev = None
+        self._tables_dev = torch.zeros(self.max_batch_size, self.max_pages,
+                                       dtype=torch.int32, device=self.device)
         self._requests: dict[int, Request] = {}
         self._closed = False
         self.stats_extra = {"steps": 0, "prefills": 0, "decode_steps": 0,
@@ -356,7 +454,6 @@ class LLMEngine:
         int arrays [B]. Each row writes its K/V at its position (empty and
         mid-prefill slots: position 0 of the null block) and attends over
         ``positions + 1`` tokens. Returns logits [B, V]."""
-        llama = self.model.llama
         bs = self.block_size
         B = len(ids)
         meta = np.stack([ids, positions,
@@ -364,17 +461,24 @@ class LLMEngine:
                          positions % bs, positions + 1]).astype(np.int32)
         meta = torch.from_numpy(meta).to(self.device)
         ids_d, pos_d, blk_d, off_d = (meta[i].long() for i in range(4))
-        lens = meta[4]
-        cos_t, sin_t = llama.rope_cos, llama.rope_sin
-        c = cos_t[pos_d][:, None, None, :]
-        s = sin_t[pos_d][:, None, None, :]
-        x = llama.embed_tokens(ids_d[:, None])
+        return self._decode_layers(ids_d, pos_d, blk_d, off_d, meta[4],
+                                   tables)
+
+    def _decode_layers(self, ids, pos, blk, off, lens, tables):
+        """The decode body on device metadata: ids, positions, write block
+        and offset (int64 [B]), context lengths (int32 [B]) and the block
+        tables [B, P]. Returns logits [B, V]."""
+        llama = self.model.llama
+        B = ids.shape[0]
+        c = llama.rope_cos[pos][:, None, None, :]
+        s = llama.rope_sin[pos][:, None, None, :]
+        x = llama.embed_tokens(ids[:, None])
         for li, layer in enumerate(llama.layers):
             attn = layer.self_attn
             q, k, v = attn.project(layer.input_layernorm(x))
             q = _rotate(q, c.to(q.dtype), s.to(q.dtype))
             k = _rotate(k, c.to(k.dtype), s.to(k.dtype))
-            self._write_rows(li, (blk_d, off_d), k[:, 0], v[:, 0])
+            self._write_rows(li, (blk, off), k[:, 0], v[:, 0])
             kp, vp, ks, vs = self._pool_args(li)
             out = paged_decode_attention(q, kp, vp, tables, lens,
                                          scale=self._scale, k_scale=ks,
@@ -383,6 +487,37 @@ class LLMEngine:
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         h = llama.norm(x)
         return self.model.head(h[:, -1])
+
+    def _window_forward(self, meta, tables):
+        """The decode window (no host work inside): ``meta`` int64 [5, B]
+        holds each row's input id, position, active flag, token budget and
+        eos id (-1: none); ``tables`` [B, P]. Runs ``decode_steps_per_sync``
+        iterations: the decode body with block, offset and context length
+        computed on the device (a frozen row writes to position 0 of the
+        null block), greedy argmax, then each active row advances its
+        position and input id and freezes after its eos id or when its
+        budget is spent; a frozen row repeats its input id. Returns the
+        tokens [B, k] int32."""
+        bs = self.block_size
+        ids, pos, budget, eos = meta[0], meta[1], meta[3], meta[4]
+        active = meta[2] != 0
+        rows = torch.arange(ids.shape[0], device=ids.device)
+        zero = torch.zeros((), dtype=torch.int64, device=ids.device)
+        toks = []
+        for _ in range(self._decode_window):
+            blk = torch.where(active, tables[rows, pos // bs].long(), zero)
+            off = torch.where(active, pos % bs, zero)
+            logits = self._decode_layers(ids, pos, blk, off,
+                                         (pos + 1).to(torch.int32), tables)
+            nxt = greedy_tokens_in_graph(logits).long()
+            emitted = torch.where(active, nxt, ids)
+            toks.append(emitted)
+            stepped = active.long()
+            pos = pos + stepped
+            budget = budget - stepped
+            active = active & ~((emitted == eos) | (budget <= 0))
+            ids = emitted
+        return torch.stack(toks, dim=1).to(torch.int32)
 
     @staticmethod
     def _fetch(t):
@@ -407,7 +542,7 @@ class LLMEngine:
             for i, blocks in enumerate(lists):
                 tbl[i, :len(blocks)] = blocks
             self._tables_np = tbl
-            self._tables_dev = torch.from_numpy(tbl).to(self.device)
+            self._tables_dev.copy_(torch.from_numpy(tbl))
             self._tables_key = key
         return self._tables_dev, self._tables_np
 
@@ -480,11 +615,23 @@ class LLMEngine:
                 self.max_prefill_tokens_per_step):
             self._run_chunk(req, start, take, outputs)
 
-        sched.ensure_decode_room()
+        sched.ensure_decode_room(
+            extra_for=(self._window_extra if self._decode_window > 1
+                       else None))
         self._drain_cow()
         ready = [(i, r) for i, r in enumerate(sched.slots)
                  if r is not None and not r.prefilling]
-        if ready:
+        sampled = any(r.sampling.do_sample for _, r in ready)
+        if ready and self._in_graph and not sampled:
+            self._window_step(ready, outputs)
+        elif ready:
+            if self._in_graph and not self._warned_do_sample:
+                self._warned_do_sample = True
+                warnings.warn(
+                    f"{self._name}: do_sample=True requests keep the host "
+                    "sampling path (per-request numpy RNG); device-resident "
+                    "decode degrades to per-step host sampling while any is "
+                    "in the batch", RuntimeWarning)
             B = self.max_batch_size
             ids = np.zeros(B, np.int64)
             positions = np.zeros(B, np.int64)
@@ -504,6 +651,70 @@ class LLMEngine:
         self._update_gauges()
         return outputs
 
+    def _window_extra(self, req):
+        """Lookahead positions ``ensure_decode_room`` reserves for ``req``
+        before a window: it writes at most ``min(k, tokens remaining)``
+        positions, the first of which the base room check covers."""
+        remaining = req.sampling.max_new_tokens - len(req.output_tokens)
+        return max(min(self._decode_window, remaining) - 1, 0)
+
+    def _window_step(self, ready, outputs):
+        """Device-resident decode for every decode-ready slot: one window
+        (one graph replay on the card), one ``[B, k]`` int32 token fetch,
+        then one emission pass per request. Greedy only: ``step`` routes a
+        batch holding a ``do_sample`` request to the per-step host path."""
+        B, k = self.max_batch_size, self._decode_window
+        meta = np.zeros((5, B), np.int64)
+        meta[4] = -1
+        for i, req in ready:
+            s = req.sampling
+            meta[0, i] = req.last_token
+            meta[1, i] = req.num_cached
+            meta[2, i] = 1
+            meta[3, i] = min(k, s.max_new_tokens - len(req.output_tokens))
+            if s.eos_token_id is not None:
+                meta[4, i] = s.eos_token_id
+        self._tables()  # refreshes the buffer the window reads
+        if self._window is None:
+            self._window = _DecodeWindow(self)
+        toks = self._window.run(meta)
+        self.stats_extra["decode_steps"] += k
+        _M_DECODE_STEPS.inc(k, instance=self._name)
+        _M_HOST_SYNCS.inc(instance=self._name)
+        _M_FETCH_BYTES.inc(toks.nbytes, instance=self._name)
+        for i, req in ready:
+            self._emit_window(req, toks[i], outputs)
+
+    def _emit_window(self, req, toks, outputs):
+        """Commit one window's tokens for ``req`` (its ``[k]`` row of the
+        fetch) in one pass: the accept scan mirrors the device's freezing
+        (stop after the eos id or at ``max_new_tokens``), and the one clock
+        read at the window's end is spread over the m accepted tokens as m
+        ITL observations of dt / m. Appends StepOutputs to ``outputs``."""
+        s = req.sampling
+        accepted = []
+        for t in toks:
+            accepted.append(int(t))
+            if len(req.output_tokens) + len(accepted) >= s.max_new_tokens:
+                break
+            if s.eos_token_id is not None and int(t) == s.eos_token_id:
+                break
+        m = len(accepted)
+        req.output_tokens.extend(accepted)
+        req.num_cached += m
+        self.stats_extra["tokens_out"] += m
+        now = time.perf_counter_ns()
+        _M_TOKENS.inc(m, instance=self._name)
+        dt_ms = (now - req.t_last_token) / 1e6 / m
+        for _ in range(m):
+            _H_ITL.observe(dt_ms, instance=self._name)
+        req.t_last_token = now
+        done = self._finish_if_done(req, now)
+        for j, tok in enumerate(accepted):
+            last = done and j == m - 1
+            outputs.append(StepOutput(req.rid, tok, last,
+                                      req.finish_reason() if last else None))
+
     def _update_gauges(self):
         usable = max(self.cache.num_blocks - 1, 1)
         _G_KV_UTIL.set(1.0 - self.cache.allocator.num_free / usable,
@@ -516,8 +727,12 @@ class LLMEngine:
 
     def _emit(self, req, row):
         """Sample the next token for ``req`` from logits ``row`` [V] on the
-        host and commit it. Returns [StepOutput]."""
+        host and commit it (keeping ``row`` as ``req.last_logits`` with
+        ``capture_logits``). Returns [StepOutput]."""
         s = req.sampling
+        if self.capture_logits:
+            # [V] fp32, overwritten per emission, dropped with the request
+            req.last_logits = np.asarray(row)
         tok = int(sample_next_tokens(
             row[None], do_sample=s.do_sample, temperature=s.temperature,
             top_k=s.top_k, top_p=s.top_p, rng=req._rng)[0])
@@ -534,6 +749,13 @@ class LLMEngine:
             _H_ITL.observe((now - req.t_last_token) / 1e6,
                            instance=self._name)
         req.t_last_token = now
+        done = self._finish_if_done(req, now)
+        return [StepOutput(req.rid, tok, done,
+                           req.finish_reason() if done else None)]
+
+    def _finish_if_done(self, req, now):
+        """Finish ``req`` (blocks freed, decode span traced) when its last
+        token ends it; returns whether it did."""
         done = req.should_finish()
         if done:
             self.scheduler.finish(req)
@@ -543,8 +765,7 @@ class LLMEngine:
                 args={"rid": req.rid, "engine": self._name,
                       "tokens": len(req.output_tokens),
                       "finish_reason": req.finish_reason()})
-        return [StepOutput(req.rid, tok, done,
-                           req.finish_reason() if done else None)]
+        return done
 
     def stream(self):
         """Yield ``StepOutput`` s until the engine drains."""
@@ -635,6 +856,7 @@ class LLMEngine:
                 self.scheduler.waiting):
             self.scheduler.abort(req, "closed")
         self._requests.clear()
+        self._window = None  # frees the graph's memory pool
         self.reset_metrics()
         if self._was_training:
             self.model.train()

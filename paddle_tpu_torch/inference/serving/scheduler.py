@@ -13,8 +13,9 @@ Token-granularity admission into a fixed set of decode slots:
   blocks are ``acquire``\\ d (ref-counted) and ``num_cached`` starts past
   them;
 * **copy-on-write guard**: before decode writes, a block in the write
-  window that another request can see (refcount > 1) is replaced by a
-  private copy (queued on ``pending_cow`` for the engine to execute);
+  window (one position, or a decode window's lookahead) that another
+  request can see (refcount > 1) is replaced by a private copy (queued on
+  ``pending_cow`` for the engine to execute);
 * **graceful degradation**: a request that cannot get blocks stays queued
   (FIFO). If a RUNNING request cannot grow by one block, the most recently
   admitted running request is evicted (blocks freed, re-queued at the
@@ -101,6 +102,9 @@ class Request:
         self.prefilling = False
         self.admit_seq = -1               # admission order (eviction policy)
         self.evictions = 0
+        # the last logits row sampled from, with the engine's
+        # ``capture_logits=True`` ([V] fp32 numpy)
+        self.last_logits = None
         self._rng = (np.random.RandomState(self.sampling.seed)
                      if self.sampling.do_sample else None)
 
@@ -277,17 +281,27 @@ class Scheduler:
             if victim is req:
                 return None
 
-    def ensure_decode_room(self):
+    def ensure_decode_room(self, extra=0, extra_for=None):
         """Grow every decode-ready request that is about to write past its
         last block, evicting on exhaustion; queue COW copies for shared
-        blocks in the write position. Returns the evicted requests."""
+        blocks in the write window. ``extra`` reserves that many lookahead
+        positions beyond the one the next decode writes; ``extra_for`` (a
+        ``Request -> int`` callable) overrides it per request: a decode
+        window of k steps reserves ``min(k, tokens remaining) - 1``, so a
+        request one token from its cap never grows a block it will not
+        write. Returns the evicted requests."""
         evicted = []
         for req in list(self.slots):
             if req is None:
                 continue
+            # mid-prefill requests already own blocks for prompt + 1 tokens
+            lookahead = 0 if req.prefilling else int(
+                extra_for(req) if extra_for is not None else extra)
             # the decode step writes ONE token at position num_tokens - 1
-            while (req.state == RUNNING
-                   and req.num_tokens > len(req.blocks) * self.block_size):
+            # (plus ``lookahead`` more), so capacity num_tokens + lookahead
+            # is exactly enough
+            while (req.state == RUNNING and req.num_tokens + lookahead
+                    > len(req.blocks) * self.block_size):
                 got = self._grow_one(req, evicted)
                 if got is None:
                     break
@@ -295,21 +309,27 @@ class Scheduler:
                 self.version += 1
             if req.state != RUNNING or req.prefilling:
                 continue
-            bi = req.num_cached // self.block_size
-            b = req.blocks[bi]
-            if self.allocator.is_shared(b):
-                got = self._grow_one(req, evicted)
-                if got is None:
-                    continue
-                self.pending_cow.append((b, got))
-                self.allocator.free([b])
-                req.blocks[bi] = got
-                self.version += 1
-                _M_COW.inc(instance=self.instance)
-            elif (self.prefix_cache is not None
-                    and self.prefix_cache.registered(b)):
-                # sole holder of published content: the write diverges it
-                self.prefix_cache.forget(b)
+            # COW guard over the write window [num_cached, num_cached +
+            # lookahead]: a shared block is never written in place
+            first = req.num_cached // self.block_size
+            last = min((req.num_cached + lookahead) // self.block_size,
+                       len(req.blocks) - 1)
+            for bi in range(first, last + 1):
+                b = req.blocks[bi]
+                if self.allocator.is_shared(b):
+                    got = self._grow_one(req, evicted)
+                    if got is None:
+                        break
+                    self.pending_cow.append((b, got))
+                    self.allocator.free([b])
+                    req.blocks[bi] = got
+                    self.version += 1
+                    _M_COW.inc(instance=self.instance)
+                elif (self.prefix_cache is not None
+                        and self.prefix_cache.registered(b)):
+                    # sole holder of published content: the write
+                    # diverges it
+                    self.prefix_cache.forget(b)
         return evicted
 
     def _evict(self, req):

@@ -18,10 +18,10 @@ them, which the weights carried across make irrelevant to the comparisons.
 
 Under ``PT_FUSED_NORM=1`` each encoder layer's two post-norm epilogues
 take the fused add + LayerNorm kernel (hidden a multiple of 128), and
-unmasked attention takes the flash kernels on the card. Attention dropout
-is not ported: a model in training mode needs
-``attention_probs_dropout_prob=0`` (``bench.py bert`` sets both dropouts to
-0).
+unmasked attention takes the flash kernels on the card. In training mode
+with ``attention_probs_dropout_prob > 0`` (the default 0.1) attention
+takes the plain dense attention with its keep mask on both devices, as the
+reference's ``_sdpa_ref``; ``bench.py bert`` sets both dropouts to 0.
 """
 
 from __future__ import annotations

@@ -10,20 +10,23 @@ expert stacks ``[E, h, I]``/``[E, I, h]``), so weights carry across with
 ``forward`` is the causal forward that training runs (with ``labels`` it
 also returns the cross-entropy loss plus the router's load-balancing
 term). The reference's opt-in fused switches are read at call time, as
-there: ``PT_FUSED_ROPE=1`` takes attention through the rope-fused flash
-kernels (``LlamaAttention.forward_pre_rope``), ``PT_FUSED_NORM=1`` fuses
-the residual add into the post-attention RMSNorm, ``PT_FUSED_MOE=1`` runs
-the expert FFN in its kernel. Without them attention goes through
+there: ``PT_ATTN_EINSUM=1`` runs the head-major attention block
+(``LlamaAttention.forward_einsum_block``, tried first, as in the
+reference), ``PT_FUSED_ROPE=1`` takes attention through the rope-fused
+flash kernels (``forward_pre_rope``), ``PT_FUSED_NORM=1`` fuses the
+residual add into the post-attention RMSNorm, ``PT_FUSED_MOE=1`` runs the
+expert FFN in its kernel. Without them attention goes through
 ``nn.functional.scaled_dot_product_attention`` (on the card the flash
 kernels). Serving runs through ``inference.serving.LLMEngine``, which
 drives the submodules directly over the paged KV pool (dense models
-only). ``PT_ATTN_EINSUM``, ring/sep attention, the pipeline variants and
-``generate`` are not ported.
+only). Ring/sep attention, the pipeline variants and ``generate`` are not
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -34,8 +37,10 @@ from ..incubate.distributed.models.moe.moe_layer import (
     combine_from_experts, dispatch_to_experts, moe_capacity,
     top_k_capacity_gating)
 from ..nn import functional as F
+from ..nn.functional import flash_attention as _sdpa_module
 from ..nn.layer.common import Embedding, Linear
 from ..nn.layer.norm import RMSNorm
+from ..ops.cuda.flash_attention import HEAD_DIMS, attention_block_bhsd
 from ..ops.cuda.moe_ffn import (moe_expert_ffn, moe_ffn_shapes_ok,
                                 use_fused_moe_ffn)
 from ..ops.cuda.rms_norm import fused_add_rms_norm, use_fused_rms_norm
@@ -173,6 +178,25 @@ class LlamaAttention(nn.Module):
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
+    def forward_einsum_block(self, x, cos, sin):
+        """Head-major attention block (``PT_ATTN_EINSUM=1``): the whole
+        block through ``ops.cuda.flash_attention.attention_block_bhsd``,
+        whose projections are einsums into [B, H, S, D]. None outside the
+        gate: the switch, plus the kernels' own rule (head_dim in ``HEAD_DIMS``, float32 or bfloat16; the
+        decoder's self-attention always has ``seq_q == seq_k`` and no
+        mask). A CPU tensor takes the kernels' plain versions, a CUDA
+        tensor the kernels."""
+        if (os.environ.get("PT_ATTN_EINSUM", "0") != "1"
+                or self.head_dim not in HEAD_DIMS
+                or x.dtype not in (torch.float32, torch.bfloat16)):
+            return None
+        out = attention_block_bhsd(
+            x, self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
+            self.o_proj.weight, cos, sin, num_heads=self.num_heads,
+            num_kv_heads=self.num_kv_heads, causal=True)
+        _sdpa_module.LAST_PATH = "einsum_block"
+        return out
+
     def forward_pre_rope(self, x, cos, sin):
         """Projections, then rope-fused flash attention (rope applied
         inside the kernels); None when the fused path is not taken. The
@@ -275,7 +299,9 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, x, cos, sin):
         h = self.input_layernorm(x)
-        attn_out = self.self_attn.forward_pre_rope(h, cos, sin)
+        attn_out = self.self_attn.forward_einsum_block(h, cos, sin)
+        if attn_out is None:
+            attn_out = self.self_attn.forward_pre_rope(h, cos, sin)
         if attn_out is None:
             attn_out = self.self_attn(h, cos, sin)
         if use_fused_rms_norm() and self._fusable_norm:

@@ -1,13 +1,17 @@
 from .activation import gelu, relu, silu, tanh
 from .attention import sdpa_reference
 from .common import dropout, linear
-from .flash_attention import (fused_rope_attention,
+# the flash_attention *function* stays under the submodule's name
+# (``F.flash_attention.flash_attention``): the package attribute
+# ``flash_attention`` is the submodule, which holds ``LAST_PATH``
+from .flash_attention import (flash_attn_unpadded, fused_rope_attention,
                               fused_rope_attention_enabled,
-                              scaled_dot_product_attention)
+                              scaled_dot_product_attention, sdp_kernel)
 from .loss import cross_entropy
 from .norm import layer_norm, rms_norm
 
-__all__ = ["cross_entropy", "dropout", "fused_rope_attention",
-           "fused_rope_attention_enabled", "gelu", "layer_norm", "linear",
-           "relu", "rms_norm", "scaled_dot_product_attention",
-           "sdpa_reference", "silu", "tanh"]
+__all__ = ["cross_entropy", "dropout", "flash_attn_unpadded",
+           "fused_rope_attention", "fused_rope_attention_enabled", "gelu",
+           "layer_norm", "linear", "relu", "rms_norm",
+           "scaled_dot_product_attention", "sdp_kernel", "sdpa_reference",
+           "silu", "tanh"]

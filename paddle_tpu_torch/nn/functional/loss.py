@@ -3,7 +3,10 @@
 ``cross_entropy`` keeps the reference's arithmetic: an fp32 log-sum-exp
 over the logits, the picked logit minus it (the log-probability tensor is
 never formed), ``ignore_index`` rows zeroed, and the mean over the valid
-rows only with the count clamped at 1. The fp32 upcast of the logits is
+rows only with the count clamped at 1. With ``use_softmax=False`` the input
+holds probabilities and the log-probabilities are ``log(max(p, 1e-30))``,
+as in the reference; every reduction, weight and ``ignore_index`` path is
+the same. The fp32 upcast of the logits is
 the one large temporary (2.1 GB for bf16 logits of 16 x 1024 tokens over
 a 32000 vocabulary).
 """
@@ -26,23 +29,28 @@ def _reduce(x, reduction):
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
-    """paddle.nn.functional.cross_entropy on logits ``input``; hard
+    """paddle.nn.functional.cross_entropy on logits ``input`` (on
+    probabilities with ``use_softmax=False``); hard
     integer labels (optionally with a trailing axis of 1) or, with
     ``soft_label``, label distributions of the logits' shape. Returns fp32."""
-    if not use_softmax:
-        raise NotImplementedError(
-            "cross_entropy(use_softmax=False) is not ported yet (ROADMAP "
-            "Queue 1, item 1)")
     lf = input.float()
-    lse = torch.logsumexp(lf, dim=axis, keepdim=True)
+    if use_softmax:
+        logp = None
+        lse = torch.logsumexp(lf, dim=axis, keepdim=True)
+    else:
+        logp = torch.log(torch.clamp_min(lf, 1e-30))
+        lse = None  # every lse consumer below reads logp instead
     if soft_label or (label.dim() == input.dim()
                       and label.shape == input.shape):
         soft = label.float()
         if label_smoothing > 0:
             soft = soft * (1 - label_smoothing) + label_smoothing / \
                 input.shape[axis]
-        # sum(soft * logp) = sum(soft * lf) - lse  (soft sums to 1)
-        loss = lse.squeeze(axis) - (soft * lf).sum(dim=axis)
+        if logp is None:
+            # sum(soft * logp) = sum(soft * lf) - lse  (soft sums to 1)
+            loss = lse.squeeze(axis) - (soft * lf).sum(dim=axis)
+        else:
+            loss = -(soft * logp).sum(dim=axis)
         if weight is not None:
             w = (soft * weight).sum(dim=axis)
             loss = loss * w
@@ -55,10 +63,14 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     lab = lab.long()
     valid = lab != ignore_index
     safe = torch.where(valid, lab, torch.zeros_like(lab))
-    picked = torch.gather(lf, axis, safe.unsqueeze(axis))
-    nll = (lse - picked).squeeze(axis)
+    if logp is None:
+        picked = torch.gather(lf, axis, safe.unsqueeze(axis))
+        nll = (lse - picked).squeeze(axis)
+    else:
+        nll = -torch.gather(logp, axis, safe.unsqueeze(axis)).squeeze(axis)
     if label_smoothing > 0:
-        mean_logp = lf.mean(dim=axis) - lse.squeeze(axis)
+        mean_logp = (lf.mean(dim=axis) - lse.squeeze(axis)
+                     if logp is None else logp.mean(dim=axis))
         loss = (1 - label_smoothing) * nll - label_smoothing * mean_logp
     else:
         loss = nll

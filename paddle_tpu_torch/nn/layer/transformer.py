@@ -7,7 +7,8 @@ reference's parameter names, so a JAX ``state_dict`` loads one to one.
 Attention goes through
 :func:`~paddle_tpu_torch.nn.functional.scaled_dot_product_attention`:
 unmasked self-attention takes the flash kernels on the card, a masked call
-the plain dense attention (as the reference's ``_sdpa_ref``). The
+or attention dropout in training mode the plain dense attention (as the
+reference's ``_sdpa_ref``). The
 post-norm epilogue ``norm(residual + branch)`` takes the fused add +
 LayerNorm kernel under ``PT_FUSED_NORM=1`` when d_model is a multiple of
 128 (the reference's routing, ``_add_norm``). The MHA caches (``Cache``,
@@ -39,11 +40,12 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
 
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with biased q, k, v and output projections.
-    ``dropout`` is the attention-probability dropout (only 0 is ported in
-    training mode)."""
+    ``dropout`` is the attention-probability dropout of training mode,
+    its masks drawn from ``generator`` (the device's default one if
+    None)."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, *, device=None,
-                 dtype=None):
+                 dtype=None, generator=None):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
@@ -52,6 +54,7 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
         self.dropout = dropout
+        self.generator = generator
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
         self.k_proj = Linear(embed_dim, embed_dim, **kw)
@@ -76,7 +79,8 @@ class MultiHeadAttention(nn.Module):
             attn_mask = attn_mask.unsqueeze(1)
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
-            is_causal=False, training=self.training)
+            is_causal=False, training=self.training,
+            generator=self.generator)
         return self.out_proj(out.reshape(out.shape[0], out.shape[1],
                                          self.embed_dim))
 

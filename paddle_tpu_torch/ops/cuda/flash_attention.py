@@ -35,6 +35,11 @@ scaled after the rotation) and dq and dk are rotated back with the sin
 negated. Its autograd Function saves the pre-rotary q and k.
 :func:`flash_attention_rope` is the array-level entry
 (``_flash_attention_rope_arrays``).
+
+:func:`attention_block_bhsd` (``_attention_block_bhsd``, the reference's
+``PT_ATTN_EINSUM=1`` block) runs the kernels without rope on the
+head-major projections through :class:`FlashAttentionBHSDFunction`, the
+[B*H, S, D] core it shares with :class:`FlashAttentionFunction`.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ import torch
 from ._build import load
 
 __all__ = ["flash_attention", "FlashAttentionFunction",
+           "FlashAttentionBHSDFunction", "attention_block_bhsd",
            "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv",
            "flash_attention_fwd_plain", "flash_attention_bwd_dq_plain",
@@ -419,32 +425,58 @@ def _heads_last(x, b, h):
     return x.view(b, h, x.shape[1], x.shape[2]).transpose(1, 2)
 
 
+def _core_forward(ctx, qt, kt, vt, scale, causal):
+    """The forward both autograd Functions share: the kernel (or its plain
+    version) on [B*H, S, D]; saves exactly ``(q, k, v, out, lse)``."""
+    out, lse = flash_attention_fwd(qt, kt, vt, scale, causal)
+    ctx.save_for_backward(qt, kt, vt, out, lse)
+    ctx.scale, ctx.causal = scale, causal
+    return out
+
+
+def _core_backward(ctx, dot):
+    """(dq, dk, dv) on [B*H, S, D] from a contiguous ``dot``: the dq kernel,
+    then the dkv kernel."""
+    qt, kt, vt, out, lse = ctx.saved_tensors
+    dq = flash_attention_bwd_dq(qt, kt, vt, out, lse, dot, ctx.scale,
+                                ctx.causal)
+    dk, dv = flash_attention_bwd_dkv(qt, kt, vt, out, lse, dot, ctx.scale,
+                                     ctx.causal)
+    return dq, dk, dv
+
+
+class FlashAttentionBHSDFunction(torch.autograd.Function):
+    """Self-attention on contiguous q, k, v [B*H, S, D], with no layout
+    copy of its own (the core of :func:`attention_block_bhsd`); the
+    incoming gradient is made contiguous, a no-op when it already is."""
+
+    @staticmethod
+    def forward(ctx, qt, kt, vt, scale, causal):
+        return _core_forward(ctx, qt, kt, vt, scale, causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*_core_backward(ctx, dout.contiguous()), None, None)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Self-attention on equal-head q, k, v [B, S, H, D] (the port of
-    ``_flash_mha`` and its ``custom_vjp``). The forward saves exactly
-    ``(q, k, v, out, lse)`` on [B*H, S, D]; the backward runs the dq kernel
-    and then the dkv kernel."""
+    ``_flash_mha`` and its ``custom_vjp``): the core above between copies
+    to [B*H, S, D] and views back."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
         b, _, h, _ = q.shape
-        qt, kt, vt = _heads_first(q), _heads_first(k), _heads_first(v)
-        out, lse = flash_attention_fwd(qt, kt, vt, scale, causal)
-        ctx.save_for_backward(qt, kt, vt, out, lse)
-        ctx.scale, ctx.causal, ctx.bh = scale, causal, (b, h)
+        ctx.bh = (b, h)
+        out = _core_forward(ctx, _heads_first(q), _heads_first(k),
+                            _heads_first(v), scale, causal)
         return _heads_last(out, b, h)
 
     @staticmethod
     def backward(ctx, dout):
-        qt, kt, vt, out, lse = ctx.saved_tensors
         b, h = ctx.bh
-        dot = _heads_first(dout)
-        dq = flash_attention_bwd_dq(qt, kt, vt, out, lse, dot, ctx.scale,
-                                    ctx.causal)
-        dk, dv = flash_attention_bwd_dkv(qt, kt, vt, out, lse, dot,
-                                         ctx.scale, ctx.causal)
-        return (_heads_last(dq, b, h), _heads_last(dk, b, h),
-                _heads_last(dv, b, h), None, None)
+        grads = _core_backward(ctx, _heads_first(dout))
+        return (*(_heads_last(g, b, h) for g in grads), None, None)
 
 
 def flash_attention(q, k, v, causal=True, scale=None):
@@ -523,3 +555,34 @@ def flash_attention_rope(q, k, v, cos, sin, causal=True, scale=None):
     c2, s2 = widen_tables(cos, sin)
     return FlashAttentionRopeFunction.apply(q, k, v, c2, s2, float(s),
                                             bool(causal))
+
+
+def attention_block_bhsd(x, wq, wk, wv, wo, cos, sin, num_heads,
+                         num_kv_heads, causal=True):
+    """The whole attention block in head-major layout (the port of
+    ``_attention_block_bhsd``): x [B, S, K]; wq [K, H*D], wk/wv
+    [K, Hkv*D], wo [H*D, K] (``Linear.weight`` layout); cos/sin [S, D/2]
+    -> [B, S, K]. The projections produce [B, H, S, D] by einsum, rope
+    rotates q and k in fp32 in that layout (cast back to their dtype), GQA
+    repeats the kv heads, the flash kernels (their plain versions on the
+    CPU) take a [B*H, S, D] view through :class:`FlashAttentionBHSDFunction`,
+    and the output projection contracts [B, H, S, D] back to [B, S, K].
+    ``reshape`` copies where the einsum's result is not laid out head-major
+    (torch.einsum returns a permuted view of one GEMM)."""
+    b, s, kdim = x.shape
+    h, hk = num_heads, num_kv_heads
+    d = wq.shape[1] // h
+    q = torch.einsum("bsk,khd->bhsd", x, wq.view(kdim, h, d))
+    k = torch.einsum("bsk,khd->bhsd", x, wk.view(kdim, hk, d))
+    v = torch.einsum("bsk,khd->bhsd", x, wv.view(kdim, hk, d))
+    c2, s2 = widen_tables(cos, sin)
+    q = rope_rotate(q, c2, s2).to(x.dtype)
+    k = rope_rotate(k, c2, s2).to(x.dtype)
+    if hk != h:
+        k = k.repeat_interleave(h // hk, dim=1)
+        v = v.repeat_interleave(h // hk, dim=1)
+    out = FlashAttentionBHSDFunction.apply(
+        q.reshape(b * h, s, d), k.reshape(b * h, s, d),
+        v.reshape(b * h, s, d), 1.0 / math.sqrt(d), bool(causal))
+    return torch.einsum("bhsd,hdk->bsk", out.view(b, h, s, d),
+                        wo.view(h, d, kdim))

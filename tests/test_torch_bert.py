@@ -431,10 +431,15 @@ def test_drive_takes_dict_batches():
 
 
 def test_attention_dropout_is_queued():
+    """Attention dropout is ported: in training mode the default 0.1
+    dropouts take the plain dense attention with a keep mask (so two runs
+    differ); in eval mode the model is deterministic."""
     paddle.seed(0)
     tm = torch_bert.BertModel(torch_bert.bert_tiny(), device="cpu")
     ids = torch.from_numpy(_inputs(0)[0])
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tm(ids)
+    a, b = tm(ids)[0], tm(ids)[0]
+    assert port_sdpa.LAST_PATH == "reference"
+    assert torch.isfinite(a).all() and not torch.equal(a, b)
     tm.eval()
     assert tm(ids)[0].shape == (B, S, 128)
+    assert torch.equal(tm(ids)[0], tm(ids)[0])

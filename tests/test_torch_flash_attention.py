@@ -149,8 +149,11 @@ def test_sdpa_routes_by_device_and_raises_on_the_rest():
     assert port_sdpa.LAST_PATH == "reference"
     F.scaled_dot_product_attention(q, k[:, :8], v[:, :8])
     assert port_sdpa.LAST_PATH == "reference"
-    with pytest.raises(NotImplementedError, match="dropout"):
-        F.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
+    # training-mode dropout: the plain dense attention with its keep mask
+    F.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
+    assert port_sdpa.LAST_PATH == "reference"
+    F.scaled_dot_product_attention(q, k, v, dropout_p=0.1, training=False)
+    assert port_sdpa.LAST_PATH == "plain"
     # on the card: the kernels for their head dims and dtypes, the plain
     # dense attention (as the reference's _sdpa_ref) for every other shape
     route = port_sdpa.sdpa_route
@@ -163,6 +166,8 @@ def test_sdpa_routes_by_device_and_raises_on_the_rest():
     assert route("cuda", torch.bfloat16, 64, False, False) == "reference"
     assert route("cpu", torch.float16, 96, False, True) == "plain"
     assert route("cpu", torch.float32, 64, True, True) == "reference"
+    assert route("cuda", torch.bfloat16, 64, False, True, True) == \
+        "reference"
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

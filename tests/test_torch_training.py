@@ -102,9 +102,13 @@ def test_cross_entropy_soft_labels_and_weight_match_jax():
                                  if isinstance(v, np.ndarray) else v
                                  for k, v in kw.items()})
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        F.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
-                        use_softmax=False)
+    # use_softmax=False (ported): the input holds probabilities
+    probs = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    want = _np(JF.cross_entropy(paddle.to_tensor(probs),
+                                paddle.to_tensor(labels), use_softmax=False))
+    got = F.cross_entropy(torch.from_numpy(probs), torch.from_numpy(labels),
+                          use_softmax=False)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("mode", ["adamw", "adam"])
