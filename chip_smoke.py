@@ -15,8 +15,9 @@ Phases, one printed line per result:
    bf16, fp32 and int8 pools; decode with contexts of 1, kSplit,
    kSplit + 1 and the whole table, each request decoded alone equal to
    its row of the batch (tolerance 0); multi-query with T in {1, 16,
-   512}, q_start > 0 and padding rows, T = 1 equal to decode); the
-   flash-attention forward, dq
+   512}, q_start > 0 and padding rows, T = 1 equal to decode; and at the
+   speculative verify's shape, B 8, T 4, q_start 430-1536, over bf16 and
+   int8 pools); the flash-attention forward, dq
    and dkv kernels, without rope and in their rope form (pre-rotary q and
    k, the llama tables), at the training shape (B 16, H 12, S 1024, D 64,
    bf16, causal), at llama_1b's heads (D 128, S 2048), in bf16 at D 32
@@ -35,7 +36,7 @@ Phases, one printed line per result:
    beside the least time the card could take, with the achieved TFLOP/s
    (and, for the MoE kernel, the bytes its design reads through L2); the
    decode kernel also over an int8 pool, each decode line naming its
-   body;
+   body; the multi-query kernel also at the verify's shape;
 4. serving end to end: ``LLMEngine`` serves llama_1b (bf16, random weights
    from a seed) to 8 greedy requests, per step (host sampling) and then
    with decode windows of 8 (``decode_steps_per_sync=8``: one CUDA graph
@@ -44,7 +45,16 @@ Phases, one printed line per result:
    replays for the windows) and layers x prefill chunks, and in a
    profiled repeat the profiler's count of the split kernel; the window's
    tokens must equal the per-step run's, with one host sync a window;
-   tokens/s, ITL p50, busy time and idle share of both;
+   tokens/s, ITL p50, busy time and idle share of both; then per step
+   with synchronous staging, in turns with the default ingest thread
+   (identical tokens); then speculative with 3 drafts: a self-draft with
+   the fused catch-up (graph replays) and without (identical tokens and
+   accept ratio, the ratio at least 0.5) and a random llama_125m draft,
+   whose launches must be target layers x (chunks + verify steps) + draft
+   layers x chunks (#2) and draft layers x draft decode iterations (#1),
+   equal to the profiler's counts in a profiled repeat; the share of
+   requests equal to the per-step run's is reported; then ``generate``
+   on 8 x 512 prompts (ms a step, agreement with the engine reported);
 5. training end to end: ``fused_train_step`` with AdamW(1e-4) trains
    llama_125m (bf16, random weights from a seed) on one fixed 16 x 1024
    batch, 2 warm-up and 10 timed steps through ``FusedTrainStep.drive``;
@@ -70,7 +80,10 @@ Phases, one printed line per result:
 6. card against CPU: the port engine on fp32 llama_tiny gives identical
    greedy tokens on the CPU (plain versions) and on the card (kernels),
    per step and in decode windows (graph replays on the card), and the
-   window equals the per-step path over an int8 pool on the card;
+   window equals the per-step path over an int8 pool on the card; so do
+   the speculative engines (a self-draft and a 1-layer draft, fused and
+   unfused catch-up, equal to the plain engine too) and ``generate``
+   (tokens; ``cached_step`` logits within ATOL);
    three fused AdamW steps on fp32 llama_tiny give the same losses and
    parameters on both, with and without ``PT_ATTN_EINSUM``; and so do
    three on fp32 llama_tiny with 4 experts
@@ -393,7 +406,32 @@ def phase_kernels(gen):
                 check(excess <= 0, f"mq T={T} {H}/{Hkv} {q_dtype}/{kv}")
                 worst["paged_multiquery_attention"] = max(
                     worst["paged_multiquery_attention"], err)
+    for kv in ("bfloat16", "int8"):
+        c = verify_case(gen, rng, kv)
+        err, excess = compare(mq_kernel(c), mq_plain(c, upcast=True),
+                              "bfloat16")
+        say(f"kernel paged_multiquery verify B={VERIFY_B} T={VERIFY_T} "
+            f"H=16 D=128 q=bfloat16 kv={kv}: max_abs_err {err:.3e} (tol "
+            f"{ATOL:g} + {RTOL['bfloat16']:g}*|want|; q_start "
+            f"{sorted(int(x) for x in c.starts.tolist())})")
+        check(excess <= 0, f"mq verify shape, kv={kv}")
+        worst["paged_multiquery_attention"] = max(
+            worst["paged_multiquery_attention"], err)
     return worst
+
+
+VERIFY_B, VERIFY_T = 8, 4   # the serving phase's verify: 8 rows, K + 1 = 4
+
+
+def verify_case(gen, rng, kv):
+    """#2 at the speculative verify's shape on llama_1b: 8 requests of
+    K + 1 = 4 query rows, each at its own q_start in 430-1536 (the serving
+    prompts' span), bf16 q over a bf16 or int8 pool."""
+    starts = rng.randint(430, 1537, VERIFY_B)
+    starts[0], starts[1] = 430, 1536
+    return Case(gen, B=VERIFY_B, H=16, Hkv=16, D=128, bs=16, P=128,
+                q_dtype="bfloat16", kv=kv, lens=starts + VERIFY_T,
+                T=VERIFY_T, starts=starts)
 
 
 def phase_times(gen):
@@ -442,6 +480,21 @@ def phase_times(gen):
         library="sdpa on gathered K/V",
         shape=f"B=1 T={T} (real {real}) q_start=0 H={H} D={D} bf16",
         note=f"{K.multiquery_route(mc.q.dtype, mc.k.dtype, T, D)} body")
+    # the speculative verify's call: every row sees its own context
+    vc = verify_case(gen, rng, "bfloat16")
+    ctx = vc.lens.long()
+    pairs = int((ctx * VERIFY_T - VERIFY_T * (VERIFY_T - 1) // 2).sum())
+    byt = vc.kv_bytes(int(ctx.sum())) + 2 * vc.q.numel() * 2 \
+        + 4 * (int((-(-ctx // bs)).sum()) + 2 * VERIFY_B)
+    out["paged_multiquery_attention verify"] = dict(
+        ms=time_ms(lambda: mq_kernel(vc)),
+        plain_ms=time_ms(lambda: mq_plain(vc)),
+        library_ms=time_ms(library_call(vc)), bytes=byt,
+        ops=4 * pairs * H * D, library="sdpa on gathered K/V, offset "
+        "causal mask", shape=f"B={VERIFY_B} T={VERIFY_T} q_start "
+        f"{int(vc.starts.min())}-{int(vc.starts.max())} H={H} D={D} bf16",
+        note=f"{K.multiquery_route(vc.q.dtype, vc.k.dtype, VERIFY_T, D)} "
+             "body")
     return report_times(out)
 
 
@@ -918,27 +971,40 @@ def phase_fused_times(gen):
 
 
 SERVE_WINDOW = 8   # decode_steps_per_sync of the window run
+SPEC_K = 3         # spec_tokens of the speculative runs
+MQ_KERNELS = ("paged_multiquery_tc_kernel", "paged_multiquery_kernel")
 
 
-def serve_run(model, prompts, new, label, **engine_kw):
+def serve_run(model, prompts, new, label, profile=True, **engine_kw):
     """One llama_1b serving run: a fresh engine (2048 blocks of 16, batch
     8), a warm-up request outside the counted run (cuBLAS handles, the
     allocator, and for a window engine the graph's capture), the counted
-    run, then one profiled repeat whose decode launches (counted through
-    graph replays) must equal the profiler's count of the split kernel.
-    Returns (outputs, wall s, launch counts, metrics, profile)."""
+    run, then (``profile``) one profiled repeat whose paged-kernel launches
+    (counted through graph replays) must equal the profiler's count of the
+    split and multi-query kernels. The counted run's launches must be
+    layers x decode iterations (#1) and layers x prefill chunks (#2); with
+    a draft, #1 the draft's layers x its decode iterations, and #2 the
+    target's layers x (chunks + verify steps) plus the draft's x chunks
+    (every chunk is mirrored into the draft). Returns (outputs, wall s,
+    launch counts, metrics, profile)."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
     from paddle_tpu_torch.ops.cuda import paged_attention as K
 
+    t_life = time.perf_counter()
     engine = LLMEngine(model, num_blocks=2048, block_size=16,
                        max_batch_size=8, max_model_len=2048, device="cuda",
                        **engine_kw)
     rng = np.random.RandomState(SEED + 2)
+    draft = engine_kw.get("draft_model")
+    # a speculative warm-up runs through several verify steps, so a draft
+    # that gets a whole window accepted captures the catch-up's graph (of
+    # 2 feeds: the bucket a steady state needs) outside the counted run
     engine.generate([rng.randint(0, model.config.vocab_size, 64)],
-                    SamplingParams(max_new_tokens=2))
+                    SamplingParams(max_new_tokens=2 if draft is None
+                                   else 32))
     engine.reset_metrics()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
@@ -950,19 +1016,27 @@ def serve_run(model, prompts, new, label, **engine_kw):
     counts = K.launch_counts()
     m = engine.metrics()
     K.reset_launch_counts()
-    prof = device_profile(lambda: engine.generate(
-        prompts, SamplingParams(max_new_tokens=new)),
-        f"serve {label} (same batch again)",
-        mark=("paged_decode", "paged_multiquery"))
+    prof = None
+    if profile:
+        prof = device_profile(lambda: engine.generate(
+            prompts, SamplingParams(max_new_tokens=new)),
+            f"serve {label} (same batch again)",
+            mark=("paged_decode", "paged_multiquery"))
     if prof is not None:
-        seen = sum(n for name, (_, n) in prof["kernels"].items()
-                   if "paged_decode_split_kernel" in name)
-        launched = K.launch_counts()["paged_decode_attention_cuda"]
-        say(f"serve {label}: profiler saw {seen} paged_decode_split_kernel "
-            f"launches, the wrapper counted {launched}")
-        check(seen == launched and seen > 0,
-              f"decode launches {launched} == profiler's {seen}")
+        launched = K.launch_counts()
+        for kernels, wrapper in (
+                (("paged_decode_split_kernel",),
+                 "paged_decode_attention_cuda"),
+                (MQ_KERNELS, "paged_multiquery_attention_cuda")):
+            seen = sum(n for name, (_, n) in prof["kernels"].items()
+                       if any(k in name for k in kernels))
+            say(f"serve {label}: profiler saw {seen} {'/'.join(kernels)} "
+                f"launches, the wrapper counted {launched[wrapper]}")
+            check(seen == launched[wrapper] and seen > 0,
+                  f"{wrapper} launches {launched[wrapper]} == profiler's "
+                  f"{seen}")
     engine.close()
+    t_life = time.perf_counter() - t_life
     L = model.config.num_hidden_layers
     for p, o in zip(prompts, outs):
         check(len(o) == len(p) + new, "every request finished")
@@ -970,33 +1044,56 @@ def serve_run(model, prompts, new, label, **engine_kw):
         check(((gen_toks >= 0) & (gen_toks < model.config.vocab_size)).all(),
               "tokens inside the vocab")
     check(m["finished"] == len(prompts), "all requests finished")
-    check(counts["paged_decode_attention_cuda"] == L * m["decode_steps"]
-          and m["decode_steps"] > 0,
-          f"decode launches {counts} == {L} x {m['decode_steps']} steps")
-    check(counts["paged_multiquery_attention_cuda"]
-          == L * m["prefill_chunks"] and m["prefill_chunks"] > 0,
-          f"multi-query launches {counts} == {L} x {m['prefill_chunks']}")
+    chunks = m["prefill_chunks"]
+    if draft is None:
+        want_dec, want_mq = L * m["decode_steps"], L * chunks
+        iters = f"{m['decode_steps']} decode steps"
+    else:
+        Ld = draft.config.num_hidden_layers
+        want_dec = Ld * m["spec_draft_steps"]
+        want_mq = L * (chunks + m["spec_verify_steps"]) + Ld * chunks
+        iters = (f"{m['spec_draft_steps']} draft decode iterations, "
+                 f"{m['spec_verify_steps']} verify steps")
+    check(counts["paged_decode_attention_cuda"] == want_dec and want_dec > 0,
+          f"decode launches {counts} == {want_dec} ({iters})")
+    check(counts["paged_multiquery_attention_cuda"] == want_mq and chunks > 0,
+          f"multi-query launches {counts} == {want_mq} ({chunks} chunks, "
+          f"{iters})")
     toks = len(prompts) * new
+    spec = ("" if draft is None else
+            f", verify steps {m['spec_verify_steps']}, draft decode "
+            f"iterations {m['spec_draft_steps']}, accept ratio "
+            f"{m['spec_accept_ratio']:.4f} ({m['spec_accepted']} of "
+            f"{m['spec_proposed']} proposed)")
     say(f"serve llama_1b {label}: {len(prompts)} requests, prompts "
         f"{sorted(len(p) for p in prompts)}, {new} new tokens each: wall "
         f"{wall:.3f} s, {toks / wall:.1f} tokens/s, ttft p50 "
         f"{m['ttft_ms'].get('p50')} ms, itl p50 {m['itl_ms'].get('p50')} "
         f"ms, decode steps {m['decode_steps']}, host syncs "
         f"{m['host_syncs']}, fetch bytes {m['decode_fetch_bytes']}, "
-        f"prefill chunks {m['prefill_chunks']}, launches {counts}, peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"prefill chunks {chunks}{spec}, launches {counts}, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the "
+        f"engine's life (warm-up, run, profiled repeat) {t_life:.1f} s")
     return outs, wall, counts, m, prof
 
 
+def same_share(outs, ref):
+    """Share of requests whose tokens equal ``ref``'s."""
+    return sum(bool((a == b).all()) for a, b in zip(outs, ref)) / len(ref)
+
+
 def phase_serve():
-    """Phase 4: llama_1b through LLMEngine, per step (host sampling), then
-    with decode windows of ``SERVE_WINDOW`` (one CUDA graph replay each) on
-    the same model and prompts; returns the paged kernels' launch counts
-    over the per-step run."""
+    """Phase 4: llama_1b through LLMEngine, per step (host sampling), with
+    decode windows of ``SERVE_WINDOW`` (one CUDA graph replay each), per
+    step with synchronous staging, then speculative with ``SPEC_K`` drafts
+    (a self-draft, fused and unfused catch-up; a random llama_125m draft),
+    on the same model and prompts; then ``generate`` on 8 x 512 prompts.
+    Returns the paged kernels' launch counts over the per-step run."""
     import numpy as np
     import torch
 
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b, llama_125m
 
     cfg = llama_1b()
     t0 = time.perf_counter()
@@ -1045,9 +1142,82 @@ def phase_serve():
         f"ms; host syncs {ms['host_syncs']} vs {mw['host_syncs']}; decode "
         f"iterations {ms['decode_steps']} vs {mw['decode_steps']}; "
         f"{busy(ps)} vs {busy(pw)}")
+    # the default engine stages on its ingest thread; the same run staged
+    # synchronously must give the same tokens. Runs in turns (async above,
+    # sync, sync, async), so order effects show
+    walls = {True: [step_wall], False: []}
+    same = True
+    for ingest_async in (False, False, True):
+        out, wall, _, _, _ = serve_run(
+            model, prompts, new,
+            f"per-step ingest {'async' if ingest_async else 'sync'}",
+            profile=False, ingest_async=ingest_async)
+        walls[ingest_async].append(wall)
+        same = same and all((a == b).all() for a, b in zip(step_out, out))
+    say(f"serve llama_1b ingest sync vs async: greedy tokens identical: "
+        f"{same}; tokens/s in turns async, sync, sync, async: "
+        f"{toks / walls[True][0]:.1f}, {toks / walls[False][0]:.1f}, "
+        f"{toks / walls[False][1]:.1f}, {toks / walls[True][1]:.1f}")
+    check(same, "async and sync ingest give the same tokens")
+    draft = LlamaForCausalLM(llama_125m(), device="cuda",
+                             dtype=torch.bfloat16, seed=SEED + 5)
+    spec = {}
+    for label, d, fused, profile in (
+            (f"spec self k{SPEC_K}", model, True, True),
+            (f"spec self k{SPEC_K} unfused", model, False, False),
+            (f"spec draft llama_125m k{SPEC_K}", draft, True, False)):
+        spec[label] = serve_run(model, prompts, new, label, profile=profile,
+                                draft_model=d, spec_tokens=SPEC_K,
+                                fuse_draft_catchup=fused)
+        out, wall, _, m, _ = spec[label]
+        say(f"serve {label} vs per-step: {same_share(out, step_out):.3f} "
+            f"of requests with identical tokens (reported, not asserted: "
+            f"bf16 GEMMs of {VERIFY_B} x {SPEC_K + 1} rows and #2's "
+            f"tensor-core body round apart from the per-step decode); "
+            f"tokens/s {toks / wall:.1f} vs {toks / step_wall:.1f}")
+    fused, unfused, rnd = spec.values()
+    same = all((a == b).all() for a, b in zip(fused[0], unfused[0]))
+    say(f"serve spec self k{SPEC_K} fused vs unfused catch-up: tokens "
+        f"identical: {same}; accept ratio {fused[3]['spec_accept_ratio']} "
+        f"vs {unfused[3]['spec_accept_ratio']}")
+    check(same and fused[3]["spec_accept_ratio"]
+          == unfused[3]["spec_accept_ratio"],
+          "fused and unfused catch-up give the same tokens and accepts")
+    check(fused[3]["spec_accept_ratio"] >= 0.5,
+          f"self-draft accept ratio {fused[3]['spec_accept_ratio']} >= 0.5")
+    check(rnd[3]["spec_proposed"] > rnd[3]["spec_accepted"],
+          "the random draft's proposals are rejected")
+    del draft
+    phase_generate_1b(model, LLMEngine, SamplingParams)
     del model
     torch.cuda.empty_cache()
     return counts
+
+
+def phase_generate_1b(model, LLMEngine, SamplingParams, B=8, S=512,
+                      new=32):
+    """``generate`` (the static-cache decode, plain dense attention) on
+    llama_1b bf16 over B x S random prompts: ms per token, and the share
+    of requests whose tokens equal the per-step engine's (reported)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED + 6)
+    ids = rng.randint(0, model.config.vocab_size, (B, S)).astype(np.int32)
+    model.generate(ids[:, :64], max_new_tokens=2)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=new).cpu().numpy()
+    wall = time.perf_counter() - t0
+    with LLMEngine(model, num_blocks=2048, block_size=16, max_batch_size=B,
+                   max_model_len=2048, device="cuda") as eng:
+        ref = eng.generate(list(ids), SamplingParams(max_new_tokens=new))
+    check(out.shape == (B, S + new) and (out[:, :S] == ids).all(),
+          "generate returns prompt + new tokens")
+    say(f"generate llama_1b bf16 [{B}, {S}] + {new}: wall {wall:.3f} s, "
+        f"{wall * 1e3 / new:.2f} ms per decode step ({B} rows), "
+        f"{B * new / wall:.1f} tokens/s; {same_share(list(out), ref):.3f} "
+        f"of requests equal the per-step engine's tokens (reported)")
 
 
 def device_profile(run, label, top=8, mark=None):
@@ -1157,6 +1327,92 @@ def phase_card_vs_cpu():
         f"window and per-step tokens identical on the card and the CPU: "
         f"{same}; int8 pool on the card, window vs per-step: {same8}")
     check(same and same8, "window tokens agree with the per-step path")
+    spec_card_vs_cpu(cfg, state, prompts, outs[("cpu", None, 1)])
+    generate_card_vs_cpu(cfg, state, prompts)
+
+
+def spec_card_vs_cpu(cfg, state, prompts, plain):
+    """fp32 llama_tiny speculative engines (a self-draft and a 1-layer
+    draft, fused and unfused catch-up, ``SPEC_K`` drafts) on the card and
+    on the CPU: tokens identical to each other and to the plain engine's,
+    spec counters identical card vs CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         load_paddle_tpu_state_dict)
+
+    dcfg = dataclasses.replace(cfg, num_hidden_layers=1)
+    rng = np.random.RandomState(SEED + 4)
+    dstate = {k: (np.ones(v.shape, np.float32) if "norm" in k else
+                  (rng.standard_normal(v.shape) * 0.02).astype(np.float32))
+              for k, v in LlamaForCausalLM(dcfg, device="cpu")
+              .state_dict().items()}
+    rows = []
+    for kind in ("self", "1-layer"):
+        for fused in (True, False):
+            got = {}
+            for dev in ("cpu", "cuda"):
+                m = LlamaForCausalLM(cfg, device=dev)
+                load_paddle_tpu_state_dict(m, state)
+                d = m
+                if kind != "self":
+                    d = LlamaForCausalLM(dcfg, device=dev)
+                    load_paddle_tpu_state_dict(d, dstate)
+                with LLMEngine(m, num_blocks=64, block_size=16,
+                               max_batch_size=3, draft_model=d,
+                               spec_tokens=SPEC_K, fuse_draft_catchup=fused,
+                               device=dev) as eng:
+                    out = eng.generate(prompts,
+                                       SamplingParams(max_new_tokens=16))
+                    mm = eng.metrics()
+                    graphs = sum(g.graph is not None
+                                 for g in eng._catchups.values())
+                got[dev] = (out, mm["spec_proposed"], mm["spec_accepted"],
+                            graphs)
+            same = (all((a == b).all() for a, b in zip(got["cpu"][0],
+                                                       got["cuda"][0]))
+                    and got["cpu"][1:3] == got["cuda"][1:3])
+            plain_ok = all((a == b).all() for a, b in zip(got["cuda"][0],
+                                                          plain))
+            rows.append(same and plain_ok)
+            say(f"card vs cpu llama_tiny fp32 spec {kind} draft, "
+                f"{'fused' if fused else 'unfused'} catch-up: tokens and "
+                f"counters identical card vs cpu: {same}; equal to the "
+                f"plain engine: {plain_ok}; accepted {got['cuda'][2]} of "
+                f"{got['cuda'][1]}; catch-up graphs on the card "
+                f"{got['cuda'][3]}")
+            check(not fused or kind != "self" or got["cuda"][3] > 0,
+                  "the fused catch-up ran as a graph on the card")
+    check(all(rows), "speculative tokens agree card vs cpu vs plain")
+
+
+def generate_card_vs_cpu(cfg, state, prompts):
+    """fp32 llama_tiny ``generate`` tokens and ``cached_step`` logits, card
+    vs CPU (logits within ATOL: fp32 sums in another order)."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import (LlamaForCausalLM, StaticKVCache,
+                                         load_paddle_tpu_state_dict)
+
+    ids = np.stack([p[:5] for p in prompts])
+    toks, logits = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = LlamaForCausalLM(cfg, device=dev)
+        load_paddle_tpu_state_dict(m, state)
+        toks[dev] = m.generate(ids, max_new_tokens=16).cpu().numpy()
+        cache = StaticKVCache(cfg, len(ids), 64, device=dev)
+        logits[dev] = [m.cached_step(x, cache).float().cpu().numpy()
+                       for x in (ids, toks[dev][:, 5:6], toks[dev][:, 6:7])]
+    same = (toks["cpu"] == toks["cuda"]).all()
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(logits["cpu"], logits["cuda"]))
+    say(f"card vs cpu llama_tiny fp32 generate: tokens identical: {same}; "
+        f"cached_step logits (prefill + 2 decode steps) max_abs_diff "
+        f"{err:.3e} (tol {ATOL:g})")
+    check(same and err <= ATOL, "generate agrees card vs cpu")
 
 
 def copy_share(prof):

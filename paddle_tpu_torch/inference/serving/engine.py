@@ -4,12 +4,19 @@
 ``LLMEngine`` turns a ``LlamaForCausalLM`` into a continuously batched
 server over a paged KV pool on one device (``cuda`` by default):
 
-* ``add_request`` pads the prompt to its prefill bucket and copies it to
-  the device (synchronously), then queues it;
-* ``step`` runs one scheduler tick: admit queued prompts (charging only
-  blocks the prefix cache cannot supply), advance prefills by at most
-  ``max_prefill_tokens_per_step`` tokens of block-aligned chunks, then one
-  decode step over every decode-ready slot;
+* ``add_request`` queues the prompt; with ``ingest_async=True`` (the
+  default, as in the reference) an ingest thread pads it to its prefill
+  bucket and starts its copy to the device, so admission never waits on
+  the host: on the card into a pinned buffer, copied with
+  ``non_blocking=True`` on the engine's staging stream, with a
+  ``torch.cuda.Event`` the prefill chunk's stream waits on. If the thread
+  dies it warns once and the engine stages synchronously (the same
+  function, on the caller's thread);
+* ``step`` runs one scheduler tick: drain the ingest thread, admit queued
+  prompts (charging only blocks the prefix cache cannot supply), advance
+  prefills by at most ``max_prefill_tokens_per_step`` tokens of
+  block-aligned chunks, then one decode step (or one speculative verify)
+  over every decode-ready slot;
 * prefill chunks attend through ``paged_multiquery_attention`` and decode
   through ``paged_decode_attention``: the hand-written CUDA kernels on the
   card, their plain PyTorch versions on the CPU;
@@ -26,11 +33,24 @@ server over a paged KV pool on one device (``cuda`` by default):
   on the CPU the same function runs eagerly. A batch holding a
   ``do_sample`` request takes the per-step host path (one warning per
   engine);
+* **speculative decoding** (``draft_model=``, ``spec_tokens=K``, greedy
+  only): the draft's pools share the target's allocator and block tables,
+  and every target prefill chunk is mirrored into them. A step catches the
+  draft up to each request's committed tokens (ragged feeds left-padded by
+  repeating the first; with ``fuse_draft_catchup`` one call per
+  power-of-two feed bucket, a ``torch.cuda.CUDAGraph`` on the card), lets
+  it propose K tokens by K - 1 single-token decodes with host argmax, then
+  scores all K + 1 positions in ONE target pass whose attention is one
+  ``paged_multiquery_attention`` call a layer (q ``[B, K+1, H, D]`` at
+  ``q_start = positions``). The accept count (argmax, cumprod of matches)
+  and the next token are computed on the device; only ``[2, B]`` int32 are
+  fetched. Emission is bit-exact against sequential greedy decode;
+  rejected rows are rolled back and lookahead blocks trimmed;
 * ``stream`` yields tokens as they are produced, ``generate`` runs a batch
   to completion.
 
-Prefill chunks and the per-step decode run eagerly; pools are written in
-place (see ``kv_cache``). Sharding plans, speculative decoding,
+Prefill chunks, the per-step decode and the verify run eagerly; pools are
+written in place (see ``kv_cache``). Sharding plans,
 prefill-only/disaggregated serving, the host KV tier, the prefix store,
 integrity checks, deadlines and tenants are not ported, and the
 constructor does not take their arguments.
@@ -41,6 +61,8 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import queue
+import threading
 import time
 import warnings
 
@@ -77,6 +99,24 @@ _M_PREFILLS = _obs_metrics.counter(
 _M_PREFILL_CHUNKS = _obs_metrics.counter(
     "serving_prefill_chunks_total",
     "block-aligned prefill chunk executions")
+_M_SPEC_PROPOSED = _obs_metrics.counter(
+    "serving_spec_proposed_total",
+    "draft tokens proposed by the speculative decoder")
+_M_SPEC_ACCEPTED = _obs_metrics.counter(
+    "serving_spec_accepted_total",
+    "draft tokens accepted by the verify step")
+_G_SPEC_RATIO = _obs_metrics.gauge(
+    "serving_spec_accept_ratio",
+    "running accepted/proposed ratio of the speculative decoder")
+_M_SPEC_VERIFY = _obs_metrics.counter(
+    "serving_spec_verify_steps_total",
+    "speculative verify steps (one paged multi-query attention per target "
+    "layer each)")
+_M_SPEC_DRAFT = _obs_metrics.counter(
+    "serving_spec_draft_decode_steps_total",
+    "single-token draft decode iterations run on the device (catch-up "
+    "feeds with their padding, a fused bucket's warm-up, and proposals; "
+    "one paged decode attention per draft layer each)")
 _M_DECODE_STEPS = _obs_metrics.counter(
     "serving_decode_steps_total",
     "batched decode iterations run (one paged-decode attention per layer "
@@ -108,8 +148,10 @@ _M_FETCH_BYTES = _obs_metrics.counter(
 # and close() iterate this one list
 _SERVING_METRICS = (_M_ADMITTED, _M_EVICTIONS, _M_FINISHED, _M_QUEUED_EXH,
                     _M_PREFIX_REUSED, _M_COW, _M_PREFILLS, _M_PREFILL_CHUNKS,
-                    _M_DECODE_STEPS, _M_TOKENS, _M_KV_SAVED, _H_TTFT, _H_ITL,
-                    _G_KV_UTIL, _G_OCCUPANCY, _G_QUANT_BLOCKS, _M_HOST_SYNCS,
+                    _M_SPEC_PROPOSED, _M_SPEC_ACCEPTED, _G_SPEC_RATIO,
+                    _M_SPEC_VERIFY, _M_SPEC_DRAFT, _M_DECODE_STEPS,
+                    _M_TOKENS, _M_KV_SAVED, _H_TTFT, _H_ITL, _G_KV_UTIL,
+                    _G_OCCUPANCY, _G_QUANT_BLOCKS, _M_HOST_SYNCS,
                     _M_FETCH_BYTES)
 
 
@@ -131,62 +173,153 @@ def _default_buckets(block_size, max_model_len):
     return buckets
 
 
-class _DecodeWindow:
-    """One engine's decode window over static device buffers: ``meta``
-    int64 [5, B] (ids, positions, active, budget, eos ids; filled by
-    ``copy_`` before each run) and the engine's persistent block-table
-    buffer. On the CPU :meth:`run` calls the window function eagerly. On
-    the card the first run warms the function up on a side stream with
-    every row inactive (first launches set kernel attributes; cuBLAS takes
-    its workspace for that stream), then captures it into a
-    ``torch.cuda.CUDAGraph``; every run replays it. The capture launches
-    nothing, so it records each decode-kernel wrapper's launch count and
-    puts the counts back; each replay adds the recorded counts. A failed
-    capture or replay raises: there is no eager fallback on the card."""
+@dataclasses.dataclass
+class _Staged:
+    """A request's prompt prefix padded to its prefill bucket: ``ids``
+    [1, bucket] int64 on the engine's device, and on the card the pinned
+    host source (held for the request's life, so the copy never reads a
+    freed buffer) and the event the copy recorded on the staging stream."""
+    ids: torch.Tensor
+    bucket: int
+    length: int
+    host: torch.Tensor | None = None
+    ready: torch.cuda.Event | None = None
 
-    def __init__(self, engine):
-        self.engine = engine
-        self.meta = torch.zeros(5, engine.max_batch_size, dtype=torch.int64,
-                                device=engine.device)
+
+class _IngestThread:
+    """Stages each submitted request (``stage_fn``) on its own thread, so
+    admission never blocks decode on the host. Dies once, warns once, and
+    hands every unstaged request back: the engine then stages them
+    synchronously."""
+
+    def __init__(self, stage_fn, name):
+        self._stage = stage_fn
+        self._q: queue.Queue = queue.Queue()
+        self._ready: list = []
+        self._cond = threading.Condition()
+        self._pending = 0  # submitted but not yet drained
+        self._dead = False
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name=f"{name}-ingest")
+        self._thread.start()
+
+    def _worker(self):
+        while True:
+            req = self._q.get()
+            if req is None:
+                return
+            try:
+                self._stage(req)
+            except BaseException as e:
+                warnings.warn(
+                    f"LLMEngine ingest thread died ({e!r}); degrading to "
+                    "synchronous request staging", RuntimeWarning)
+                with self._cond:
+                    # _dead flips and the queue flushes under one lock hold:
+                    # submit() checks _dead and enqueues under the same lock,
+                    # so no request can land in _q after the flush
+                    self._dead = True
+                    self._ready.append(req)
+                    while True:
+                        try:
+                            nxt = self._q.get_nowait()
+                        except queue.Empty:
+                            break
+                        if nxt is not None:
+                            self._ready.append(nxt)
+                    self._cond.notify_all()
+                return
+            with self._cond:
+                self._ready.append(req)
+                self._cond.notify_all()
+
+    @property
+    def pending(self):
+        with self._cond:
+            return self._pending
+
+    def submit(self, req):
+        with self._cond:
+            self._pending += 1
+            if self._dead:
+                self._ready.append(req)
+                self._cond.notify_all()
+                return
+            self._q.put(req)
+
+    def drain(self, wait=False, timeout=1.0):
+        """Requests handed back since the last drain (staged, or unstaged
+        after the thread died). ``wait=True`` blocks up to ``timeout`` for
+        at least one while some are in flight."""
+        with self._cond:
+            if wait and not self._ready and self._pending:
+                self._cond.wait_for(lambda: self._ready, timeout=timeout)
+            out, self._ready = self._ready, []
+            self._pending -= len(out)
+        return out
+
+    def close(self):
+        if not self._dead:
+            self._q.put(None)
+            self._thread.join(timeout=2.0)
+
+
+class _GraphStep:
+    """One engine step function ``fn(buf, tables)`` over a static int64
+    device buffer ``buf`` (filled by ``copy_`` before each run) and the
+    engine's persistent block-table buffer: a decode window, or the draft's
+    catch-up for one feed bucket. On the CPU :meth:`run` calls ``fn``
+    eagerly. On the card the first run warms ``fn`` up on a side stream on
+    the real inputs (first launches set kernel attributes; cuBLAS takes its
+    workspace for that stream; every pool write is one the replay repeats
+    with the same values, and each row attends only up to its own
+    position), then captures it into a ``torch.cuda.CUDAGraph``; every run
+    replays it. The capture launches nothing, so it records each decode
+    kernel wrapper's launch count and puts the counts back; each replay
+    adds the recorded counts. A failed capture or replay raises: there is
+    no eager fallback on the card."""
+
+    def __init__(self, engine, fn, shape):
+        self.engine, self.fn = engine, fn
+        self.buf = torch.zeros(shape, dtype=torch.int64,
+                               device=engine.device)
         self.graph = None
-        self.tokens = None
+        self.out = None
         self.launches = {}
         self.replays = 0
 
     @torch.inference_mode()
     def _capture(self):
-        dev = self.engine.device
+        dev, tables = self.engine.device, self.engine._tables_dev
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self.engine._window_forward(self.meta, self.engine._tables_dev)
+            self.fn(self.buf, tables)
         torch.cuda.current_stream(dev).wait_stream(side)
         before = {w: w.launches for w in _decode_kernels._WRAPPERS}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side):
-            tokens = self.engine._window_forward(self.meta,
-                                                 self.engine._tables_dev)
+            out = self.fn(self.buf, tables)
         for w, n in before.items():
             self.launches[w] = w.launches - n
             w.launches = n
-        self.graph, self.tokens = graph, tokens
+        self.graph, self.out = graph, out
 
     @torch.inference_mode()
-    def run(self, meta):
-        """One window on ``meta`` (host int64 [5, B]); returns the tokens
-        as a host int32 array [B, k] (the window's one fetch)."""
+    def run(self, host):
+        """``fn`` on ``host`` (an int64 numpy array of ``buf``'s shape);
+        returns its output tensor (on the card the graph's static
+        output, valid until the next run)."""
+        self.buf.copy_(torch.from_numpy(host))
         if self.engine.device.type != "cuda":
-            self.meta.copy_(torch.from_numpy(meta))
-            return self.engine._window_forward(
-                self.meta, self.engine._tables_dev).numpy()
+            return self.fn(self.buf, self.engine._tables_dev)
         if self.graph is None:
-            self._capture()  # on the inactive rows the buffer starts with
-        self.meta.copy_(torch.from_numpy(meta))
+            self._capture()
         self.graph.replay()
         self.replays += 1
         for w, n in self.launches.items():
             w.launches += n
-        return self.tokens.cpu().numpy()
+        return self.out
 
 
 class LLMEngine:
@@ -199,17 +332,23 @@ class LLMEngine:
 
     def __init__(self, model, *, num_blocks=64, block_size=16,
                  max_batch_size=4, max_model_len=None, prefill_buckets=None,
-                 max_prefills_per_step=1, enable_prefix_cache=False,
-                 max_prefill_tokens_per_step=None, kv_dtype=None,
-                 decode_steps_per_sync=1, in_graph_sampling=None,
-                 capture_logits=False, device=None):
-        if not isinstance(model, LlamaForCausalLM):
-            raise TypeError("LLMEngine serves LlamaForCausalLM models; got "
-                            f"{type(model).__name__}")
-        if model.config.num_experts > 0:
-            raise NotImplementedError(
-                "serving a Llama-MoE model is not ported yet (ROADMAP "
-                "Queue 1); the port trains it")
+                 max_prefills_per_step=1, ingest_async=True,
+                 enable_prefix_cache=False, max_prefill_tokens_per_step=None,
+                 draft_model=None, spec_tokens=2, kv_dtype=None,
+                 fuse_draft_catchup=True, decode_steps_per_sync=1,
+                 in_graph_sampling=None, capture_logits=False, device=None):
+        for m in (model, draft_model):
+            if m is None:
+                continue
+            if not isinstance(m, LlamaForCausalLM):
+                raise TypeError(
+                    f"LLMEngine serves LlamaForCausalLM models"
+                    f"{' (draft_model too)' if m is draft_model else ''}; "
+                    f"got {type(m).__name__}")
+            if m.config.num_experts > 0:
+                raise NotImplementedError(
+                    "serving a Llama-MoE model is not ported yet (ROADMAP "
+                    "Queue 1); the port trains it")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self._was_training = model.training
@@ -261,11 +400,33 @@ class LLMEngine:
             min(-(-int(b) // self.block_size) * self.block_size,
                 self.max_model_len)
             for b in buckets})
-        attn = model.llama.layers[0].self_attn
-        self._scale = 1.0 / math.sqrt(attn.head_dim)
+        # speculative decoding: the draft's pools share the target's
+        # allocator and block tables; their shapes are the draft's own
+        self.draft_model = draft_model
+        self._spec_k = 0
+        if draft_model is not None:
+            if draft_model.config.vocab_size != self.config.vocab_size:
+                raise ValueError(
+                    "draft_model vocab_size "
+                    f"{draft_model.config.vocab_size} != target "
+                    f"{self.config.vocab_size}: verify compares token ids")
+            if int(spec_tokens) < 1:
+                raise ValueError("spec_tokens must be >= 1")
+            self._spec_k = int(spec_tokens)
+            self._draft_was_training = draft_model.training
+            draft_model.to(self.device).eval()
+            self.draft_cache = PagedKVCache(
+                draft_model.config, num_blocks, block_size,
+                dtype=draft_model.dtype, kv_dtype=kv_dtype,
+                device=self.device, allocator=self.cache.allocator)
         k = int(decode_steps_per_sync)
         if k < 1:
             raise ValueError(f"decode_steps_per_sync must be >= 1, got {k}")
+        if k > 1 and draft_model is not None:
+            raise ValueError(
+                "decode_steps_per_sync > 1 and speculative decoding are "
+                "mutually exclusive: the verify window already batches "
+                "device work and samples on the device")
         if in_graph_sampling is None:
             in_graph_sampling = k > 1
         in_graph_sampling = bool(in_graph_sampling)
@@ -274,6 +435,10 @@ class LLMEngine:
                 "decode_steps_per_sync > 1 requires in_graph_sampling: a "
                 "fused window cannot round-trip logits to the host between "
                 "its iterations")
+        if in_graph_sampling and draft_model is not None:
+            raise ValueError(
+                "in_graph_sampling applies to the plain decode path; the "
+                "speculative verify step already samples on the device")
         if capture_logits and in_graph_sampling:
             raise ValueError(
                 "capture_logits=True requires host-side sampling "
@@ -285,9 +450,13 @@ class LLMEngine:
         self._warned_do_sample = False
         # built on the first window (a CUDA graph on the card)
         self._window = None
+        # fused draft catch-up: one _GraphStep per power-of-two feed bucket
+        self._fuse_catchup = bool(fuse_draft_catchup)
+        self._catchups = {}
         # the decode slots' block tables: one persistent device buffer
-        # (the window's graph reads it at every replay), refilled when the
-        # scheduler's table version or the slots' readiness moves
+        # (the window's and the catch-up's graphs read it at every replay),
+        # refilled when the scheduler's table version or the slots'
+        # readiness moves
         self._tables_key = None
         self._tables_np = None
         self._tables_dev = torch.zeros(self.max_batch_size, self.max_pages,
@@ -296,6 +465,12 @@ class LLMEngine:
         self._closed = False
         self.stats_extra = {"steps": 0, "prefills": 0, "decode_steps": 0,
                             "tokens_out": 0}
+        # prompts are copied on their own stream, so a copy overlaps the
+        # step running on the current one
+        self._stage_stream = (torch.cuda.Stream(self.device)
+                              if self.device.type == "cuda" else None)
+        self._ingest = (_IngestThread(self._stage_request, self._name)
+                        if ingest_async else None)
 
     def _ensure_open(self):
         if self._closed:
@@ -314,13 +489,23 @@ class LLMEngine:
 
     def _stage_request(self, req):
         """Zero-pad the request's current prefix to its prefill bucket and
-        copy it to the device."""
+        start its copy to the device (on the ingest thread, or on the
+        caller's for the synchronous path and re-prefills). On the card the
+        source is pinned and the copy runs on the staging stream; its event
+        is what ``_run_chunk`` waits on."""
         toks = req.tokens
         bucket = self._bucket_for(len(toks))
-        ids = np.zeros((1, bucket), np.int64)
-        ids[0, :len(toks)] = toks
-        req._staged = (torch.from_numpy(ids).to(self.device), bucket,
-                       len(toks))
+        cuda = self.device.type == "cuda"
+        host = torch.zeros((1, bucket), dtype=torch.int64, pin_memory=cuda)
+        host[0, :len(toks)] = torch.from_numpy(toks.astype(np.int64))
+        if not cuda:
+            req._staged = _Staged(host, bucket, len(toks))
+            return
+        with torch.cuda.stream(self._stage_stream):
+            ids = host.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        req._staged = _Staged(ids, bucket, len(toks), host, ready)
 
     def add_request(self, prompt_ids, sampling: SamplingParams | None = None):
         """Enqueue a prompt; returns the request id. Never blocks on pool
@@ -330,18 +515,29 @@ class LLMEngine:
         self._check_admissible(req)
         req.t_submit = req.t_queue_start = time.perf_counter_ns()
         self._requests[req.rid] = req
-        self._stage_request(req)
-        self.scheduler.waiting.append(req)
+        if self._ingest is not None:
+            self._ingest.submit(req)
+        else:
+            self._stage_request(req)
+            self.scheduler.waiting.append(req)
         return req.rid
 
     def _check_admissible(self, req):
+        if self._spec_k and req.sampling.do_sample:
+            raise ValueError(
+                "speculative decoding is greedy-only (the verify step "
+                "accepts by argmax identity); submit do_sample requests "
+                "to an engine without a draft_model")
         total = len(req.prompt) + req.sampling.max_new_tokens
         cap = min(self.max_model_len,
                   (self.cache.num_blocks - 1) * self.block_size)
-        if total > cap:
+        # the verify window writes spec_k lookahead positions past the
+        # final token: they must fit in the pool too
+        if total + self._spec_k > cap:
             raise ValueError(
-                f"request needs {total} tokens but the engine caps at {cap} "
-                f"(max_model_len={self.max_model_len}, pool="
+                f"request needs {total + self._spec_k} tokens (incl. "
+                f"{self._spec_k} speculative lookahead) but the engine caps "
+                f"at {cap} (max_model_len={self.max_model_len}, pool="
                 f"{self.cache.num_blocks - 1} usable blocks x "
                 f"{self.block_size})")
         # an evicted request re-prefills its full prefix (up to total-1)
@@ -382,42 +578,52 @@ class LLMEngine:
         return True
 
     def has_work(self):
-        return not self._closed and self.scheduler.has_work()
+        if self._closed:
+            return False
+        if self._ingest is not None and self._ingest.pending:
+            return True
+        return self.scheduler.has_work()
 
     # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
-    def _write_rows(self, layer, index, k, v):
-        """Write K/V rows into layer ``layer``'s pools at ``index`` (a
-        tuple of index tensors for ``index_put_``), quantizing on int8
-        pools. In place."""
-        c = self.cache
-        if c.quantized:
+    def _write_rows(self, cache, layer, index, k, v):
+        """Write K/V rows into ``cache``'s layer ``layer`` pools at
+        ``index`` (a tuple of index tensors for ``index_put_``), quantizing
+        on int8 pools. In place."""
+        if cache.quantized:
             qk, sk = quantize_kv_rows(k)
             qv, sv = quantize_kv_rows(v)
-            c.k[layer].index_put_(index, qk)
-            c.v[layer].index_put_(index, qv)
-            c.k_scale[layer].index_put_(index, sk)
-            c.v_scale[layer].index_put_(index, sv)
+            cache.k[layer].index_put_(index, qk)
+            cache.v[layer].index_put_(index, qv)
+            cache.k_scale[layer].index_put_(index, sk)
+            cache.v_scale[layer].index_put_(index, sv)
         else:
-            c.k[layer].index_put_(index, k.to(c.k[layer].dtype))
-            c.v[layer].index_put_(index, v.to(c.v[layer].dtype))
+            cache.k[layer].index_put_(index, k.to(cache.k[layer].dtype))
+            cache.v[layer].index_put_(index, v.to(cache.v[layer].dtype))
 
-    def _pool_args(self, layer):
-        c = self.cache
-        if c.quantized:
-            return (c.k[layer], c.v[layer], c.k_scale[layer],
-                    c.v_scale[layer])
-        return c.k[layer], c.v[layer], None, None
+    @staticmethod
+    def _pool_args(cache, layer):
+        if cache.quantized:
+            return (cache.k[layer], cache.v[layer], cache.k_scale[layer],
+                    cache.v_scale[layer])
+        return cache.k[layer], cache.v[layer], None, None
+
+    def _draft(self, draft):
+        """(model, cache) of the target, or of the draft."""
+        if draft:
+            return self.draft_model, self.draft_cache
+        return self.model, self.cache
 
     @torch.inference_mode()
-    def _chunk_forward(self, ids, start, upto, tables_row):
-        """One prefill chunk: ``ids`` [1, C] at block-aligned offset
-        ``start``; queries attend causally over pool pages [0, upto) via
-        paged multi-query attention. Writes the chunk's K/V pages (padding
-        pages go to the null block through zero table entries). Returns
-        logits [1, V] at position ``upto - 1``."""
-        llama = self.model.llama
+    def _chunk_forward(self, ids, start, upto, tables_row, draft=False):
+        """One prefill chunk of the target (or the draft): ``ids`` [1, C]
+        at block-aligned offset ``start``; queries attend causally over
+        pool pages [0, upto) via paged multi-query attention. Writes the
+        chunk's K/V pages (padding pages go to the null block through zero
+        table entries). Returns logits [1, V] at position ``upto - 1``."""
+        model, cache = self._draft(draft)
+        llama = model.llama
         bs, P = self.block_size, self.max_pages
         C = ids.shape[1]
         pages, page0 = C // bs, start // bs
@@ -430,6 +636,7 @@ class LLMEngine:
         page_blocks = meta[page0:page0 + pages].long()
         cos = llama.rope_cos[start:start + C]
         sin = llama.rope_sin[start:start + C]
+        scale = 1.0 / math.sqrt(model.config.head_dim)
         x = llama.embed_tokens(ids)
         for li, layer in enumerate(llama.layers):
             attn = layer.self_attn
@@ -437,23 +644,25 @@ class LLMEngine:
             q = _rope_apply(q, cos, sin)
             k = _rope_apply(k, cos, sin)
             geo = (pages, bs, attn.num_kv_heads, attn.head_dim)
-            self._write_rows(li, (page_blocks,), k.reshape(geo),
+            self._write_rows(cache, li, (page_blocks,), k.reshape(geo),
                              v.reshape(geo))
-            kp, vp, ks, vs = self._pool_args(li)
+            kp, vp, ks, vs = self._pool_args(cache, li)
             out = paged_multiquery_attention(
-                q, kp, vp, tables, lens, starts, scale=self._scale,
+                q, kp, vp, tables, lens, starts, scale=scale,
                 k_scale=ks, v_scale=vs)
             x = x + attn.o_proj(out.reshape(1, C, -1))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         h = llama.norm(x)
-        return self.model.head(h[:, upto - 1 - start])
+        return model.head(h[:, upto - 1 - start])
 
     @torch.inference_mode()
-    def _decode_forward(self, ids, positions, tables, tables_np):
-        """One token for every decode slot: ``ids``/``positions`` host
-        int arrays [B]. Each row writes its K/V at its position (empty and
-        mid-prefill slots: position 0 of the null block) and attends over
-        ``positions + 1`` tokens. Returns logits [B, V]."""
+    def _decode_forward(self, ids, positions, tables, tables_np,
+                        draft=False):
+        """One token for every decode slot of the target (or the draft):
+        ``ids``/``positions`` host int arrays [B]. Each row writes its K/V
+        at its position (empty and mid-prefill slots: position 0 of the
+        null block) and attends over ``positions + 1`` tokens. Returns
+        logits [B, V]."""
         bs = self.block_size
         B = len(ids)
         meta = np.stack([ids, positions,
@@ -462,31 +671,33 @@ class LLMEngine:
         meta = torch.from_numpy(meta).to(self.device)
         ids_d, pos_d, blk_d, off_d = (meta[i].long() for i in range(4))
         return self._decode_layers(ids_d, pos_d, blk_d, off_d, meta[4],
-                                   tables)
+                                   tables, draft)
 
-    def _decode_layers(self, ids, pos, blk, off, lens, tables):
+    def _decode_layers(self, ids, pos, blk, off, lens, tables, draft=False):
         """The decode body on device metadata: ids, positions, write block
         and offset (int64 [B]), context lengths (int32 [B]) and the block
         tables [B, P]. Returns logits [B, V]."""
-        llama = self.model.llama
+        model, cache = self._draft(draft)
+        llama = model.llama
         B = ids.shape[0]
         c = llama.rope_cos[pos][:, None, None, :]
         s = llama.rope_sin[pos][:, None, None, :]
+        scale = 1.0 / math.sqrt(model.config.head_dim)
         x = llama.embed_tokens(ids[:, None])
         for li, layer in enumerate(llama.layers):
             attn = layer.self_attn
             q, k, v = attn.project(layer.input_layernorm(x))
             q = _rotate(q, c.to(q.dtype), s.to(q.dtype))
             k = _rotate(k, c.to(k.dtype), s.to(k.dtype))
-            self._write_rows(li, (blk, off), k[:, 0], v[:, 0])
-            kp, vp, ks, vs = self._pool_args(li)
+            self._write_rows(cache, li, (blk, off), k[:, 0], v[:, 0])
+            kp, vp, ks, vs = self._pool_args(cache, li)
             out = paged_decode_attention(q, kp, vp, tables, lens,
-                                         scale=self._scale, k_scale=ks,
+                                         scale=scale, k_scale=ks,
                                          v_scale=vs)
             x = x + attn.o_proj(out.reshape(B, 1, -1))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         h = llama.norm(x)
-        return self.model.head(h[:, -1])
+        return model.head(h[:, -1])
 
     def _window_forward(self, meta, tables):
         """The decode window (no host work inside): ``meta`` int64 [5, B]
@@ -519,6 +730,72 @@ class LLMEngine:
             ids = emitted
         return torch.stack(toks, dim=1).to(torch.int32)
 
+    def _catchup_forward(self, feed, tables):
+        """The draft's fused catch-up (no host work inside): ``feed`` int64
+        [2, B, F] holds each row's F (token, position) feeds, left-padded by
+        repeating the first (rewriting a row with the same token at the
+        same position changes nothing); ``tables`` [B, P]. Runs F
+        single-token draft decodes with block, offset and context length
+        computed on the device, the same body as the unfused loop. Returns
+        the last feed's logits [B, V]."""
+        bs = self.block_size
+        ids, pos = feed[0], feed[1]
+        rows = torch.arange(ids.shape[0], device=ids.device)
+        for t in range(ids.shape[1]):
+            p = pos[:, t]
+            logits = self._decode_layers(
+                ids[:, t], p, tables[rows, p // bs].long(), p % bs,
+                (p + 1).to(torch.int32), tables, draft=True)
+        return logits
+
+    @torch.inference_mode()
+    def _verify_forward(self, meta, tables):
+        """The speculative verify over the target: ``meta`` int64
+        [B, 2K + 2] holds each row's K + 1 ids (its last committed token,
+        then the K drafts), its position and the K drafts again; ``tables``
+        [B, P]. One pass scores positions ``pos .. pos + K``: rope at
+        ``pos + t``, the K + 1 rows written with one indexed write a layer,
+        one ``paged_multiquery_attention`` a layer (``q_start = pos``,
+        ``context_lens = pos + K + 1``). On the device: the target's
+        argmax, the accept count (1s until the first mismatch with the
+        drafts) and the next token (the argmax at the first rejected
+        position, or the bonus one). Returns int32 [2, B]: counts, next."""
+        model, cache = self.model, self.cache
+        llama = model.llama
+        K = self._spec_k
+        T = K + 1
+        ids, pos, drafts = meta[:, :T], meta[:, T], meta[:, T + 1:]
+        B = ids.shape[0]
+        bs = self.block_size
+        grid = pos[:, None] + torch.arange(T, device=ids.device)[None]
+        rows = torch.arange(B, device=ids.device)[:, None]
+        blk = tables[rows, grid // bs].long().reshape(-1)
+        off = (grid % bs).reshape(-1)
+        lens = (pos + T).to(torch.int32)
+        starts = pos.to(torch.int32)
+        c = llama.rope_cos[grid][:, :, None, :]
+        s = llama.rope_sin[grid][:, :, None, :]
+        scale = 1.0 / math.sqrt(model.config.head_dim)
+        x = llama.embed_tokens(ids)
+        for li, layer in enumerate(llama.layers):
+            attn = layer.self_attn
+            q, k, v = attn.project(layer.input_layernorm(x))
+            q = _rotate(q, c.to(q.dtype), s.to(q.dtype))
+            k = _rotate(k, c.to(k.dtype), s.to(k.dtype))
+            geo = (B * T, attn.num_kv_heads, attn.head_dim)
+            self._write_rows(cache, li, (blk, off), k.reshape(geo),
+                             v.reshape(geo))
+            kp, vp, ks, vs = self._pool_args(cache, li)
+            out = paged_multiquery_attention(
+                q, kp, vp, tables, lens, starts, scale=scale, k_scale=ks,
+                v_scale=vs)
+            x = x + attn.o_proj(out.reshape(B, T, -1))
+            x = x + layer.mlp(layer.post_attention_layernorm(x))
+        tgt = torch.argmax(model.head(llama.norm(x)), dim=-1)   # [B, T]
+        counts = torch.cumprod((tgt[:, :K] == drafts).long(), dim=1).sum(1)
+        nxt = tgt.gather(1, counts[:, None])[:, 0]
+        return torch.stack([counts, nxt]).to(torch.int32)
+
     @staticmethod
     def _fetch(t):
         return t.float().cpu().numpy()
@@ -549,16 +826,25 @@ class LLMEngine:
     def _drain_cow(self):
         for src, dst in self.scheduler.pending_cow:
             self.cache.copy_block(src, dst)
+            if self.draft_model is not None:
+                self.draft_cache.copy_block(src, dst)
         self.scheduler.pending_cow.clear()
 
     def _run_chunk(self, req, start, take, outputs):
         """One block-aligned prefill chunk of ``take`` tokens at ``start``;
         on the final chunk, sample the first output token."""
         staged = getattr(req, "_staged", None)
-        if staged is None or staged[2] != req.prefill_upto:
+        if staged is None or staged.length != req.prefill_upto:
             self._stage_request(req)  # re-prefill after eviction
             staged = req._staged
-        ids_dev, bucket, _ = staged
+        if staged.ready is not None:
+            # the copy ran on the staging stream: order this stream after
+            # it, and keep the ids' memory from reuse while this stream
+            # still reads them
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(staged.ready)
+            staged.ids.record_stream(cur)
+        ids_dev, bucket = staged.ids, staged.bucket
         # chunk length is always a ladder rung: the smallest one covering
         # ``take`` that fits the staged room, else the largest that fits
         # (the remainder continues next step)
@@ -574,8 +860,16 @@ class LLMEngine:
         tables_row = np.zeros(self.max_pages, np.int32)
         nblk = min(len(req.blocks), self.max_pages)
         tables_row[:nblk] = req.blocks[:nblk]
-        logits = self._chunk_forward(ids_dev[:, start:start + C], start,
-                                     start + take, tables_row)
+        ids_chunk = ids_dev[:, start:start + C]
+        logits = self._chunk_forward(ids_chunk, start, start + take,
+                                     tables_row)
+        if self.draft_model is not None:
+            # mirror every target chunk into the draft pools: the draft
+            # proposes over the same block tables, so it must hold the
+            # same prefix
+            self._chunk_forward(ids_chunk, start, start + take, tables_row,
+                                draft=True)
+            req.draft_cached = start + take
         req.num_cached = start + take
         _M_PREFILL_CHUNKS.inc(instance=self._name)
         if self.prefix_cache is not None:
@@ -595,11 +889,22 @@ class LLMEngine:
                       "bucket": bucket, "true_len": req.prefill_upto})
 
     def step(self):
-        """One engine tick: admit, advance chunked prefills under the token
-        budget, one decode for all decode-ready slots. Returns the
-        ``StepOutput`` tokens produced."""
+        """One engine tick: drain the ingest thread, admit, advance chunked
+        prefills under the token budget, one decode (or speculative verify)
+        for all decode-ready slots. Returns the ``StepOutput`` tokens
+        produced."""
         self._ensure_open()
         sched = self.scheduler
+        if self._ingest is not None:
+            # block (briefly) only when the scheduler would otherwise spin
+            # empty while requests are in flight on the ingest thread
+            for req in self._ingest.drain(wait=not sched.has_work()):
+                # cancelled while still on the ingest thread
+                if req.finished:
+                    continue
+                if not hasattr(req, "_staged"):  # the ingest thread died
+                    self._stage_request(req)
+                sched.waiting.append(req)
         outputs = []
         if not sched.has_work():
             return outputs
@@ -616,13 +921,16 @@ class LLMEngine:
             self._run_chunk(req, start, take, outputs)
 
         sched.ensure_decode_room(
+            extra=self._spec_k,
             extra_for=(self._window_extra if self._decode_window > 1
                        else None))
         self._drain_cow()
         ready = [(i, r) for i, r in enumerate(sched.slots)
                  if r is not None and not r.prefilling]
         sampled = any(r.sampling.do_sample for _, r in ready)
-        if ready and self._in_graph and not sampled:
+        if ready and self._spec_k:
+            self._spec_step(ready, outputs)
+        elif ready and self._in_graph and not sampled:
             self._window_step(ready, outputs)
         elif ready:
             if self._in_graph and not self._warned_do_sample:
@@ -676,8 +984,8 @@ class LLMEngine:
                 meta[4, i] = s.eos_token_id
         self._tables()  # refreshes the buffer the window reads
         if self._window is None:
-            self._window = _DecodeWindow(self)
-        toks = self._window.run(meta)
+            self._window = _GraphStep(self, self._window_forward, (5, B))
+        toks = self._window.run(meta).cpu().numpy()
         self.stats_extra["decode_steps"] += k
         _M_DECODE_STEPS.inc(k, instance=self._name)
         _M_HOST_SYNCS.inc(instance=self._name)
@@ -715,6 +1023,121 @@ class LLMEngine:
             outputs.append(StepOutput(req.rid, tok, last,
                                       req.finish_reason() if last else None))
 
+    # ------------------------------------------------------------------
+    # speculative decoding
+    # ------------------------------------------------------------------
+    def _draft_propose(self, ready, tables):
+        """Catch the draft pools up to every ready request's committed
+        tokens, then propose ``spec_k`` greedy draft tokens each; ``tables``
+        is ``_tables()``'s (device, host) pair. Returns drafts int64
+        [B, K] (rows of other slots are zeros)."""
+        tables_dev, tables_np = tables
+        B, K = self.max_batch_size, self._spec_k
+        feeds = {}
+        F = 1
+        for _, r in ready:
+            lo = min(r.draft_cached, r.num_tokens - 1)
+            feeds[r.rid] = list(range(lo, r.num_tokens))
+            F = max(F, len(feeds[r.rid]))
+        fused = self._fuse_catchup and F > 1
+        if fused:
+            # one call per power-of-two bucket (one graph each on the card)
+            F = 1 << (F - 1).bit_length()
+        # ragged rows left-pad by repeating their first feed
+        feed = np.zeros((2, B, F), np.int64)
+        for i, r in ready:
+            fs = feeds[r.rid]
+            fs = [fs[0]] * (F - len(fs)) + fs
+            feed[0, i] = r.tokens[fs]
+            feed[1, i] = fs
+        if fused:
+            step = self._catchups.get(F)
+            if step is None:
+                step = self._catchups[F] = _GraphStep(
+                    self, self._catchup_forward, (2, B, F))
+            # the first run on the card also runs the warm-up
+            ran = F * (2 if self.device.type == "cuda"
+                       and step.graph is None else 1)
+            logits = step.run(feed)
+        else:
+            ran = F
+            for t in range(F):
+                logits = self._decode_forward(feed[0, :, t], feed[1, :, t],
+                                              tables_dev, tables_np,
+                                              draft=True)
+        prev = self._fetch(logits)
+        _M_HOST_SYNCS.inc(instance=self._name)
+        _M_FETCH_BYTES.inc(prev.nbytes, instance=self._name)
+        drafts = np.zeros((B, K), np.int64)
+        for kstep in range(K):
+            for i, _ in ready:
+                drafts[i, kstep] = int(prev[i].argmax())
+            if kstep + 1 < K:
+                ids = np.zeros(B, np.int64)
+                pos = np.zeros(B, np.int64)
+                for i, r in ready:
+                    ids[i] = drafts[i, kstep]
+                    pos[i] = r.num_tokens + kstep
+                prev = self._fetch(self._decode_forward(
+                    ids, pos, tables_dev, tables_np, draft=True))
+                ran += 1
+                _M_HOST_SYNCS.inc(instance=self._name)
+                _M_FETCH_BYTES.inc(prev.nbytes, instance=self._name)
+        _M_SPEC_DRAFT.inc(ran, instance=self._name)
+        for _, r in ready:
+            # positions 0 .. num_tokens + K - 2 now hold draft K/V
+            r.draft_cached = r.num_tokens + K - 1
+        return drafts
+
+    def _spec_step(self, ready, outputs):
+        """One speculative step for the decode-ready slots: the draft
+        proposes K tokens, one verify scores K + 1 positions, accepted
+        tokens are emitted in order (bit-exact against sequential greedy
+        decode), and each row is rolled back: cached lengths rewound to the
+        kept tokens (rejected rows stay in the pool, masked by the context
+        lengths until overwritten) and lookahead blocks trimmed."""
+        B, K = self.max_batch_size, self._spec_k
+        tables = self._tables()
+        drafts = self._draft_propose(ready, tables)
+        _M_SPEC_PROPOSED.inc(K * len(ready), instance=self._name)
+        meta = np.zeros((B, 2 * K + 2), np.int64)
+        n_old = {}
+        for i, r in ready:
+            meta[i, 0] = r.last_token
+            meta[i, 1:K + 1] = drafts[i]
+            meta[i, K + 1] = r.num_cached
+            meta[i, K + 2:] = drafts[i]
+            n_old[r.rid] = r.num_tokens
+        res = self._verify_forward(torch.from_numpy(meta).to(self.device),
+                                   tables[0]).cpu().numpy()
+        counts, nxt = res
+        _M_SPEC_VERIFY.inc(instance=self._name)
+        _M_HOST_SYNCS.inc(instance=self._name)
+        _M_FETCH_BYTES.inc(res.nbytes, instance=self._name)
+        accepted = 0
+        for i, r in ready:
+            a = int(counts[i])
+            emitted = [int(drafts[i, j]) for j in range(a)] + [int(nxt[i])]
+            m = 0
+            for tok in emitted:
+                outputs.extend(self._emit_token(r, tok))
+                m += 1
+                if r.finished:
+                    break
+            accepted += min(a, m)
+            if r.finished:
+                continue
+            r.num_cached = r.num_tokens - 1
+            r.draft_cached = min(n_old[r.rid] + min(a, m, K - 1),
+                                 r.num_tokens)
+            self.scheduler.trim_to_capacity(r, extra=K)
+        _M_SPEC_ACCEPTED.inc(accepted, instance=self._name)
+        prop = _M_SPEC_PROPOSED.value(instance=self._name)
+        if prop:
+            _G_SPEC_RATIO.set(
+                _M_SPEC_ACCEPTED.value(instance=self._name) / prop,
+                instance=self._name)
+
     def _update_gauges(self):
         usable = max(self.cache.num_blocks - 1, 1)
         _G_KV_UTIL.set(1.0 - self.cache.allocator.num_free / usable,
@@ -736,6 +1159,13 @@ class LLMEngine:
         tok = int(sample_next_tokens(
             row[None], do_sample=s.do_sample, temperature=s.temperature,
             top_k=s.top_k, top_p=s.top_p, rng=req._rng)[0])
+        return self._emit_token(req, tok)
+
+    def _emit_token(self, req, tok):
+        """Commit one chosen token (sampled on the host, or accepted by the
+        speculative verify): append it, observe TTFT/ITL, finish the
+        request when it ends. Returns [StepOutput]."""
+        tok = int(tok)
         req.output_tokens.append(tok)
         self.stats_extra["tokens_out"] += 1
         now = time.perf_counter_ns()
@@ -810,6 +1240,7 @@ class LLMEngine:
         """This engine instance's counters, latency summaries (ms) and
         gauges, read from ``observability.metrics``."""
         inst = self._name
+        prop = _M_SPEC_PROPOSED.value(instance=inst)
         return {
             "instance": inst,
             "device": str(self.device),
@@ -823,6 +1254,13 @@ class LLMEngine:
             "prefix_blocks_reused": int(
                 _M_PREFIX_REUSED.value(instance=inst)),
             "cow_copies": int(_M_COW.value(instance=inst)),
+            "spec_proposed": int(prop),
+            "spec_accepted": int(_M_SPEC_ACCEPTED.value(instance=inst)),
+            "spec_accept_ratio": (
+                float(_G_SPEC_RATIO.value(instance=inst)) if prop
+                else None),
+            "spec_verify_steps": int(_M_SPEC_VERIFY.value(instance=inst)),
+            "spec_draft_steps": int(_M_SPEC_DRAFT.value(instance=inst)),
             "tokens_out": int(_M_TOKENS.value(instance=inst)),
             "ttft_ms": _H_TTFT.summary(instance=inst),
             "itl_ms": _H_ITL.summary(instance=inst),
@@ -846,20 +1284,30 @@ class LLMEngine:
             _M_KV_SAVED.inc(self._kv_bytes_saved, instance=self._name)
 
     def close(self):
-        """Abort every live request, drop bookkeeping and this instance's
-        metric series, restore the model's training flag. Idempotent;
+        """Join the ingest thread, abort every live request, drop
+        bookkeeping and this instance's metric series, restore the models'
+        training flags. Idempotent;
         afterwards the request API raises :class:`EngineClosedError`."""
         if self._closed:
             return
         self._closed = True
+        if self._ingest is not None:
+            self._ingest.close()
+            # anything still staged on the (now joined) ingest thread was
+            # never admitted: no blocks to free
+            self._ingest.drain()
         for req in list(self.scheduler.running) + list(
                 self.scheduler.waiting):
             self.scheduler.abort(req, "closed")
         self._requests.clear()
-        self._window = None  # frees the graph's memory pool
+        # frees the graphs' memory pools
+        self._window = None
+        self._catchups.clear()
         self.reset_metrics()
         if self._was_training:
             self.model.train()
+        if self.draft_model is not None and self._draft_was_training:
+            self.draft_model.train()
 
     def __enter__(self):
         return self

@@ -217,10 +217,13 @@ class PagedKVCache:
     num_kv_heads, head_dim]`` tensors, zero-initialised and updated in
     place. ``kv_dtype="int8"`` stores int8 codes and adds per-layer
     ``k_scale``/``v_scale`` ``[num_blocks, block_size, num_kv_heads]``
-    fp32 pools; otherwise those lists are empty."""
+    fp32 pools; otherwise those lists are empty. ``allocator`` shares
+    another cache's :class:`BlockAllocator` (a speculative draft's pools
+    ride the target's block ids and tables); by default the cache owns
+    one."""
 
     def __init__(self, config, num_blocks, block_size, dtype=None,
-                 kv_dtype=None, device=None):
+                 kv_dtype=None, device=None, allocator=None):
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype must be None (model dtype) or "
                              f"'int8'; got {kv_dtype!r}")
@@ -247,7 +250,8 @@ class PagedKVCache:
         else:
             self.k_scale = []
             self.v_scale = []
-        self.allocator = BlockAllocator(num_blocks)
+        self.allocator = (allocator if allocator is not None
+                          else BlockAllocator(num_blocks))
 
     def bytes_saved_vs_unquantized(self, config):
         """Pool bytes an int8 cache saves versus the same pool in the base

@@ -100,6 +100,8 @@ class Request:
         # final chunk's logits were sampled
         self.prefill_upto = 0
         self.prefilling = False
+        # speculative decoding: tokens materialized in the DRAFT pool
+        self.draft_cached = 0
         self.admit_seq = -1               # admission order (eviction policy)
         self.evictions = 0
         # the last logits row sampled from, with the engine's
@@ -226,6 +228,9 @@ class Scheduler:
             self.waiting.popleft()
             req.blocks = list(matched) + blocks
             req.num_cached = mtok
+            # the draft pool shares the matched blocks' ids, and every
+            # target chunk is mirrored into it, so it holds the same prefix
+            req.draft_cached = mtok
             req.prefilling = True
             req.prefill_upto = req.num_tokens
             req.state = RUNNING
@@ -332,11 +337,25 @@ class Scheduler:
                     self.prefix_cache.forget(b)
         return evicted
 
+    def trim_to_capacity(self, req, extra=0):
+        """Free tail blocks beyond what ``req.num_tokens + extra`` needs
+        (the speculative rollback: a rejected window leaves lookahead
+        blocks behind). ``extra`` keeps the next verify window's room, so
+        a request near a block boundary does not free a block that
+        ``ensure_decode_room`` takes again one step later."""
+        keep = max(-(-(req.num_tokens + int(extra)) // self.block_size), 1)
+        if len(req.blocks) > keep:
+            extras = req.blocks[keep:]
+            del req.blocks[keep:]
+            self.allocator.free(extras)
+            self.version += 1
+
     def _evict(self, req):
         slot = self.slots.index(req)
         self.allocator.free(req.blocks)
         req.blocks = []
         req.num_cached = 0
+        req.draft_cached = 0
         req.prefilling = False
         req.state = WAITING
         req.evictions += 1

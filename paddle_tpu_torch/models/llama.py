@@ -19,7 +19,11 @@ expert FFN in its kernel. Without them attention goes through
 ``nn.functional.scaled_dot_product_attention`` (on the card the flash
 kernels). Serving runs through ``inference.serving.LLMEngine``, which
 drives the submodules directly over the paged KV pool (dense models
-only). Ring/sep attention, the pipeline variants and ``generate`` are not
+only). ``generate`` decodes over a :class:`StaticKVCache` (per-layer
+buffers of a fixed capacity, written in place at an advancing offset)
+through ``cached_step``, eagerly, with plain dense attention
+(``sdpa_reference``), as the reference uses ``_sdpa_ref``. Ring/sep
+attention, the pipeline variants and the concat-grown MHA caches are not
 ported.
 """
 
@@ -38,6 +42,7 @@ from ..incubate.distributed.models.moe.moe_layer import (
     top_k_capacity_gating)
 from ..nn import functional as F
 from ..nn.functional import flash_attention as _sdpa_module
+from ..nn.functional.attention import sdpa_reference
 from ..nn.layer.common import Embedding, Linear
 from ..nn.layer.norm import RMSNorm
 from ..ops.cuda.flash_attention import HEAD_DIMS, attention_block_bhsd
@@ -47,7 +52,7 @@ from ..ops.cuda.rms_norm import fused_add_rms_norm, use_fused_rms_norm
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "LlamaAttention", "LlamaMLP", "LlamaMoE", "LlamaDecoderLayer",
-           "sample_next_tokens", "greedy_tokens_in_graph",
+           "StaticKVCache", "sample_next_tokens", "greedy_tokens_in_graph",
            "llama_tiny", "llama_small", "llama_125m",
            "llama_1b", "llama_7b", "llama_13b"]
 
@@ -107,6 +112,52 @@ def _rope_apply_at(x, cos_t, sin_t, pos):
     pos+s-1``; cos_t/sin_t are the full [max_pos, D/2] tables."""
     s = x.shape[1]
     return _rope_apply(x, cos_t[pos:pos + s], sin_t[pos:pos + s])
+
+
+def _cached_attn_step(q, k, v, k_buf, v_buf, pos):
+    """Static-capacity KV cache step: write this call's K/V (already
+    rope'd) into ``k_buf``/``v_buf`` at ``pos`` in place, then attend over
+    the cache with the causal mask ``col <= pos + row``. q/k/v [B, s, H(kv),
+    D]; buffers [B, C, Hkv, D]; ``pos`` the tokens already written. Masked
+    columns get exactly zero weight (fp32 softmax of -1e30 logits), so a
+    prefill through this path matches the dense causal forward. Returns
+    out [B, s, H, D]."""
+    s, cap = q.shape[1], k_buf.shape[1]
+    k_buf[:, pos:pos + s] = k.to(k_buf.dtype)
+    v_buf[:, pos:pos + s] = v.to(v_buf.dtype)
+    col = torch.arange(cap, device=q.device)[None, None, None, :]
+    row = torch.arange(s, device=q.device)[None, None, :, None]
+    return sdpa_reference(q, k_buf, v_buf, attn_mask=col <= pos + row)
+
+
+class StaticKVCache:
+    """Preallocated static-capacity KV cache for autoregressive decode:
+    per-layer K/V buffers ``[batch, capacity, num_kv_heads, head_dim]`` on
+    ``device`` (default ``cuda``) plus the host-side write offset ``pos``.
+    Each step writes its tokens at ``pos`` in place and attends over the
+    first ``pos + s`` entries; the buffers never change shape (so a later
+    change can capture the decode step)."""
+
+    __slots__ = ("k", "v", "pos")
+
+    def __init__(self, config: LlamaConfig, batch_size, capacity,
+                 dtype=None, device=None):
+        shape = (batch_size, capacity, config.num_key_value_heads,
+                 config.head_dim)
+        kw = dict(dtype=dtype or torch.float32, device=resolve_device(device))
+        self.k = [torch.zeros(shape, **kw)
+                  for _ in range(config.num_hidden_layers)]
+        self.v = [torch.zeros(shape, **kw)
+                  for _ in range(config.num_hidden_layers)]
+        self.pos = 0
+
+    @property
+    def capacity(self):
+        return self.k[0].shape[1]
+
+    @property
+    def batch_size(self):
+        return self.k[0].shape[0]
 
 
 def sample_next_tokens(last, *, do_sample=False, temperature=1.0, top_k=None,
@@ -176,6 +227,17 @@ class LlamaAttention(nn.Module):
         q = _rope_apply(q, cos, sin)
         k = _rope_apply(k, cos, sin)
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+
+    def forward_cached(self, x, k_buf, v_buf, pos, cos_t, sin_t):
+        """Static-cache step (prefill when ``pos == 0`` with s > 1, decode
+        when s == 1): project, rope at offset ``pos``, write into the
+        buffers, attend over the prefix."""
+        b, s = x.shape[0], x.shape[1]
+        q, k, v = self.project(x)
+        q = _rope_apply_at(q, cos_t, sin_t, pos)
+        k = _rope_apply_at(k, cos_t, sin_t, pos)
+        out = _cached_attn_step(q, k, v, k_buf, v_buf, pos)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
     def forward_einsum_block(self, x, cos, sin):
@@ -297,6 +359,11 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = (LlamaMoE if use_moe else LlamaMLP)(config, **kw)
         self._fusable_norm = config.hidden_size % 128 == 0
 
+    def forward_cached(self, x, k_buf, v_buf, pos, cos_t, sin_t):
+        x = x + self.self_attn.forward_cached(
+            self.input_layernorm(x), k_buf, v_buf, pos, cos_t, sin_t)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
     def forward(self, x, cos, sin):
         h = self.input_layernorm(x)
         attn_out = self.self_attn.forward_einsum_block(h, cos, sin)
@@ -330,6 +397,16 @@ class LlamaModel(nn.Module):
                              persistent=False)
         self.register_buffer("rope_sin", torch.from_numpy(sin).to(device),
                              persistent=False)
+
+    def forward_cached(self, input_ids, k_bufs, v_bufs, pos):
+        """Static-cache forward over per-layer buffers ``k_bufs``/``v_bufs``
+        (written in place) at offset ``pos``; returns the normed hidden
+        states."""
+        x = self.embed_tokens(input_ids)
+        for layer, kb, vb in zip(self.layers, k_bufs, v_bufs):
+            x = layer.forward_cached(x, kb, vb, pos, self.rope_cos,
+                                     self.rope_sin)
+        return self.norm(x)
 
     def forward(self, input_ids):
         x = self.embed_tokens(input_ids)
@@ -398,6 +475,63 @@ class LlamaForCausalLM(nn.Module):
                 if aux is not None:
                     loss = loss + coef * aux
         return loss, logits
+
+    # ---- generation (static-capacity KV-cache decode) ----------------
+    #: decode caches round their capacity up to this multiple
+    DECODE_CAPACITY_BUCKET = 64
+
+    @torch.inference_mode()
+    def cached_step(self, ids, cache: StaticKVCache):
+        """One static-cache step over ``ids`` ([B, s] ints, numpy or torch)
+        at the cache's offset: writes their K/V, advances ``cache.pos`` and
+        returns the last position's logits [B, V] on the model's device."""
+        ids = torch.as_tensor(ids).to(self.device, torch.int64)
+        h = self.llama.forward_cached(ids, cache.k, cache.v, cache.pos)
+        cache.pos += int(ids.shape[1])
+        return self.head(h[:, -1])
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                 top_k=None, top_p=None, eos_token_id=None, seed=None,
+                 do_sample=False):
+        """Autoregressive decode over a :class:`StaticKVCache` whose
+        capacity is prompt + ``max_new_tokens`` rounded up to
+        ``DECODE_CAPACITY_BUCKET``: one ``cached_step`` over the prompt,
+        then one per new token, each token chosen on the host by
+        :func:`sample_next_tokens` (greedy, or seeded sampling with
+        ``np.random.RandomState(seed)``). With ``eos_token_id`` a finished
+        row repeats it, and the decode stops once every row has finished.
+        Returns the int64 ids [B, prompt + new] on the model's device."""
+        rng = np.random.RandomState(seed)
+        ids = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
+                         else input_ids).astype(np.int64)
+        b, s = ids.shape
+        limit = self.config.max_position_embeddings
+        if s + max_new_tokens > limit:
+            raise ValueError(
+                f"generate: prompt ({s}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds max_position_embeddings "
+                f"({limit})")
+        bucket = self.DECODE_CAPACITY_BUCKET
+        capacity = min(-(-(s + max_new_tokens) // bucket) * bucket, limit)
+        cache = StaticKVCache(self.config, b, capacity, dtype=self.dtype,
+                              device=self.device)
+        logits = self.cached_step(ids, cache)
+        out = [ids]
+        finished = np.zeros(b, bool)
+        for step in range(max_new_tokens):
+            nxt = sample_next_tokens(
+                logits.float().cpu().numpy(), do_sample=do_sample,
+                temperature=temperature, top_k=top_k, top_p=top_p, rng=rng)
+            if eos_token_id is not None:
+                nxt = np.where(finished, eos_token_id, nxt)
+                finished |= nxt == eos_token_id
+            cur = nxt.astype(np.int64)[:, None]
+            out.append(cur)
+            if eos_token_id is not None and finished.all():
+                break
+            if step + 1 < max_new_tokens:  # no wasted trailing forward
+                logits = self.cached_step(cur, cache)
+        return torch.from_numpy(np.concatenate(out, axis=1)).to(self.device)
 
 
 def llama_tiny(**kw):

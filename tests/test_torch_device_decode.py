@@ -37,7 +37,10 @@ def prompts_fixed(lengths, seed=0):
 
 
 def _engine(model, **kw):
-    kw = {"num_blocks": 96, "block_size": 8, "max_batch_size": 4, **kw}
+    # synchronous staging, as the reference's tests: admission order (and
+    # so co-admission) does not depend on the ingest thread's timing
+    kw = {"num_blocks": 96, "block_size": 8, "max_batch_size": 4,
+          "ingest_async": False, **kw}
     return LLMEngine(model, device="cpu", **kw)
 
 
