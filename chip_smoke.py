@@ -76,7 +76,15 @@ Phases, one printed line per result:
    layers x steps, every other kernel never; and again with BERT's
    default 0.1 dropouts in training mode (attention takes the plain dense
    route with its keep mask: the flash kernels never launch, the fused
-   add + LayerNorm 2 x layers x steps; the loss finite);
+   add + LayerNorm 2 x layers x steps; the loss finite); then training
+   recipes, each from a fresh model: llama_125m on the same batch under
+   AdamW with a warmup + cosine schedule, no decay on norms and
+   embeddings and a global-norm clip; Momentum(0.9) with an L2Decay
+   regularizer; and SGD; and BERT-base under AdamW with a warmup + linear
+   decay, a layer-wise ``lr_ratio`` and no decay on biases and LayerNorms:
+   losses finite (falling on llama), exact launches, one host sync a
+   window, ``get_lr()`` after each step equal to the schedule computed on
+   the host, ms/step beside the float-LR AdamW runs;
 6. card against CPU: the port engine on fp32 llama_tiny gives identical
    greedy tokens on the CPU (plain versions) and on the card (kernels),
    per step and in decode windows (graph replays on the card), and the
@@ -89,8 +97,10 @@ Phases, one printed line per result:
    three on fp32 llama_tiny with 4 experts
    and the three switches, after the first batch's top-k routing is found
    identical on both; three on fp32 bert_tiny with ``PT_FUSED_NORM``, and
-   one padded (masked) ``BertModel`` forward; attention dropout's keep
-   rate, scaling and seeding on the card.
+   one padded (masked) ``BertModel`` forward; the training recipes at
+   tiny size (the three Llama ones on llama_tiny, BERT's on bert_tiny) and
+   each of the 11 eager optimizers on llama_tiny, three steps each;
+   attention dropout's keep rate, scaling and seeding on the card.
 
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
@@ -102,6 +112,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1804,7 +1815,7 @@ def phase_train_bert(dropout=False):
     without rope once; no other kernel. With ``dropout`` the config keeps
     its default 0.1 dropouts (training mode): attention takes the plain
     dense route with its keep mask, so the flash kernels never launch.
-    Returns the launch counts over the 12 steps."""
+    Returns the launch counts over the 12 steps and ms/step."""
     import numpy as np
     import torch
 
@@ -1873,7 +1884,7 @@ def phase_train_bert(dropout=False):
         f"memory {peak:.2f} GiB, launches {counts}")
     del model, step, data
     torch.cuda.empty_cache()
-    return counts
+    return counts, wall / steps * 1e3
 
 
 def phase_bert_card_vs_cpu():
@@ -2000,6 +2011,386 @@ def phase_dropout_card():
           "attention dropout semantics on the card")
 
 
+# -- training recipes: schedules, per-parameter decay and step sizes, SGD and
+# Momentum in the fused step, the eager optimizers -------------------------
+
+# llama_125m bf16 learning rates of the SGD and Momentum runs, large enough
+# that an update outlasts the cast back to bf16 (no master weights, as in
+# the reference) and the fixed batch's loss falls in 12 steps
+SGD_LR = 1.0
+MOMENTUM_LR = 0.1
+
+
+def warmup_cosine_lr(k, peak, warmup, t_max):
+    """The LR after k steps of ``LinearWarmup(CosineAnnealingDecay(peak,
+    t_max), warmup, 0, peak)``, computed here on the host."""
+    if k < warmup:
+        return peak * k / warmup
+    return peak * (1 + math.cos(math.pi * (k - warmup) / t_max)) / 2
+
+
+def warmup_poly_lr(k, peak, warmup, decay_steps):
+    """The LR after k steps of ``LinearWarmup(PolynomialDecay(peak,
+    decay_steps, end_lr=0), warmup, 0, peak)``, computed here."""
+    if k < warmup:
+        return peak * k / warmup
+    return peak * (1 - min(k - warmup, decay_steps) / decay_steps)
+
+
+def llama_recipes(sgd_lr, momentum_lr, epsilon):
+    """The Llama recipes: name -> make(model) -> (optimizer, the LR after
+    k steps). (a) the Llama pretraining recipe: AdamW(weight_decay 0.1)
+    under a 4-step linear warmup into a cosine decay to 0 at step 16, no
+    decay on the norms and the embeddings, a global-norm clip at 1.0;
+    (b) Momentum(0.9) with an L2Decay(1e-4) regularizer; (c) SGD."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.regularizer import L2Decay
+
+    def adamw(model):
+        keep = {p.name for n, p in model.named_parameters()
+                if "norm" not in n and "embed" not in n}
+        sched = O.lr.LinearWarmup(O.lr.CosineAnnealingDecay(3e-4, T_max=12),
+                                  warmup_steps=4, start_lr=0.0, end_lr=3e-4)
+        return (O.AdamW(learning_rate=sched, epsilon=epsilon,
+                        weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0),
+                        apply_decay_param_fun=lambda n: n in keep,
+                        parameters=model.parameters()),
+                lambda k: warmup_cosine_lr(k, 3e-4, 4, 12))
+
+    def momentum(model):
+        return (O.Momentum(learning_rate=momentum_lr, momentum=0.9,
+                           weight_decay=L2Decay(1e-4),
+                           parameters=model.parameters()),
+                lambda k: momentum_lr)
+
+    def sgd(model):
+        return (O.SGD(learning_rate=sgd_lr, parameters=model.parameters()),
+                lambda k: sgd_lr)
+
+    return {"AdamW warmup-cosine decay-fun clip": adamw,
+            "Momentum L2Decay": momentum, "SGD": sgd}
+
+
+def bert_recipe(model, peak, epsilon):
+    """BERT fine-tuning: AdamW(weight_decay 0.01) under a 2-step warmup into
+    a linear decay to 0 over 10 steps, layer-wise LR decay 0.8
+    (``lr_ratio``: 0.8 ** (L - i) in layer i, 0.8 ** (L + 1) for the
+    embeddings, 1 for the pooler and classifier) and no decay on the biases
+    and LayerNorms. Returns (optimizer, the LR after k steps)."""
+    from paddle_tpu_torch import optimizer as O
+
+    layers = model.bert.config.num_hidden_layers
+    keep, ratios = set(), {}
+    for n, p in model.named_parameters():
+        if not (n.endswith(".bias") or "norm" in n):
+            keep.add(p.name)
+        if "embeddings" in n:
+            ratios[id(p)] = 0.8 ** (layers + 1)
+        elif ".layers." in n:
+            ratios[id(p)] = 0.8 ** (layers -
+                                    int(n.split(".layers.")[1].split(".")[0]))
+    sched = O.lr.LinearWarmup(O.lr.PolynomialDecay(peak, decay_steps=10,
+                                                   end_lr=0.0),
+                              warmup_steps=2, start_lr=0.0, end_lr=peak)
+    return (O.AdamW(learning_rate=sched, epsilon=epsilon, weight_decay=0.01,
+                    apply_decay_param_fun=lambda n: n in keep,
+                    lr_ratio=lambda p: ratios.get(id(p), 1.0),
+                    parameters=model.parameters()),
+            lambda k: warmup_poly_lr(k, peak, 2, 10))
+
+
+def drive_reading_lr(step, opt, batch, n):
+    """``step.drive`` over ``batch`` n times in one fetch window; returns
+    (drive's history, ``opt.get_lr()`` after each step). The batches come
+    from a generator that reads the host LR when drive asks for the next
+    batch, after the step before: no device work, no sync."""
+    lrs = []
+
+    def batches():
+        for _ in range(n):
+            yield batch
+            lrs.append(opt.get_lr())
+
+    return step.drive(batches(), log_every=n), lrs
+
+
+def check_lrs(lrs, host_lr, label):
+    want = [host_lr(k) for k in range(1, len(lrs) + 1)]
+    check(all(math.isclose(a, b, rel_tol=1e-12, abs_tol=1e-18)
+              for a, b in zip(lrs, want)),
+          f"{label}: get_lr() {lrs} == host schedule {want}")
+
+
+def float_lr_adamw(lr):
+    """Phases 5 and 5c's optimizer, AdamW at a float learning rate, in the
+    recipes' form: make(model) -> (optimizer, the LR after k steps)."""
+    from paddle_tpu_torch.optimizer import AdamW
+
+    return lambda model: (AdamW(learning_rate=lr,
+                                parameters=model.parameters()),
+                          lambda k: lr)
+
+
+def recipe_run(label, model, make, batch, check_launches, **step_kw):
+    """One recipe run of phase 5d: 2 warm-up and 10 timed steps through
+    ``FusedTrainStep.drive`` (one fetch window each) with every launch
+    count reset first. Checks finite losses, one host sync a window, the
+    launches (``check_launches(counts, steps)``) and ``get_lr()`` after
+    each step against the host's schedule. Returns (losses, ms/step)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.incubate import fused_train_step
+
+    warmup, steps = 2, 10
+    opt, host_lr = make(model)
+    step = fused_train_step(model, opt, **step_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    reset_all_launch_counts()
+    first, lrs = drive_reading_lr(step, opt, batch, warmup)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist, more = drive_reading_lr(step, opt, batch, steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = all_launch_counts()
+    losses = first["loss"] + hist["loss"]
+    check(all(np.isfinite(losses)), f"{label}: finite losses {losses}")
+    check(first["host_syncs"] == hist["host_syncs"] == 1,
+          f"{label}: one host sync a window")
+    check_launches(counts, warmup + steps)
+    check_lrs(lrs + more, host_lr, label)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    say(f"train-recipe {label}: losses {[round(x, 4) for x in losses]}; "
+        f"lr after each step {[float(f'{x:.6g}') for x in lrs + more]}; "
+        f"{ms:.1f} ms/step, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, allocator "
+        f"retries {retries}")
+    return losses, ms
+
+
+def phase_train_recipes(dense_ms, bert_ms):
+    """Phase 5d: training recipes at full width, each run on a fresh model
+    from the seed (``recipe_run``): llama_125m (bf16, phase 5's fixed 16 x
+    1024 batch) under the three ``llama_recipes``, between two runs of
+    phase 5's float-LR AdamW(1e-4); then BERT-base (phase 5c's setup with
+    ``PT_FUSED_NORM``) under ``bert_recipe`` at 2e-5, between two runs of
+    phase 5c's AdamW(2e-5). Llama losses fall; each flash kernel launches
+    layers x 12 times, BERT's fused add + LayerNorm 2 x layers x 12 and
+    nothing else; ms/step beside the float-LR runs of this phase and of
+    phases 5 and 5c (``dense_ms``, ``bert_ms``). Returns {run: ms/step}."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         LlamaForCausalLM, bert_base,
+                                         llama_125m)
+
+    cfg = llama_125m()
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(SEED + 4)
+    batch = tuple(torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                               (16, 1024))).cuda()
+                  for _ in range(2))
+
+    def llama_launches(counts, n):
+        want = launches_want(**{f"{k}_cuda": L * n for k in FLASH})
+        check(counts == want, f"llama_125m launches {counts} == {want}")
+
+    runs = [("AdamW(1e-4) float LR", float_lr_adamw(1e-4)),
+            *llama_recipes(SGD_LR, MOMENTUM_LR, 1e-8).items(),
+            ("AdamW(1e-4) float LR again", float_lr_adamw(1e-4))]
+    out = {}
+    for name, make in runs:
+        label = f"llama_125m {name}"
+        model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                 seed=SEED)
+        losses, out[label] = recipe_run(label, model, make, batch,
+                                        llama_launches)
+        check(losses[-1] < losses[0], f"{label}: loss falls {losses}")
+        del model
+        torch.cuda.empty_cache()
+
+    cfg = bert_base(hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(SEED + 8)
+    data = {"input_ids": torch.from_numpy(
+                rng.randint(0, cfg.vocab_size, (128, 128))).cuda(),
+            "labels": torch.from_numpy(
+                rng.randint(0, cfg.num_labels, 128)).cuda()}
+
+    def bert_launches(counts, n):
+        want = launches_want(fused_add_layer_norm_cuda=2 * L * n,
+                             **{f"{k}_cuda": L * n for k in FLASH})
+        check(counts == want, f"BERT-base launches {counts} == {want}")
+
+    def recipe(model):
+        opt, host_lr = bert_recipe(model, 2e-5, 1e-8)
+        check(len({opt._param_lr_ratio(p) for p in model.parameters()})
+              == L + 2, "BERT-base: one LR ratio a depth")
+        return opt, host_lr
+
+    runs = [("AdamW(2e-5) float LR", float_lr_adamw(2e-5)),
+            ("AdamW warmup-linear layer-decay 0.8", recipe),
+            ("AdamW(2e-5) float LR again", float_lr_adamw(2e-5))]
+    with fused_switches(("PT_FUSED_NORM",)):
+        for name, make in runs:
+            label = f"BERT-base {name}"
+            model = BertForSequenceClassification(
+                cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
+            _, out[label] = recipe_run(label, model, make, data,
+                                       bert_launches,
+                                       loss_fn=lambda o: o[0])
+            del model
+            torch.cuda.empty_cache()
+    say("train-recipe ms/step (H100 card line above): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out.items()) + f"; phase 5 llama_125m "
+        f"{dense_ms:.1f}, phase 5c BERT-base {bert_ms:.1f}")
+    return out
+
+
+# the eager optimizers on fp32 llama_tiny, card against CPU: hyperparameters
+# keep every update's sensitivity to the frameworks' rounding under the
+# parameter tolerance -- epsilon 1e-6 where an update is ~g / (|g| + eps),
+# and Rprop's step sizes within [1e-7, 1e-5], since a gradient element
+# within rounding noise of zero may take the other sign on the other device
+EAGER_OPTIMIZERS = {
+    "SGD": lambda O, ps: O.SGD(learning_rate=0.05, parameters=ps,
+                               weight_decay=1e-4),
+    "Momentum nesterov": lambda O, ps: O.Momentum(
+        learning_rate=0.02, momentum=0.9, use_nesterov=True, parameters=ps),
+    "Adagrad": lambda O, ps: O.Adagrad(learning_rate=1e-3, parameters=ps),
+    "Adam": lambda O, ps: O.Adam(learning_rate=1e-3, epsilon=1e-6,
+                                 weight_decay=0.01, parameters=ps),
+    "AdamW": lambda O, ps: O.AdamW(learning_rate=1e-3, epsilon=1e-6,
+                                   parameters=ps),
+    "Adamax": lambda O, ps: O.Adamax(learning_rate=1e-3, epsilon=1e-6,
+                                     parameters=ps),
+    "Adadelta": lambda O, ps: O.Adadelta(learning_rate=1.0, parameters=ps),
+    "RMSProp centered": lambda O, ps: O.RMSProp(
+        learning_rate=1e-3, centered=True, momentum=0.5, parameters=ps),
+    "Lamb": lambda O, ps: O.Lamb(learning_rate=1e-3, parameters=ps),
+    "Rprop": lambda O, ps: O.Rprop(learning_rate=1e-6,
+                                   learning_rate_range=(1e-7, 1e-5),
+                                   parameters=ps),
+    "LBFGS": lambda O, ps: O.LBFGS(learning_rate=1e-3, max_iter=3,
+                                   history_size=5, parameters=ps),
+}
+
+
+def phase_recipes_card_vs_cpu():
+    """Phase 6f: the recipes and the 11 eager optimizers on fp32 tiny models
+    from the same numpy weights and batches, 3 steps each on the card
+    (kernels) and on the CPU (plain versions): the three ``llama_recipes``
+    on llama_tiny (epsilon 1e-6, SGD 0.05, Momentum 0.02, as the CPU tests
+    use) and ``bert_recipe`` on bert_tiny with ``PT_FUSED_NORM`` through
+    the fused step, every ``EAGER_OPTIMIZERS`` entry on llama_tiny through
+    ``loss.backward(); step()`` (LBFGS: ``step(closure)``). Losses and
+    parameters agree at the tolerances of phase 6b, and the scheduled LRs
+    equal the host's on both."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         LlamaForCausalLM, bert_tiny,
+                                         llama_tiny,
+                                         load_paddle_tpu_state_dict,
+                                         to_numpy_state_dict)
+
+    def compare(label, runs):
+        (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
+        dl = max(abs(a / b - 1) for a, b in zip(lg, lc))
+        dp = max(float(np.abs(pg[k] - pc[k]).max()) for k in pc)
+        moved = max(float(np.abs(pc[k] - start[k]).max()) for k in pc)
+        say(f"card vs cpu {label}, 3 steps: losses max rel diff {dl:.2e} "
+            f"(tol {TRAIN_LOSS_RTOL:g}); parameters max abs diff {dp:.2e} "
+            f"(tol {TRAIN_PARAM_ATOL:g}), moved up to {moved:.2e}")
+        check(dl <= TRAIN_LOSS_RTOL and dp <= TRAIN_PARAM_ATOL,
+              f"card and CPU agree: {label}")
+        check(moved > 0, f"{label}: the parameters moved")
+
+    cfg = llama_tiny()
+    rng = np.random.RandomState(SEED + 10)
+    ref = LlamaForCausalLM(cfg, device="cpu")
+    start = {k: (np.ones(v.shape, np.float32) if "norm" in k else
+                 (rng.standard_normal(v.shape) * 0.02).astype(np.float32))
+             for k, v in ref.state_dict().items()}
+    batches = [tuple(rng.randint(0, cfg.vocab_size, (4, 128))
+                     for _ in range(2)) for _ in range(3)]
+
+    def llama(dev):
+        model = LlamaForCausalLM(cfg, device=dev)
+        load_paddle_tpu_state_dict(model, start)
+        return model
+
+    for name, make in llama_recipes(0.05, 0.02, 1e-6).items():
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = llama(dev)
+            opt, host_lr = make(model)
+            step = fused_train_step(model, opt)
+            losses, lrs = [], []
+            for b in batches:
+                losses.append(float(step(*(torch.from_numpy(x).to(dev)
+                                           for x in b))))
+                lrs.append(opt.get_lr())
+            check_lrs(lrs, host_lr, f"llama_tiny {name} on {dev}")
+            runs[dev] = losses, to_numpy_state_dict(model)
+        compare(f"fused llama_tiny fp32 {name}", runs)
+
+    for name, make in EAGER_OPTIMIZERS.items():
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = llama(dev)
+            opt = make(O, model.parameters())
+            losses = []
+            for b in batches:
+                ids, labels = (torch.from_numpy(x).to(dev) for x in b)
+
+                def closure(model=model, opt=opt, ids=ids, labels=labels):
+                    opt.clear_grad()
+                    loss = model(ids, labels)[0]
+                    loss.backward()
+                    return loss
+
+                if name == "LBFGS":
+                    loss = opt.step(closure)
+                else:
+                    loss = closure()
+                    opt.step()
+                losses.append(float(loss.detach()))
+            runs[dev] = losses, to_numpy_state_dict(model)
+        compare(f"eager llama_tiny fp32 {name}", runs)
+
+    cfg = bert_tiny(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    start = bert_tiny_state(BertForSequenceClassification(cfg, device="cpu"),
+                            rng)
+    batches = [(rng.randint(0, cfg.vocab_size, (4, 128)),
+                rng.randint(0, cfg.num_labels, 4)) for _ in range(3)]
+    runs = {}
+    with fused_switches(("PT_FUSED_NORM",)):
+        for dev in ("cpu", "cuda"):
+            model = BertForSequenceClassification(cfg, device=dev)
+            load_paddle_tpu_state_dict(model, start)
+            opt, host_lr = bert_recipe(model, 1e-3, 1e-6)
+            step = fused_train_step(model, opt, loss_fn=lambda o: o[0])
+            losses, lrs = [], []
+            for i, l in batches:
+                losses.append(float(step(torch.from_numpy(i).to(dev),
+                                         labels=torch.from_numpy(l).to(dev))))
+                lrs.append(opt.get_lr())
+            check_lrs(lrs, host_lr, f"bert_tiny recipe on {dev}")
+            runs[dev] = losses, to_numpy_state_dict(model)
+    compare("fused bert_tiny fp32 AdamW warmup-linear layer-decay 0.8 with "
+            "PT_FUSED_NORM", runs)
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -2093,14 +2484,16 @@ def main():
     counts.update({k: moe[k] for k in ("moe_ffn_cuda",
                                        "fused_add_rms_norm_cuda",
                                        *(f"{n}_cuda" for n in ROPE))})
-    bert = timed(phase_train_bert)
+    bert, bert_ms = timed(phase_train_bert)
     counts["fused_add_layer_norm_cuda"] = bert["fused_add_layer_norm_cuda"]
     timed(phase_train_bert, dropout=True)
+    timed(phase_train_recipes, train_ms, bert_ms)
     timed(phase_card_vs_cpu)
     timed(phase_train_card_vs_cpu)
     timed(phase_train_card_vs_cpu, "PT_ATTN_EINSUM")
     timed(phase_train_moe_card_vs_cpu)
     timed(phase_bert_card_vs_cpu)
+    timed(phase_recipes_card_vs_cpu)
     timed(phase_dropout_card)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",

@@ -4,9 +4,9 @@ The package mirrors ``paddle_tpu``'s module paths (the counterpart of
 ``paddle_tpu/x/y.py`` is ``paddle_tpu_torch/x/y.py``). It serves
 ``LlamaForCausalLM`` through ``LLMEngine`` on hand-written CUDA
 paged-attention kernels, and trains it through
-``incubate.fused_train_step`` with AdamW on hand-written CUDA
-flash-attention forward and backward kernels (``ops/cuda``, sources under
-``csrc/``).
+``incubate.fused_train_step`` with the reference's optimizers and LR
+schedulers on hand-written CUDA flash-attention forward and backward
+kernels (``ops/cuda``, sources under ``csrc/``).
 
 It imports ``torch`` and never ``jax`` or ``paddle_tpu``. Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; asking for CUDA

@@ -2,21 +2,27 @@
 ``paddle_tpu/incubate/fused_train_step.py``).
 
 One call runs a whole step: zero the grads, forward, loss, backward, the
-optional global-norm clip, and the Adam/AdamW update of every trainable
-parameter. The reference compiles that into one donated XLA executable;
-here it is eager PyTorch, and the update goes through the ``torch._foreach``
-ops of :func:`paddle_tpu_torch.optimizer.adam_update_` in place. The
-moments are fp32 and live here, not in the optimizer, keyed by parameter
-name, so ``state_dict()`` speaks the reference's keys (``step_count``,
-``lr_scale``, ``m1.<name>``, ``m2.<name>``) and ``set_state_dict`` takes a
-JAX ``FusedTrainStep.state_dict()`` unchanged.
+optional global-norm clip, and the SGD, Momentum, Adam or AdamW update of
+every trainable parameter. The reference compiles that into one donated
+XLA executable; here it is eager PyTorch, and the update is one chain of
+``torch._foreach`` ops (:mod:`paddle_tpu_torch.optimizer.optimizers`) in
+place. Per-parameter settings are read once, when the step is built, as
+the reference does: the decay from ``apply_decay_param_fun`` (Adam, AdamW)
+or ``_weight_decay_value`` (SGD, Momentum), the step-size ratio from
+``lr_ratio`` (Adam, AdamW). The accumulators are fp32 and live here, not
+in the optimizer, keyed by parameter name, so ``state_dict()`` speaks the
+reference's keys (``step_count``, ``lr_scale``, ``lr_sched``,
+``m1.<name>``, ``m2.<name>``; Momentum's velocity is ``m1``) and
+``set_state_dict`` takes a JAX ``FusedTrainStep.state_dict()`` unchanged.
 
-The loss stays on the device: ``__call__`` returns it as a 0-d tensor
-without a host sync, and :meth:`FusedTrainStep.drive` fetches it only every
-``log_every`` steps. The reference's default
-``FLAGS_check_nan_inf_action="none"`` compiles its anomaly guard out; the
-port has no guard. Guard modes, the grad scaler, shape buckets, sharding
-plans, sparse rows, LR schedulers, SGD/Momentum and drive's checkpoint,
+The learning rate is ``optimizer.get_lr() * lr_scale``, a host float read
+before the update; with ``step_lr_scheduler`` the optimizer's
+``LRScheduler`` is stepped after it. The loss stays on the device:
+``__call__`` returns it as a 0-d tensor without a host sync, and
+:meth:`FusedTrainStep.drive` fetches it only every ``log_every`` steps.
+The reference's default ``FLAGS_check_nan_inf_action="none"`` compiles its
+anomaly guard out; the port has no guard. Guard modes, the grad scaler,
+shape buckets, sharding plans, sparse rows and drive's checkpoint,
 sentinel, prefetch, preemption and chaos hooks are not ported yet (ROADMAP
 Queue 1, item 3), nor are CUDA graphs.
 """
@@ -29,7 +35,9 @@ import numpy as np
 import torch
 
 from ..observability import metrics as _obs_metrics
-from ..optimizer.optimizers import Adam, AdamW, adam_update_
+from ..nn.clip import ClipGradByGlobalNorm
+from ..optimizer.optimizers import (SGD, Adam, AdamW, Momentum, adam_update_,
+                                    momentum_update_, sgd_update_)
 
 __all__ = ["FusedTrainStep", "fused_train_step"]
 
@@ -48,38 +56,66 @@ _G_ITEMS_PER_S = _obs_metrics.gauge(
 
 class FusedTrainStep:
     """``step(*data, **kwdata) -> loss`` for ``model`` trained by an
+    :class:`~paddle_tpu_torch.optimizer.SGD`,
+    :class:`~paddle_tpu_torch.optimizer.Momentum`,
     :class:`~paddle_tpu_torch.optimizer.Adam` or
-    :class:`~paddle_tpu_torch.optimizer.AdamW`. The loss is
+    :class:`~paddle_tpu_torch.optimizer.AdamW`, clipped by nothing or a
+    :class:`~paddle_tpu_torch.nn.ClipGradByGlobalNorm`. The loss is
     ``loss_fn(model(*data, **kwdata))`` or, without ``loss_fn``, the
     output's first element when it is a tuple or list, else the output.
-    ``step_lr_scheduler`` is kept for the reference's signature; with a
-    float learning rate there is no scheduler to step."""
+    ``step_lr_scheduler=True`` means the step owns the scheduler: it calls
+    ``optimizer._learning_rate.step()`` once a step, and the training loop
+    must not step it too."""
 
     _instance_count = 0
 
     def __init__(self, model, optimizer, loss_fn=None,
                  step_lr_scheduler=True):
-        if not isinstance(optimizer, (Adam, AdamW)):
+        if isinstance(optimizer, AdamW):
+            self._kind = "adamw"
+        elif isinstance(optimizer, Adam):
+            self._kind = "adam"
+        elif isinstance(optimizer, Momentum):
+            self._kind = "momentum"
+        elif isinstance(optimizer, SGD):
+            self._kind = "sgd"
+        else:
             raise TypeError(
-                f"fused_train_step supports Adam/AdamW, got "
-                f"{type(optimizer).__name__} (SGD and Momentum are not "
-                "ported yet)")
+                f"fused_train_step supports SGD/Momentum/Adam/AdamW, got "
+                f"{type(optimizer).__name__}")
+        clip = optimizer._grad_clip
+        if clip is not None and not isinstance(clip, ClipGradByGlobalNorm):
+            raise TypeError(
+                f"fused_train_step fuses ClipGradByGlobalNorm only; the "
+                f"optimizer has {type(clip).__name__} -- use the eager step "
+                "for other clip types")
+        self._clip_norm = None if clip is None else float(clip.clip_norm)
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
+        self._step_lr_scheduler = step_lr_scheduler
         FusedTrainStep._instance_count += 1
         self._stats_name = (f"fused_train_step[{type(model).__name__}"
                             f"#{FusedTrainStep._instance_count}]")
         named = dict(model.named_parameters())
         self._names = [n for n in sorted(named) if named[n].requires_grad]
         self._params = [named[n] for n in self._names]
-        self._m1 = [torch.zeros(p.shape, dtype=torch.float32,
+
+        def zeros():
+            return [torch.zeros(p.shape, dtype=torch.float32,
                                 device=p.device) for p in self._params]
-        self._m2 = [torch.zeros_like(m) for m in self._m1]
+
+        self._m1 = zeros() if self._kind != "sgd" else []
+        self._m2 = zeros() if self._kind in ("adam", "adamw") else []
         self._step_count = 0
         self._lr_scale = 1.0
-        self._decoupled = isinstance(optimizer, AdamW)
-        self._wd = float(optimizer._wd_coeff())
+        if self._kind in ("adam", "adamw"):
+            self._wds = [optimizer._param_wd(p) for p in self._params]
+            self._lr_ratios = [optimizer._param_lr_ratio(p)
+                               for p in self._params]
+        else:
+            self._wds = [optimizer._weight_decay_value(p)
+                         for p in self._params]
 
     def _loss(self, data, kwdata):
         out = self.model(*data, **kwdata)
@@ -96,27 +132,55 @@ class FusedTrainStep:
             p.grad = None
         loss = self._loss(data, kwdata)
         loss.backward()
+        lr = self.optimizer.get_lr() * self._lr_scale
         with torch.no_grad():
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in self._params]
-            clip = self.optimizer._grad_clip
-            if clip is not None:
-                clip(list(zip(self._params, grads)))
-            opt = self.optimizer
-            adam_update_(self._params, grads, self._m1, self._m2,
-                         lr=opt.get_lr() * self._lr_scale, beta1=opt._beta1,
-                         beta2=opt._beta2, epsilon=opt._epsilon,
-                         step=self._step_count + 1, weight_decay=self._wd,
-                         decoupled=self._decoupled)
+            if self._clip_norm is not None:
+                self._clip(grads)
+            self._update(grads, lr)
         self._step_count += 1
+        if self._step_lr_scheduler:
+            sched = self.optimizer._learning_rate
+            if hasattr(sched, "step"):
+                sched.step()
         return loss.detach()
+
+    def _clip(self, grads):
+        """The reference fused step's clip, in place: every gradient times
+        min(1, clip_norm / (||g|| + 1e-12)), ||g|| the fp32 norm over all
+        of them (``need_clip`` is not consulted); the factor stays on the
+        device."""
+        norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
+        gnorm = torch.linalg.vector_norm(torch.stack(norms))
+        factor = torch.clamp(self._clip_norm / (gnorm + 1e-12), max=1.0)
+        torch._foreach_mul_(grads, factor)
+
+    def _update(self, grads, lr):
+        opt, kind = self.optimizer, self._kind
+        if kind in ("adam", "adamw"):
+            adam_update_(self._params, grads, self._m1, self._m2, lr=lr,
+                         beta1=opt._beta1, beta2=opt._beta2,
+                         epsilon=opt._epsilon, step=self._step_count + 1,
+                         weight_decay=self._wds, decoupled=kind == "adamw",
+                         lr_ratios=self._lr_ratios)
+        elif kind == "momentum":
+            # the reference's fused update ignores use_nesterov
+            momentum_update_(self._params, grads, self._m1, lr=lr,
+                             momentum=opt._momentum, weight_decay=self._wds)
+        else:
+            sgd_update_(self._params, grads, lr=lr, weight_decay=self._wds)
 
     # -- checkpoint state -------------------------------------------------
     def state_dict(self):
-        """``{"step_count", "lr_scale", "m1.<name>", "m2.<name>"}`` with the
-        moments as fp32 numpy arrays, the reference's keys."""
+        """``{"step_count", "lr_scale", "lr_sched" (under a scheduler: its
+        ``state_dict()``), "m1.<name>", "m2.<name>"}`` with the
+        accumulators as fp32 numpy arrays, the reference's keys."""
         sd = {"step_count": self._step_count,
               "lr_scale": float(self._lr_scale)}
+        sched = self.optimizer._learning_rate
+        if hasattr(sched, "state_dict"):
+            sd["lr_sched"] = sched.state_dict()
         for prefix, store in (("m1", self._m1), ("m2", self._m2)):
             for n, m in zip(self._names, store):
                 sd[f"{prefix}.{n}"] = m.detach().cpu().numpy()
@@ -124,10 +188,14 @@ class FusedTrainStep:
 
     def set_state_dict(self, sd):
         """Load a :meth:`state_dict` of this class or of the JAX
-        ``FusedTrainStep`` (numpy arrays or tensors); missing moment keys
-        leave those moments as they are."""
+        ``FusedTrainStep`` (numpy arrays or tensors), the scheduler's
+        state included; missing accumulator keys leave those accumulators
+        as they are."""
         self._step_count = int(sd.get("step_count", self._step_count))
         self._lr_scale = float(sd.get("lr_scale", 1.0))
+        sched = self.optimizer._learning_rate
+        if "lr_sched" in sd and hasattr(sched, "set_state_dict"):
+            sched.set_state_dict(sd["lr_sched"])
         with torch.no_grad():
             for prefix, store in (("m1", self._m1), ("m2", self._m2)):
                 for n, m in zip(self._names, store):

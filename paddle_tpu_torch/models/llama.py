@@ -44,6 +44,7 @@ from ..nn import functional as F
 from ..nn.functional import flash_attention as _sdpa_module
 from ..nn.functional.attention import sdpa_reference
 from ..nn.layer.common import Embedding, Linear
+from ..nn.layer.layers import create_parameter
 from ..nn.layer.norm import RMSNorm
 from ..ops.cuda.flash_attention import HEAD_DIMS, attention_block_bhsd
 from ..ops.cuda.moe_ffn import (moe_expert_ffn, moe_ffn_shapes_ok,
@@ -329,9 +330,10 @@ class LlamaMoE(nn.Module):
         self.router = Linear(c.hidden_size, c.num_experts, bias_attr=False,
                              **kw)
         e, h, i = c.num_experts, c.hidden_size, c.intermediate_size
-        self.gate_w = nn.Parameter(torch.empty(e, h, i, **kw))
-        self.up_w = nn.Parameter(torch.empty(e, h, i, **kw))
-        self.down_w = nn.Parameter(torch.empty(e, i, h, **kw))
+        # drawn by LlamaForCausalLM's seeded generator
+        self.gate_w = create_parameter((e, h, i), **kw)
+        self.up_w = create_parameter((e, h, i), **kw)
+        self.down_w = create_parameter((e, i, h), **kw)
 
     def forward(self, x):
         out, self.l_aux = _moe_topk_capacity(

@@ -1,12 +1,16 @@
 """Layers and functions of the port (``paddle_tpu.nn`` counterparts)."""
 
 from . import functional, initializer  # noqa: F401
-from .clip import ClipGradByGlobalNorm
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   clip_grad_norm_, clip_grad_value_)
 from .layer.common import Dropout, Embedding, Linear
+from .layer.layers import ParamAttr
 from .layer.norm import LayerNorm, RMSNorm
 from .layer.transformer import (MultiHeadAttention, TransformerEncoder,
                                 TransformerEncoderLayer)
 
-__all__ = ["functional", "initializer", "ClipGradByGlobalNorm", "Dropout",
-           "Embedding", "LayerNorm", "Linear", "MultiHeadAttention",
-           "RMSNorm", "TransformerEncoder", "TransformerEncoderLayer"]
+__all__ = ["functional", "initializer", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", "clip_grad_norm_",
+           "clip_grad_value_", "Dropout", "Embedding", "LayerNorm", "Linear",
+           "MultiHeadAttention", "ParamAttr", "RMSNorm", "TransformerEncoder",
+           "TransformerEncoderLayer"]

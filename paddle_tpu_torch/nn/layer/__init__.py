@@ -1,8 +1,9 @@
 from .common import Dropout, Embedding, Linear
+from .layers import ParamAttr
 from .norm import LayerNorm, RMSNorm
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
 __all__ = ["Dropout", "Embedding", "LayerNorm", "Linear",
-           "MultiHeadAttention", "RMSNorm", "TransformerEncoder",
+           "MultiHeadAttention", "ParamAttr", "RMSNorm", "TransformerEncoder",
            "TransformerEncoderLayer"]

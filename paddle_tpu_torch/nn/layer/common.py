@@ -12,26 +12,16 @@ from torch import nn
 from ...core.device import resolve_device
 from ..functional.common import dropout, linear
 from ..initializer import Constant, XavierUniform
+from .layers import create_parameter
 
 __all__ = ["Dropout", "Embedding", "Linear"]
-
-
-def _param_init(attr, default, what):
-    """The initializer of a ``weight_attr``/``bias_attr``: None takes the
-    reference's default, an initializer (a callable filling a tensor in
-    place) is used as given."""
-    if attr is None:
-        return default
-    if callable(attr):
-        return attr
-    raise TypeError(f"{what} must be None, False or an initializer, got "
-                    f"{attr!r}")
 
 
 class Linear(nn.Module):
     """``y = x @ weight + bias`` with ``weight`` [in, out] and ``bias``
     [out], as the reference's ``Linear``: the weight from ``weight_attr``
-    (default XavierUniform), the bias from ``bias_attr`` (default zeros;
+    (a :class:`~paddle_tpu_torch.nn.ParamAttr`, a name or an initializer;
+    default XavierUniform), the bias from ``bias_attr`` (default zeros;
     ``bias_attr=False`` leaves no ``bias`` parameter, as llama's
     projections). Built on ``device`` (default ``cuda``, raising without
     it)."""
@@ -42,15 +32,11 @@ class Linear(nn.Module):
         dev = resolve_device(device)
         self.in_features = int(in_features)
         self.out_features = int(out_features)
-        self.weight = nn.Parameter(torch.empty(
-            in_features, out_features, device=dev, dtype=dtype))
-        _param_init(weight_attr, XavierUniform(), "weight_attr")(self.weight)
-        if bias_attr is False:
-            self.bias = None
-        else:
-            self.bias = nn.Parameter(torch.empty(out_features, device=dev,
-                                                 dtype=dtype))
-            _param_init(bias_attr, Constant(0.0), "bias_attr")(self.bias)
+        self.weight = create_parameter(
+            (in_features, out_features), weight_attr, XavierUniform(),
+            device=dev, dtype=dtype)
+        self.bias = create_parameter((out_features,), bias_attr,
+                                     Constant(0.0), device=dev, dtype=dtype)
 
     def forward(self, x):
         return linear(x, self.weight, self.bias)
@@ -82,9 +68,9 @@ class Embedding(nn.Module):
         self.padding_idx = (None if padding_idx is None
                             else padding_idx if padding_idx >= 0
                             else num_embeddings + padding_idx)
-        self.weight = nn.Parameter(torch.empty(
-            num_embeddings, embedding_dim, device=dev, dtype=dtype))
-        _param_init(weight_attr, XavierUniform(), "weight_attr")(self.weight)
+        self.weight = create_parameter(
+            (num_embeddings, embedding_dim), weight_attr, XavierUniform(),
+            device=dev, dtype=dtype)
         if self.padding_idx is not None:
             with torch.no_grad():
                 self.weight[self.padding_idx] = 0

@@ -1,8 +1,13 @@
-"""Optimizers of the port (``paddle_tpu.optimizer`` counterparts): Adam
-and AdamW with fp32 moments. SGD, Momentum, the other optimizers and the
-LR schedulers are not ported yet."""
+"""Optimizers of the port (``paddle_tpu.optimizer`` counterparts): the 11
+optimizers with fp32 accumulators, the shared ``torch._foreach`` updates
+of the fused step, and the LR schedulers (``lr``)."""
 
+from . import lr  # noqa: F401
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW, adam_update_
+from .optimizers import (LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                         Lamb, Momentum, RMSProp, Rprop, adam_update_,
+                         momentum_update_, sgd_update_)
 
-__all__ = ["Optimizer", "Adam", "AdamW", "adam_update_"]
+__all__ = ["lr", "Optimizer", "LBFGS", "SGD", "Adadelta", "Adagrad", "Adam",
+           "Adamax", "AdamW", "Lamb", "Momentum", "RMSProp", "Rprop",
+           "adam_update_", "momentum_update_", "sgd_update_"]

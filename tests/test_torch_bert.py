@@ -170,8 +170,11 @@ def test_linear_initialisers_follow_the_attrs():
                  device="cpu")
     assert torch.equal(lin.weight, torch.full((64, 32), 0.5))
     assert float(lin.bias.detach().abs().sum()) > 0
-    with pytest.raises(TypeError, match="weight_attr"):
-        Linear(4, 8, weight_attr="w", device="cpu")
+    # a string is the parameter's name, as the reference's ParamAttr reads
+    # it; anything else that is not an attribute or initializer raises
+    assert Linear(4, 8, weight_attr="w", device="cpu").weight.name == "w"
+    with pytest.raises(TypeError, match="param attr"):
+        Linear(4, 8, weight_attr=3, device="cpu")
 
 
 def test_layers_without_device_need_cuda():
@@ -409,6 +412,64 @@ def test_three_fused_adamw_steps_match_jax(monkeypatch):
                                    atol=STATE_ATOL, err_msg=k)
     want_m, got_m = jstep.state_dict(), step.state_dict()
     assert got_m["step_count"] == want_m["step_count"] == 3
+    for k in want_m:
+        if k.startswith(("m1.", "m2.")):
+            np.testing.assert_allclose(got_m[k], np.asarray(want_m[k]),
+                                       rtol=0, atol=STATE_ATOL, err_msg=k)
+
+
+def _bert_recipe(O, model):
+    """BERT fine-tuning's optimizer: AdamW under a linear warmup into a
+    polynomial decay, layer-wise LR decay 0.8 (``lr_ratio``) and no decay on
+    biases and LayerNorms (``apply_decay_param_fun``, over each side's own
+    parameter names)."""
+    layers = model.bert.config.num_hidden_layers
+    keep, ratios = set(), {}
+    for n, p in model.named_parameters():
+        if not (n.endswith(".bias") or "norm" in n):
+            keep.add(p.name)
+        if "embeddings" in n:
+            ratios[id(p)] = 0.8 ** (layers + 1)
+        elif ".layers." in n:
+            i = int(n.split(".layers.")[1].split(".")[0])
+            ratios[id(p)] = 0.8 ** (layers - i)
+    sched = O.lr.LinearWarmup(O.lr.PolynomialDecay(LR, decay_steps=4,
+                                                   end_lr=0.0),
+                              warmup_steps=2, start_lr=0.0, end_lr=LR)
+    return O.AdamW(learning_rate=sched, epsilon=EPS, weight_decay=0.01,
+                   parameters=model.parameters(),
+                   apply_decay_param_fun=lambda name: name in keep,
+                   lr_ratio=lambda p: ratios.get(id(p), 1.0))
+
+
+def test_fused_fine_tuning_recipe_matches_jax(monkeypatch):
+    """BERT fine-tuning's recipe (``_bert_recipe``) in the fused step on
+    fp32 bert_tiny with ``PT_FUSED_NORM=1``: four steps' losses and
+    learning rates, then the parameters and the moments."""
+    monkeypatch.setenv("PT_FUSED_NORM", "1")
+    jm, tm = _pair("BertForSequenceClassification")
+    batches = [_batch(30 + i) for i in range(4)]
+    jopt = _bert_recipe(paddle.optimizer, jm)
+    jstep = paddle.incubate.fused_train_step(jm, jopt, loss_fn=lambda o: o[0])
+    opt = _bert_recipe(optimizer, tm)
+    step = incubate.fused_train_step(tm, opt, loss_fn=lambda o: o[0])
+    want, got = [], []
+    for i, l in batches:
+        want.append((float(_np(jstep(paddle.to_tensor(i),
+                                     labels=paddle.to_tensor(l)))),
+                     jopt.get_lr()))
+        got.append((float(step(torch.from_numpy(i),
+                               labels=torch.from_numpy(l))), opt.get_lr()))
+    np.testing.assert_allclose([g[0] for g in got], [w[0] for w in want],
+                               rtol=LOSS_RTOL)
+    assert [g[1] for g in got] == [w[1] for w in want]
+    assert len(set(step._lr_ratios)) == 4 and 0.0 in step._wds
+    want_p, got_p = _jax_state(jm), to_numpy_state_dict(tm)
+    for k in want_p:
+        np.testing.assert_allclose(got_p[k], want_p[k], rtol=0,
+                                   atol=STATE_ATOL, err_msg=k)
+    want_m, got_m = jstep.state_dict(), step.state_dict()
+    assert got_m["lr_sched"] == want_m["lr_sched"]
     for k in want_m:
         if k.startswith(("m1.", "m2.")):
             np.testing.assert_allclose(got_m[k], np.asarray(want_m[k]),

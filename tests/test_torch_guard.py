@@ -18,6 +18,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.inference.serving\n"
             "import paddle_tpu_torch.models\n"
             "import paddle_tpu_torch.optimizer\n"
+            "import paddle_tpu_torch.optimizer.lr\n"
+            "import paddle_tpu_torch.regularizer\n"
+            "import paddle_tpu_torch.nn.clip\n"
             "import paddle_tpu_torch.incubate\n"
             "import paddle_tpu_torch.incubate.nn\n"
             "import paddle_tpu_torch.incubate.distributed\n"

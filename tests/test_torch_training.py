@@ -4,15 +4,22 @@ The same numpy weights and batches (seeded) go through the JAX package and
 the port: ``cross_entropy``; one Adam/AdamW update of bf16 parameters with
 fp32 moments; the llama loss; and, for the slice as a whole, three
 ``fused_train_step`` AdamW steps on fp32 llama_tiny (GQA 4/2, head_dim 32)
-compared step by step. fp32 throughout except where stated; JAX matmuls at
-"highest". Tolerances: losses rtol 1e-5; parameters and moments after three
-steps atol 1e-5 (sums in another order in both frameworks, carried through
+compared step by step; then the optimizer surface in the fused step: SGD,
+Momentum (``use_nesterov=True`` too, which the reference's fused update
+ignores), Adam with ``L2Decay`` and AdamW under a warmup + cosine schedule
+with ``apply_decay_param_fun``, a layer-wise ``lr_ratio`` and a binding
+global-norm clip, and a resume from the JAX step's state mid-warmup.
+fp32 throughout except where stated; JAX matmuls at "highest".
+Tolerances: losses rtol 1e-5; parameters and moments after three steps
+atol 1e-5 (sums in another order in both frameworks, carried through
 three updates of size ~lr = 1e-3). The multi-step comparisons use Adam's
 epsilon = 1e-6 on both sides: with the default 1e-8 a gradient element
 within ~1e-8 of zero, where the two frameworks' rounding noise (~1e-9)
 can flip its sign, moves its parameter by up to +-lr either way; at 1e-6
 that noise moves an update by at most ~lr * 1e-3.
 """
+
+import types
 
 import jax
 import numpy as np
@@ -23,11 +30,11 @@ import paddle_tpu as paddle
 from paddle_tpu.models import llama as jax_llama
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.optimizer.optimizers import _adam_update
-from paddle_tpu_torch import incubate, optimizer
+from paddle_tpu_torch import incubate, optimizer, regularizer
 from paddle_tpu_torch.models import llama as torch_llama
 from paddle_tpu_torch.models import (load_paddle_tpu_state_dict,
                                      to_numpy_state_dict)
-from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm, ClipGradByNorm
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.observability import metrics
 
@@ -269,14 +276,182 @@ def test_drive_fetches_per_window_and_records_metrics():
 
 
 def test_unported_options_raise():
+    """What the port still refuses: Adam's ``lazy_mode`` (row-sparse
+    updates, ROADMAP Queue 1 item 3), a learning rate that is neither a
+    number nor an ``LRScheduler``, and a fused step for another optimizer
+    or another clip (as the reference does). ``lr_ratio`` and
+    ``apply_decay_param_fun``, which raised before, are held against the
+    reference by ``test_fused_recipes_match_jax``."""
     _, tm = _pair()
     params = list(tm.parameters())
-    for kw in ({"lr_ratio": lambda p: 1.0},
-               {"apply_decay_param_fun": lambda n: True},
-               {"lazy_mode": True}):
-        with pytest.raises(NotImplementedError):
-            optimizer.AdamW(parameters=params, **kw)
-    with pytest.raises(NotImplementedError, match="LR schedulers"):
+    with pytest.raises(NotImplementedError, match="lazy_mode"):
+        optimizer.AdamW(parameters=params, lazy_mode=True)
+    with pytest.raises(TypeError, match="LRScheduler"):
         optimizer.AdamW(learning_rate=object(), parameters=params)
     with pytest.raises(TypeError):
         incubate.fused_train_step(tm, object())
+    with pytest.raises(TypeError, match="SGD/Momentum/Adam/AdamW"):
+        incubate.fused_train_step(tm, optimizer.RMSProp(parameters=params))
+    with pytest.raises(TypeError, match="ClipGradByGlobalNorm"):
+        incubate.fused_train_step(tm, optimizer.SGD(
+            parameters=params, grad_clip=ClipGradByNorm(1.0)))
+
+
+# -- the optimizer surface in the fused step ---------------------------------
+
+def _decay_names(model):
+    """Each side's own names of the parameters that take weight decay:
+    all but the norms and the embeddings."""
+    return {p.name for n, p in model.named_parameters()
+            if "norm" not in n and "embed" not in n}
+
+
+def _layer_ratios(model, layers, decay=0.8):
+    """Layer-wise LR decay keyed by parameter identity: ``decay ** (L -
+    i)`` in layer i, ``decay ** (L + 1)`` for the embeddings, 1 above."""
+    out = {}
+    for n, p in model.named_parameters():
+        if "embed" in n:
+            out[id(p)] = decay ** (layers + 1)
+        elif ".layers." in n:
+            i = int(n.split(".layers.")[1].split(".")[0])
+            out[id(p)] = decay ** (layers - i)
+        else:
+            out[id(p)] = 1.0
+    return out
+
+
+def _warmup_cosine(L):
+    return L.LinearWarmup(L.CosineAnnealingDecay(LR, T_max=6),
+                          warmup_steps=2, start_lr=0.0, end_lr=LR)
+
+
+# recipe -> factory(ns, model): the optimizer over the model's parameters,
+# built from one side's namespace (``optimizer``, ``lr``, ``L2Decay``,
+# ``ClipGradByGlobalNorm``)
+RECIPES = {
+    "sgd": lambda ns, m: ns.O.SGD(learning_rate=0.05,
+                                  parameters=m.parameters()),
+    "momentum": lambda ns, m: ns.O.Momentum(
+        learning_rate=0.02, momentum=0.9, parameters=m.parameters(),
+        weight_decay=ns.L2Decay(1e-4)),
+    # the reference's fused update ignores use_nesterov: plain momentum
+    "momentum-nesterov": lambda ns, m: ns.O.Momentum(
+        learning_rate=0.02, momentum=0.9, parameters=m.parameters(),
+        use_nesterov=True, weight_decay=ns.L2Decay(1e-4)),
+    "adam-l2decay": lambda ns, m: ns.O.Adam(
+        learning_rate=LR, epsilon=EPS, parameters=m.parameters(),
+        weight_decay=ns.L2Decay(0.01)),
+    "adamw-warmup-cosine-decayfun-ratio-clip": lambda ns, m: ns.O.AdamW(
+        learning_rate=_warmup_cosine(ns.O.lr), epsilon=EPS,
+        parameters=m.parameters(), weight_decay=0.1,
+        apply_decay_param_fun=lambda n, keep=_decay_names(m): n in keep,
+        lr_ratio=lambda p, r=_layer_ratios(m, 2): r[id(p)],
+        grad_clip=ns.Clip(0.5)),
+}
+JAX_NS = types.SimpleNamespace(O=paddle.optimizer, L2Decay=paddle.L2Decay,
+                               Clip=paddle.nn.ClipGradByGlobalNorm)
+PORT_NS = types.SimpleNamespace(O=optimizer, L2Decay=regularizer.L2Decay,
+                                Clip=ClipGradByGlobalNorm)
+
+
+def _steps(step, opt, batches, to):
+    """Losses and ``get_lr()`` after each step."""
+    losses, lrs = [], []
+    for ids, labels in batches:
+        losses.append(float(_np(step(to(ids), to(labels))) if to is
+                            paddle.to_tensor else step(to(ids), to(labels))))
+        lrs.append(opt.get_lr())
+    return losses, lrs
+
+
+def _port(x):
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("recipe", sorted(RECIPES))
+def test_fused_recipes_match_jax(recipe):
+    """Three fused steps on fp32 llama_tiny per recipe, from the same
+    weights and batches: losses, the learning rate after each step,
+    parameters and accumulators (Momentum's velocity is ``m1`` alone)."""
+    jm, tm = _pair()
+    batches = [_batch(50 + i) for i in range(3)]
+    jopt = RECIPES[recipe](JAX_NS, jm)
+    jstep = paddle.incubate.fused_train_step(jm, jopt)
+    want, want_lr = _steps(jstep, jopt, batches, paddle.to_tensor)
+    opt = RECIPES[recipe](PORT_NS, tm)
+    step = incubate.fused_train_step(tm, opt)
+    got, got_lr = _steps(step, opt, batches, _port)
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    assert got_lr == want_lr and got[-1] != got[0]
+    _assert_states_match(step, tm, jstep, jm)
+    sd, want_sd = step.state_dict(), jstep.state_dict()
+    assert sorted(sd) == sorted(want_sd)
+    assert sd.get("lr_sched") == want_sd.get("lr_sched")
+
+
+def test_set_state_dict_mid_warmup_takes_the_jax_step_state():
+    """Resume mid-schedule: the JAX step's weights and ``state_dict()``
+    after 3 steps of a 4-step warmup go into a fresh port step (its own
+    fresh scheduler), and the next 3 steps, the warmup's end and the first
+    cosine steps, match the JAX step's."""
+    def make(ns, model):
+        return ns.O.AdamW(
+            learning_rate=ns.O.lr.LinearWarmup(
+                ns.O.lr.CosineAnnealingDecay(LR, T_max=8), warmup_steps=4,
+                start_lr=0.0, end_lr=LR),
+            epsilon=EPS, parameters=model.parameters())
+
+    jm, tm = _pair()
+    batches = [_batch(60 + i) for i in range(6)]
+    jopt = make(JAX_NS, jm)
+    jstep = paddle.incubate.fused_train_step(jm, jopt)
+    _steps(jstep, jopt, batches[:3], paddle.to_tensor)
+    load_paddle_tpu_state_dict(tm, _jax_state(jm))
+    opt = make(PORT_NS, tm)
+    step = incubate.fused_train_step(tm, opt)
+    step.set_state_dict(jstep.state_dict())
+    assert step.state_dict()["step_count"] == 3
+    assert opt.get_lr() == jopt.get_lr() == 0.75 * LR
+    want, want_lr = _steps(jstep, jopt, batches[3:], paddle.to_tensor)
+    got, got_lr = _steps(step, opt, batches[3:], _port)
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    assert got_lr == want_lr
+    _assert_states_match(step, tm, jstep, jm)
+
+
+@pytest.mark.parametrize("recipe", ["sgd", "momentum", "adam-l2decay"])
+def test_eager_and_fused_updates_agree(recipe):
+    """Within the port, the eager ``step()`` loop and the fused step run the
+    same update functions with the same per-parameter settings and give
+    identical parameters (no clip: the two clip forms differ by design)."""
+    _, tm = _pair()
+    _, te = _pair()
+    batches = [_batch(70 + i) for i in range(2)]
+    step = incubate.fused_train_step(tm, RECIPES[recipe](PORT_NS, tm))
+    opt = RECIPES[recipe](PORT_NS, te)
+    for ids, labels in batches:
+        step(_port(ids), _port(labels))
+        loss, _ = te(_port(ids), _port(labels))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+    for (n, a), (_, b) in zip(tm.named_parameters(), te.named_parameters()):
+        assert torch.equal(a, b), n
+
+
+def test_drive_steps_the_scheduler_without_host_syncs():
+    """``drive`` keeps one loss fetch a window under a scheduler, which
+    advances once a step; ``step_lr_scheduler=False`` leaves it to the
+    caller."""
+    _, tm = _pair()
+    batches = [tuple(_port(x) for x in _batch(80 + i)) for i in range(5)]
+    for owned in (True, False):
+        sched = optimizer.lr.LinearWarmup(0.01, warmup_steps=10,
+                                          start_lr=0.0, end_lr=0.01)
+        opt = optimizer.SGD(learning_rate=sched, parameters=tm.parameters())
+        step = incubate.fused_train_step(tm, opt, step_lr_scheduler=owned)
+        hist = step.drive(batches, log_every=5)
+        assert hist["host_syncs"] == hist["windows"] == 1
+        assert sched.last_epoch == (5 if owned else 0)
+        assert opt.get_lr() == (0.005 if owned else 0.0)
