@@ -55,7 +55,8 @@ Phases, one printed line per result:
    equal to the profiler's counts in a profiled repeat; the share of
    requests equal to the per-step run's is reported; then ``generate``
    on 8 x 512 prompts (ms a step, agreement with the engine reported);
-5. training end to end: ``fused_train_step`` with AdamW(1e-4) trains
+5. training end to end (every fused step a captured CUDA graph after its
+   first, eager call): ``fused_train_step`` with AdamW(1e-4) trains
    llama_125m (bf16, random weights from a seed) on one fixed 16 x 1024
    batch, 2 warm-up and 10 timed steps through ``FusedTrainStep.drive``;
    the loss must be finite and fall, and each flash kernel must launch
@@ -100,7 +101,19 @@ Phases, one printed line per result:
    one padded (masked) ``BertModel`` forward; the training recipes at
    tiny size (the three Llama ones on llama_tiny, BERT's on bert_tiny) and
    each of the 11 eager optimizers on llama_tiny, three steps each;
-   attention dropout's keep rate, scaling and seeding on the card.
+   attention dropout's keep rate, scaling and seeding on the card;
+7. the fused step as captured CUDA graphs: llama_125m, BERT-base and the
+   Llama-MoE as in phase 5, 2 + 10 steps through the graph and through
+   the private eager step body, interleaved graph, eager, graph, eager,
+   each from the seed weights: ms/step on the host clock and on CUDA
+   events, busy time and idle share of one profiled step, peak memory,
+   losses equal within 1e-2, exact launches, one compile a graph run;
+   then fp32 llama_tiny graphs on the card against the CPU over 12 steps
+   of phase 5d's AdamW recipe: as it is, under
+   ``FLAGS_check_nan_inf_action=skip`` with a NaN batch (the skipped step
+   leaves parameters and moments bit for bit), under
+   ``GradScaler(init_loss_scaling=2**126)`` (the same scales) and with
+   ``shape_buckets=[64, 128, 256]`` over 12 lengths (3 compiles).
 
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
@@ -202,6 +215,20 @@ def time_ms(fn, warmup=3, iters=20):
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
+
+
+def reset_peak_memory():
+    """Collect cyclic garbage and free the cache before resetting the
+    peak, so a phase's peak memory is its own: objects of a finished phase
+    caught in a reference cycle (an engine and its graph steps refer to
+    each other) keep their memory until a collection."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 class Case:
     """Random paged-attention inputs on the card: pools [N, bs, Hkv, D]
@@ -1017,7 +1044,7 @@ def serve_run(model, prompts, new, label, profile=True, **engine_kw):
                     SamplingParams(max_new_tokens=2 if draft is None
                                    else 32))
     engine.reset_metrics()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     K.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1475,7 +1502,7 @@ def phase_train(switch=None):
     say(f"train setup: {label} bf16 ({n_params} params), batch "
         f"{batch} x {seq}, in {time.perf_counter() - t0:.2f} s")
     with fused_switches((switch,) if switch else ()):
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak_memory()
         K.reset_launch_counts()
         first = step.drive([(ids, labels)] * warmup, log_every=warmup)
         torch.cuda.synchronize()
@@ -1672,7 +1699,7 @@ def phase_train_moe():
         f"{model.llama.layers[1].mlp.capacity_factor}, in "
         f"{time.perf_counter() - t0:.2f} s")
     with fused_switches():
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak_memory()
         reset_all_launch_counts()
         first = step.drive([(ids, labels)] * warmup, log_every=warmup)
         torch.cuda.synchronize()
@@ -1749,7 +1776,11 @@ def phase_train_moe_card_vs_cpu():
             routes[dev] = []
             for m, x in seen:
                 t = x.shape[0] * x.shape[1]
-                probs = torch.softmax(m.router(x).reshape(t, -1).float(), -1)
+                # no graph: one kept alive would hold the router's
+                # gradient stream (the default one) into the capture
+                with torch.no_grad():
+                    probs = torch.softmax(m.router(x).reshape(t, -1).float(),
+                                          -1)
                 routes[dev].append(top_k_capacity_gating(
                     probs, m.top_k, moe_capacity(
                         t, m.num_experts, m.top_k,
@@ -1851,7 +1882,7 @@ def phase_train_bert(dropout=False):
     say(f"train-bert setup: {label} bf16 ({n_params} params), batch "
         f"{batch} x {seq}, in {time.perf_counter() - t0:.2f} s")
     with fused_switches(("PT_FUSED_NORM",)):
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak_memory()
         reset_all_launch_counts()
         first = step.drive([data] * warmup, log_every=warmup)
         torch.cuda.synchronize()
@@ -2147,7 +2178,7 @@ def recipe_run(label, model, make, batch, check_launches, **step_kw):
     opt, host_lr = make(model)
     step = fused_train_step(model, opt, **step_kw)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     reset_all_launch_counts()
     first, lrs = drive_reading_lr(step, opt, batch, warmup)
@@ -2391,6 +2422,318 @@ def phase_recipes_card_vs_cpu():
             "PT_FUSED_NORM", runs)
 
 
+# -- the fused step as captured CUDA graphs ---------------------------------
+
+# graph against eager body on bf16 models from the same seed weights: the
+# same kernels on the same inputs in the same order, so the losses agree to
+# a few bf16 roundings of the loss (2^-8 relative each) after 12 steps
+GRAPH_LOSS_RTOL = 1e-2
+
+
+def loss_weighted(model):
+    """A module whose loss is ``model(ids, labels)``'s times a float input
+    ``w``: a NaN ``w`` poisons one batch of a token model (its ids cannot
+    hold NaN)."""
+    import torch
+
+    class LossWeighted(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.inner = model
+
+        def forward(self, ids, labels, w):
+            return self.inner(ids, labels)[0] * w
+
+    return LossWeighted()
+
+
+def graph_setups():
+    """The A/B's three models: name -> make() -> (model, step, args,
+    kwargs, fused switches, want(launch counts, steps) -> expected counts).
+    Phase 5's llama_125m, phase 5c's BERT-base and phase 5b's Llama-MoE,
+    each on its phase's batch, with AdamW at a float LR."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         LlamaForCausalLM, bert_base,
+                                         llama_125m)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def llama(cfg, seed, switches, want):
+        def make():
+            model = LlamaForCausalLM(cfg, device="cuda",
+                                     dtype=torch.bfloat16, seed=SEED)
+            step = fused_train_step(model, AdamW(
+                learning_rate=1e-4, parameters=model.parameters()))
+            rng = np.random.RandomState(seed)
+            ids, labels = (torch.from_numpy(rng.randint(
+                0, cfg.vocab_size, (16, 1024))).cuda() for _ in range(2))
+            return model, step, (ids, labels), {}, switches, want
+        return make
+
+    dense = llama_125m()
+    moe = llama_moe_config()
+    n_moe = moe.num_hidden_layers // moe.moe_every
+    bert = bert_base(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+
+    def make_bert():
+        model = BertForSequenceClassification(bert, device="cuda",
+                                              dtype=torch.bfloat16,
+                                              seed=SEED)
+        step = fused_train_step(model, AdamW(
+            learning_rate=2e-5, parameters=model.parameters()),
+            loss_fn=lambda out: out[0])
+        rng = np.random.RandomState(SEED + 8)
+        kw = {"input_ids": torch.from_numpy(
+                  rng.randint(0, bert.vocab_size, (128, 128))).cuda(),
+              "labels": torch.from_numpy(
+                  rng.randint(0, bert.num_labels, 128)).cuda()}
+        return model, step, (), kw, ("PT_FUSED_NORM",), lambda n: \
+            launches_want(fused_add_layer_norm_cuda=2 * bert.num_hidden_layers
+                          * n, **{f"{k}_cuda": bert.num_hidden_layers * n
+                                  for k in FLASH})
+
+    return {
+        "llama_125m": llama(dense, SEED + 4, (), lambda n: launches_want(
+            **{f"{k}_cuda": dense.num_hidden_layers * n for k in FLASH})),
+        "BERT-base": make_bert,
+        "Llama-MoE": llama(moe, SEED + 6, SWITCHES, lambda n: launches_want(
+            moe_ffn_cuda=n_moe * n,
+            fused_add_rms_norm_cuda=moe.num_hidden_layers * n,
+            **{f"{k}_cuda": moe.num_hidden_layers * n for k in ROPE})),
+    }
+
+
+def graph_arm(name, make, arm, warmup=2, steps=10):
+    """One run of the A/B on a fresh model from the seed: ``warmup`` +
+    ``steps`` steps, arm "graph" through ``step(...)`` (a warm-up, a
+    capture, then replays) or arm "eager" through the private eager body
+    ``step._step_body`` (guard off, the same LR), one host sync at the end.
+    Times the ``steps`` on the host clock and between two CUDA events, then
+    profiles one more step. Checks the launches (layers x 12) and, for the
+    graph, 1 compile and 11 hits. Returns the run's numbers."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch import jit
+
+    model, step, args, kw, switches, want = make()
+    lr = step._lr_dev
+    lr.fill_(step.optimizer.get_lr())
+
+    def one():
+        if arm == "graph":
+            return step(*args, **kw)
+        return step._step_body(args, kw, lr, step._scale_dev, "off")[0]
+
+    with fused_switches(switches):
+        torch.cuda.synchronize()
+        reset_peak_memory()
+        reset_all_launch_counts()
+        losses = [one() for _ in range(warmup)]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        losses += [one() for _ in range(steps)]
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / steps * 1e3
+        event_ms = start.elapsed_time(end) / steps
+        counts = all_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = torch.stack(losses).float().tolist()
+        stats = jit.cache_stats(step._stats_name)
+        prof = device_profile(one, f"train-graphs {name} {arm} (one step)",
+                              top=5)
+    n = warmup + steps
+    check(counts == want(n), f"{name} {arm} launches {counts} == {want(n)}")
+    if arm == "graph":
+        entry, = step._compiled.values()
+        check(entry.graph is not None and stats["compiles"] == 1
+              and stats["hits"] == n - 1,
+              f"{name} graph: one compile, {n - 1} hits, a captured graph "
+              f"({stats})")
+    else:
+        check(stats is None and not step._compiled,
+              f"{name} eager: the body ran outside the dispatch")
+    del model, step, args, kw, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "host_ms": host_ms, "event_ms": event_ms,
+            "peak": peak, "prof": prof}
+
+
+def phase_graph_ab():
+    """Phase 7a: each of ``graph_setups`` at full width and depth runs 2 + 10
+    steps through its captured graph (A) and through the eager body (B),
+    interleaved A, B, A, B, each from the seed weights: ms/step on the host
+    clock and on CUDA events, busy time and idle share of one profiled
+    step, peak memory, exact launches, one compile a graph run, and the
+    graph's losses against the eager body's (``GRAPH_LOSS_RTOL``)."""
+    out = {}
+    for name, make in graph_setups().items():
+        runs = {"graph": [], "eager": []}
+        for arm in ("graph", "eager", "graph", "eager"):
+            runs[arm].append(graph_arm(name, make, arm))
+        ref = runs["eager"][0]["losses"]
+        diff = max(abs(a / b - 1) for r in runs["graph"] + runs["eager"]
+                   for a, b in zip(r["losses"], ref))
+        check(diff <= GRAPH_LOSS_RTOL and all(
+            math.isfinite(x) for x in runs["graph"][0]["losses"]),
+              f"{name}: graph and eager losses agree ({diff:.2e})")
+
+        def fmt(arm, key, f="{:.2f}"):
+            return "/".join(f.format(r[key]) for r in runs[arm])
+
+        def prof(arm):
+            p = runs[arm][0]["prof"]
+            return ("not measured" if p is None else
+                    f"busy {p['busy_ms']:.2f} ms, idle {p['idle']:.3f}")
+
+        say(f"train-graphs {name}: graph vs eager, ms/step host "
+            f"{fmt('graph', 'host_ms')} vs {fmt('eager', 'host_ms')}, CUDA "
+            f"events {fmt('graph', 'event_ms')} vs "
+            f"{fmt('eager', 'event_ms')}; one step: graph {prof('graph')}, "
+            f"eager {prof('eager')}; peak memory "
+            f"{fmt('graph', 'peak')} vs {fmt('eager', 'peak')} GiB; losses "
+            f"graph {[round(x, 4) for x in runs['graph'][0]['losses']]}, max "
+            f"rel diff to eager {diff:.2e} (tol {GRAPH_LOSS_RTOL:g}), "
+            f"identical {runs['graph'][0]['losses'] == ref}")
+        out[name] = runs
+    return out
+
+
+def phase_graphs_card_vs_cpu():
+    """Phase 7b: fp32 llama_tiny from the same numpy weights and batches on
+    the CPU (eager body) and on the card (graphs), 12 steps each, under
+    phase 5d's AdamW recipe (warmup + cosine, decay function, clip;
+    epsilon 1e-6): (a) as it is; (b) under ``FLAGS_check_nan_inf_action=
+    skip`` with batch 6 poisoned (a NaN loss weight): on the card the
+    skipped step leaves parameters and moments bit for bit, and one step
+    is skipped; (c) under ``GradScaler(init_loss_scaling=2^126)``: the
+    scale after each step equals the CPU's; (d) with ``shape_buckets=[64,
+    128, 256]`` over 12 lengths in 33-256: 3 compiles on each. Losses and
+    parameters agree at the tolerances of phase 6b throughout."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
+                                         load_paddle_tpu_state_dict,
+                                         to_numpy_state_dict)
+
+    cfg = llama_tiny()
+    rng = np.random.RandomState(SEED + 12)
+    start = {k: (np.ones(v.shape, np.float32) if "norm" in k else
+                 (rng.standard_normal(v.shape) * 0.02).astype(np.float32))
+             for k, v in LlamaForCausalLM(cfg, device="cpu")
+             .state_dict().items()}
+    make_opt = llama_recipes(0.05, 0.02, 1e-6)[
+        "AdamW warmup-cosine decay-fun clip"]
+
+    def batches(lengths, bad_at=()):
+        return [(rng.randint(0, cfg.vocab_size, (4, n)),
+                 rng.randint(0, cfg.vocab_size, (4, n)),
+                 np.array(np.nan if i in bad_at else 1.0, np.float32))
+                for i, n in enumerate(lengths)]
+
+    def run(dev, data, snap_at=None, **step_kw):
+        model = LlamaForCausalLM(cfg, device=dev)
+        load_paddle_tpu_state_dict(model, start)
+        opt, host_lr = make_opt(model)
+        step = fused_train_step(loss_weighted(model), opt, **step_kw)
+        scaler = step_kw.get("grad_scaler")
+        losses, lrs, scales, snap = [], [], [], None
+        for i, b in enumerate(data):
+            if i == snap_at:
+                snap = [t.clone() for t in
+                        [*model.parameters(), *step._m1, *step._m2]]
+            losses.append(float(step(*(torch.from_numpy(x).to(dev)
+                                       for x in b))))
+            if i == snap_at:
+                same = all(torch.equal(a, b) for a, b in zip(
+                    snap, [*model.parameters(), *step._m1, *step._m2]))
+                check(same, f"{dev}: the skipped step left parameters and "
+                      "moments bit for bit")
+            lrs.append(opt.get_lr())
+            if scaler is not None:
+                scales.append(scaler._scale)
+        return {"losses": losses, "params": to_numpy_state_dict(model),
+                "scales": scales, "stats": jit.cache_stats(step._stats_name),
+                "guard": step.guard_stats(), "lrs": lrs, "host_lr": host_lr,
+                "compiled": step._compiled}
+
+    def compare(label, runs):
+        c, g = runs["cpu"], runs["cuda"]
+        kept = [i for i, x in enumerate(c["losses"]) if math.isfinite(x)]
+        dl = max(abs(g["losses"][i] / c["losses"][i] - 1) for i in kept)
+        dp = max(float(np.abs(g["params"][k] - c["params"][k]).max())
+                 for k in c["params"])
+        graphs = sum(e.graph is not None for e in g["compiled"].values())
+        say(f"train-graphs card vs cpu llama_tiny fp32 {label}, "
+            f"{len(c['losses'])} steps (card: {graphs} graphs): losses max "
+            f"rel diff {dl:.2e} (tol {TRAIN_LOSS_RTOL:g}); parameters max "
+            f"abs diff {dp:.2e} (tol {TRAIN_PARAM_ATOL:g}); compiles cuda "
+            f"{g['stats']['compiles']} cpu {c['stats']['compiles']}; guard "
+            f"{g['guard']}" + (f"; scales {g['scales']}" if g["scales"]
+                               else ""))
+        check(dl <= TRAIN_LOSS_RTOL and dp <= TRAIN_PARAM_ATOL,
+              f"card graphs and CPU agree: {label}")
+        check([math.isfinite(x) for x in g["losses"]]
+              == [math.isfinite(x) for x in c["losses"]]
+              and len(kept) > len(c["losses"]) // 2,
+              f"{label}: the same steps finite on both")
+        check(g["guard"] == c["guard"] and g["scales"] == c["scales"]
+              and g["lrs"] == c["lrs"],
+              f"{label}: guard counters, scales and LRs equal the CPU's")
+        check(graphs == len(g["compiled"]) > 0,
+              f"{label}: every signature runs as a graph on the card")
+
+    data = batches([128] * 12)
+    runs = {d: run(d, data) for d in ("cpu", "cuda")}
+    compare("AdamW recipe", runs)
+    check_lrs(runs["cuda"]["lrs"], runs["cuda"]["host_lr"],
+              "llama_tiny AdamW recipe on cuda (graphs)")
+
+    data = batches([128] * 12, bad_at={5})
+    paddle_tpu_torch.set_flags({"FLAGS_check_nan_inf_action": "skip"})
+    try:
+        runs = {d: run(d, data, snap_at=5) for d in ("cpu", "cuda")}
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_check_nan_inf_action": "none"})
+    check(runs["cuda"]["guard"]["skipped"] == 1
+          and math.isnan(runs["cuda"]["losses"][5]),
+          "one skipped step, its loss NaN")
+    compare("AdamW recipe, skip, NaN batch 6", runs)
+
+    data = batches([128] * 12)
+    runs = {d: run(d, data, grad_scaler=amp.GradScaler(
+        init_loss_scaling=2.0 ** 126)) for d in ("cpu", "cuda")}
+    compare("AdamW recipe, GradScaler(2^126)", runs)
+
+    lengths = [33, 64, 65, 100, 128, 129, 200, 256, 40, 90, 150, 250]
+    data = batches(lengths)
+    runs = {d: run(d, data, shape_buckets=[64, 128, 256])
+            for d in ("cpu", "cuda")}
+    check(runs["cuda"]["stats"]["compiles"] == runs["cpu"]["stats"][
+        "compiles"] == 3, f"3 compiles {runs['cuda']['stats']}")
+    compare("AdamW recipe, shape_buckets [64, 128, 256]", runs)
+
+
+def phase_train_graphs():
+    """Phase 7: the fused step as captured CUDA graphs (7a, 7b)."""
+    phase_graph_ab()
+    phase_graphs_card_vs_cpu()
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -2495,6 +2838,7 @@ def main():
     timed(phase_bert_card_vs_cpu)
     timed(phase_recipes_card_vs_cpu)
     timed(phase_dropout_card)
+    timed(phase_train_graphs)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",

@@ -6,7 +6,9 @@ The package mirrors ``paddle_tpu``'s module paths (the counterpart of
 paged-attention kernels, and trains it through
 ``incubate.fused_train_step`` with the reference's optimizers and LR
 schedulers on hand-written CUDA flash-attention forward and backward
-kernels (``ops/cuda``, sources under ``csrc/``).
+kernels (``ops/cuda``, sources under ``csrc/``); on the card each step
+runs as a captured CUDA graph. ``set_flags``/``get_flags`` are the flag
+registry (:mod:`.core.flags`).
 
 It imports ``torch`` and never ``jax`` or ``paddle_tpu``. Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; asking for CUDA
@@ -14,5 +16,6 @@ where there is none raises (see :func:`core.device.resolve_device`).
 """
 
 from .core.device import default_device, resolve_device
+from .core.flags import get_flags, set_flags
 
-__all__ = ["default_device", "resolve_device"]
+__all__ = ["default_device", "resolve_device", "get_flags", "set_flags"]

@@ -24,6 +24,14 @@ __all__ = ["top_k_capacity_gating", "dispatch_to_experts",
            "combine_from_experts", "moe_capacity"]
 
 
+def _one_hot(idx, n):
+    """``one_hot(idx, n)`` as int64 by a scatter, which reads nothing on
+    the host: ``F.one_hot`` range-checks ``idx`` with a host read on every
+    device but CUDA, and the fused step's body does no host read."""
+    return torch.zeros(idx.shape[0], n, dtype=torch.int64,
+                       device=idx.device).scatter_(1, idx[:, None], 1)
+
+
 def top_k_capacity_gating(probs, top_k, capacity):
     """GShard gating on router probabilities ``probs`` [T, E]. Returns
     ``(expert_idx [T,k], slot_idx [T,k], keep [T,k], weights [T,k], aux)``.
@@ -50,7 +58,7 @@ def top_k_capacity_gating(probs, top_k, capacity):
     counts = torch.zeros(E, dtype=torch.int64, device=probs.device)
     slots, keeps = [], []
     for kk in range(top_k):
-        oh = torch.nn.functional.one_hot(topi[:, kk], E)  # [T, E] int64
+        oh = _one_hot(topi[:, kk], E)  # [T, E] int64
         pos = torch.cumsum(oh, dim=0) - 1 + counts[None, :]
         slot_k = pos.gather(1, topi[:, kk:kk + 1])[:, 0]
         keeps.append(slot_k < C)
@@ -60,8 +68,7 @@ def top_k_capacity_gating(probs, top_k, capacity):
     keep = torch.stack(keeps, dim=1)
 
     me = probs.mean(dim=0)
-    ce = torch.nn.functional.one_hot(topi[:, 0], E).to(probs.dtype).mean(
-        dim=0)
+    ce = _one_hot(topi[:, 0], E).to(probs.dtype).mean(dim=0)
     aux = E * torch.sum(me * ce)
     return topi, slot_idx, keep, topv, aux
 

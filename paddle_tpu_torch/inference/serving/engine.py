@@ -74,7 +74,7 @@ from ...models.llama import (LlamaForCausalLM, _rope_apply, _rotate,
                              greedy_tokens_in_graph, sample_next_tokens)
 from ...observability import metrics as _obs_metrics
 from ...observability import trace as _obs_trace
-from ...ops.cuda import paged_attention as _decode_kernels
+from ...ops.cuda import GraphLaunches
 from .errors import EngineClosedError
 from .kv_cache import PagedKVCache, PrefixCache, quantize_kv_rows
 from .paged_attention import (paged_decode_attention,
@@ -274,10 +274,10 @@ class _GraphStep:
     workspace for that stream; every pool write is one the replay repeats
     with the same values, and each row attends only up to its own
     position), then captures it into a ``torch.cuda.CUDAGraph``; every run
-    replays it. The capture launches nothing, so it records each decode
-    kernel wrapper's launch count and puts the counts back; each replay
-    adds the recorded counts. A failed capture or replay raises: there is
-    no eager fallback on the card."""
+    replays it. The capture launches nothing, so it records each kernel
+    wrapper's launches (``ops.cuda.GraphLaunches``) and puts the counts
+    back; each replay adds the recorded counts. A failed capture or
+    replay raises: there is no eager fallback on the card."""
 
     def __init__(self, engine, fn, shape):
         self.engine, self.fn = engine, fn
@@ -285,7 +285,7 @@ class _GraphStep:
                                device=engine.device)
         self.graph = None
         self.out = None
-        self.launches = {}
+        self.launches = GraphLaunches()
         self.replays = 0
 
     @torch.inference_mode()
@@ -296,13 +296,9 @@ class _GraphStep:
         with torch.cuda.stream(side):
             self.fn(self.buf, tables)
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = {w: w.launches for w in _decode_kernels._WRAPPERS}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
+        with self.launches.capture(), torch.cuda.graph(graph, stream=side):
             out = self.fn(self.buf, tables)
-        for w, n in before.items():
-            self.launches[w] = w.launches - n
-            w.launches = n
         self.graph, self.out = graph, out
 
     @torch.inference_mode()
@@ -317,8 +313,7 @@ class _GraphStep:
             self._capture()
         self.graph.replay()
         self.replays += 1
-        for w, n in self.launches.items():
-            w.launches += n
+        self.launches.replayed()
         return self.out
 
 

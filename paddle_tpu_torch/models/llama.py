@@ -464,7 +464,8 @@ class LlamaForCausalLM(nn.Module):
         where loss is the mean cross-entropy of the logits against the
         labels as given (no shift: the caller shifts them), plus
         ``router_aux_loss_coef`` times each MoE layer's load-balancing
-        loss."""
+        loss; each MoE layer's ``l_aux`` then keeps the value without its
+        autograd graph, whose gradient the loss carries."""
         logits = self.head(self.llama(input_ids))
         if labels is None:
             return logits
@@ -476,6 +477,11 @@ class LlamaForCausalLM(nn.Module):
                 aux = getattr(layer.mlp, "l_aux", None)
                 if aux is not None:
                     loss = loss + coef * aux
+                    # a stored graph would keep this step's autograd nodes,
+                    # and the stream each parameter's gradient lands on,
+                    # alive into the next step, where a CUDA graph capture
+                    # on another stream cannot use them
+                    layer.mlp.l_aux = aux.detach()
         return loss, logits
 
     # ---- generation (static-capacity KV-cache decode) ----------------

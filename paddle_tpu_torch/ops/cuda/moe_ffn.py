@@ -140,6 +140,7 @@ def moe_ffn_cuda(x, gate_w, up_w, down_w):
 
 
 moe_ffn_cuda.launches = 0
+_WRAPPERS = (moe_ffn_cuda,)
 
 
 def reset_launch_counts():

@@ -44,6 +44,14 @@ def _per_param(value, n):
     return list(value) if isinstance(value, (list, tuple)) else [value] * n
 
 
+def _scalar(x, device):
+    """``x`` as a 0-d fp32 tensor on ``device``: a tensor as it is, a number
+    by a fill on the device (no host-to-device copy)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
 def _coupled(grads, params, wds):
     """fp32 gradients and parameters, with ``wd * p`` added to each
     gradient whose coefficient is not 0 (the list is the gradients
@@ -55,6 +63,13 @@ def _coupled(grads, params, wds):
     return gf, pf
 
 
+def _gated(gf, finite):
+    """The gradients where ``finite`` (a 0-d bool tensor) holds, else -0.0
+    everywhere: adding -0.0 leaves every value as it is, signed zeros
+    included."""
+    return [torch.where(finite, g, -0.0) for g in gf]
+
+
 def _store(params, new):
     """Write the fp32 results back in the parameters' dtype (a no-op for
     fp32 parameters updated in place)."""
@@ -62,58 +77,97 @@ def _store(params, new):
         torch._foreach_copy_(params, new)
 
 
+# The update functions take ``lr`` and ``step`` as numbers or as 0-d fp32
+# device tensors (the fused step's, which a CUDA graph reads anew on every
+# replay; a number would be frozen into the graph at capture). Both are
+# used as fp32 device tensors, so the eager optimizers and the fused step
+# run the same arithmetic. ``finite`` (a 0-d bool tensor, or None) gates
+# the update: where it is false the gradients become -0.0, the moment
+# decays 1 and the step size 0, so the moments and the parameters keep
+# their values (a parameter that is exactly -0.0 may come back +0.0).
+
+
 @torch.no_grad()
-def sgd_update_(params, grads, *, lr, weight_decay=0.0):
+def sgd_update_(params, grads, *, lr, weight_decay=0.0, finite=None):
     """``p = p - lr * (g + wd*p)`` over lists, in place; ``weight_decay``
     a float or one per parameter."""
+    if not params:
+        return
     gf, pf = _coupled(grads, params, _per_param(weight_decay, len(params)))
-    _store(params, torch._foreach_add(pf, gf, alpha=-lr))
+    if finite is not None:
+        gf = _gated(gf, finite)
+    neg_lr = -_scalar(lr, params[0].device)
+    torch._foreach_add_(pf, torch._foreach_mul(gf, neg_lr))
+    _store(params, pf)
 
 
 @torch.no_grad()
 def momentum_update_(params, grads, velocities, *, lr, momentum,
-                     weight_decay=0.0, use_nesterov=False):
+                     weight_decay=0.0, use_nesterov=False, finite=None):
     """``g += wd*p; v = mu*v + g; p -= lr * (g + mu*v if use_nesterov else
     v)`` over lists, in place; ``velocities`` are fp32."""
+    if not params:
+        return
     gf, pf = _coupled(grads, params, _per_param(weight_decay, len(params)))
-    torch._foreach_mul_(velocities, momentum)
+    lr, mu = _scalar(lr, params[0].device), momentum
+    if finite is not None:
+        gf = _gated(gf, finite)
+        mu = torch.where(finite, momentum, 1.0)
+        lr = lr * finite
+    torch._foreach_mul_(velocities, mu)
     torch._foreach_add_(velocities, gf)
     delta = (torch._foreach_add(gf, velocities, alpha=momentum)
              if use_nesterov else velocities)
-    _store(params, torch._foreach_add(pf, delta, alpha=-lr))
+    torch._foreach_add_(pf, torch._foreach_mul(delta, -lr))
+    _store(params, pf)
 
 
 @torch.no_grad()
 def adam_update_(params, grads, m1s, m2s, *, lr, beta1, beta2, epsilon, step,
-                 weight_decay, decoupled, lr_ratios=1.0):
+                 weight_decay, decoupled, lr_ratios=1.0, finite=None):
     """One Adam (coupled L2: ``g + wd*p``) or AdamW (``decoupled``: ``p -=
     step_lr*wd*p``) step over lists of tensors, in place, with ``step_lr =
     lr * lr_ratio``. ``weight_decay`` and ``lr_ratios`` are floats or one
-    per parameter; ``step`` is the 1-based bias-correction count;
-    ``m1s``/``m2s`` are fp32::
+    per parameter; ``step`` is the 1-based bias-correction count, and the
+    corrections ``1 - b^t`` are computed in fp32 on the device, as the
+    reference's fused step computes them; ``m1s``/``m2s`` are fp32::
 
         m1 = b1*m1 + (1-b1)*g;  m2 = b2*m2 + (1-b2)*g*g
         p  = p - step_lr * (m1/(1-b1^t)) / (sqrt(m2/(1-b2^t)) + eps)
                [- step_lr*wd*p]
     """
     n = len(params)
+    if not n:
+        return
+    dev = params[0].device
+    lr, t = _scalar(lr, dev), _scalar(step, dev)
     wds = _per_param(weight_decay, n)
-    step_lrs = [lr * r for r in _per_param(lr_ratios, n)]
+    ratios = _per_param(lr_ratios, n)
     gf, pf = _coupled(grads, params, [0.0] * n if decoupled else wds)
-    torch._foreach_mul_(m1s, beta1)
+    b1, b2 = beta1, beta2
+    if finite is not None:
+        gf = _gated(gf, finite)
+        b1 = torch.where(finite, beta1, 1.0)
+        b2 = torch.where(finite, beta2, 1.0)
+        lr = lr * finite
+    torch._foreach_mul_(m1s, b1)
     torch._foreach_add_(m1s, gf, alpha=_one_minus(beta1))
-    torch._foreach_mul_(m2s, beta2)
+    torch._foreach_mul_(m2s, b2)
     torch._foreach_addcmul_(m2s, gf, gf, value=_one_minus(beta2))
-    m1h = torch._foreach_div(m1s, 1 - beta1 ** step)
-    den = torch._foreach_div(m2s, 1 - beta2 ** step)
+    upd = torch._foreach_div(m1s, 1 - torch.pow(beta1, t))
+    den = torch._foreach_div(m2s, 1 - torch.pow(beta2, t))
     torch._foreach_sqrt_(den)
     torch._foreach_add_(den, epsilon)
-    new = pf
+    torch._foreach_div_(upd, den)
+    torch._foreach_mul_(upd, -lr)
+    if any(r != 1.0 for r in ratios):
+        torch._foreach_mul_(upd, ratios)
     if decoupled and any(wds):
-        new = torch._foreach_mul(
-            pf, [1 - s * w for s, w in zip(step_lrs, wds)])
-    torch._foreach_addcdiv_(new, m1h, den, [-s for s in step_lrs])
-    _store(params, new)
+        decay = torch._foreach_mul(pf, [r * w for r, w in zip(ratios, wds)])
+        torch._foreach_mul_(decay, lr)
+        torch._foreach_sub_(pf, decay)
+    torch._foreach_add_(pf, upd)
+    _store(params, pf)
 
 
 class SGD(Optimizer):

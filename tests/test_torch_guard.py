@@ -30,6 +30,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.nn.layer.transformer\n"
             "import paddle_tpu_torch.models.bert\n"
             "import paddle_tpu_torch.incubate.nn.functional\n"
+            "import paddle_tpu_torch.amp\n"
+            "import paddle_tpu_torch.jit\n"
+            "import paddle_tpu_torch.core.flags\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"
