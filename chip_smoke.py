@@ -113,7 +113,22 @@ Phases, one printed line per result:
    ``FLAGS_check_nan_inf_action=skip`` with a NaN batch (the skipped step
    leaves parameters and moments bit for bit), under
    ``GradScaler(init_loss_scaling=2**126)`` (the same scales) and with
-   ``shape_buckets=[64, 128, 256]`` over 12 lengths (3 compiles).
+   ``shape_buckets=[64, 128, 256]`` over 12 lengths (3 compiles);
+8. DeepFM on the row-sparse route: ``deepfm_criteo`` (vocab 1,000,001,
+   dim 9, 26 fields, 13 dense, MLP 512/256/128, fp32) on one fixed
+   16384-example batch, 2 + 10 steps through ``drive`` under
+   ``Adam(1e-3, lazy_mode=True)`` (captured lookups, segment sum and the
+   lazy row update inside the graph) and under ``lazy_mode=False``,
+   interleaved lazy, dense, lazy, dense from the seed weights: losses
+   finite and falling, the same first loss, the touched rows within 1e-6
+   across arms after step 1, the lazy arm's untouched rows and moments
+   bit for bit after 12, one compile and 11 hits; examples/s, ms/step
+   (host and CUDA events), peak memory, one profiled step; then a tiny
+   fp32 DeepFM (padding row, repeated ids) on the card against the CPU:
+   three lazy steps, under ``skip`` with a NaN batch (tables and moments
+   bit for bit across it), with a global-norm clip; the eager lazy Adam
+   on a ``SparseEmbedding``; a table read outside its lookup (warns,
+   trains dense on both).
 
 Then one JSON line with every kernel's numbers, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
@@ -2734,6 +2749,394 @@ def phase_train_graphs():
     phase_graphs_card_vs_cpu()
 
 
+# -- DeepFM on the row-sparse route ------------------------------------------
+
+# bench.py's largest DeepFM batch (bench.py:262-303)
+DEEPFM_BATCH = 16384
+# the touched rows after one step, lazy arm against dense arm: the same
+# gradient summed in another order (the dense gather's backward against
+# the segment sum's atomics), through one Adam step of size ~lr = 1e-3
+DEEPFM_ROW_ATOL = 1e-6
+
+
+def deepfm_with_loss(model):
+    """``bench.py``'s loss wrapper: BCE on DeepFM's click probability."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+
+    class WithLoss(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.inner = model
+
+        def forward(self, ids, dense, label):
+            return F.binary_cross_entropy(self.inner(ids, dense), label)
+
+    return WithLoss()
+
+
+def deepfm_batch(rng):
+    """A criteo batch on the card as ``bench.py``'s ``make_batch``: random
+    int32 ids over 1,000,001 rows for 26 fields, 13 normal dense features
+    and 0/1 labels from the numpy ``rng``."""
+    import torch
+
+    ids = rng.randint(0, 1000001, (DEEPFM_BATCH, 26)).astype("int32")
+    dense = rng.randn(DEEPFM_BATCH, 13).astype("float32")
+    label = rng.randint(0, 2, (DEEPFM_BATCH, 1)).astype("float32")
+    return tuple(torch.from_numpy(x).cuda() for x in (ids, dense, label))
+
+
+def deepfm_arm(lazy, batch, warmup=2, steps=10):
+    """One run of phase 8a from the seed weights: ``deepfm_criteo`` under
+    ``Adam(1e-3, lazy_mode=lazy)``, ``warmup`` + ``steps`` steps through
+    ``drive`` on the fixed ``batch`` (one call a warm-up step, then one
+    timed call of ``steps``), one more step profiled. Returns the losses,
+    the touched rows of both tables after step 1, the tables and moments
+    at the end (copies on the host, so the next arm's peak memory is its
+    own), times, peak memory and the profile."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.models import deepfm_criteo
+    from paddle_tpu_torch.optimizer import Adam
+
+    torch.cuda.synchronize()
+    reset_peak_memory()
+    reset_all_launch_counts()
+    # what earlier phases still hold (module caches, workspaces): the
+    # arm's peak is read above it
+    base = torch.cuda.memory_allocated()
+    model = deepfm_criteo(device="cuda", seed=SEED)
+    tables = (model.embedding.weight, model.first_order_weight.weight)
+    init = [w.detach().cpu() for w in tables]
+    step = fused_train_step(deepfm_with_loss(model), Adam(
+        learning_rate=1e-3, parameters=model.parameters(), lazy_mode=lazy))
+    touched = torch.zeros(tables[0].shape[0], dtype=torch.bool,
+                          device="cuda")
+    touched[batch[0].reshape(-1).long()] = True
+    losses = step.drive([batch], steps=1)["loss"]
+    after1 = [w.detach()[touched].cpu() for w in tables]
+    for _ in range(warmup - 1):
+        losses += step.drive([batch], steps=1)["loss"]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    hist = step.drive([batch] * steps, log_every=steps)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    event_ms = start.elapsed_time(end) / steps
+    losses += hist["loss"]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    stats = jit.cache_stats(step._stats_name)
+    counts = all_launch_counts()
+    idx = [step._names.index(n) for n in ("inner.embedding.weight",
+                                          "inner.first_order_weight.weight")]
+    out = {"losses": losses, "host_ms": host_ms, "event_ms": event_ms,
+           "peak": peak, "base": base / 2**30, "stats": stats,
+           "after1": after1,
+           "touched": touched.cpu(), "init": init,
+           "final": [w.detach().cpu() for w in tables],
+           "m1": [step._m1[i].cpu() for i in idx],
+           "m2": [step._m2[i].cpu() for i in idx],
+           "sparse": step._sparse_names, "host_syncs": hist["host_syncs"]}
+    out["prof"] = device_profile(
+        lambda: step(*batch), f"deepfm criteo {'lazy' if lazy else 'dense'} "
+        "(one step, a replay)", top=8)
+    n = warmup + steps
+    check(counts == launches_want(),
+          f"deepfm: no kernel of the port launches ({counts})")
+    check(stats["compiles"] == 1 and stats["hits"] == n - 1
+          and all(e.graph is not None for e in step._compiled.values()),
+          f"deepfm {'lazy' if lazy else 'dense'}: one compile, {n - 1} hits, "
+          f"a captured graph ({stats})")
+    check(hist["host_syncs"] == 1, "deepfm: one host sync a window")
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_deepfm_criteo():
+    """Phase 8a: DeepFM at the criteo width (vocab 1,000,001, dim 9, 26
+    fields, 13 dense, MLP 512/256/128, fp32) on one fixed 16384-example
+    batch, 2 + 10 steps through ``drive`` in each arm, interleaved lazy
+    (``Adam(lazy_mode=True)``: the row-sparse route in the graph), dense,
+    lazy, dense, each from the seed weights. Checks: losses finite and
+    falling, both arms' first loss equal, the touched rows of both tables
+    after step 1 within ``DEEPFM_ROW_ATOL`` across arms, and after 12 steps
+    the lazy arm's untouched rows and their moments as they started (bit
+    for bit, moments 0); one compile and 11 hits a run. Prints examples/s,
+    ms/step (host and CUDA events), peak memory and one profiled step."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED + 14)
+    batch = deepfm_batch(rng)
+    runs = {"lazy": [], "dense": []}
+    for arm in ("lazy", "dense", "lazy", "dense"):
+        runs[arm].append(deepfm_arm(arm == "lazy", batch))
+    for arm, rs in runs.items():
+        for r in rs:
+            ls = r["losses"]
+            check(all(math.isfinite(x) for x in ls) and ls[-1] < ls[0],
+                  f"deepfm {arm}: finite, falling losses {ls}")
+            check(bool(r["sparse"]) == (arm == "lazy"),
+                  f"deepfm {arm}: sparse tables {r['sparse']}")
+    lazy, dense = runs["lazy"][0], runs["dense"][0]
+    first = {r["losses"][0] for rs in runs.values() for r in rs}
+    check(len(first) == 1, f"deepfm: both arms' first loss equal {first}")
+    row_diff = max(float((a - b).abs().max())
+                   for a, b in zip(lazy["after1"], dense["after1"]))
+    check(row_diff <= DEEPFM_ROW_ATOL,
+          f"deepfm: touched rows after step 1 agree ({row_diff:.2e})")
+    kept = ~lazy["touched"]
+    same = all(torch.equal(f[kept], i[kept])
+               for f, i in zip(lazy["final"], lazy["init"]))
+    zero = all(not m[kept].any() for m in lazy["m1"] + lazy["m2"])
+    check(same and zero, "deepfm lazy: untouched rows and their moments "
+          "as they started, bit for bit")
+    n_touched = int(lazy["touched"].sum())
+
+    def fmt(arm, key, f="{:.3f}"):
+        return "/".join(f.format(r[key]) for r in runs[arm])
+
+    def prof(arm):
+        # idle of the profiled step's wall, and of the timed steps: one
+        # step's busy time against its CUDA-event time
+        r = runs[arm][0]
+        p = r["prof"]
+        return ("not measured" if p is None else
+                f"busy {p['busy_ms']:.3f} ms, idle {p['idle']:.3f} (timed "
+                f"steps {1 - p['busy_ms'] / r['event_ms']:.3f})")
+
+    eps = {arm: "/".join(f"{DEEPFM_BATCH / r['host_ms'] * 1e3:.0f}"
+                         for r in rs) for arm, rs in runs.items()}
+    say(f"deepfm criteo {DEEPFM_BATCH} examples, lazy vs dense: ms/step "
+        f"host {fmt('lazy', 'host_ms')} vs {fmt('dense', 'host_ms')}, CUDA "
+        f"events {fmt('lazy', 'event_ms')} vs {fmt('dense', 'event_ms')}; "
+        f"examples/s {eps['lazy']} vs {eps['dense']}; one step: lazy "
+        f"{prof('lazy')}, dense {prof('dense')}; peak memory "
+        f"{fmt('lazy', 'peak', '{:.3f}')} vs {fmt('dense', 'peak', '{:.3f}')}"
+        f" GiB above the {lazy['base']:.2f} GiB held at an arm's start; "
+        f"losses lazy {[round(x, 5) for x in lazy['losses']]}, dense "
+        f"{[round(x, 5) for x in dense['losses']]}; touched rows "
+        f"{n_touched} of 1000001 (K = {DEEPFM_BATCH * 26}), max diff after "
+        f"step 1 {row_diff:.2e} (tol {DEEPFM_ROW_ATOL:g}); untouched rows "
+        f"and their moments as they started (lazy) {same and zero}")
+
+
+# card vs CPU on the tiny DeepFM: phase 6b's tolerances after a few
+# Adam(1e-2, epsilon 1e-6) steps -- cuBLAS and the CPU sum in other orders,
+# and the card sums duplicate ids with atomics
+DEEPFM_TINY = dict(sparse_feature_number=1000, sparse_feature_dim=4,
+                   dense_feature_dim=3, sparse_num_field=6,
+                   layer_sizes=(16, 8))
+
+
+def phase_deepfm_card_vs_cpu():
+    """Phase 8b: the tiny fp32 DeepFM (vocab 1000, dim 4, 6 fields, 3
+    dense, MLP 16/8, padding row 0) from the same numpy weights and
+    batches (repeated ids and padding ids in every batch) on the CPU
+    (eager body) and on the card (graphs): three lazy Adam steps; four
+    under ``FLAGS_check_nan_inf_action=skip`` with batch 3 poisoned (the
+    skipped step leaves tables and moments bit for bit); three with
+    ``ClipGradByGlobalNorm(1.0)``; three eager ``Adam(lazy_mode=True)``
+    steps on a ``SparseEmbedding``; and a model that reads its table
+    outside the lookup (warns and trains dense on both). Losses within
+    ``TRAIN_LOSS_RTOL``, parameters within ``TRAIN_PARAM_ATOL``; untouched
+    rows and the padding row bit for bit on both."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.distributed.ps import SparseEmbedding
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.models import (DeepFM, load_paddle_tpu_state_dict,
+                                         to_numpy_state_dict)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm, Linear
+    from paddle_tpu_torch.optimizer import Adam
+
+    vocab, nf, dd = 1000, 6, 3
+    start = to_numpy_state_dict(DeepFM(**DEEPFM_TINY, padding_idx=0,
+                                       device="cpu", seed=SEED + 15))
+    rng = np.random.RandomState(SEED + 16)
+
+    def batches(n, bad_at=()):
+        out = []
+        for i in range(n):
+            ids = rng.randint(1, 200, (64, nf))
+            ids[:, 0] = ids[0, 0]  # one id in every example
+            ids[::4, 1] = 0  # padding
+            dense = rng.randn(64, dd).astype(np.float32)
+            if i in bad_at:
+                dense[3, 1] = np.nan
+            out.append((ids, dense,
+                        rng.randint(0, 2, (64, 1)).astype(np.float32)))
+        return out
+
+    def untouched(data):
+        mask = np.ones(vocab, bool)
+        for ids, _, _ in data:
+            mask[ids.ravel()] = False
+        mask[0] = True  # the padding row: looked up, never moved
+        return mask
+
+    def run(dev, data, snap_at=None, **opt_kw):
+        model = DeepFM(**DEEPFM_TINY, padding_idx=0, device=dev)
+        load_paddle_tpu_state_dict(model, start)
+        step = fused_train_step(deepfm_with_loss(model), Adam(
+            learning_rate=1e-2, epsilon=1e-6, parameters=model.parameters(),
+            lazy_mode=True, **opt_kw))
+        def state():
+            return [t.clone() for t in
+                    [*model.parameters(), *step._m1, *step._m2]]
+
+        losses = []
+        for i, b in enumerate(data):
+            before = state() if i == snap_at else None
+            losses.append(float(step(*(torch.from_numpy(x).to(dev)
+                                       for x in b))))
+            if before is not None:
+                check(all(torch.equal(a, c)
+                          for a, c in zip(before, state())),
+                      f"deepfm tiny {dev}: the skipped step left tables, "
+                      "parameters and moments bit for bit")
+        names = ("embedding.weight", "first_order_weight.weight")
+        idx = [step._names.index("inner." + n) for n in names]
+        return {"losses": losses, "params": to_numpy_state_dict(model),
+                "m": [step._m1[i].cpu().numpy() for i in idx]
+                + [step._m2[i].cpu().numpy() for i in idx],
+                "guard": step.guard_stats(), "names": names,
+                "graphs": sum(e.graph is not None
+                              for e in step._compiled.values())}
+
+    def compare(label, runs, data):
+        c, g = runs["cpu"], runs["cuda"]
+        kept = [i for i, x in enumerate(c["losses"]) if math.isfinite(x)]
+        dl = max(abs(g["losses"][i] / c["losses"][i] - 1) for i in kept)
+        dp = max(float(np.abs(g["params"][k] - c["params"][k]).max())
+                 for k in c["params"])
+        mask = untouched(data)
+        fixed = all(np.array_equal(r["params"][n][mask], start[n][mask])
+                    for r in (c, g) for n in c["names"])
+        zero = all(not m[mask].any() for r in (c, g) for m in r["m"])
+        say(f"deepfm card vs cpu tiny fp32 {label}, {len(c['losses'])} "
+            f"steps (card: {g['graphs']} graphs): losses max rel diff "
+            f"{dl:.2e} (tol {TRAIN_LOSS_RTOL:g}); parameters max abs diff "
+            f"{dp:.2e} (tol {TRAIN_PARAM_ATOL:g}); untouched rows and the "
+            f"padding row bit for bit {fixed}, their moments 0 {zero}; "
+            f"guard {g['guard']}")
+        check(dl <= TRAIN_LOSS_RTOL and dp <= TRAIN_PARAM_ATOL,
+              f"deepfm card and CPU agree: {label}")
+        check(fixed and zero, f"deepfm {label}: untouched rows kept")
+        check(g["guard"] == c["guard"] and [math.isfinite(x) for x in
+                                            g["losses"]]
+              == [math.isfinite(x) for x in c["losses"]],
+              f"deepfm {label}: the same steps finite on both")
+        check(g["graphs"] >= 1, f"deepfm {label}: graphs on the card")
+
+    data = batches(3)
+    compare("lazy Adam", {d: run(d, data) for d in ("cpu", "cuda")}, data)
+    data = batches(4, bad_at={2})
+    paddle_tpu_torch.set_flags({"FLAGS_check_nan_inf_action": "skip"})
+    try:
+        runs = {d: run(d, data, snap_at=2) for d in ("cpu", "cuda")}
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_check_nan_inf_action": "none"})
+    check(runs["cuda"]["guard"]["skipped"] == 1
+          and math.isnan(runs["cuda"]["losses"][2]),
+          "deepfm skip: one skipped step, its loss NaN")
+    compare("lazy Adam, skip, NaN batch 3", runs, data)
+    data = batches(3)
+    compare("lazy Adam, ClipGradByGlobalNorm(1.0)",
+            {d: run(d, data, grad_clip=ClipGradByGlobalNorm(1.0))
+             for d in ("cpu", "cuda")}, data)
+
+    # the eager lazy update on a SparseEmbedding, and a table read outside
+    # its lookup (the fused step's safety gate)
+    emb_start = rng.uniform(-0.5, 0.5, (vocab, 4)).astype(np.float32)
+    lin_start = {"weight": rng.randn(4, 1).astype(np.float32),
+                 "bias": np.zeros(1, np.float32)}
+    eager_ids = [rng.randint(0, 300, (32, nf)) for _ in range(3)]
+
+    class Pair(torch.nn.Module):
+        def __init__(self, dev, tied=False):
+            super().__init__()
+            self.emb = SparseEmbedding(vocab, 4, device=dev)
+            self.lin = Linear(4, 1, device=dev)
+            self.tied = tied
+            load_paddle_tpu_state_dict(self, {
+                "emb.weight": emb_start,
+                **{f"lin.{k}": v for k, v in lin_start.items()}})
+
+        def forward(self, ids):
+            loss = (self.lin(self.emb(ids)) ** 2).mean()
+            if self.tied:
+                loss = loss + (self.emb.weight ** 2).sum() * 1e-3
+            return loss
+
+    def eager(dev):
+        m = Pair(dev)
+        opt = Adam(learning_rate=1e-2, epsilon=1e-6,
+                   parameters=m.parameters(), lazy_mode=True)
+        for ids in eager_ids:
+            m(torch.from_numpy(ids).to(dev)).backward()
+            opt.step()
+            opt.clear_grad()
+        return m.emb.weight.detach().cpu().numpy()
+
+    def tied(dev):
+        m = Pair(dev, tied=True)
+        step = fused_train_step(m, Adam(
+            learning_rate=1e-2, epsilon=1e-6, parameters=m.parameters(),
+            lazy_mode=True))
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            for ids in eager_ids:
+                step(torch.from_numpy(ids).to(dev))
+        warned = sum("outside embedding lookups" in str(x.message)
+                     for x in w)
+        return m.emb.weight.detach().cpu().numpy(), warned, step._sparse_idx
+
+    mask = np.ones(vocab, bool)
+    for ids in eager_ids:
+        mask[ids.ravel()] = False
+    e = {d: eager(d) for d in ("cpu", "cuda")}
+    de = float(np.abs(e["cuda"] - e["cpu"]).max())
+    kept = all(np.array_equal(e[d][mask], emb_start[mask]) for d in e)
+    t = {d: tied(d) for d in ("cpu", "cuda")}
+    dt = float(np.abs(t["cuda"][0] - t["cpu"][0]).max())
+    dense_moved = all(not np.array_equal(t[d][0][mask], emb_start[mask])
+                      for d in t)
+    say(f"deepfm card vs cpu eager Adam(lazy_mode=True) on a "
+        f"SparseEmbedding, 3 steps: table max abs diff {de:.2e} (tol "
+        f"{TRAIN_PARAM_ATOL:g}), untouched rows bit for bit {kept}; tied "
+        f"use: warnings cpu {t['cpu'][1]} cuda {t['cuda'][1]}, dense on "
+        f"both {dense_moved}, max abs diff {dt:.2e}")
+    check(de <= TRAIN_PARAM_ATOL and kept,
+          "deepfm eager lazy Adam: card and CPU agree, untouched rows kept")
+    check(dt <= TRAIN_PARAM_ATOL and dense_moved
+          and t["cpu"][1] == t["cuda"][1] == 1
+          and t["cpu"][2] == t["cuda"][2] == [],
+          "deepfm tied use: warns once and trains dense on both")
+
+
+def phase_deepfm():
+    """Phase 8: DeepFM on the row-sparse route (8a, 8b)."""
+    phase_deepfm_criteo()
+    phase_deepfm_card_vs_cpu()
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -2839,6 +3242,7 @@ def main():
     timed(phase_recipes_card_vs_cpu)
     timed(phase_dropout_card)
     timed(phase_train_graphs)
+    timed(phase_deepfm)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",

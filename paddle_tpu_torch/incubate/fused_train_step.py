@@ -51,13 +51,31 @@ in the optimizer, keyed by parameter name, so ``state_dict()`` speaks the
 reference's keys (``step_count``, ``lr_scale``, ``lr_sched``,
 ``m1.<name>``, ``m2.<name>``; Momentum's velocity is ``m1``) and
 ``set_state_dict`` takes a JAX ``FusedTrainStep.state_dict()`` unchanged.
-Sharding plans (``plan=``, ROADMAP Queue 1 item 8), sparse rows and
-drive's checkpoint, sampler, prefetch, heartbeat, preemption, sentinel and
-chaos hooks are not ported yet (ROADMAP Queue 1, item 3).
+
+Row-sparse tables: under ``Adam``/``AdamW(lazy_mode=True)`` the weights
+of ``distributed.ps.SparseEmbedding`` and ``nn.Embedding(sparse=True)``
+layers leave the dense update. Their lookups are captured around the loss
+(:mod:`paddle_tpu_torch.ops.sparse_grad`), so the backward leaves
+``[B*F, dim]`` row gradients, never a vocab-sized one; these are summed
+into unique slots with static shapes, go through the unscale, the finite
+check and the clip with the dense gradients (dead slots are zero, so the
+global norm is the dense one), and :func:`lazy_adam_rows_` updates the
+touched rows of the table and of its full-table fp32 moments (under
+"protect" the mask is ``valid & finite``, so a skipped step writes every
+row back as it was). A sparse table that still has a ``grad`` after the
+backward was used outside its lookups (tied weights, a direct read): that
+step folds its row gradients into the dense one, and the table takes the
+dense update for good, with the reference's warning. Each signature's
+eager first call finds such a table before anything is captured.
+
+Sharding plans (``plan=``, ROADMAP Queue 1 item 8) and drive's checkpoint,
+sampler, prefetch, heartbeat, preemption, sentinel and chaos hooks are not
+ported yet (ROADMAP Queue 1, item 3).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 
@@ -65,14 +83,19 @@ import numpy as np
 import torch
 
 from ..amp.grad_scaler import unscale_grads_
+from ..core import state
 from ..core.flags import flag_value
+from ..distributed.ps import SparseEmbedding
 from ..jit import cache as jit_cache
 from ..nn.clip import ClipGradByGlobalNorm
+from ..nn.layer.common import Embedding
 from ..observability import metrics as _obs_metrics
 from ..observability import trace as _obs_trace
+from ..ops import sparse_grad
 from ..ops.cuda import GraphLaunches
 from ..optimizer.optimizers import (SGD, Adam, AdamW, Momentum, adam_update_,
-                                    momentum_update_, sgd_update_)
+                                    lazy_adam_rows_, momentum_update_,
+                                    sgd_update_)
 
 __all__ = ["FusedTrainStep", "fused_train_step"]
 
@@ -247,6 +270,28 @@ class FusedTrainStep:
             id(g): g for g in gens
             if isinstance(g, torch.Generator) and g.device.type == "cuda"
         }.values())
+        # the row-sparse route: the tables' names, and the indices of the
+        # parameters still on it (a table found used outside its lookups
+        # leaves it for good)
+        self._sparse_names = ()
+        if self._kind in ("adam", "adamw") and optimizer._lazy_mode:
+            self._sparse_names = tuple(sorted(
+                self._find_sparse_param_names(model)))
+        self._sparse_idx = [self._names.index(n) for n in self._sparse_names]
+
+    def _find_sparse_param_names(self, model):
+        """The trainable weights of ``SparseEmbedding`` layers and of
+        ``Embedding(sparse=True)`` layers (the reference's SelectedRows
+        gradient markers), by structured name."""
+        by_id = {id(p): n for n, p in zip(self._names, self._params)}
+        names = set()
+        for sub in model.modules():
+            if isinstance(sub, SparseEmbedding) or (
+                    isinstance(sub, Embedding) and sub._sparse):
+                n = by_id.get(id(sub.weight))
+                if n is not None:
+                    names.add(n)
+        return names
 
     # -- the step body ----------------------------------------------------
     def _loss(self, data, kwdata):
@@ -265,28 +310,43 @@ class FusedTrainStep:
         runs on the CPU, eagerly on the card and inside a capture."""
         for p in self._params:
             p.grad = None
-        loss = self._loss(data, kwdata)
-        if guard != "off":
-            # scaled: (loss * scale) * (1 / scale) is what the guard checks,
-            # as the reference's, so an overflowing scaled loss is caught
-            loss = loss * scale
-        loss.backward()
+        sparse = list(self._sparse_idx)
+        scope = (sparse_grad.capture({id(self._params[i]): self._names[i]
+                                      for i in sparse})
+                 if sparse else contextlib.nullcontext())
+        with state.trace_guard(), scope as cap:
+            loss = self._loss(data, kwdata)
+            if guard != "off":
+                # scaled: (loss * scale) * (1 / scale) is what the guard
+                # checks, as the reference's, so an overflowing scaled loss
+                # is caught
+                loss = loss * scale
+            loss.backward()
         with torch.no_grad():
             loss = loss.detach()
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in self._params]
+            rows = self._row_grads(cap, sparse)
+            dense = [i for i in range(len(self._params))
+                     if i not in self._sparse_idx]
+            grads = [self._params[i].grad if self._params[i].grad is not None
+                     else torch.zeros_like(self._params[i]) for i in dense]
+            row_vals = [v for _, v, _ in rows.values()]
             finite = None
             if guard != "off":
                 inv = torch.reciprocal(scale)
                 found = torch.zeros(1, dtype=torch.float32, device=loss.device)
-                unscale_grads_(grads, inv.reshape(1), found)
+                unscale_grads_(grads + row_vals, inv.reshape(1), found)
                 loss = loss * inv
                 finite = torch.isfinite(loss) & (found[0] == 0)
             if self._clip_norm is not None:
-                self._clip(grads)
+                self._clip(grads + row_vals)
             acc = self._acc
-            self._update(grads, lr, acc[_STEP] + 1,
-                         finite if guard == "protect" else None)
+            step = acc[_STEP] + 1
+            protect = finite if guard == "protect" else None
+            self._update(dense, grads, lr, step, protect)
+            for i, (ids, vals, valid) in rows.items():
+                self._update_rows(i, ids, vals,
+                                  valid if protect is None
+                                  else valid & protect, lr, step)
             if guard == "protect":
                 kept = finite.float()
                 acc[_STEP].add_(kept)
@@ -296,6 +356,35 @@ class FusedTrainStep:
                 acc[_STEP].add_(1.0)
                 acc[_LOSS_SUM].add_(loss.float())
         return loss, finite
+
+    def _row_grads(self, cap, sparse):
+        """{parameter index: (unique ids, summed row gradients, valid)}
+        of the sparse tables the capture ``cap`` saw looked up. A table
+        with a ``grad`` was also used outside its lookups: its row
+        gradients are added into that ``grad``, and it leaves the sparse
+        route for good (the captured graphs are captured again)."""
+        rows, unsafe = {}, []
+        for i in sparse:
+            p, got = self._params[i], cap.row_grads(self._names[i])
+            if p.grad is not None:
+                unsafe.append(i)
+                if got is not None:
+                    p.grad.index_add_(0, got[0], got[1].to(p.grad.dtype))
+            elif got is not None:
+                rows[i] = sparse_grad.segment_rows(*got, combine="add")
+        if unsafe:
+            names = sorted(self._names[i] for i in unsafe)
+            warnings.warn(
+                f"{self._stats_name}: sparse table(s) {names} are used "
+                "outside embedding lookups in this loss (tied weights / "
+                "direct reads) — taking the DENSE gradient path for them; "
+                "lazy_mode row-sparse updates apply only to lookup-only "
+                "tables", stacklevel=4)
+            self._sparse_idx = [i for i in self._sparse_idx
+                                if i not in unsafe]
+            for entry in self._compiled.values():
+                entry.graph = None
+        return rows
 
     def _clip(self, grads):
         """The reference fused step's clip, in place: every gradient times
@@ -307,22 +396,39 @@ class FusedTrainStep:
         factor = torch.clamp(self._clip_norm / (gnorm + 1e-12), max=1.0)
         torch._foreach_mul_(grads, factor)
 
-    def _update(self, grads, lr, step, finite):
+    def _update(self, idx, grads, lr, step, finite):
+        """The dense update of the parameters at ``idx`` (with their
+        ``grads``)."""
         opt, kind = self.optimizer, self._kind
+        params = [self._params[i] for i in idx]
+        wds = [self._wds[i] for i in idx]
         if kind in ("adam", "adamw"):
-            adam_update_(self._params, grads, self._m1, self._m2, lr=lr,
+            adam_update_(params, grads, [self._m1[i] for i in idx],
+                         [self._m2[i] for i in idx], lr=lr,
                          beta1=opt._beta1, beta2=opt._beta2,
-                         epsilon=opt._epsilon, step=step,
-                         weight_decay=self._wds, decoupled=kind == "adamw",
-                         lr_ratios=self._lr_ratios, finite=finite)
+                         epsilon=opt._epsilon, step=step, weight_decay=wds,
+                         decoupled=kind == "adamw",
+                         lr_ratios=[self._lr_ratios[i] for i in idx],
+                         finite=finite)
         elif kind == "momentum":
             # the reference's fused update ignores use_nesterov
-            momentum_update_(self._params, grads, self._m1, lr=lr,
-                             momentum=opt._momentum, weight_decay=self._wds,
+            momentum_update_(params, grads, [self._m1[i] for i in idx],
+                             lr=lr, momentum=opt._momentum, weight_decay=wds,
                              finite=finite)
         else:
-            sgd_update_(self._params, grads, lr=lr, weight_decay=self._wds,
+            sgd_update_(params, grads, lr=lr, weight_decay=wds,
                         finite=finite)
+
+    def _update_rows(self, i, ids, vals, mask, lr, step):
+        """The lazy Adam/AdamW update of sparse table ``i`` on its unique
+        rows ``ids`` where ``mask`` holds."""
+        opt = self.optimizer
+        lazy_adam_rows_(self._params[i], self._m1[i], self._m2[i], ids, vals,
+                        mask, lr=lr, beta1=opt._beta1, beta2=opt._beta2,
+                        epsilon=opt._epsilon, step=step,
+                        weight_decay=self._wds[i],
+                        decoupled=self._kind == "adamw",
+                        lr_ratio=self._lr_ratios[i])
 
     # -- dispatch ---------------------------------------------------------
     def _prepare(self, data, kwdata):

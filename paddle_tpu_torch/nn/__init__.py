@@ -1,8 +1,11 @@
 """Layers and functions of the port (``paddle_tpu.nn`` counterparts)."""
 
+from torch.nn import Sequential
+
 from . import functional, initializer  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_, clip_grad_value_)
+from .layer.activation import ReLU, Sigmoid
 from .layer.common import Dropout, Embedding, Linear
 from .layer.layers import ParamAttr
 from .layer.norm import LayerNorm, RMSNorm
@@ -12,5 +15,5 @@ from .layer.transformer import (MultiHeadAttention, TransformerEncoder,
 __all__ = ["functional", "initializer", "ClipGradByGlobalNorm",
            "ClipGradByNorm", "ClipGradByValue", "clip_grad_norm_",
            "clip_grad_value_", "Dropout", "Embedding", "LayerNorm", "Linear",
-           "MultiHeadAttention", "ParamAttr", "RMSNorm", "TransformerEncoder",
-           "TransformerEncoderLayer"]
+           "MultiHeadAttention", "ParamAttr", "ReLU", "RMSNorm", "Sequential",
+           "Sigmoid", "TransformerEncoder", "TransformerEncoderLayer"]

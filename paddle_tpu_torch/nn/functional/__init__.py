@@ -1,17 +1,19 @@
-from .activation import gelu, relu, silu, tanh
+from .activation import gelu, relu, sigmoid, silu, tanh
 from .attention import sdpa_reference
-from .common import dropout, linear
+from .common import dropout, embedding, embedding_bag, linear
 # the flash_attention *function* stays under the submodule's name
 # (``F.flash_attention.flash_attention``): the package attribute
 # ``flash_attention`` is the submodule, which holds ``LAST_PATH``
 from .flash_attention import (flash_attn_unpadded, fused_rope_attention,
                               fused_rope_attention_enabled,
                               scaled_dot_product_attention, sdp_kernel)
-from .loss import cross_entropy
+from .loss import (binary_cross_entropy, binary_cross_entropy_with_logits,
+                   cross_entropy)
 from .norm import layer_norm, rms_norm
 
-__all__ = ["cross_entropy", "dropout", "flash_attn_unpadded",
-           "fused_rope_attention", "fused_rope_attention_enabled", "gelu",
-           "layer_norm", "linear", "relu", "rms_norm",
-           "scaled_dot_product_attention", "sdp_kernel", "sdpa_reference",
-           "silu", "tanh"]
+__all__ = ["binary_cross_entropy", "binary_cross_entropy_with_logits",
+           "cross_entropy", "dropout", "embedding", "embedding_bag",
+           "flash_attn_unpadded", "fused_rope_attention",
+           "fused_rope_attention_enabled", "gelu", "layer_norm", "linear",
+           "relu", "rms_norm", "scaled_dot_product_attention", "sdp_kernel",
+           "sdpa_reference", "sigmoid", "silu", "tanh"]

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gelu", "relu", "silu", "tanh"]
+__all__ = ["gelu", "relu", "sigmoid", "silu", "tanh"]
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -24,6 +24,10 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
 
 
 def tanh(x: torch.Tensor) -> torch.Tensor:

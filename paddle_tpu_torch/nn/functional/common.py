@@ -1,5 +1,7 @@
 """Common functionals (counterpart of ``paddle_tpu/nn/functional/common.py``):
-``linear`` with the reference's ``[in, out]`` weight, and ``dropout``.
+``linear`` with the reference's ``[in, out]`` weight, ``dropout``, and the
+lookups ``embedding`` and ``embedding_bag``, which consult the row-sparse
+capture (:mod:`paddle_tpu_torch.ops.sparse_grad`) as the reference's do.
 
 Dropout draws its mask from the ``torch.Generator`` it is given (the
 device's default generator without one). Its bits cannot match
@@ -13,7 +15,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["dropout", "linear"]
+from ...ops import sparse_grad
+
+__all__ = ["dropout", "embedding", "embedding_bag", "linear"]
 
 
 def linear(x, weight, bias=None):
@@ -41,3 +45,42 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     kept = x / keep if mode == "upscale_in_train" else x
     return torch.where(mask, kept, torch.zeros((), dtype=x.dtype,
                                                device=x.device))
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` at the integer ids ``x`` (``x.shape + (dim,)``),
+    zero where ``x == padding_idx``. Inside a fused step's capture a
+    sparse table's rows come from :func:`sparse_grad.captured_lookup`
+    (row gradients, same values); ``sparse`` itself changes nothing here,
+    as in the reference."""
+    out = sparse_grad.captured_lookup(x, weight)
+    if out is None:
+        out = torch.nn.functional.embedding(x, weight)
+    if padding_idx is not None:
+        out = out.masked_fill((x == padding_idx)[..., None], 0)
+    return out
+
+
+def embedding_bag(x, weight, mode="sum", padding_idx=None, name=None):
+    """``embedding(x, weight)`` pooled over the trailing field axis of the
+    int ids ``x [..., F]`` by ``mode`` "sum" or "mean"; returns ``[...,
+    dim]``. Rows at ``padding_idx`` add zero to the sum and do not count
+    in the mean's denominator (at least 1)."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"embedding_bag mode must be 'sum' or 'mean', "
+                         f"got {mode!r}")
+    if padding_idx is None:
+        out = sparse_grad.captured_pooled_lookup(x, weight, mode)
+        if out is not None:
+            return out
+        rows = torch.nn.functional.embedding(x, weight)
+        return rows.mean(dim=-2) if mode == "mean" else rows.sum(dim=-2)
+    rows = sparse_grad.captured_lookup(x, weight)
+    if rows is None:
+        rows = torch.nn.functional.embedding(x, weight)
+    keep = (x != padding_idx)[..., None]
+    rows = rows.masked_fill(~keep, 0)
+    if mode == "mean":
+        n = keep.sum(dim=-2).clamp_min(1)
+        return rows.sum(dim=-2) / n.to(rows.dtype)
+    return rows.sum(dim=-2)

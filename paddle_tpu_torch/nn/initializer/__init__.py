@@ -1,11 +1,12 @@
 """Parameter initializers (counterpart of ``paddle_tpu/nn/initializer``):
 the layers' defaults (``XavierUniform`` for weights, ``Constant(0)`` for
-biases, as the reference's ``default_weight_init``/``default_bias_init``)
-and BERT's ``Normal``. Each fills a tensor in place; a random one draws
-from the ``torch.Generator`` it is given (the device's default one if
-None), so a model built from a seed is reproducible on its device. The
-draws cannot match ``jax.random``'s: weights cross over from the JAX
-package as numpy (:func:`paddle_tpu_torch.models.load_paddle_tpu_state_dict`)."""
+biases, as the reference's ``default_weight_init``/``default_bias_init``),
+BERT's ``Normal`` and the sparse tables' ``Uniform``. Each fills a tensor
+in place; a random one draws from the ``torch.Generator`` it is given (the
+device's default one if None), so a model built from a seed is
+reproducible on its device. The draws cannot match ``jax.random``'s:
+weights cross over from the JAX package as numpy
+(:func:`paddle_tpu_torch.models.load_paddle_tpu_state_dict`)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import math
 
 import torch
 
-__all__ = ["Constant", "Normal", "XavierUniform"]
+__all__ = ["Constant", "Normal", "Uniform", "XavierUniform"]
 
 
 def _fans(shape):
@@ -48,6 +49,17 @@ class Normal:
     def __call__(self, param, generator=None):
         with torch.no_grad():
             return param.normal_(self.mean, self.std, generator=generator)
+
+
+class Uniform:
+    """U(low, high)."""
+
+    def __init__(self, low=-1.0, high=1.0):
+        self.low, self.high = float(low), float(high)
+
+    def __call__(self, param, generator=None):
+        with torch.no_grad():
+            return param.uniform_(self.low, self.high, generator=generator)
 
 
 class XavierUniform:

@@ -1,3 +1,4 @@
+from .activation import ReLU, Sigmoid
 from .common import Dropout, Embedding, Linear
 from .layers import ParamAttr
 from .norm import LayerNorm, RMSNorm
@@ -5,5 +6,5 @@ from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
 __all__ = ["Dropout", "Embedding", "LayerNorm", "Linear",
-           "MultiHeadAttention", "ParamAttr", "RMSNorm", "TransformerEncoder",
-           "TransformerEncoderLayer"]
+           "MultiHeadAttention", "ParamAttr", "ReLU", "RMSNorm", "Sigmoid",
+           "TransformerEncoder", "TransformerEncoderLayer"]

@@ -10,7 +10,7 @@ import torch
 from torch import nn
 
 from ...core.device import resolve_device
-from ..functional.common import dropout, linear
+from ..functional.common import dropout, embedding, linear
 from ..initializer import Constant, XavierUniform
 from .layers import create_parameter
 
@@ -52,17 +52,18 @@ class Embedding(nn.Module):
     ``weight_attr`` (default XavierUniform, the reference's). With
     ``padding_idx`` (negative counts from the end) that row starts at zero
     and looking it up gives zeros, as the reference's ``embedding``.
-    ``sparse=True`` (row-sparse gradients) is not ported and raises."""
+    ``sparse=True`` marks the table for the row-sparse route: a fused step
+    under ``Adam``/``AdamW(lazy_mode=True)`` captures its lookups and
+    updates only the rows they touch. As in the reference, it records no
+    eager lookups (only ``distributed.ps.SparseEmbedding`` does), so the
+    eager lazy update takes the dense path for it."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, *, device=None,
                  dtype=None):
         super().__init__()
-        if sparse:
-            raise NotImplementedError(
-                "Embedding(sparse=True): row-sparse gradients are not "
-                "ported; use sparse=False")
         dev = resolve_device(device)
+        self._sparse = bool(sparse)
         self.num_embeddings = int(num_embeddings)
         self.embedding_dim = int(embedding_dim)
         self.padding_idx = (None if padding_idx is None
@@ -76,10 +77,8 @@ class Embedding(nn.Module):
                 self.weight[self.padding_idx] = 0
 
     def forward(self, ids):
-        out = torch.nn.functional.embedding(ids, self.weight)
-        if self.padding_idx is not None:
-            out = out.masked_fill((ids == self.padding_idx)[..., None], 0)
-        return out
+        return embedding(ids, self.weight, padding_idx=self.padding_idx,
+                         sparse=self._sparse)
 
     def extra_repr(self):
         return f"{self.num_embeddings}, {self.embedding_dim}"

@@ -16,8 +16,10 @@ SGD, Momentum, Adagrad, Adamax, Adadelta and RMSProp read each
 parameter's ``regularizer`` before the optimizer's (``_weight_decay_value``),
 Adam and AdamW the optimizer's, switched off per parameter by
 ``apply_decay_param_fun(p.name)``. ``lr_ratio(p)`` scales Adam's and
-AdamW's step size per parameter. ``lazy_mode=True`` (row-sparse updates)
-is not ported and raises.
+AdamW's step size per parameter. ``lazy_mode=True`` updates an
+embedding table's touched rows only (:func:`lazy_adam_rows_`): the rows
+its ``SparseEmbedding`` lookups recorded in the eager loop, the captured
+lookups' rows in the fused step.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from .optimizer import Optimizer
 
 __all__ = ["SGD", "Momentum", "Adagrad", "Adam", "AdamW", "Adamax",
            "Adadelta", "RMSProp", "Lamb", "Rprop", "LBFGS", "adam_update_",
-           "momentum_update_", "sgd_update_"]
+           "lazy_adam_rows_", "momentum_update_", "sgd_update_"]
 
 
 def _one_minus(x):
@@ -170,6 +172,40 @@ def adam_update_(params, grads, m1s, m2s, *, lr, beta1, beta2, epsilon, step,
     _store(params, pf)
 
 
+@torch.no_grad()
+def lazy_adam_rows_(param, m1, m2, ids, grads, mask, *, lr, beta1, beta2,
+                    epsilon, step, weight_decay, decoupled, lr_ratio=1.0):
+    """Lazy-mode Adam/AdamW on the rows ``ids`` of ``param`` and its fp32
+    moments, in place (the reference's ``lazy_adam_rows``, its
+    SelectedRows adam kernel): gather the rows of the table and both
+    moments, run :func:`adam_update_` on them, scatter them back. Rows
+    outside ``ids`` are never read or written; the bias correction uses
+    the global ``step``. Weight decay reaches touched rows only.
+
+    ``ids [K]`` are deduplicated (``sparse_grad.segment_rows``) with
+    ``grads [K, dim]`` their summed row gradients; ``mask [K]`` turns off
+    the dead dedup slots and, under the fused step's "protect" guard, a
+    whole non-finite step. Masked slots alias row ``ids[0]`` and carry
+    slot 0's own payload (its updated value, or its current one when slot
+    0 is masked too), so every write to a row is identical and the scatter
+    is deterministic on the card. No host sync. Shared by the fused step
+    and the eager ``step()``."""
+    if ids.shape[0] == 0:
+        return
+    safe = torch.where(mask, ids, ids[:1])
+    cur = [t.index_select(0, safe) for t in (param, m1, m2)]
+    new = [t.clone() for t in cur]
+    adam_update_(new[:1], [grads], new[1:2], new[2:], lr=lr, beta1=beta1,
+                 beta2=beta2, epsilon=epsilon, step=step,
+                 weight_decay=weight_decay, decoupled=decoupled,
+                 lr_ratios=lr_ratio)
+    keep = mask[:, None]
+    for dst, n, c in zip((param, m1, m2), new, cur):
+        # masked slots keep their current rows, then take slot 0's payload
+        base = torch.where(keep, n, c)
+        dst.index_copy_(0, safe, torch.where(keep, base, base[:1]))
+
+
 class SGD(Optimizer):
     """``p -= lr * (g + wd*p)``, ``wd`` from ``_weight_decay_value``."""
 
@@ -210,17 +246,13 @@ class _AdamBase(Optimizer):
                  grad_clip=None, lazy_mode=False, multi_precision=False,
                  name=None, apply_decay_param_fun=None, lr_ratio=None,
                  **kwargs):
-        if lazy_mode:
-            raise NotImplementedError(
-                f"{type(self).__name__}(lazy_mode=True): row-sparse updates "
-                "are not ported yet (ROADMAP Queue 1, item 3)")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
         self._apply_decay_param_fun = apply_decay_param_fun
         self._lr_ratio = lr_ratio
-        self._lazy_mode = False
+        self._lazy_mode = bool(lazy_mode)
         self._multi_precision = bool(multi_precision)
         if self._multi_precision:
             warnings.warn(
@@ -254,7 +286,41 @@ class _AdamBase(Optimizer):
     def _param_lr_ratio(self, p):
         return 1.0 if self._lr_ratio is None else float(self._lr_ratio(p))
 
+    def _apply_lazy(self, params_grads):
+        """Update each table with recorded eager lookups on its touched
+        rows only (:func:`lazy_adam_rows_`); returns the (param, grad)
+        pairs left for the dense update. Untouched rows keep their values
+        and moments (no decay), as the reference's lazy mode.
+
+        The recorded ids must cover the gradient's support: true for a
+        table used only through ``SparseEmbedding`` lookups (the sole
+        recorder). A table that also feeds other ops (tied weights) must
+        train with ``lazy_mode=False`` here; the fused step finds that
+        case itself and takes the dense path for it."""
+        from ..ops import sparse_grad
+
+        rest = []
+        for p, g in params_grads:
+            ids = sparse_grad.consume_eager_lookups(p)
+            if ids is None or p.dim() != 2 or g.shape != p.shape:
+                rest.append((p, g))
+                continue
+            uniq, valid = sparse_grad.unique_ids(ids.to(p.device))
+            # duplicates were summed by the gather's backward: one row each
+            rows = g.index_select(0, torch.where(valid, uniq, uniq[:1]))
+            lazy_adam_rows_(
+                p, self._acc("moment1", p), self._acc("moment2", p), uniq,
+                rows, valid, lr=self.get_lr(), beta1=self._beta1,
+                beta2=self._beta2, epsilon=self._epsilon,
+                step=self._global_step + 1, weight_decay=self._param_wd(p),
+                decoupled=self._decoupled, lr_ratio=self._param_lr_ratio(p))
+        return rest
+
     def _apply(self, params_grads):
+        if self._lazy_mode:
+            params_grads = self._apply_lazy(params_grads)
+            if not params_grads:
+                return
         params = [p for p, _ in params_grads]
         adam_update_(params, [g for _, g in params_grads],
                      self._accs("moment1", params),
@@ -272,11 +338,9 @@ class _AdamBase(Optimizer):
         return sd
 
     def set_state_dict(self, state_dict):
-        if state_dict.get("lazy_mode"):
-            raise NotImplementedError(
-                "a lazy_mode=True optimizer state: row-sparse updates are "
-                "not ported yet (ROADMAP Queue 1, item 3)")
         super().set_state_dict(state_dict)
+        if "lazy_mode" in state_dict:
+            self._lazy_mode = bool(state_dict["lazy_mode"])
         if "multi_precision" in state_dict:
             self._multi_precision = bool(state_dict["multi_precision"])
 

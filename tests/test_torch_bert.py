@@ -199,8 +199,8 @@ def test_layers_without_device_need_cuda():
 
 def test_embedding_padding_idx_matches_jax():
     """``padding_idx`` (here negative, counted from the end) zeroes its row
-    and its lookups, as the reference's ``Embedding``; ``sparse=True`` is
-    refused."""
+    and its lookups, as the reference's ``Embedding``. (``sparse=True``,
+    refused here before, is held by ``tests/test_torch_sparse_grad.py``.)"""
     from paddle_tpu_torch.nn import Embedding
 
     paddle.seed(1)
@@ -219,8 +219,6 @@ def test_embedding_padding_idx_matches_jax():
     got = te(torch.from_numpy(ids))
     np.testing.assert_array_equal(got.detach().numpy(), want)
     assert not got[0, 1].any()
-    with pytest.raises(NotImplementedError, match="sparse"):
-        Embedding(10, 6, sparse=True, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["float", "bool", "float_gqa"])

@@ -33,6 +33,10 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.amp\n"
             "import paddle_tpu_torch.jit\n"
             "import paddle_tpu_torch.core.flags\n"
+            "import paddle_tpu_torch.ops.sparse_grad\n"
+            "import paddle_tpu_torch.distributed.ps\n"
+            "import paddle_tpu_torch.distributed.compat\n"
+            "import paddle_tpu_torch.models.deepfm\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"

@@ -428,10 +428,6 @@ def test_param_attr_on_every_parameter_site():
 
 def test_refused_options_raise():
     params = list(port_nn.Linear(2, 2, device="cpu").parameters())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        port_opt.Adam(parameters=params, lazy_mode=True)
-    with pytest.raises(NotImplementedError, match="lazy_mode"):
-        port_opt.AdamW(parameters=params).set_state_dict({"lazy_mode": True})
     with pytest.raises(TypeError):
         port_opt.SGD(learning_rate="0.1", parameters=params)
     with pytest.raises(ValueError):

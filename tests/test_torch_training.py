@@ -276,16 +276,14 @@ def test_drive_fetches_per_window_and_records_metrics():
 
 
 def test_unported_options_raise():
-    """What the port still refuses: Adam's ``lazy_mode`` (row-sparse
-    updates, ROADMAP Queue 1 item 3), a learning rate that is neither a
+    """What the port still refuses: a learning rate that is neither a
     number nor an ``LRScheduler``, and a fused step for another optimizer
     or another clip (as the reference does). ``lr_ratio`` and
     ``apply_decay_param_fun``, which raised before, are held against the
-    reference by ``test_fused_recipes_match_jax``."""
+    reference by ``test_fused_recipes_match_jax``; ``lazy_mode``, which
+    raised before, by ``tests/test_torch_sparse_grad.py``."""
     _, tm = _pair()
     params = list(tm.parameters())
-    with pytest.raises(NotImplementedError, match="lazy_mode"):
-        optimizer.AdamW(parameters=params, lazy_mode=True)
     with pytest.raises(TypeError, match="LRScheduler"):
         optimizer.AdamW(learning_rate=object(), parameters=params)
     with pytest.raises(TypeError):
