@@ -2150,7 +2150,9 @@ def drive_reading_lr(step, opt, batch, n):
     """``step.drive`` over ``batch`` n times in one fetch window; returns
     (drive's history, ``opt.get_lr()`` after each step). The batches come
     from a generator that reads the host LR when drive asks for the next
-    batch, after the step before: no device work, no sync."""
+    batch, after the step before: no device work, no sync. The pulls must
+    be the loop's own (``prefetch=False``): a transfer thread reads
+    ahead."""
     lrs = []
 
     def batches():
@@ -2158,7 +2160,7 @@ def drive_reading_lr(step, opt, batch, n):
             yield batch
             lrs.append(opt.get_lr())
 
-    return step.drive(batches(), log_every=n), lrs
+    return step.drive(batches(), log_every=n, prefetch=False), lrs
 
 
 def check_lrs(lrs, host_lr, label):
@@ -2446,9 +2448,11 @@ GRAPH_LOSS_RTOL = 1e-2
 
 
 def loss_weighted(model):
-    """A module whose loss is ``model(ids, labels)``'s times a float input
-    ``w``: a NaN ``w`` poisons one batch of a token model (its ids cannot
-    hold NaN)."""
+    """A module whose loss is ``model(ids, labels)``'s times the mean of a
+    float input ``w`` (a scalar, or one per row): a NaN ``w`` poisons one
+    batch of a token model (its ids cannot hold NaN), and the
+    ``train.spike`` site scales it (the site's target is the first
+    floating-point input)."""
     import torch
 
     class LossWeighted(torch.nn.Module):
@@ -2457,7 +2461,7 @@ def loss_weighted(model):
             self.inner = model
 
         def forward(self, ids, labels, w):
-            return self.inner(ids, labels)[0] * w
+            return self.inner(ids, labels)[0] * w.mean()
 
     return LossWeighted()
 
@@ -3137,6 +3141,633 @@ def phase_deepfm():
     phase_deepfm_card_vs_cpu()
 
 
+# -- the supervised training loop ---------------------------------------------
+
+# phase 9: llama_125m batches of 16 x 1024 in windows of 4; 32 batches an
+# epoch of seeded token ids
+SUP_BATCH, SUP_SEQ, SUP_LOG, SUP_EPOCH = 16, 1024, 4, 32
+# the preemption drill's run: the child's steps and the uninterrupted run's
+SUP_CHILD_STEPS = 16
+SUP_CHILD_MARK = "supervised-child result "
+# 9g's AdamW step size. Adam scales an update's sensitivity to a
+# gradient near zero by lr / epsilon, and over 9g's 16 steps at lr 1e-3
+# rounding alone moves the parameters about as far as TRAIN_PARAM_ATOL;
+# 9g prints that floor (the CPU run against itself from weights perturbed
+# by SUP_TINY_NOISE, relative) beside the card-vs-CPU difference
+SUP_TINY_LR = 1e-4
+SUP_TINY_NOISE = 1e-7
+
+
+def sup_loader(vocab, n, seq, batch, seed, weighted=False):
+    """``DataLoader(TensorDataset(ids, labels[, w]),
+    batch_sampler=BucketedBatchSampler(..., seed=0))`` over ``n`` seeded
+    numpy samples of ``seq`` token ids (w: ones)."""
+    import numpy as np
+
+    from paddle_tpu_torch import io
+
+    rng = np.random.RandomState(seed)
+    arrays = [rng.randint(0, vocab, (n, seq)).astype(np.int64)
+              for _ in range(2)]
+    if weighted:
+        arrays.append(np.ones(n, np.float32))
+    ds = io.TensorDataset(arrays)
+    sampler = io.BucketedBatchSampler(ds, batch_size=batch, boundaries=[seq],
+                                      lengths=[seq] * n, shuffle=True,
+                                      seed=0)
+    return io.DataLoader(ds, batch_sampler=sampler)
+
+
+def sup_setup(weighted=False):
+    """Phase 9's stack: llama_125m (bf16, weights from the seed) with a
+    fused AdamW(1e-4) step, and its loader (the same batches on every
+    call, in the parent and in ``--supervised-child``)."""
+    import torch
+
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_125m
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama_125m()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=SEED)
+    net = loss_weighted(model) if weighted else model
+    step = fused_train_step(net, AdamW(learning_rate=1e-4,
+                                       parameters=net.parameters()))
+    loader = sup_loader(cfg.vocab_size, SUP_BATCH * SUP_EPOCH, SUP_SEQ,
+                        SUP_BATCH, SEED + 9, weighted)
+    return net, step, loader
+
+
+def host_state(net, step):
+    """(parameters, moments) copied to the host: tensors, fp32 arrays."""
+    params = {k: v.detach().cpu().clone()
+              for k, v in net.state_dict().items()}
+    moments = {k: v for k, v in step.state_dict().items()
+               if k.startswith(("m1.", "m2."))}
+    return params, moments
+
+
+def state_diff(a, b):
+    """(bit for bit, largest absolute difference) of two ``host_state``s."""
+    import numpy as np
+    import torch
+
+    same, worst = True, 0.0
+    for k, v in a[0].items():
+        same &= bool(torch.equal(v, b[0][k]))
+        worst = max(worst, float((v.float() - b[0][k].float()).abs().max()))
+    for k, v in a[1].items():
+        same &= bool(np.array_equal(v, b[1][k]))
+        worst = max(worst, float(np.abs(v - b[1][k]).max()))
+    return same, worst
+
+
+def free_cuda():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fs_type(path):
+    """The file system type of the mount holding ``path`` (/proc/mounts)."""
+    best, kind = "", "unknown"
+    path = os.path.realpath(path)
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) > 2 and path.startswith(parts[1]) \
+                    and len(parts[1]) > len(best):
+                best, kind = parts[1], parts[2]
+    return f"{kind} at {best}"
+
+
+def sup_prefetch_arm(prefetch, profile=False):
+    """Phase 9a, one arm: a fresh stack from the seed, 2 warm-up and 8
+    timed steps through ``drive(prefetch=...)`` (host clock and CUDA
+    events), the loader's cursor advanced per trained batch; with
+    ``profile``, 4 more steps under the profiler whose flash kernel counts
+    must equal the wrappers'. Returns the run and the stack."""
+    import torch
+
+    net, step, loader = sup_setup()
+    L = net.config.num_hidden_layers
+    torch.cuda.synchronize()
+    reset_all_launch_counts()
+    kw = dict(log_every=SUP_LOG, sampler=loader, prefetch=prefetch)
+    warm = step.drive(loader, steps=2, **kw)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    hist = step.drive(loader, steps=8, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 8 * 1e3
+    event_ms = start.elapsed_time(end) / 8
+    counts = all_launch_counts()
+    want = launches_want(**{f"{k}_cuda": L * 10 for k in FLASH})
+    check(counts == want, f"prefetch={prefetch} launches {counts} == {want}")
+    seen = None
+    if profile:
+        reset_all_launch_counts()
+        prof = device_profile(lambda: step.drive(loader, steps=4, **kw),
+                              "train-supervised llama_125m prefetch "
+                              "(4 steps)", top=6,
+                              mark=("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"))
+        launched = all_launch_counts()
+        if prof is not None:
+            seen = {}
+            for key, name in zip(("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"), FLASH):
+                seen[name] = sum(n for kname, (_, n) in
+                                 prof["kernels"].items() if key in kname)
+                check(seen[name] == launched[name + "_cuda"] == L * 4,
+                      f"{name}: profiler {seen[name]} == wrapper "
+                      f"{launched[name + '_cuda']} == {L} x 4")
+    return {"losses": warm["loss"] + hist["loss"], "host_ms": host_ms,
+            "event_ms": event_ms, "stats": hist["prefetch"],
+            "counts": counts, "seen": seen}, (net, step, loader)
+
+
+def phase_supervised_prefetch():
+    """Phase 9a: ``drive(prefetch=False)`` against ``drive(prefetch=True)``
+    from the same weights, interleaved off, on, off, on: losses bit for
+    bit, ms/step, the prefetcher's stats, launches. Returns the last
+    arm's stack (trained 14 steps) and its ms/step."""
+    runs, stack = {False: [], True: []}, None
+    for i, prefetch in enumerate((False, True, False, True)):
+        run, stack = sup_prefetch_arm(prefetch, profile=i == 3)
+        runs[prefetch].append(run)
+        if i < 3:
+            del stack
+            stack = None
+            free_cuda()
+    ref = runs[False][0]["losses"]
+    same = all(r["losses"] == ref for arm in runs.values() for r in arm)
+    check(same and all(math.isfinite(x) for x in ref),
+          "prefetch on and off: the same losses bit for bit")
+
+    def fmt(arm, key):
+        return "/".join(f"{r[key]:.2f}" for r in runs[arm])
+
+    on = runs[True][-1]
+    say(f"train-supervised (a) llama_125m prefetch off vs on, 2 + 8 steps "
+        f"each: ms/step host {fmt(False, 'host_ms')} vs "
+        f"{fmt(True, 'host_ms')}, CUDA events {fmt(False, 'event_ms')} vs "
+        f"{fmt(True, 'event_ms')}; losses identical {same} "
+        f"{[round(x, 4) for x in ref]}; prefetcher stats {on['stats']}; "
+        f"flash launches {[on['counts'][n + '_cuda'] for n in FLASH]} "
+        f"(12 layers x 10), profiled 4 steps: profiler "
+        f"{on['seen'] if on['seen'] is not None else 'not measured'}")
+    return stack, statistics.median(r["event_ms"] for r in runs[True])
+
+
+def phase_supervised_checkpoint(stack, root, ms_ref):
+    """Phase 9b: a synchronous and an asynchronous ``CheckpointManager``
+    save of the 9a stack at a window boundary: bytes, ms the caller is
+    blocked, ms until the save lands; ms/step of the window that trains
+    while the asynchronous write is in flight, against a window before
+    the saves; the asynchronous snapshot equal to the synchronous one
+    (taken at the same step) bit for bit."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import CheckpointManager
+    from paddle_tpu_torch.distributed.checkpoint.manager import dir_bytes
+
+    net, step, loader = stack
+
+    def window():
+        """(ms/step host clock, CUDA events, ms the loop waited for the
+        prefetcher) of one window of 4 steps."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        start.record()
+        hist = step.drive(loader, steps=SUP_LOG, log_every=SUP_LOG,
+                          sampler=loader)
+        end.record()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t1) / SUP_LOG * 1e3,
+                start.elapsed_time(end) / SUP_LOG,
+                hist["prefetch"]["host_blocked_ms"])
+
+    quiet = window()  # the control: no write in flight
+    n = step.device_metrics()["step_count"]
+    sync = CheckpointManager(os.path.join(root, "sync"), keep_last_n=2)
+    t0 = time.perf_counter()
+    sync.save(n, model=net, optimizer=step, sampler=loader)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = dir_bytes(sync.step_dir(n))
+    amgr = CheckpointManager(os.path.join(root, "async"), keep_last_n=2,
+                             async_save=True)
+    landed = []
+    t0 = time.perf_counter()
+    handle = amgr.save(n, model=net, optimizer=step, sampler=loader)
+    blocked_ms = (time.perf_counter() - t0) * 1e3
+
+    def watch():
+        while not handle.done():
+            time.sleep(0.002)
+        landed.append(time.perf_counter())
+
+    watcher = threading.Thread(target=watch, name="ckpt-watch")
+    watcher.start()
+    busy = window()
+    in_flight = not landed
+    amgr.wait()
+    watcher.join(timeout=600)
+    check(not watcher.is_alive() and landed, "the async save landed")
+    lands_ms = (landed[0] - t0) * 1e3
+    a, b = (np.load(os.path.join(m.step_dir(n), "rank0.npz"))
+            for m in (sync, amgr))
+    same = sorted(a.files) == sorted(b.files) and all(
+        np.array_equal(a[k], b[k]) for k in a.files)
+    a.close()
+    b.close()
+    check(same and amgr.latest_valid_step() == sync.latest_valid_step() == n,
+          "the async snapshot equals the sync save of the same step")
+    say(f"train-supervised (b) checkpoint of llama_125m at step {n} "
+        f"({fs_type(root)}): {nbytes} bytes; sync save blocks "
+        f"{sync_ms:.1f} ms (landed); async save blocks {blocked_ms:.1f} ms, "
+        f"lands after {lands_ms:.1f} ms (in flight through the next window "
+        f"{in_flight}); that window's ms/step host {busy[0]:.2f}, CUDA "
+        f"events {busy[1]:.2f}, prefetch waits {busy[2]:.1f} ms, against "
+        f"{quiet[0]:.2f} / {quiet[1]:.2f} / {quiet[2]:.1f} ms for the "
+        f"window before the saves (9a prefetch median {ms_ref:.2f}); "
+        f"async snapshot = sync save bit for bit {same}")
+
+
+def phase_supervised_resume(root):
+    """Phase 9c: the uninterrupted run (16 steps, a checkpoint at step 4,
+    the state copied to the host at step 8), then a fresh stack resumed
+    from step 4 in place drives 4 steps: its losses, parameters and
+    moments equal the uninterrupted run's at step 8. Returns that run's
+    16 losses (9e's reference)."""
+    from paddle_tpu_torch import CheckpointManager
+
+    net, step, loader = sup_setup()
+    mgr = CheckpointManager(os.path.join(root, "resume"), keep_last_n=2)
+    snap = {}
+
+    def on_window(win):
+        n = step.device_metrics()["step_count"]
+        if n == 4:
+            mgr.save(4, model=net, optimizer=step, sampler=loader)
+        if n == 8:
+            snap["state"] = host_state(net, step)
+
+    whole = step.drive(loader, steps=SUP_CHILD_STEPS, log_every=SUP_LOG,
+                       checkpoint=mgr, on_window=on_window)["loss"]
+    del net, step, loader
+    free_cuda()
+    net, step, loader = sup_setup()
+    ptrs = [p.data_ptr() for p in net.parameters()]
+    t0 = time.perf_counter()
+    check(mgr.auto_resume(model=net, optimizer=step, sampler=loader,
+                          step=4) == 4, "auto_resume restored step 4")
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check([p.data_ptr() for p in net.parameters()] == ptrs,
+          "the restore wrote the parameters in place")
+    rest = step.drive(loader, steps=4, log_every=SUP_LOG,
+                      sampler=loader)["loss"]
+    same, worst = state_diff(host_state(net, step), snap["state"])
+    say(f"train-supervised (c) resume from step 4 ({restore_ms:.1f} ms to "
+        f"restore): losses 5-8 {[round(x, 5) for x in rest]} vs "
+        f"uninterrupted {[round(x, 5) for x in whole[4:8]]}, equal "
+        f"{rest == whole[4:8]}; parameters and moments at step 8 bit for "
+        f"bit {same} (max abs diff {worst:.3e})")
+    check(rest == whole[4:8] and same,
+          "the resumed run equals the uninterrupted one bit for bit")
+    return whole, (net, step, loader)
+
+
+def phase_supervised_stall(stack):
+    """Phase 9f: ``FLAGS_step_timeout_s`` 2 with the ``train.stall`` site
+    armed: ``drive`` raises ``TrainStallError``."""
+    from paddle_tpu_torch import TrainStallError, set_flags
+    from paddle_tpu_torch.utils import fault_injection
+
+    net, step, loader = stack
+    set_flags({"FLAGS_step_timeout_s": 2.0})
+    stalled = None
+    t0 = time.perf_counter()
+    try:
+        with fault_injection.inject("train.stall", every_n=2):
+            step.drive(loader, steps=4, log_every=SUP_LOG, sampler=loader)
+    except TrainStallError as e:
+        stalled = e
+    finally:
+        set_flags({"FLAGS_step_timeout_s": 0.0})
+    wall = time.perf_counter() - t0
+    say(f"train-supervised (f) stall: FLAGS_step_timeout_s 2, train.stall "
+        f"armed: {type(stalled).__name__ if stalled else 'nothing'} raised "
+        f"after {wall:.2f} s ({stalled})")
+    check(stalled is not None and wall < 60, "the stall guard raised")
+
+
+def phase_supervised_rollback(root):
+    """Phase 9d: ``FLAGS_sentinel_action=rollback`` (z-score 6, 2 warm-up
+    windows, healthy after 1 clean window), the weighted llama_125m, 16
+    steps in windows of 4 with checkpoints at steps 8 and 12, and the
+    ``train.spike`` site armed over window 4 (the loss x 1e3: a z-score
+    far past 6 for certain). One rollback, to step 8, in place and bit for
+    bit; the cursor stays past the poisoned batches; 8 more steps
+    finite."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import CheckpointManager, load, set_flags
+    from paddle_tpu_torch.distributed.checkpoint import load_state_dict
+    from paddle_tpu_torch.utils import fault_injection
+
+    set_flags({"FLAGS_sentinel_action": "rollback",
+               "FLAGS_sentinel_warmup_windows": 2,
+               "FLAGS_sentinel_healthy_windows": 1})
+    try:
+        net, step, loader = sup_setup(weighted=True)
+        mgr = CheckpointManager(os.path.join(root, "rollback"),
+                                keep_last_n=2)
+        state = {"w": 0, "cm": None}
+
+        def on_window(win):
+            state["w"] += 1
+            if state["cm"] is not None:
+                state["cm"].__exit__(None, None, None)
+                state["cm"] = None
+            if state["w"] in (2, 3):
+                mgr.save(step.device_metrics()["step_count"], model=net,
+                         optimizer=step, sampler=loader)
+            if state["w"] == 3:
+                state["cm"] = fault_injection.inject("train.spike")
+                state["cm"].__enter__()
+
+        ptrs = [p.data_ptr() for p in net.parameters()]
+        t0 = time.perf_counter()
+        hist = step.drive(loader, steps=4 * SUP_LOG, log_every=SUP_LOG,
+                          checkpoint=mgr, on_window=on_window)
+        wall = time.perf_counter() - t0
+        check(hist["rollbacks"] == 1 and hist["sentinel"]["spikes"] == 1,
+              f"one spike, one rollback ({hist['sentinel']})")
+        check([p.data_ptr() for p in net.parameters()] == ptrs,
+              "the rollback restored the parameters in place")
+        ref = {k: v.detach().cpu().clone()
+               for k, v in net.state_dict().items()}
+        load_state_dict(ref, mgr.step_dir(8))
+        opt = load(os.path.join(mgr.step_dir(8), "optimizer.pdopt"))
+        now = host_state(net, step)
+        same = all(torch.equal(now[0][k], ref[k]) for k in ref) and all(
+            np.array_equal(v, opt[k]) for k, v in now[1].items())
+        cursor = loader.state_dict()["cursor"]
+        check(same and step.device_metrics()["step_count"] == 8
+              and cursor == 16 and mgr.committed_steps() == [8],
+              f"restored step 8 bit for bit ({same}), the cursor at 16 "
+              f"({cursor}), newer checkpoints dropped "
+              f"({mgr.committed_steps()})")
+        after = step.drive(loader, steps=2 * SUP_LOG, log_every=SUP_LOG,
+                           checkpoint=mgr)
+        check(after["rollbacks"] == 0
+              and all(math.isfinite(x) and x < 100 for x in after["loss"])
+              and loader.state_dict()["cursor"] == 24,
+              f"8 more steps finite and unpoisoned {after['loss']}")
+    finally:
+        set_flags({"FLAGS_sentinel_action": "none",
+                   "FLAGS_sentinel_warmup_windows": 3,
+                   "FLAGS_sentinel_healthy_windows": 2})
+    say(f"train-supervised (d) rollback: losses "
+        f"{[round(x, 3) for x in hist['loss']]} then "
+        f"{[round(x, 4) for x in after['loss']]}; rollbacks "
+        f"{hist['rollbacks']} to step 8 in {wall:.2f} s for 16 steps, "
+        f"parameters and moments = checkpoint step 8 bit for bit {same}, "
+        f"data_ptr() kept, cursor 16 (poisoned batches 13-16 not replayed), "
+        f"sentinel {hist['sentinel']}")
+
+
+def supervised_child(root, total):
+    """``chip_smoke.py --supervised-child ROOT TOTAL``: phase 9's stack
+    resumed from ``ROOT/ckpt`` (if committed), trained to ``TOTAL`` steps
+    through ``drive`` with the default heartbeats and SIGTERM handling;
+    prints its start and losses on one line (no result line)."""
+    import torch
+
+    from paddle_tpu_torch import CheckpointManager
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --supervised-child: no CUDA device",
+              file=sys.stderr)
+        return 1
+    net, step, loader = sup_setup()
+    mgr = CheckpointManager(os.path.join(root, "ckpt"), keep_last_n=2)
+    start = mgr.auto_resume(model=net, optimizer=step, sampler=loader) or 0
+    hist = step.drive(loader, steps=total - start, log_every=SUP_LOG,
+                      checkpoint=mgr)
+    say(SUP_CHILD_MARK + json.dumps({"start": start, "loss": hist["loss"]}))
+    return 0
+
+
+def phase_supervised_preemption(root, whole):
+    """Phase 9e: a ``--supervised-child`` with ``PADDLE_HEARTBEAT_DIR`` set
+    gets SIGTERM once a heartbeat shows a step past the first window: it
+    exits 123 with a committed checkpoint; a relaunched child resumes and
+    finishes with the uninterrupted run's losses (9c's) bit for bit."""
+    import signal
+
+    from paddle_tpu_torch import CheckpointManager
+    from paddle_tpu_torch.distributed.launch import heartbeat as hb
+
+    run_root = os.path.join(root, "preempt")
+    hb_dir = os.path.join(run_root, "hb")
+    env = dict(os.environ, PADDLE_HEARTBEAT_DIR=hb_dir, PADDLE_TRAINER_ID="0")
+    cmd = [sys.executable, os.path.abspath(__file__), "--supervised-child",
+           run_root, str(SUP_CHILD_STEPS)]
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        first = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env)
+        procs.append(first)
+        beat = None
+        while time.perf_counter() - t0 < 600 and first.poll() is None:
+            beat = hb.read_all(hb_dir).get("0", {}).get("step")
+            if beat is not None and beat > SUP_LOG:
+                break
+            time.sleep(0.02)
+        check(first.poll() is None and beat is not None and beat > SUP_LOG,
+              f"the child heartbeat a step past the first window ({beat})")
+        first.send_signal(signal.SIGTERM)
+        out1, err1 = first.communicate(timeout=600)
+        t_first = time.perf_counter() - t0
+        saved = CheckpointManager(os.path.join(run_root, "ckpt")) \
+            .latest_valid_step()
+        check(first.returncode == hb.PREEMPT_EXIT_CODE and saved is not None
+              and saved % SUP_LOG == 0 and SUP_LOG < saved < SUP_CHILD_STEPS,
+              f"the child exited {first.returncode} with a committed "
+              f"checkpoint at {saved}: {err1[-2000:]}")
+        t1 = time.perf_counter()
+        second = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True, env=env)
+        procs.append(second)
+        out2, err2 = second.communicate(timeout=600)
+        t_second = time.perf_counter() - t1
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(second.returncode == 0,
+          f"the relaunched child finished: {err2[-2000:]}")
+    line = next(ln for ln in out2.splitlines()
+                if ln.startswith(SUP_CHILD_MARK))
+    res = json.loads(line[len(SUP_CHILD_MARK):])
+    final = hb.read_all(hb_dir)["0"]["step"]
+    quiet = not any('"ok"' in o for o in (out1, out2))
+    say(f"train-supervised (e) preemption: SIGTERM after the heartbeat at "
+        f"step {beat}; the child exited {first.returncode} after "
+        f"{t_first:.1f} s with checkpoint step {saved}; the relaunch "
+        f"resumed at {res['start']}, finished step {final} after "
+        f"{t_second:.1f} s, losses {[round(x, 5) for x in res['loss']]} = "
+        f"uninterrupted {res['loss'] == whole[saved:]}; no result line in "
+        f"the children's output {quiet}")
+    check(res["start"] == saved and final == SUP_CHILD_STEPS
+          and res["loss"] == whole[saved:] and quiet,
+          "the relaunched child resumed and matched the uninterrupted run")
+
+
+def phase_supervised_card_vs_cpu():
+    """Phase 9g: fp32 llama_tiny (weighted loss, AdamW at
+    ``SUP_TINY_LR``) through ``drive`` with prefetch, a checkpoint a
+    window, the ``train.spike`` site over window 4 and a rollback
+    sentinel, 12 steps in windows of 2; then a fresh stack resumed from
+    the newest checkpoint drives 4 more. The card and the CPU give the
+    same losses (rtol) and parameters (atol) at ``TRAIN_*``; a third run,
+    on the CPU from perturbed weights, shows rounding's floor."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import CheckpointManager
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.incubate.sentinel import TrainingSentinel
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
+                                         load_paddle_tpu_state_dict,
+                                         to_numpy_state_dict)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.utils import fault_injection
+
+    cfg = llama_tiny()
+    rng = np.random.RandomState(SEED + 10)
+    shapes = LlamaForCausalLM(cfg, device="cpu").state_dict()
+    state = {k: (np.ones(v.shape, np.float32) if "norm" in k else
+                 (rng.standard_normal(v.shape) * 0.02).astype(np.float32))
+             for k, v in shapes.items()}
+
+    def stack(dev, noise=0.0):
+        model = LlamaForCausalLM(cfg, device=dev)
+        load_paddle_tpu_state_dict(model, state)
+        if noise:
+            gen = torch.Generator().manual_seed(SEED)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + noise * torch.randn(p.shape, generator=gen))
+        net = loss_weighted(model)
+        step = fused_train_step(net, AdamW(
+            learning_rate=SUP_TINY_LR, epsilon=1e-6,
+            parameters=net.parameters()))
+        return net, step, sup_loader(cfg.vocab_size, 24, 64, 2, SEED + 11,
+                                     weighted=True)
+
+    out = {}
+    root = tempfile.mkdtemp(prefix="supervised-tiny-")
+    try:
+        for run, dev, noise in (("cpu", "cpu", 0.0), ("cuda", "cuda", 0.0),
+                                ("floor", "cpu", SUP_TINY_NOISE)):
+            net, step, loader = stack(dev, noise)
+            mgr = CheckpointManager(os.path.join(root, run), keep_last_n=3)
+            sentinel = TrainingSentinel(action="rollback", zscore=4.0,
+                                        warmup_windows=2, ema_beta=0.8,
+                                        healthy_windows=1)
+            st = {"w": 0, "cm": None}
+
+            def on_window(win):
+                mgr.save(step.device_metrics()["step_count"], model=net,
+                         optimizer=step, sampler=loader)
+                st["w"] += 1
+                if st["cm"] is not None:
+                    st["cm"].__exit__(None, None, None)
+                    st["cm"] = None
+                if st["w"] == 3:
+                    st["cm"] = fault_injection.inject("train.spike")
+                    st["cm"].__enter__()
+
+            hist = step.drive(loader, log_every=2, checkpoint=mgr,
+                              on_window=on_window, sentinel=sentinel)
+            net2, step2, loader2 = stack(dev, noise)
+            resumed = mgr.auto_resume(model=net2, optimizer=step2,
+                                      sampler=loader2)
+            more = step2.drive(loader2, steps=4, log_every=2,
+                               sampler=loader2)["loss"]
+            out[run] = (hist["loss"] + more, hist["rollbacks"], resumed,
+                        to_numpy_state_dict(net2))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def param_diff(a, b):
+        return max(float(np.abs(out[a][3][k] - out[b][3][k]).max())
+                   for k in out[b][3])
+
+    lc, lg = out["cpu"][0], out["cuda"][0]
+    dl = max(abs(a / b - 1) for a, b in zip(lg, lc))
+    dp = param_diff("cuda", "cpu")
+    say(f"train-supervised (g) card vs cpu llama_tiny fp32 (AdamW lr "
+        f"{SUP_TINY_LR:g}), 12 steps with a spike window and a rollback, "
+        f"then 4 resumed: rollbacks cuda {out['cuda'][1]} cpu "
+        f"{out['cpu'][1]}, resumed at {out['cuda'][2]}/{out['cpu'][2]}; "
+        f"losses max rel diff {dl:.2e} (tol {TRAIN_LOSS_RTOL:g}); "
+        f"parameters max abs diff {dp:.2e} (tol {TRAIN_PARAM_ATOL:g}); the "
+        f"CPU against itself from weights perturbed by {SUP_TINY_NOISE:g} "
+        f"(rounding's floor) {param_diff('floor', 'cpu'):.2e}")
+    check(out["cuda"][1] == out["cpu"][1] == 1
+          and out["cuda"][2] == out["cpu"][2] and len(lg) == len(lc) == 16
+          and dl <= TRAIN_LOSS_RTOL and dp <= TRAIN_PARAM_ATOL,
+          "card and CPU agree through the supervised loop")
+
+
+def phase_supervised():
+    """Phase 9: the supervised loop (9a-9g) on llama_125m at full width
+    (flash #3-#5) and fp32 llama_tiny; its checkpoints live in a
+    temporary directory removed at the end."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="supervised-")
+    try:
+        stack, ms_ref = timed(phase_supervised_prefetch)
+        timed(phase_supervised_checkpoint, stack, root, ms_ref)
+        del stack
+        free_cuda()
+        whole, stack = timed(phase_supervised_resume, root)
+        timed(phase_supervised_stall, stack)
+        del stack
+        free_cuda()
+        timed(phase_supervised_rollback, root)
+        free_cuda()
+        timed(phase_supervised_preemption, root, whole)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timed(phase_supervised_card_vs_cpu)
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -3243,6 +3874,7 @@ def main():
     timed(phase_dropout_card)
     timed(phase_train_graphs)
     timed(phase_deepfm)
+    timed(phase_supervised)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
@@ -3281,4 +3913,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--supervised-child"]:
+        sys.exit(supervised_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

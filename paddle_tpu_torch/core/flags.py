@@ -8,10 +8,13 @@ registry holds every flag the reference registers, so reference scripts
 that set them keep running.
 
 The port reads ``check_nan_inf_action`` (the fused train step's anomaly
-guard) and ``metric_fetch_interval`` (``FusedTrainStep.drive``'s default
-window) here, and ``jit_compile_warn_threshold`` in :mod:`..jit.cache`.
-The others are registered ``inert=True``: accepted and validated, with
-no effect until the subsystem that reads them is ported.
+guard), ``metric_fetch_interval`` (``FusedTrainStep.drive``'s default
+window), the supervised loop's ``prefetch_depth``, ``step_timeout_s``,
+``ckpt_save_retries`` and ``ckpt_quarantine_keep``, and the ten
+``sentinel_*`` flags of the divergence sentinel here, and
+``jit_compile_warn_threshold`` in :mod:`..jit.cache`. The others are
+registered ``inert=True``: accepted and validated, with no effect until
+the subsystem that reads them is ported.
 ``check_nan_inf`` and ``check_nan_inf_level`` are among them: their
 per-op output scan lives in the reference's eager dispatch layer, which
 the port does not have (ROADMAP Queue 1, item 6), and the reference's
@@ -175,6 +178,69 @@ register_flag(
          "restores per-step fetch)",
     on_change=_validate_positive_int("metric_fetch_interval"))
 
+# checkpoints, prefetch and the stall guard of the supervised loop
+register_flag(
+    "ckpt_save_retries", 3,
+    help="retries for transient OSErrors on checkpoint writes")
+register_flag(
+    "ckpt_quarantine_keep", -1,
+    help="CheckpointManager retention bound on *.replaced.* quarantine "
+         "dirs; -1 keeps all")
+register_flag(
+    "prefetch_depth", 2,
+    help="DevicePrefetcher double-buffer depth, >= 1",
+    on_change=_validate_positive_int("prefetch_depth"))
+register_flag(
+    "step_timeout_s", 0.0,
+    help="in-process stall watchdog around drive's fetch points; 0 "
+         "disables",
+    on_change=_validate_non_negative("step_timeout_s"))
+
+# the divergence sentinel
+register_flag(
+    "sentinel_action", "none",
+    help="divergence-sentinel response to a spike window: none, warn, "
+         "skip, rollback or raise",
+    on_change=_validate_sentinel_action)
+register_flag(
+    "sentinel_zscore", 6.0,
+    help="spike threshold in EMA standard deviations; <= 0 disables")
+register_flag(
+    "sentinel_ema_beta", 0.9,
+    help="EMA decay of the sentinel's window-mean loss statistics",
+    on_change=_validate_unit_interval("sentinel_ema_beta"))
+register_flag(
+    "sentinel_warmup_windows", 3,
+    help="clean windows before the z-score detector arms",
+    on_change=_validate_positive_int("sentinel_warmup_windows"))
+register_flag(
+    "sentinel_grad_norm_ceiling", 0.0,
+    help="ceiling on a window's peak global grad norm; 0 disables",
+    on_change=_validate_non_negative("sentinel_grad_norm_ceiling"))
+register_flag(
+    "sentinel_patience", 0,
+    help="consecutive windows of rising mean loss that make a spike "
+         "verdict; 0 disables",
+    on_change=_validate_non_negative("sentinel_patience"))
+register_flag(
+    "sentinel_rollback_budget", 3,
+    help="rollbacks allowed per budget window",
+    on_change=_validate_positive_int("sentinel_rollback_budget"))
+register_flag(
+    "sentinel_budget_window_s", 3600.0,
+    help="rolling window of the rollback budget; 0 makes it "
+         "lifetime-scoped",
+    on_change=_validate_non_negative("sentinel_budget_window_s"))
+register_flag(
+    "sentinel_lr_cooldown", 1.0,
+    help="LR multiplier applied after each sentinel rollback; 1.0 "
+         "disables",
+    on_change=_validate_unit_interval_inclusive_one)
+register_flag(
+    "sentinel_healthy_windows", 2,
+    help="clean windows past a checkpoint before it is tagged healthy",
+    on_change=_validate_positive_int("sentinel_healthy_windows"))
+
 # ---- inert until their subsystem is ported ----------------------------------
 
 _NOT_PORTED = " (inert: not read by the port yet)"
@@ -191,31 +257,14 @@ register_flag(
     "benchmark", False, inert=True,
     help="block on every eager op (device sync) for per-op timing"
          + _NOT_PORTED)
-register_flag(
-    "ckpt_save_retries", 3, inert=True,
-    help="retries for transient OSErrors on checkpoint writes"
-         + _NOT_PORTED)
-register_flag(
-    "ckpt_quarantine_keep", -1, inert=True,
-    help="CheckpointManager retention bound on *.replaced.* quarantine "
-         "dirs; -1 keeps all" + _NOT_PORTED)
-register_flag(
-    "prefetch_depth", 2, inert=True,
-    help="DevicePrefetcher double-buffer depth, >= 1" + _NOT_PORTED,
-    on_change=_validate_positive_int("prefetch_depth"))
 
-# supervision / elastic restart
+# the launcher's supervision and elastic restart
 register_flag(
     "worker_hang_timeout_s", 0.0, inert=True,
     help="launcher watchdog: restart the worker group when the stalest "
          "heartbeat is older than this many seconds; 0 disables"
          + _NOT_PORTED,
     on_change=_validate_non_negative("worker_hang_timeout_s"))
-register_flag(
-    "step_timeout_s", 0.0, inert=True,
-    help="in-process stall watchdog around drive's fetch points; 0 "
-         "disables" + _NOT_PORTED,
-    on_change=_validate_non_negative("step_timeout_s"))
 register_flag(
     "restart_window_s", 3600.0, inert=True,
     help="rolling window of the launcher's restart budget" + _NOT_PORTED,
@@ -230,55 +279,6 @@ register_flag(
     help="grace period between the launcher's SIGTERM and SIGKILL"
          + _NOT_PORTED,
     on_change=_validate_non_negative("worker_term_grace_s"))
-
-# divergence sentinel
-register_flag(
-    "sentinel_action", "none", inert=True,
-    help="divergence-sentinel response to a spike window: none, warn, "
-         "skip, rollback or raise" + _NOT_PORTED,
-    on_change=_validate_sentinel_action)
-register_flag(
-    "sentinel_zscore", 6.0, inert=True,
-    help="spike threshold in EMA standard deviations; <= 0 disables"
-         + _NOT_PORTED)
-register_flag(
-    "sentinel_ema_beta", 0.9, inert=True,
-    help="EMA decay of the sentinel's window-mean loss statistics"
-         + _NOT_PORTED,
-    on_change=_validate_unit_interval("sentinel_ema_beta"))
-register_flag(
-    "sentinel_warmup_windows", 3, inert=True,
-    help="clean windows before the z-score detector arms" + _NOT_PORTED,
-    on_change=_validate_positive_int("sentinel_warmup_windows"))
-register_flag(
-    "sentinel_grad_norm_ceiling", 0.0, inert=True,
-    help="ceiling on a window's peak global grad norm; 0 disables"
-         + _NOT_PORTED,
-    on_change=_validate_non_negative("sentinel_grad_norm_ceiling"))
-register_flag(
-    "sentinel_patience", 0, inert=True,
-    help="consecutive windows of rising mean loss that make a spike "
-         "verdict; 0 disables" + _NOT_PORTED,
-    on_change=_validate_non_negative("sentinel_patience"))
-register_flag(
-    "sentinel_rollback_budget", 3, inert=True,
-    help="rollbacks allowed per budget window" + _NOT_PORTED,
-    on_change=_validate_positive_int("sentinel_rollback_budget"))
-register_flag(
-    "sentinel_budget_window_s", 3600.0, inert=True,
-    help="rolling window of the rollback budget; 0 makes it "
-         "lifetime-scoped" + _NOT_PORTED,
-    on_change=_validate_non_negative("sentinel_budget_window_s"))
-register_flag(
-    "sentinel_lr_cooldown", 1.0, inert=True,
-    help="LR multiplier applied after each sentinel rollback; 1.0 "
-         "disables" + _NOT_PORTED,
-    on_change=_validate_unit_interval_inclusive_one)
-register_flag(
-    "sentinel_healthy_windows", 2, inert=True,
-    help="clean windows past a checkpoint before it is tagged healthy"
-         + _NOT_PORTED,
-    on_change=_validate_positive_int("sentinel_healthy_windows"))
 
 # the reference's accepted-but-inert flags (allocator, cuDNN knobs)
 for _name, _default in [

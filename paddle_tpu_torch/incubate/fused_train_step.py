@@ -26,8 +26,10 @@ nothing falls back to the eager body. The body does no host sync: the
 learning rate, the loss scale and the bias-correction step count are
 0-d fp32 device tensors that each replay reads anew, and the step count,
 the running loss sum, the skip count and the grad-norm peak live on the
-device (``_acc``, :meth:`device_metrics`). The peak stays 0 until the
-divergence sentinel is ported.
+device (``_acc``, :meth:`device_metrics`). The peak is tracked when
+``drive``'s sentinel asks for it (``TrainingSentinel.wants_grad_norm``):
+like the guard mode, that is a static choice of the program, so a graph
+is captured per (input signature, guard mode, grad-norm tracking).
 
 The guard mode is read from ``FLAGS_check_nan_inf_action`` on every call:
 "off" (no finite check), "flag" (``warn``: the check, the update applied)
@@ -68,15 +70,26 @@ step folds its row gradients into the dense one, and the table takes the
 dense update for good, with the reference's warning. Each signature's
 eager first call finds such a table before anything is captured.
 
-Sharding plans (``plan=``, ROADMAP Queue 1 item 8) and drive's checkpoint,
-sampler, prefetch, heartbeat, preemption, sentinel and chaos hooks are not
-ported yet (ROADMAP Queue 1, item 3).
+``drive`` is the reference's supervised loop: batches staged by an
+:class:`~paddle_tpu_torch.io.DevicePrefetcher`, a resumable sampler
+advanced once per trained batch, checkpoints through a
+:class:`~paddle_tpu_torch.distributed.checkpoint.CheckpointManager`
+(restored in place, so the graphs stay), heartbeats, SIGTERM handled at a
+window boundary (a committed save, exit 123), the stall guard
+(``FLAGS_step_timeout_s``), the divergence sentinel's ladder and the
+reference's fault sites (``train.grad_nan``, ``train.spike``,
+``train.stall``, ``proc.kill``). Sharding plans (``plan=``) and
+multi-process agreement are ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import os
+import signal
 import time
+import types
 import warnings
 
 import numpy as np
@@ -84,8 +97,11 @@ import torch
 
 from ..amp.grad_scaler import unscale_grads_
 from ..core import state
+from ..core.exceptions import stall_guard
 from ..core.flags import flag_value
+from ..distributed.launch import heartbeat as hb
 from ..distributed.ps import SparseEmbedding
+from ..io import DevicePrefetcher, resolve_resumable
 from ..jit import cache as jit_cache
 from ..nn.clip import ClipGradByGlobalNorm
 from ..nn.layer.common import Embedding
@@ -96,8 +112,14 @@ from ..ops.cuda import GraphLaunches
 from ..optimizer.optimizers import (SGD, Adam, AdamW, Momentum, adam_update_,
                                     lazy_adam_rows_, momentum_update_,
                                     sgd_update_)
+from ..utils import fault_injection
+from .sentinel import TrainingSentinel, make_window
 
 __all__ = ["FusedTrainStep", "fused_train_step"]
+
+# how long the train.stall site blocks: long enough that the stall guard
+# (FLAGS_step_timeout_s) or a launcher's heartbeat watchdog must end it
+_STALL_SLEEP_S = 3600.0
 
 # drive() observability, recorded only at window boundaries from values
 # the host already holds; the guard gauges mirror guard_stats()
@@ -106,6 +128,8 @@ _M_TRAIN_STEPS = _obs_metrics.counter(
 _M_TRAIN_SKIPPED = _obs_metrics.counter(
     "train_skipped_steps_total",
     "updates discarded on the device for non-finite loss/grads")
+_M_TRAIN_ROLLBACKS = _obs_metrics.counter(
+    "train_rollbacks_total", "divergence-sentinel rollbacks performed")
 _H_WINDOW_S = _obs_metrics.histogram(
     "train_window_seconds", "wall time of one metric-fetch window",
     buckets=_obs_metrics.DEFAULT_SECONDS_BUCKETS)
@@ -127,23 +151,7 @@ _G_GUARD = {
 # _acc: one fp32 device vector of the step's metrics
 _STEP, _LOSS_SUM, _SKIPS, _GNORM_PEAK = range(4)
 
-
-def _make_window(losses, non_finite=0, step=-1, gnorm_peak=None):
-    """The window dict ``on_window`` gets: the judged ``mean_loss`` is
-    over finite losses only."""
-    losses = np.asarray(losses, np.float32)
-    applied = losses[np.isfinite(losses)]
-    return {"losses": losses,
-            "mean_loss": (float(applied.mean()) if applied.size
-                          else float("nan")),
-            "non_finite": int(non_finite), "step": int(step),
-            "gnorm_peak": gnorm_peak}
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"FusedTrainStep.drive({what}=...) is not ported yet (ROADMAP "
-        "Queue 1, item 3)")
+_END = object()  # the end of drive's batch stream
 
 
 class _Compiled:
@@ -243,8 +251,11 @@ class FusedTrainStep:
         self._m2 = zeros() if self._kind in ("adam", "adamw") else []
         # host mirror of the device step count, exact at window boundaries
         self._step_count = 0
+        # the sentinel's LR cooldown (persisted in state_dict)
         self._lr_scale = 1.0
         self._scaler_fallback_warned = False
+        # the FLAGS_sentinel_action sentinel, kept across drive() calls
+        self._flag_sentinel = None
         # (bias-correction step count, loss sum, skips, grad-norm peak)
         self._acc = torch.zeros(4, dtype=torch.float32, device=dev)
         # the learning rate and loss scale each run reads
@@ -302,12 +313,15 @@ class FusedTrainStep:
             return out[0]
         return out
 
-    def _step_body(self, data, kwdata, lr, scale, guard):
+    def _step_body(self, data, kwdata, lr, scale, guard, track_gnorm=False):
         """One whole step on ``data``/``kwdata`` with the 0-d fp32 tensors
         ``lr`` and ``scale`` under ``guard`` ("off", "flag" or
         "protect"); returns (the unscaled loss, the finite flag or None
-        under "off"), both device tensors. No host sync: the same body
-        runs on the CPU, eagerly on the card and inside a capture."""
+        under "off"), both device tensors. ``track_gnorm`` folds the
+        unscaled, unclipped global gradient norm into the window peak
+        ``_acc[_GNORM_PEAK]`` (a non-finite norm counts 0: that is the
+        guard's domain). No host sync: the same body runs on the CPU,
+        eagerly on the card and inside a capture."""
         for p in self._params:
             p.grad = None
         sparse = list(self._sparse_idx)
@@ -337,8 +351,11 @@ class FusedTrainStep:
                 unscale_grads_(grads + row_vals, inv.reshape(1), found)
                 loss = loss * inv
                 finite = torch.isfinite(loss) & (found[0] == 0)
+            gnorm = None
+            if self._clip_norm is not None or track_gnorm:
+                gnorm = self._global_norm(grads + row_vals)
             if self._clip_norm is not None:
-                self._clip(grads + row_vals)
+                self._clip(grads + row_vals, gnorm)
             acc = self._acc
             step = acc[_STEP] + 1
             protect = finite if guard == "protect" else None
@@ -355,6 +372,10 @@ class FusedTrainStep:
             else:
                 acc[_STEP].add_(1.0)
                 acc[_LOSS_SUM].add_(loss.float())
+            if track_gnorm:
+                peak = acc[_GNORM_PEAK]
+                peak.copy_(torch.maximum(peak, torch.where(
+                    torch.isfinite(gnorm), gnorm, 0.0)))
         return loss, finite
 
     def _row_grads(self, cap, sparse):
@@ -386,13 +407,17 @@ class FusedTrainStep:
                 entry.graph = None
         return rows
 
-    def _clip(self, grads):
-        """The reference fused step's clip, in place: every gradient times
-        min(1, clip_norm / (||g|| + 1e-12)), ||g|| the fp32 norm over all
-        of them (``need_clip`` is not consulted); the factor stays on the
-        device."""
+    @staticmethod
+    def _global_norm(grads):
+        """The fp32 2-norm over all of ``grads``, a 0-d device tensor."""
         norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
-        gnorm = torch.linalg.vector_norm(torch.stack(norms))
+        return torch.linalg.vector_norm(torch.stack(norms))
+
+    def _clip(self, grads, gnorm):
+        """The reference fused step's clip, in place: every gradient times
+        min(1, clip_norm / (``gnorm`` + 1e-12)), ``gnorm`` their global
+        norm (``need_clip`` is not consulted); the factor stays on the
+        device."""
         factor = torch.clamp(self._clip_norm / (gnorm + 1e-12), max=1.0)
         torch._foreach_mul_(grads, factor)
 
@@ -470,9 +495,10 @@ class FusedTrainStep:
         return data, kwdata
 
     @staticmethod
-    def _signature(data, kwdata, guard):
+    def _signature(data, kwdata, guard, track_gnorm):
         """(the shapes, dtypes and devices of the tensor inputs, the
-        keyword names, every other argument, the guard mode)."""
+        keyword names, every other argument, the guard mode, grad-norm
+        tracking)."""
         def leaf(x):
             if isinstance(x, torch.Tensor):
                 return ("tensor", tuple(x.shape), x.dtype, x.device)
@@ -482,17 +508,46 @@ class FusedTrainStep:
 
         return (tuple(leaf(x) for x in data),
                 tuple(sorted((k, leaf(v)) for k, v in kwdata.items())),
-                guard)
+                guard, bool(track_gnorm))
 
-    def _dispatch(self, data, kwdata, guard, scale_val):
+    @staticmethod
+    def _poison_first_float(data, kwdata, fn):
+        """``fn`` applied to the first floating-point input (a new tensor
+        of the same shape and dtype, so the signature stays): the walker
+        of the input-poisoning fault sites."""
+        data = list(data)
+        for i, a in enumerate(data):
+            if isinstance(a, torch.Tensor) and a.is_floating_point():
+                data[i] = fn(a)
+                return tuple(data), kwdata
+        for k in sorted(kwdata):
+            a = kwdata[k]
+            if isinstance(a, torch.Tensor) and a.is_floating_point():
+                return tuple(data), {**kwdata, k: fn(a)}
+        return tuple(data), kwdata
+
+    #: the train.spike site's input scale: finite but huge, invisible to
+    #: the NaN guard, for the sentinel to catch
+    _SPIKE_SCALE = 1e3
+
+    def _dispatch(self, data, kwdata, guard, scale_val, track_gnorm=False):
         """One step: fill the learning rate and the loss scale, pad the
-        inputs, count the compile or hit, then run the body (CPU) or the
-        signature's graph (card). Returns the lazy (loss, finite) device
-        values — no host sync here."""
+        inputs, apply an armed poisoning site (``train.grad_nan``: NaN,
+        ``train.spike``: times 1e3, to the first floating-point input, on
+        the host side before the copy into a graph's static inputs), count
+        the compile or hit, then run the body (CPU) or the signature's
+        graph (card). Returns the lazy (loss, finite) device values — no
+        host sync here."""
         self._lr_dev.fill_(self.optimizer.get_lr() * self._lr_scale)
         self._scale_dev.fill_(scale_val)
         data, kwdata = self._prepare(data, kwdata)
-        key = self._signature(data, kwdata, guard)
+        if fault_injection.should_fire("train.grad_nan"):
+            data, kwdata = self._poison_first_float(
+                data, kwdata, lambda a: torch.full_like(a, float("nan")))
+        if fault_injection.should_fire("train.spike"):
+            data, kwdata = self._poison_first_float(
+                data, kwdata, lambda a: a * self._SPIKE_SCALE)
+        key = self._signature(data, kwdata, guard, track_gnorm)
         entry = self._compiled.get(key)
         if entry is None:
             entry = self._compiled[key] = _Compiled()
@@ -505,8 +560,8 @@ class FusedTrainStep:
             jit_cache.record_hit(self._stats_name)
         if self._device.type != "cuda":
             return self._step_body(data, kwdata, self._lr_dev,
-                                   self._scale_dev, guard)
-        return self._run_graph(entry, data, kwdata, guard)
+                                   self._scale_dev, guard, track_gnorm)
+        return self._run_graph(entry, data, kwdata, guard, track_gnorm)
 
     def _ptrs(self):
         """The addresses a graph reads: parameters, accumulators, the
@@ -515,7 +570,7 @@ class FusedTrainStep:
             *self._params, *self._m1, *self._m2, self._acc, self._lr_dev,
             self._scale_dev))
 
-    def _run_graph(self, entry, data, kwdata, guard):
+    def _run_graph(self, entry, data, kwdata, guard, track_gnorm):
         dev = self._device
         current = torch.cuda.current_stream(dev)
         if self._stream is None:
@@ -525,12 +580,13 @@ class FusedTrainStep:
             side.wait_stream(current)
             with torch.cuda.stream(side):
                 loss, finite = self._step_body(data, kwdata, self._lr_dev,
-                                               self._scale_dev, guard)
+                                               self._scale_dev, guard,
+                                               track_gnorm)
             current.wait_stream(side)
             entry.warm = True
             return loss, finite
         if entry.graph is None or entry.ptrs != self._ptrs():
-            self._capture(entry, data, kwdata, guard)
+            self._capture(entry, data, kwdata, guard, track_gnorm)
         else:
             for dst, src in zip(entry.args, data):
                 if isinstance(dst, torch.Tensor):
@@ -545,7 +601,7 @@ class FusedTrainStep:
         return (entry.loss.clone(),
                 None if entry.finite is None else entry.finite.clone())
 
-    def _capture(self, entry, data, kwdata, guard):
+    def _capture(self, entry, data, kwdata, guard, track_gnorm):
         """Capture the body for ``entry``'s signature into a CUDA graph
         whose static inputs hold ``data``/``kwdata``; the graph shares the
         step's memory pool and is not replayed here. Graphs sharing a pool
@@ -569,7 +625,7 @@ class FusedTrainStep:
                 graph, pool=self._pool, stream=self._stream):
             entry.loss, entry.finite = self._step_body(
                 entry.args, entry.kwargs, self._lr_dev, self._scale_dev,
-                guard)
+                guard, track_gnorm)
         if self._pool is None:
             self._pool = graph.pool()
         entry.graph = graph
@@ -635,7 +691,8 @@ class FusedTrainStep:
         """The device accumulators, fetched in one host sync:
         ``{"step_count", "loss_sum", "skipped", "gnorm_peak"}``. ``loss_sum``
         sums the applied steps' losses (skipped steps excluded under
-        "protect"); ``gnorm_peak`` is 0 until the sentinel is ported."""
+        "protect"); ``gnorm_peak`` is the peak global gradient norm since
+        the last window boundary while a sentinel tracks it, else 0."""
         vals = self._acc.tolist()
         return {"step_count": int(vals[_STEP]),
                 "loss_sum": float(vals[_LOSS_SUM]),
@@ -674,7 +731,10 @@ class FusedTrainStep:
             sd["lr_sched"] = sched.state_dict()
         for prefix, store in (("m1", self._m1), ("m2", self._m2)):
             for n, m in zip(self._names, store):
-                sd[f"{prefix}.{n}"] = m.detach().cpu().numpy()
+                # a copy on the CPU too: an async checkpoint writes it
+                # after later steps updated the moments in place
+                sd[f"{prefix}.{n}"] = m.detach().to(
+                    "cpu", copy=True).numpy()
         return sd
 
     def set_state_dict(self, sd):
@@ -762,59 +822,176 @@ class FusedTrainStep:
 
     def drive(self, data, steps=None, log_every=None, prefetch=None,
               prefetch_depth=None, on_window=None, checkpoint=None,
-              sampler=None, heartbeat=None, handle_preemption=None,
+              sampler=None, heartbeat=True, handle_preemption=True,
               sentinel=None, metrics_every=None):
         """Run steps back to back over the batches of ``data`` (at most
         ``steps``) with no per-step host sync: every ``log_every`` steps
         (default ``FLAGS_metric_fetch_interval``) and at the end, the
-        window's losses and finite flags come to the host in one stacked
-        sync and the guard's bookkeeping (warn and skip counters,
-        ``raise``) is replayed there. Skipped updates were already
-        discarded on the device, so the trajectory equals per-step calls'.
-        The guard mode is read once, at the start. An enabled
-        ``GradScaler`` needs each step's flag before the next step's
-        scale, so it forces per-step fetch (``scaler_fallbacks`` in
-        ``jit.cache_stats``, one warning per step instance). An LR
-        scheduler advances every step, skipped ones too (their flag is
-        not on the host until the boundary). ``on_window(window)`` runs at
-        each boundary; ``metrics_every`` thins the registry updates
-        (``train_steps_total``, ``train_skipped_steps_total``,
-        ``train_window_seconds``, ``train_items_per_sec``, the guard
-        gauges) to boundaries at least that many steps apart, 0 turns them
-        off. Returns ``{"steps", "loss" (per-step floats), "skipped",
-        "windows", "host_syncs", "log_every", "deferred"}``. ``prefetch``,
-        ``prefetch_depth``, ``checkpoint``, ``sampler``, ``heartbeat``,
-        ``handle_preemption`` and ``sentinel`` raise
-        ``NotImplementedError`` when given (``False`` for the flags)."""
-        for name, value in (("prefetch", prefetch), ("heartbeat", heartbeat),
-                            ("handle_preemption", handle_preemption)):
-            if value:
-                raise _not_ported(name)
-        for name, value in (("prefetch_depth", prefetch_depth),
-                            ("checkpoint", checkpoint), ("sampler", sampler),
-                            ("sentinel", sentinel)):
-            if value is not None:
-                raise _not_ported(name)
+        window's losses and finite flags (and, for the sentinel, the
+        grad-norm peak) come to the host in one stacked sync and the
+        guard's bookkeeping (warn and skip counters, ``raise``) is
+        replayed there. Skipped updates were already discarded on the
+        device, so the trajectory equals per-step calls'. The guard mode is
+        read once, at the start. An enabled ``GradScaler`` needs each
+        step's flag before the next step's scale, so it forces per-step
+        fetch (``scaler_fallbacks`` in ``jit.cache_stats``, one warning per
+        step instance). An LR scheduler advances every step, skipped ones
+        too. ``on_window(window)`` runs at each boundary (the place to
+        checkpoint); ``metrics_every`` thins the registry updates to
+        boundaries at least that many steps apart, 0 turns them off.
+
+        Supervision, as the reference's:
+
+        - **Prefetch** (``prefetch=None``: on unless ``data`` is a
+          ``DevicePrefetcher``): batches are staged by a
+          :class:`~paddle_tpu_torch.io.DevicePrefetcher` of depth
+          ``prefetch_depth`` with this step's buckets; a one-shot source
+          is capped at ``steps`` unless a rollback is armed.
+        - **Resumable data** (``sampler=``, or found under ``data`` when
+          ``checkpoint`` is given): one ``advance(1)`` per trained batch,
+          so a checkpoint at a window boundary resumes the exact remaining
+          batch sequence (read-ahead never moves the cursor).
+        - **Heartbeats** (``heartbeat=True``): with ``PADDLE_HEARTBEAT_DIR``
+          set, one at the start and one per window boundary.
+        - **Preemption** (``handle_preemption=True``): SIGTERM is recorded;
+          the loop stops at the next window boundary, saves a committed
+          checkpoint through ``checkpoint`` (model, this step's state, the
+          sampler's cursor) and raises ``SystemExit(123)``.
+        - **Stall guard** (``FLAGS_step_timeout_s`` > 0): the batch fetch
+          and the window fetch raise
+          :class:`~paddle_tpu_torch.core.exceptions.TrainStallError` past
+          the timeout.
+        - **Divergence sentinel** (``sentinel=``, or
+          ``FLAGS_sentinel_action`` != "none": one flag-made
+          :class:`~paddle_tpu_torch.incubate.sentinel.TrainingSentinel`
+          kept across drives): every window is judged (host arithmetic on
+          the fetched values); on a spike ``warn`` warns, ``skip`` also
+          drops the next window of batches, ``rollback`` restores
+          ``checkpoint.latest_healthy_step()`` in place (the cursor stays
+          past the poisoned batches, which are never replayed), applies
+          ``FLAGS_sentinel_lr_cooldown``, drops newer checkpoints and
+          restarts the stream, within the rollback budget; ``raise``
+          raises ``TrainDivergenceError``. Each clean window credits the
+          committed checkpoints toward HEALTHY (``note_window``).
+
+        Returns ``{"steps", "loss" (per-step floats), "skipped",
+        "windows", "host_syncs", "log_every", "deferred", "prefetch" (the
+        prefetcher's ``stats()`` or None), "rollbacks",
+        "skipped_windows", "sentinel" (its ``stats()`` or None)}``."""
         if log_every is None:
             log_every = int(flag_value("metric_fetch_interval", 10))
         log_every = max(1, int(log_every))
+        sentinel = self._armed_sentinel(sentinel)
+        rollback_armed = (sentinel is not None
+                          and sentinel.action == "rollback")
+        stream, made = data, None
+        if prefetch is None:
+            prefetch = not isinstance(data, DevicePrefetcher)
+        if prefetch and not isinstance(data, DevicePrefetcher):
+            # cap a one-shot source at steps, or the thread's read-ahead
+            # takes batches its owner still wants; a rollback needs the
+            # source re-iterable from the restored cursor instead
+            source = (itertools.islice(iter(data), steps)
+                      if steps is not None and not rollback_armed else data)
+            made = stream = DevicePrefetcher(
+                source, depth=prefetch_depth,
+                shape_buckets=self._shape_buckets,
+                bucket_args=self._bucket_args,
+                name=f"{self._stats_name}.prefetch", device=self._device)
+        resumable = None
+        if sampler is not None or checkpoint is not None:
+            resumable = resolve_resumable(
+                sampler if sampler is not None else data)
+            if sampler is not None and resumable is None:
+                raise TypeError(
+                    f"sampler={type(sampler).__name__} is not a resumable "
+                    "stream: it must expose (or wrap something exposing) "
+                    "state_dict/set_state_dict/advance")
         hist = {"steps": 0, "loss": [], "skipped": 0, "windows": 0,
-                "host_syncs": 0, "log_every": log_every, "deferred": True}
-        obs = {"every": (None if metrics_every is None
-                         else max(0, int(metrics_every))),
-               "steps": 0, "bad": 0, "items_per_step": None,
-               "t0": time.perf_counter()}
+                "host_syncs": 0, "log_every": log_every, "deferred": True,
+                "prefetch": None, "rollbacks": 0, "skipped_windows": 0,
+                "sentinel": None}
+        run = types.SimpleNamespace(
+            stream=stream, steps=steps, log_every=log_every,
+            on_window=on_window, checkpoint=checkpoint,
+            resumable=resumable, heartbeat=heartbeat, sentinel=sentinel,
+            timeout=float(flag_value("step_timeout_s", 0) or 0), hist=hist,
+            obs={"every": (None if metrics_every is None
+                           else max(0, int(metrics_every))),
+                 "steps": 0, "bad": 0, "items_per_step": None,
+                 "t0": time.perf_counter()})
         scaler = (self._scaler if self._scaler is not None
                   and self._scaler.is_enable() else None)
-        if scaler is not None:
-            return self._drive_per_step(data, steps, log_every, on_window,
-                                        hist, obs)
+        with hb.trap_preemption(enable=handle_preemption) as preempt:
+            if heartbeat:
+                hb.write(step=self._step_count)
+            try:
+                if scaler is not None:
+                    self._drive_per_step(run, preempt, scaler)
+                else:
+                    self._drive_deferred(run, preempt)
+            finally:
+                self._publish_window_obs(run.obs, time.perf_counter())
+                if made is not None:
+                    made.close()
+                    hist["prefetch"] = made.stats()
+            if preempt.triggered:
+                self._preempt_exit(checkpoint, resumable, heartbeat)
+        if sentinel is not None:
+            hist["sentinel"] = sentinel.stats()
+        return hist
+
+    def _armed_sentinel(self, sentinel):
+        """The sentinel a drive judges by: an explicit armed one, else the
+        ``FLAGS_sentinel_action`` one (made once and kept, so an epoch
+        loop of drives accumulates its budget and baseline), else None."""
+        if sentinel is not None:
+            return sentinel if sentinel.armed else None
+        action = str(flag_value("sentinel_action", "none"))
+        if action == "none":
+            return None
+        if (self._flag_sentinel is None
+                or self._flag_sentinel.action != action):
+            self._flag_sentinel = TrainingSentinel()
+        return self._flag_sentinel
+
+    def _next_batch(self, it, run):
+        """The next batch of ``it``, or ``_END``, under the stall guard;
+        the ``proc.kill`` and ``train.stall`` sites sit here."""
+        if fault_injection.should_fire("proc.kill"):
+            # chaos site: the OOM killer or a lost node, at this step
+            os.kill(os.getpid(), signal.SIGKILL)
+        try:
+            with stall_guard(run.timeout, "batch fetch after step "
+                             f"{run.hist['steps']}"):
+                if fault_injection.should_fire("train.stall"):
+                    time.sleep(_STALL_SLEEP_S)
+                return next(it)
+        except StopIteration:
+            return _END
+
+    def _judge(self, win, run, it, scaler=None):
+        """The sentinel's ladder on one window (a span of its own);
+        returns the stream's replacement iterator or None."""
+        with _obs_trace.span("train.sentinel", cat="train",
+                             args={"instance": self._stats_name}):
+            return self._sentinel_check(run.sentinel, win, run.hist,
+                                        run.checkpoint, run.resumable,
+                                        run.stream, it, run.log_every,
+                                        scaler=scaler)
+
+    def _drive_deferred(self, run, preempt):
+        """``drive``'s loop with deferred window fetch."""
         action = str(flag_value("check_nan_inf_action", "none"))
         protect = action in ("skip", "raise")
         guard = "protect" if protect else ("flag" if action != "none"
                                            else "off")
+        # a static choice of the program, like the guard mode
+        track_gnorm = bool(run.sentinel is not None
+                           and run.sentinel.wants_grad_norm())
         sched = (self.optimizer._learning_rate if self._step_lr_scheduler
                  else None)
+        hist, obs = run.hist, run.obs
         window = []
         start_ns = time.perf_counter_ns()
 
@@ -824,7 +1001,8 @@ class FusedTrainStep:
                 "train.dispatch", start_ns, time.perf_counter_ns(),
                 cat="train", args={"instance": self._stats_name,
                                    "steps": len(buf)})
-            win = self._flush_window(buf, action, protect, hist, on_window)
+            win = self._flush_window(buf, action, protect, hist,
+                                     run.on_window, run.timeout, track_gnorm)
             now_ns = time.perf_counter_ns()
             _obs_trace.add_complete(
                 "train.window", start_ns, now_ns, cat="train",
@@ -833,40 +1011,59 @@ class FusedTrainStep:
             start_ns = now_ns
             self._record_window_obs(obs, len(buf), win["non_finite"],
                                     time.perf_counter())
+            if run.heartbeat:
+                hb.write(step=self._step_count)
+            return win
 
         try:
-            for batch in data:
-                if steps is not None and hist["steps"] >= steps:
+            it = iter(run.stream)
+            # the count is checked before pulling: a one-shot iterator
+            # keeps its remaining batches when steps caps the run
+            while run.steps is None or hist["steps"] < run.steps:
+                if preempt.triggered and not window:
+                    break  # stop at a window boundary only
+                batch = self._next_batch(it, run)
+                if batch is _END:
                     break
                 args, kw = self._call_form(batch)
                 if obs["items_per_step"] is None:
                     obs["items_per_step"] = self._batch_items(args, kw)
                 self._step_count += 1
                 self._guard["total"] += 1
-                window.append(self._dispatch(args, kw, guard, 1.0))
+                window.append(self._dispatch(args, kw, guard, 1.0,
+                                             track_gnorm))
+                if run.resumable is not None:
+                    run.resumable.advance(1)
                 hist["steps"] += 1
                 if hasattr(sched, "step"):
                     sched.step()
-                if len(window) >= log_every:
+                if len(window) >= run.log_every:
                     # swap before flushing: a raising flush must not be
                     # replayed by the trailing flush
                     full, window = window, []
-                    flush(full)
+                    win = flush(full)
+                    if run.sentinel is not None:
+                        new_it = self._judge(win, run, it)
+                        if new_it is not None:
+                            it = new_it
             if window:
-                flush(window)
+                win = flush(window)
+                if run.sentinel is not None:
+                    # no stream left to rewind or skip: a rollback
+                    # restores the state for the next drive
+                    self._judge(win, run, None)
         except BaseException:
             if protect:
                 # the unfetched window's flags are lost: resync the host
                 # mirrors from the device accumulators
                 self.guard_stats(sync=True)
             raise
-        finally:
-            self._publish_window_obs(obs, time.perf_counter())
-        return hist
 
-    def _drive_per_step(self, data, steps, log_every, on_window, hist, obs):
-        """``drive`` under an enabled scaler: one call and one loss fetch a
-        step, windows for ``on_window`` and the metrics only."""
+    def _drive_per_step(self, run, preempt, scaler):
+        """``drive``'s loop under an enabled scaler: one call and one loss
+        fetch a step; windows for ``on_window``, heartbeats, the sentinel
+        and the metrics."""
+        hist, obs = run.hist, run.obs
         hist["deferred"] = False
         jit_cache.record_scaler_fallback(self._stats_name)
         if not self._scaler_fallback_warned:
@@ -883,52 +1080,178 @@ class FusedTrainStep:
                 RuntimeWarning, stacklevel=3)
         skipped_before = self._guard["skipped"]
         win_start, win_skips = 0, self._guard["skipped"]
+        it = iter(run.stream)
 
-        def window_end():
-            nonlocal win_start, win_skips
+        def window_end(final=False):
+            nonlocal win_start, win_skips, it
             hist["windows"] += 1
             n_bad = self._guard["skipped"] - win_skips
-            win = _make_window(hist["loss"][win_start:], non_finite=n_bad,
-                               step=hist["steps"])
+            win = make_window(hist["loss"][win_start:], non_finite=n_bad,
+                              step=hist["steps"])
             self._record_window_obs(obs, len(hist["loss"]) - win_start,
                                     n_bad, time.perf_counter())
-            if on_window is not None:
-                on_window(win)
+            if run.on_window is not None:
+                run.on_window(win)
             win_start = len(hist["loss"])
             win_skips = self._guard["skipped"]
+            if run.heartbeat:
+                hb.write(step=self._step_count)
+            if run.sentinel is not None:
+                new_it = self._judge(win, run, None if final else it,
+                                     scaler=scaler)
+                if new_it is not None:
+                    it = new_it
 
-        try:
-            for batch in data:
-                if steps is not None and hist["steps"] >= steps:
-                    break
-                args, kw = self._call_form(batch)
-                if obs["items_per_step"] is None:
-                    obs["items_per_step"] = self._batch_items(args, kw)
-                loss = self(*args, **kw)
-                hist["steps"] += 1
+        while run.steps is None or hist["steps"] < run.steps:
+            if preempt.triggered and len(hist["loss"]) == win_start:
+                break  # window boundary
+            batch = self._next_batch(it, run)
+            if batch is _END:
+                break
+            args, kw = self._call_form(batch)
+            if obs["items_per_step"] is None:
+                obs["items_per_step"] = self._batch_items(args, kw)
+            loss = self(*args, **kw)
+            if run.resumable is not None:
+                run.resumable.advance(1)
+            hist["steps"] += 1
+            with stall_guard(run.timeout, "loss fetch"):
                 hist["loss"].append(float(loss))
-                hist["host_syncs"] += 2  # finite flag + loss
-                if hist["steps"] % log_every == 0:
-                    window_end()
-            if len(hist["loss"]) > win_start:
+            hist["host_syncs"] += 2  # finite flag + loss
+            if hist["steps"] % run.log_every == 0:
                 window_end()
-            hist["skipped"] = self._guard["skipped"] - skipped_before
-        finally:
-            self._publish_window_obs(obs, time.perf_counter())
-        return hist
+        if len(hist["loss"]) > win_start:
+            window_end(final=True)
+        hist["skipped"] = self._guard["skipped"] - skipped_before
 
-    def _flush_window(self, window, action, protect, hist, on_window):
-        """Fetch one deferred window in one host sync (losses and, under
-        the guard, the finite flags stacked together) and replay the
-        per-step guard bookkeeping. Returns the window dict."""
-        with _obs_trace.span("train.fetch", cat="train",
-                             args={"instance": self._stats_name,
-                                   "steps": len(window)}):
+    def _preempt_exit(self, checkpoint, resumable, heartbeat):
+        """After a SIGTERM, at a window boundary (the cursor exact): one
+        committed checkpoint (model, this step's state, the cursor), a
+        last heartbeat, and ``SystemExit(123)``, which a supervisor
+        relaunches without spending its restart budget."""
+        if checkpoint is not None:
+            step_now = self.device_metrics()["step_count"]
+            checkpoint.save(step_now, model=self.model, optimizer=self,
+                            sampler=resumable)
+            checkpoint.wait()  # an async save must land before the exit
+        else:
+            warnings.warn(
+                "preempted without checkpoint=: exiting "
+                f"{hb.PREEMPT_EXIT_CODE} (budget-free relaunch) but drive "
+                "saved NOTHING — progress since your last own checkpoint "
+                "(e.g. from on_window) will be retrained after the "
+                "relaunch", RuntimeWarning, stacklevel=3)
+        if heartbeat:
+            hb.write(step=self._step_count)
+        raise SystemExit(hb.PREEMPT_EXIT_CODE)
+
+    def _sentinel_check(self, sentinel, win, hist, checkpoint, resumable,
+                        stream, it, log_every, scaler=None):
+        """Judge one fetched window and run the response ladder. Returns
+        a replacement batch iterator when the response skipped or rewound
+        the stream, else None."""
+        verdict = sentinel.observe(win)
+        spiked = sentinel.agree_verdict(verdict["verdict"] == "spike")
+        # every clean window credits the committed checkpoints; a bad one
+        # resets their counts (healthy after k clean windows beyond it)
+        if checkpoint is not None:
+            checkpoint.note_window(clean=not spiked,
+                                   k=sentinel.healthy_windows)
+        if not spiked:
+            return None
+        why, where = sentinel.describe(verdict)
+        if sentinel.action == "raise":
+            sentinel.raise_divergence(
+                f"divergence detected ({why}) at {where}")
+        warnings.warn(
+            f"divergence sentinel: spike verdict ({why}) at {where} — "
+            f"responding with FLAGS_sentinel_action={sentinel.action}",
+            RuntimeWarning, stacklevel=5)
+        if sentinel.action == "warn":
+            return None
+        if sentinel.action == "skip":
+            # drop the NEXT window of batches untrained (consumed: the
+            # cursor moves over them); the spiked window stays applied
+            if it is None:
+                return None
+            dropped = 0
+            with stall_guard(float(flag_value("step_timeout_s", 0) or 0),
+                             "sentinel skip-window drain"):
+                for _ in range(log_every):
+                    if next(it, _END) is _END:
+                        break
+                    dropped += 1
+                    if resumable is not None:
+                        resumable.advance(1)
+            if dropped:
+                hist["skipped_windows"] += 1
+            return it if dropped else None
+        # rollback: restore the last HEALTHY checkpoint; the cursor stays
+        # past every batch consumed since, the poisoned ones included
+        if checkpoint is None or resumable is None:
+            sentinel.raise_divergence(
+                "FLAGS_sentinel_action=rollback needs drive(checkpoint=a "
+                "CheckpointManager, sampler=/data=a resumable stream); "
+                f"got checkpoint={type(checkpoint).__name__}, "
+                f"resumable={type(resumable).__name__}")
+        healthy = checkpoint.latest_healthy_step()
+        admit = sentinel.agree_rollback(healthy)
+        if healthy is None:
+            sentinel.raise_divergence(
+                "no HEALTHY checkpoint to roll back to (a step is tagged "
+                "healthy only after FLAGS_sentinel_healthy_windows clean "
+                "windows pass beyond it — the spike hit before any "
+                "checkpoint earned the tag)")
+        sentinel.acquire_rollback(admit=admit)  # raises on exhaustion
+        pre_scale = self._lr_scale
+        # in place: the parameters and moments keep their data_ptr()s,
+        # so the captured graphs stay valid
+        checkpoint.auto_resume(model=self.model, optimizer=self,
+                               scaler=scaler, step=healthy)
+        checkpoint.drop_steps_after(healthy)
+        if sentinel.lr_cooldown < 1.0:
+            # compounds over repeated rollbacks to the same checkpoint
+            self._lr_scale = pre_scale * sentinel.lr_cooldown
+        # the rewound trajectory sits higher: re-baseline, or the rollback
+        # reads as the next spike
+        sentinel.notify_rollback()
+        hist["rollbacks"] += 1
+        _M_TRAIN_ROLLBACKS.inc(instance=self._stats_name)
+        if it is None:
+            return None
+        # drop the read-ahead staged past the rollback point and start a
+        # fresh pass from the (untouched) cursor
+        if hasattr(stream, "reset"):
+            stream.reset()
+        new_it = iter(stream)
+        if new_it is it:
+            sentinel.raise_divergence(
+                "rollback needs a re-iterable batch stream (a DataLoader "
+                "or DevicePrefetcher), got a bare one-shot iterator")
+        return new_it
+
+    def _flush_window(self, window, action, protect, hist, on_window,
+                      stall_timeout=0, track_gnorm=False):
+        """Fetch one deferred window in one host sync (losses, under the
+        guard the finite flags, with ``track_gnorm`` the grad-norm peak,
+        stacked together; the device peak is zeroed for the next window)
+        under the stall guard, and replay the per-step guard bookkeeping.
+        ``on_window`` runs outside the guard. Returns the window dict."""
+        with stall_guard(stall_timeout, "window metric fetch"), \
+                _obs_trace.span("train.fetch", cat="train",
+                                args={"instance": self._stats_name,
+                                      "steps": len(window)}):
             vals = [loss.float() for loss, _ in window]
             if action != "none":
                 vals += [finite.float() for _, finite in window]
+            if track_gnorm:
+                vals.append(self._acc[_GNORM_PEAK])
             fetched = torch.stack(vals).tolist()
             hist["host_syncs"] += 1
+            gnorm_peak = None
+            if track_gnorm:
+                gnorm_peak = fetched.pop()
+                self._acc[_GNORM_PEAK].zero_()
         losses = fetched[:len(window)]
         n_bad = 0
         if action != "none":
@@ -948,12 +1271,13 @@ class FusedTrainStep:
                     f"non-finite loss/grads on {n_bad} step(s) in the last "
                     f"{len(window)}-step window — updates applied anyway "
                     "(FLAGS_check_nan_inf_action=warn, deferred fetch)",
-                    stacklevel=4)
+                    stacklevel=5)
         hist["loss"].extend(losses)
         if protect:
             hist["skipped"] += n_bad
         hist["windows"] += 1
-        win = _make_window(losses, non_finite=n_bad, step=hist["steps"])
+        win = make_window(losses, non_finite=n_bad, step=hist["steps"],
+                          gnorm_peak=gnorm_peak)
         if on_window is not None:
             on_window(win)
         if n_bad and action == "raise":

@@ -24,8 +24,18 @@ from paddle_tpu_torch.core import flags as port_flags
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REGISTRIES = {"jax": (jax_flags, paddle_tpu), "port": (port_flags,
                                                        paddle_tpu_torch)}
-READ_BY_THE_PORT = {"check_nan_inf_action", "metric_fetch_interval",
-                    "jit_compile_warn_threshold"}
+READ_BY_THE_PORT = {
+    "check_nan_inf_action", "metric_fetch_interval",
+    "jit_compile_warn_threshold",
+    # the supervised loop: prefetcher, stall guard, checkpoint writes
+    "prefetch_depth", "step_timeout_s", "ckpt_save_retries",
+    "ckpt_quarantine_keep",
+    # the divergence sentinel
+    "sentinel_action", "sentinel_zscore", "sentinel_ema_beta",
+    "sentinel_warmup_windows", "sentinel_grad_norm_ceiling",
+    "sentinel_patience", "sentinel_rollback_budget",
+    "sentinel_budget_window_s", "sentinel_lr_cooldown",
+    "sentinel_healthy_windows"}
 
 # (flag, a value its validator rejects, a value it takes)
 VALIDATED = [

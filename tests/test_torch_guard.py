@@ -37,6 +37,14 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.distributed.ps\n"
             "import paddle_tpu_torch.distributed.compat\n"
             "import paddle_tpu_torch.models.deepfm\n"
+            "import paddle_tpu_torch.io\n"
+            "import paddle_tpu_torch.framework\n"
+            "import paddle_tpu_torch.distributed.checkpoint\n"
+            "import paddle_tpu_torch.distributed.launch.heartbeat\n"
+            "import paddle_tpu_torch.incubate.sentinel\n"
+            "import paddle_tpu_torch.utils.retry\n"
+            "import paddle_tpu_torch.utils.fault_injection\n"
+            "import paddle_tpu_torch.core.exceptions\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"
