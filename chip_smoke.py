@@ -128,9 +128,35 @@ Phases, one printed line per result:
    three lazy steps, under ``skip`` with a NaN batch (tables and moments
    bit for bit across it), with a global-norm clip; the eager lazy Adam
    on a ``SparseEmbedding``; a table read outside its lookup (warns,
-   trains dense on both).
+   trains dense on both);
+9. the supervised loop (``drive``) on llama_125m: prefetch, checkpoints,
+   resume, rollback, preemption, the stall guard; then (9g) fp32
+   llama_tiny on the card against the CPU at AdamW lr 1e-4 and 1e-3,
+   each beside each device's rounding floor (its run from weights
+   perturbed by 1e-7), the card-vs-CPU parameter difference within 2x
+   the larger floor (and within 1e-5 at lr 1e-4);
+10. serving artifacts on llama_1b, phase 4's eight prompts zero-padded
+   to 1536, windows of 8, artifacts in ``TMPDIR``: (a) a bf16 artifact
+   saved and served by ``create_predictor`` under
+   ``set_default_dtype("bfloat16")``, tokens equal an engine over the
+   in-memory model bit for bit, #1/#2 launches equal to the profiler's;
+   (b) ``reload_weights`` from the artifact and from a
+   ``CheckpointManager`` after poisoning the embedding: tokens restored
+   bit for bit, every ``data_ptr()`` kept, the captured window graph the
+   same and still replaying; (c) an fp32 model saved with
+   ``quantize="int8"`` (sampled codes equal to numpy's), served over an
+   int8 KV pool: llama_tiny's first-token logits within the reference's
+   0.08 of its fp32 model's, llama_1b's error and token agreement
+   reported, the loaded llama_1b artifact's logits on the card equal to
+   the CPU's plain forward of the same file within 1e-4, a reload bit for
+   bit; (d) PTQ on llama_125m
+   fp32: the converted logits equal the fake-quant simulation's within
+   2e-4 and its int8 codes the CPU's bit for bit.
 
-Then one JSON line with every kernel's numbers, the card line, and last
+Then one JSON line with every kernel's numbers (``launches`` from the
+run named in the phase that returns them; #1 and #2 also
+``launches_phase10``, the count of each of 10a's and 10c's predictor
+runs), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 1.
 """
@@ -1076,18 +1102,7 @@ def serve_run(model, prompts, new, label, profile=True, **engine_kw):
             f"serve {label} (same batch again)",
             mark=("paged_decode", "paged_multiquery"))
     if prof is not None:
-        launched = K.launch_counts()
-        for kernels, wrapper in (
-                (("paged_decode_split_kernel",),
-                 "paged_decode_attention_cuda"),
-                (MQ_KERNELS, "paged_multiquery_attention_cuda")):
-            seen = sum(n for name, (_, n) in prof["kernels"].items()
-                       if any(k in name for k in kernels))
-            say(f"serve {label}: profiler saw {seen} {'/'.join(kernels)} "
-                f"launches, the wrapper counted {launched[wrapper]}")
-            check(seen == launched[wrapper] and seen > 0,
-                  f"{wrapper} launches {launched[wrapper]} == profiler's "
-                  f"{seen}")
+        check_profiled_launches(prof, K.launch_counts(), f"serve {label}")
     engine.close()
     t_life = time.perf_counter() - t_life
     L = model.config.num_hidden_layers
@@ -1130,6 +1145,31 @@ def serve_run(model, prompts, new, label, profile=True, **engine_kw):
     return outs, wall, counts, m, prof
 
 
+def serve_prompts(vocab):
+    """Phase 4's eight greedy prompts (430-1536 tokens, int32)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 2)
+    rng.randint(0, vocab, 64)   # the warm-up prompt's draw
+    lens = rng.randint(64, 1537, 8)
+    lens[0] = 1536
+    return [rng.randint(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def check_profiled_launches(prof, launched, label):
+    """The paged kernels' launches the wrappers counted over a profiled
+    run (``launched``) equal the profiler's count of their kernels."""
+    for kernels, wrapper in (
+            (("paged_decode_split_kernel",), "paged_decode_attention_cuda"),
+            (MQ_KERNELS, "paged_multiquery_attention_cuda")):
+        seen = sum(n for name, (_, n) in prof["kernels"].items()
+                   if any(k in name for k in kernels))
+        say(f"{label}: profiler saw {seen} {'/'.join(kernels)} launches, "
+            f"the wrapper counted {launched[wrapper]}")
+        check(seen == launched[wrapper] and seen > 0,
+              f"{wrapper} launches {launched[wrapper]} == profiler's {seen}")
+
+
 def same_share(outs, ref):
     """Share of requests whose tokens equal ``ref``'s."""
     return sum(bool((a == b).all()) for a, b in zip(outs, ref)) / len(ref)
@@ -1156,12 +1196,7 @@ def phase_serve():
     n_params = sum(p.numel() for p in model.parameters())
     say(f"serve setup: llama_1b bf16 ({n_params} params) + 2048-block "
         f"pool in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.RandomState(SEED + 2)
-    rng.randint(0, cfg.vocab_size, 64)   # the warm-up prompt's draw
-    lens = rng.randint(64, 1537, 8)
-    lens[0] = 1536
-    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
-               for n in lens]
+    prompts = serve_prompts(cfg.vocab_size)
     new = 32
     step_out, step_wall, counts, ms, ps = serve_run(model, prompts, new,
                                                     "per-step")
@@ -3149,13 +3184,17 @@ SUP_BATCH, SUP_SEQ, SUP_LOG, SUP_EPOCH = 16, 1024, 4, 32
 # the preemption drill's run: the child's steps and the uninterrupted run's
 SUP_CHILD_STEPS = 16
 SUP_CHILD_MARK = "supervised-child result "
-# 9g's AdamW step size. Adam scales an update's sensitivity to a
+# 9g's AdamW step sizes. Adam scales an update's sensitivity to a
 # gradient near zero by lr / epsilon, and over 9g's 16 steps at lr 1e-3
-# rounding alone moves the parameters about as far as TRAIN_PARAM_ATOL;
-# 9g prints that floor (the CPU run against itself from weights perturbed
-# by SUP_TINY_NOISE, relative) beside the card-vs-CPU difference
-SUP_TINY_LR = 1e-4
+# rounding alone moves the parameters about as far as TRAIN_PARAM_ATOL.
+# 9g measures that floor (each device's run against itself from weights
+# perturbed by SUP_TINY_NOISE, relative) and holds the card-vs-CPU
+# difference within SUP_FLOOR_MULTIPLE of the larger floor: if each
+# device stays within its own floor of the unperturbed trajectory, the
+# two differ by at most the sum of the floors
+SUP_TINY_LRS = (1e-4, 1e-3)
 SUP_TINY_NOISE = 1e-7
+SUP_FLOOR_MULTIPLE = 2.0
 
 
 def sup_loader(vocab, n, seq, batch, seed, weighted=False):
@@ -3642,19 +3681,32 @@ def phase_supervised_preemption(root, whole):
           "the relaunched child resumed and matched the uninterrupted run")
 
 
+def perturbed(state, noise=SUP_TINY_NOISE, seed=SEED):
+    """numpy ``state`` times (1 + noise * N(0, 1)), drawn per tensor in
+    name order, in float64, rounded to fp32."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {k: (v.astype(np.float64) * (1.0 + noise * rng.standard_normal(
+        v.shape))).astype(np.float32) for k, v in sorted(state.items())}
+
+
 def phase_supervised_card_vs_cpu():
-    """Phase 9g: fp32 llama_tiny (weighted loss, AdamW at
-    ``SUP_TINY_LR``) through ``drive`` with prefetch, a checkpoint a
-    window, the ``train.spike`` site over window 4 and a rollback
-    sentinel, 12 steps in windows of 2; then a fresh stack resumed from
-    the newest checkpoint drives 4 more. The card and the CPU give the
-    same losses (rtol) and parameters (atol) at ``TRAIN_*``; a third run,
-    on the CPU from perturbed weights, shows rounding's floor."""
+    """Phase 9g: fp32 llama_tiny (weighted loss, AdamW with epsilon 1e-6
+    at each of ``SUP_TINY_LRS``) through ``drive`` with prefetch, a
+    checkpoint a window, the ``train.spike`` site over window 4 and a
+    rollback sentinel, 12 steps in windows of 2; then a fresh stack
+    resumed from the newest checkpoint drives 4 more. Each lr runs on the
+    CPU and on the card, and again on both from weights perturbed by
+    ``SUP_TINY_NOISE`` (each device's rounding floor: the run against
+    itself). At lr 1e-4 the card and the CPU give the same losses (rtol)
+    and parameters (atol) at ``TRAIN_*``; at every lr the card-vs-CPU
+    parameter difference stays within ``SUP_FLOOR_MULTIPLE`` of the
+    larger floor."""
     import shutil
     import tempfile
 
     import numpy as np
-    import torch
 
     from paddle_tpu_torch import CheckpointManager
     from paddle_tpu_torch.incubate import fused_train_step
@@ -3671,76 +3723,86 @@ def phase_supervised_card_vs_cpu():
     state = {k: (np.ones(v.shape, np.float32) if "norm" in k else
                  (rng.standard_normal(v.shape) * 0.02).astype(np.float32))
              for k, v in shapes.items()}
+    bumped = perturbed(state)
 
-    def stack(dev, noise=0.0):
+    def stack(dev, weights, lr):
         model = LlamaForCausalLM(cfg, device=dev)
-        load_paddle_tpu_state_dict(model, state)
-        if noise:
-            gen = torch.Generator().manual_seed(SEED)
-            with torch.no_grad():
-                for p in model.parameters():
-                    p.mul_(1 + noise * torch.randn(p.shape, generator=gen))
+        load_paddle_tpu_state_dict(model, weights)
         net = loss_weighted(model)
         step = fused_train_step(net, AdamW(
-            learning_rate=SUP_TINY_LR, epsilon=1e-6,
-            parameters=net.parameters()))
+            learning_rate=lr, epsilon=1e-6, parameters=net.parameters()))
         return net, step, sup_loader(cfg.vocab_size, 24, 64, 2, SEED + 11,
                                      weighted=True)
 
-    out = {}
+    def run(root, dev, weights, lr):
+        net, step, loader = stack(dev, weights, lr)
+        mgr = CheckpointManager(root, keep_last_n=3)
+        sentinel = TrainingSentinel(action="rollback", zscore=4.0,
+                                    warmup_windows=2, ema_beta=0.8,
+                                    healthy_windows=1)
+        st = {"w": 0, "cm": None}
+
+        def on_window(win):
+            mgr.save(step.device_metrics()["step_count"], model=net,
+                     optimizer=step, sampler=loader)
+            st["w"] += 1
+            if st["cm"] is not None:
+                st["cm"].__exit__(None, None, None)
+                st["cm"] = None
+            if st["w"] == 3:
+                st["cm"] = fault_injection.inject("train.spike")
+                st["cm"].__enter__()
+
+        hist = step.drive(loader, log_every=2, checkpoint=mgr,
+                          on_window=on_window, sentinel=sentinel)
+        net2, step2, loader2 = stack(dev, weights, lr)
+        resumed = mgr.auto_resume(model=net2, optimizer=step2,
+                                  sampler=loader2)
+        more = step2.drive(loader2, steps=4, log_every=2,
+                           sampler=loader2)["loss"]
+        return (hist["loss"] + more, hist["rollbacks"], resumed,
+                to_numpy_state_dict(net2))
+
     root = tempfile.mkdtemp(prefix="supervised-tiny-")
     try:
-        for run, dev, noise in (("cpu", "cpu", 0.0), ("cuda", "cuda", 0.0),
-                                ("floor", "cpu", SUP_TINY_NOISE)):
-            net, step, loader = stack(dev, noise)
-            mgr = CheckpointManager(os.path.join(root, run), keep_last_n=3)
-            sentinel = TrainingSentinel(action="rollback", zscore=4.0,
-                                        warmup_windows=2, ema_beta=0.8,
-                                        healthy_windows=1)
-            st = {"w": 0, "cm": None}
+        for lr in SUP_TINY_LRS:
+            out = {}
+            for name, dev, weights in (("cpu", "cpu", state),
+                                       ("cuda", "cuda", state),
+                                       ("cpu_floor", "cpu", bumped),
+                                       ("cuda_floor", "cuda", bumped)):
+                out[name] = run(os.path.join(root, f"{lr:g}-{name}"), dev,
+                                weights, lr)
 
-            def on_window(win):
-                mgr.save(step.device_metrics()["step_count"], model=net,
-                         optimizer=step, sampler=loader)
-                st["w"] += 1
-                if st["cm"] is not None:
-                    st["cm"].__exit__(None, None, None)
-                    st["cm"] = None
-                if st["w"] == 3:
-                    st["cm"] = fault_injection.inject("train.spike")
-                    st["cm"].__enter__()
+            def param_diff(a, b):
+                return max(float(np.abs(out[a][3][k] - out[b][3][k]).max())
+                           for k in out[b][3])
 
-            hist = step.drive(loader, log_every=2, checkpoint=mgr,
-                              on_window=on_window, sentinel=sentinel)
-            net2, step2, loader2 = stack(dev, noise)
-            resumed = mgr.auto_resume(model=net2, optimizer=step2,
-                                      sampler=loader2)
-            more = step2.drive(loader2, steps=4, log_every=2,
-                               sampler=loader2)["loss"]
-            out[run] = (hist["loss"] + more, hist["rollbacks"], resumed,
-                        to_numpy_state_dict(net2))
+            lc, lg = out["cpu"][0], out["cuda"][0]
+            dl = max(abs(a / b - 1) for a, b in zip(lg, lc))
+            dp = param_diff("cuda", "cpu")
+            floors = (param_diff("cpu_floor", "cpu"),
+                      param_diff("cuda_floor", "cuda"))
+            floor = max(floors)
+            say(f"train-supervised (g) card vs cpu llama_tiny fp32 (AdamW "
+                f"lr {lr:g}), 12 steps with a spike window and a rollback, "
+                f"then 4 resumed: rollbacks cuda {out['cuda'][1]} cpu "
+                f"{out['cpu'][1]}, resumed at {out['cuda'][2]}/"
+                f"{out['cpu'][2]}; losses max rel diff {dl:.3e} (tol "
+                f"{TRAIN_LOSS_RTOL:g}); parameters max abs diff {dp:.3e}; "
+                f"rounding's floor, each device against itself from weights "
+                f"perturbed by {SUP_TINY_NOISE:g}: cpu {floors[0]:.3e}, "
+                f"cuda {floors[1]:.3e}; card vs cpu / larger floor "
+                f"{dp / floor:.3f} (limit {SUP_FLOOR_MULTIPLE:g})")
+            check(all(out[k][1] == 1 and out[k][2] == out["cpu"][2]
+                      and len(out[k][0]) == 16 for k in out)
+                  and dl <= TRAIN_LOSS_RTOL
+                  and 0 < floor and dp <= SUP_FLOOR_MULTIPLE * floor
+                  and (lr != 1e-4 or dp <= TRAIN_PARAM_ATOL),
+                  f"card and CPU agree through the supervised loop at lr "
+                  f"{lr:g}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-
-    def param_diff(a, b):
-        return max(float(np.abs(out[a][3][k] - out[b][3][k]).max())
-                   for k in out[b][3])
-
-    lc, lg = out["cpu"][0], out["cuda"][0]
-    dl = max(abs(a / b - 1) for a, b in zip(lg, lc))
-    dp = param_diff("cuda", "cpu")
-    say(f"train-supervised (g) card vs cpu llama_tiny fp32 (AdamW lr "
-        f"{SUP_TINY_LR:g}), 12 steps with a spike window and a rollback, "
-        f"then 4 resumed: rollbacks cuda {out['cuda'][1]} cpu "
-        f"{out['cpu'][1]}, resumed at {out['cuda'][2]}/{out['cpu'][2]}; "
-        f"losses max rel diff {dl:.2e} (tol {TRAIN_LOSS_RTOL:g}); "
-        f"parameters max abs diff {dp:.2e} (tol {TRAIN_PARAM_ATOL:g}); the "
-        f"CPU against itself from weights perturbed by {SUP_TINY_NOISE:g} "
-        f"(rounding's floor) {param_diff('floor', 'cpu'):.2e}")
-    check(out["cuda"][1] == out["cpu"][1] == 1
-          and out["cuda"][2] == out["cpu"][2] and len(lg) == len(lc) == 16
-          and dl <= TRAIN_LOSS_RTOL and dp <= TRAIN_PARAM_ATOL,
-          "card and CPU agree through the supervised loop")
 
 
 def phase_supervised():
@@ -3766,6 +3828,461 @@ def phase_supervised():
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timed(phase_supervised_card_vs_cpu)
+
+
+# -- serving artifacts -------------------------------------------------------
+
+# phase 10: LLMEngine's arguments (phase 4's pool and batch, windows of 8)
+ART_ENGINE = dict(num_blocks=2048, block_size=16, max_batch_size=8,
+                  decode_steps_per_sync=SERVE_WINDOW)
+ART_NEW = 32
+# the reference's int8 contract (tests/test_quantized_serving.py:39)
+LOGIT_REL_TOL = 0.08
+# the converted int8 model against its fake-quant simulation
+# (tests/test_quantization.py:206-240)
+PTQ_ATOL = 2e-4
+
+
+def padded_batch(prompts):
+    """(ids [B, longest] int32 zero-padded, seq_lens [B])."""
+    import numpy as np
+
+    lens = np.array([len(p) for p in prompts])
+    ids = np.zeros((len(prompts), lens.max()), np.int32)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+    return ids, lens
+
+
+def engine_tokens(model, prompts, **kw):
+    """Greedy tokens of an ``LLMEngine`` over ``model`` (phase 10's pool;
+    ``kw`` overrides), after a warm-up request."""
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+
+    with LLMEngine(model, device="cuda", **{**ART_ENGINE, **kw}) as eng:
+        eng.generate([prompts[1][:64]], SamplingParams(max_new_tokens=2))
+        return eng.generate(prompts, SamplingParams(max_new_tokens=ART_NEW))
+
+
+def first_logits(model, prompts, **kw):
+    """Each prompt's first-token logits through a per-step engine with
+    ``capture_logits`` (the prefill's last row, fp32 numpy)."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+
+    out = []
+    with LLMEngine(model, device="cuda", capture_logits=True,
+                   **{**ART_ENGINE, "decode_steps_per_sync": 1, **kw}) as eng:
+        for p in prompts:
+            rid = eng.add_request(p, SamplingParams(max_new_tokens=1))
+            for _ in eng.stream():
+                pass
+            out.append(np.asarray(eng.request(rid).last_logits, np.float32))
+            eng.release(rid)
+    return out
+
+
+def timed_ms(fn, *args, **kwargs):
+    """(fn(...), its wall ms after a device sync)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def artifact_bytes(path):
+    return sum(os.path.getsize(path + ext) for ext in (
+        ".llamacfg.json", ".pdiparams", ".qscales.pdiparams", ".quant.json")
+        if os.path.exists(path + ext))
+
+
+def predictor_run(pred, batch, label):
+    """``pred.run`` over ``batch`` counted: the paged kernels' launches
+    must be layers x decode iterations (#1, through graph replays) and
+    layers x prefill chunks (#2). Returns (tokens, wall s, counts)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import paged_attention as K
+
+    eng = pred.engine
+    eng.reset_metrics()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = pred.run(list(batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    m = eng.metrics()
+    L = eng.config.num_hidden_layers
+    check(m["finished"] == len(outs) and all(
+        len(o) == n + ART_NEW for o, n in zip(outs, batch[1])),
+        f"{label}: every request finished")
+    check(counts["paged_decode_attention_cuda"] == L * m["decode_steps"] > 0
+          and counts["paged_multiquery_attention_cuda"]
+          == L * m["prefill_chunks"] > 0,
+          f"{label}: launches {counts} == {L} x ({m['decode_steps']} decode "
+          f"iterations, {m['prefill_chunks']} chunks)")
+    say(f"serve-artifact {label}: {len(outs)} requests x {ART_NEW} new "
+        f"tokens in {wall:.3f} s, {len(outs) * ART_NEW / wall:.1f} tokens/s, "
+        f"itl p50 {m['itl_ms'].get('p50')} ms, host syncs "
+        f"{m['host_syncs']}, prefill chunks {m['prefill_chunks']}, "
+        f"launches {counts}")
+    return outs, wall, counts
+
+
+def same_tokens(a, b):
+    return len(a) == len(b) and all((x == y).all() for x, y in zip(a, b))
+
+
+def phase_artifact_bf16(root, where, prompts, batch):
+    """Phase 10a-b: llama_1b bf16 saved as an artifact, served by
+    ``create_predictor`` (default dtype bf16) bit for bit as an engine
+    over the in-memory model, the paged kernels' launches equal to the
+    profiler's; then ``reload_weights`` in place under the captured
+    window graph, from the artifact and from a ``CheckpointManager``.
+    Returns the counted run's launches."""
+    import torch
+
+    from paddle_tpu_torch import CheckpointManager, set_default_dtype
+    from paddle_tpu_torch.inference import (Config, LLMEnginePredictor,
+                                            create_predictor)
+    from paddle_tpu_torch.inference.serving import (quantize_state_dict,
+                                                    save_llama_artifact)
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b
+    from paddle_tpu_torch.ops.cuda import paged_attention as K
+
+    cfg = llama_1b()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    art = os.path.join(root, "llama_1b_bf16")
+    _, save_ms = timed_ms(save_llama_artifact, model, art)
+    nbytes = artifact_bytes(art)
+    packed, scales = quantize_state_dict(model.state_dict())
+    passthrough = len(packed) - len(scales)
+    say(f"serve-artifact (a) llama_1b bf16 ({n_params} params): artifact "
+        f"{nbytes} bytes ({nbytes / (2 * n_params):.4f} x 2 bytes a "
+        f"parameter), saved in {save_ms:.1f} ms to TMPDIR ({where}); "
+        f"quantize_state_dict of this bf16 model quantizes {len(scales)} "
+        f"and passes {passthrough} of {len(packed)} through (the "
+        f"reference's rule: bf16 is not a numpy float kind)")
+    check(len(scales) == 0 and passthrough == len(packed) == 201,
+          "a bf16 model's int8 packing is all passthrough")
+    del packed
+    ref = engine_tokens(model, prompts)
+    del model
+    free_cuda()
+    set_default_dtype("bfloat16")
+    try:
+        pred, load_ms = timed_ms(
+            create_predictor,
+            Config(art).enable_llm_engine(max_new_tokens=ART_NEW,
+                                          **ART_ENGINE))
+    finally:
+        set_default_dtype("float32")
+    eng = pred.engine
+    check(isinstance(pred, LLMEnginePredictor)
+          and eng.model.dtype == torch.bfloat16
+          and eng.device == torch.device("cuda:0"),
+          "create_predictor gave an LLMEnginePredictor over bf16 weights on "
+          "cuda:0")
+    # warm-up: cuBLAS, the allocator, the window graph's capture
+    pred.run([batch[0][:1, :64], [64]])
+    outs, wall, counts = predictor_run(pred, batch, "(a) predictor bf16")
+    same = same_tokens(outs, ref)
+    say(f"serve-artifact (a) predictor loaded in {load_ms:.1f} ms from "
+        f"TMPDIR ({where}); tokens equal an LLMEngine over the in-memory "
+        f"model, same windows: {same}")
+    check(same, "the predictor's tokens equal the in-memory engine's")
+    K.reset_launch_counts()
+    prof = device_profile(lambda: pred.run(list(batch)),
+                          "serve-artifact (a) predictor (same batch again)",
+                          mark=("paged_decode", "paged_multiquery"))
+    if prof is not None:
+        check_profiled_launches(prof, K.launch_counts(), "serve-artifact (a)")
+
+    # (b) hot swap in place under the captured window graph
+    window = eng._window
+    check(window is not None and window.graph is not None,
+          "the window graph is captured")
+    graph, replays = window.graph, window.replays
+    ptrs = [p.data_ptr() for p in eng.model.parameters()]
+    with torch.no_grad():
+        eng.model.llama.embed_tokens.weight.add_(1.0)
+    poisoned = pred.run(list(batch))
+    check(not same_tokens(poisoned, ref), "poisoned weights change tokens")
+    got, reload_ms = timed_ms(eng.reload_weights, art)
+    after = pred.run(list(batch))
+    kept = [p.data_ptr() for p in eng.model.parameters()] == ptrs
+    same_graph = eng._window is window and window.graph is graph
+    check(got is None and same_tokens(after, ref) and kept and same_graph
+          and window.replays > replays,
+          f"reload_weights(artifact): None ({got}), tokens restored, "
+          f"data_ptr() kept ({kept}), the same graph replayed "
+          f"({same_graph}, replays {replays} -> {window.replays})")
+    mgr = CheckpointManager(os.path.join(root, "ckpt"))
+    _, ckpt_ms = timed_ms(mgr.save, 3, model=eng.model)
+    mgr.tag_healthy(3)
+    with torch.no_grad():
+        eng.model.llama.embed_tokens.weight.add_(1.0)
+    step, mgr_ms = timed_ms(eng.reload_weights, mgr)
+    after = pred.run(list(batch))
+    kept = [p.data_ptr() for p in eng.model.parameters()] == ptrs
+    same_graph = eng._window is window and window.graph is graph
+    check(step == 3 and same_tokens(after, ref) and kept and same_graph,
+          f"reload_weights(manager): step 3 ({step}), tokens restored, "
+          f"data_ptr() kept ({kept}), the same graph ({same_graph})")
+    say(f"serve-artifact (b) hot swap under the captured window graph: "
+        f"poisoned tokens differ; reload_weights(artifact) {reload_ms:.1f} "
+        f"ms, reload_weights(CheckpointManager step 3) {mgr_ms:.1f} ms "
+        f"(checkpoint saved in {ckpt_ms:.1f} ms), both from TMPDIR "
+        f"({where}); tokens restored bit for bit, every data_ptr() kept, "
+        f"no recapture (graph replays {replays} -> {window.replays})")
+    pred.close()
+    return counts, wall
+
+
+def rel_err(got, want):
+    """The reference's logit error: max |got - want| / max |want|, the
+    worst over the prompts."""
+    import numpy as np
+
+    return max(float(np.abs(a - b).max() / (np.abs(b).max() + 1e-9))
+               for a, b in zip(got, want))
+
+
+def int8_artifact_predictor(model, path, prompts):
+    """``model`` (fp32) saved with ``quantize="int8"`` at ``path`` and
+    served by a predictor over an int8 KV pool; returns (predictor, the
+    fp32 model's first-token logits over an fp32 pool and over an int8
+    pool, the predictor's over both, ms of the save and the load)."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.inference.serving import save_llama_artifact
+
+    _, save_ms = timed_ms(save_llama_artifact, model, path, quantize="int8")
+    ref = first_logits(model, prompts)
+    kv = first_logits(model, prompts, kv_dtype="int8")
+    pred, load_ms = timed_ms(create_predictor, Config(path).enable_llm_engine(
+        max_new_tokens=ART_NEW, kv_dtype="int8", **ART_ENGINE))
+    w = first_logits(pred.engine.model, prompts)
+    both = first_logits(pred.engine.model, prompts, kv_dtype="int8")
+    return pred, {"ref": ref, "kv": kv, "w": w, "both": both}, save_ms, \
+        load_ms
+
+
+def phase_artifact_int8(root, where, prompts, batch):
+    """Phase 10c: llama_1b fp32 saved with ``quantize="int8"`` (the codes
+    made on the card, a sample held to the numpy quantizer bit for bit),
+    loaded in fp32 and served by a predictor over an int8 KV pool: its
+    first-token logits against the fp32 model's (the weights' and the
+    pool's shares of the error apart), token agreement and tokens/s
+    reported, the loaded artifact's logits on the card equal to the CPU's
+    plain forward of the same file within ``ATOL`` (the full-width gate
+    of the int8 path), a reload of the artifact bit for bit. The reference's
+    ``LOGIT_REL_TOL`` is held where it defines it, on llama_tiny
+    (``tests/test_quantized_serving.py``): the same path on the card."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.serving import (load_llama_artifact,
+                                                    quantize_state_dict)
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b, llama_tiny
+    from paddle_tpu_torch.nn.layer.layers import set_state_dict
+    from paddle_tpu_torch.quantization.base import per_channel_int8
+
+    tiny = LlamaForCausalLM(llama_tiny(), device="cuda", dtype=torch.float32,
+                            seed=SEED)
+    rng = np.random.RandomState(SEED + 13)
+    tiny_prompts = [rng.randint(0, 512, n).astype(np.int32)
+                    for n in rng.randint(5, 200, 8)]
+    pred, lg, _, _ = int8_artifact_predictor(
+        tiny, os.path.join(root, "llama_tiny_int8"), tiny_prompts)
+    pred.close()
+    tiny_rel = rel_err(lg["both"], lg["ref"])
+    say(f"serve-artifact (c) llama_tiny fp32 -> int8 artifact -> predictor "
+        f"over an int8 pool: first-token logits max rel err {tiny_rel:.4f} "
+        f"(the reference's LOGIT_REL_TOL {LOGIT_REL_TOL}, defined on this "
+        f"model); int8 weights alone {rel_err(lg['w'], lg['ref']):.4f}, "
+        f"int8 KV alone {rel_err(lg['kv'], lg['ref']):.4f}")
+    check(tiny_rel < LOGIT_REL_TOL, f"llama_tiny int8 first-token logits "
+          f"rel err {tiny_rel} < {LOGIT_REL_TOL}")
+    del tiny, pred
+
+    cfg = llama_1b()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                             seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    (packed, scales), quant_ms = timed_ms(quantize_state_dict,
+                                          model.state_dict())
+    sd = model.state_dict()
+    for name in ("llama.layers.0.self_attn.q_proj.weight",
+                 "llama.layers.0.mlp.down_proj.weight"):
+        codes, absmax = per_channel_int8(sd[name].cpu().numpy())
+        check(np.array_equal(codes, packed[name]) and np.array_equal(
+            (absmax / 127.0).astype(np.float32), scales[name]),
+            f"{name}: the card's codes and scales = numpy's bit for bit")
+    n_q, n_pass = len(scales), len(packed) - len(scales)
+    del packed, scales, sd
+    ref_tokens = engine_tokens(model, prompts)
+    art = os.path.join(root, "llama_1b_int8")
+    pred, lg, save_ms, load_ms = int8_artifact_predictor(model, art, prompts)
+    nbytes = artifact_bytes(art)
+    # the int8 weights' error on one short prompt, on the card and, by the
+    # plain PyTorch forward, on the CPU: the same number on both says the
+    # error is the quantization's on this model, not the card's
+    short = torch.from_numpy(prompts[0][None, :64].astype(np.int64))
+    with torch.no_grad():
+        card = [m(short.cuda())[0, -1].cpu().numpy()
+                for m in (model, pred.engine.model)]
+        state = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    free_cuda()
+    cpu = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32)
+    set_state_dict(cpu, state)
+    del state
+    with torch.no_grad():
+        host = [m(short)[0, -1].numpy()
+                for m in (cpu, load_llama_artifact(art, device="cpu"))]
+    del cpu
+    short_rel = (rel_err([card[1]], [card[0]]), rel_err([host[1]], [host[0]]))
+    # the full-width int8 path's own gate: the card's forward of the
+    # loaded artifact against the CPU's plain forward of the same file,
+    # both fp32 (TF32 off), beside the same comparison of the fp32 model
+    card_cpu = [float(np.abs(c - h).max()) for c, h in zip(card, host)]
+    say(f"serve-artifact (c) llama_1b on a 64-token prompt, card vs CPU "
+        f"plain forward, last-position logits max abs diff: int8 artifact "
+        f"{card_cpu[1]:.3e} (tol {ATOL:g}), fp32 model {card_cpu[0]:.3e}; "
+        f"logits max |x| {float(np.abs(host[1]).max()):.3f}")
+    check(card_cpu[1] <= ATOL, f"llama_1b int8 artifact: card = CPU within "
+          f"{ATOL:g} ({card_cpu[1]:.3e})")
+    eng = pred.engine
+    check(eng.model.dtype == torch.float32 and eng.kv_dtype == "int8",
+          "the int8 artifact serves in fp32 over an int8 pool")
+    pred.run([batch[0][:1, :64], [64]])
+    outs, wall, counts = predictor_run(pred, batch, "(c) predictor int8")
+    agree = np.mean([float(np.mean(o[n:] == r[n:]))
+                     for o, r, n in zip(outs, ref_tokens, batch[1])])
+    got, reload_ms = timed_ms(eng.reload_weights, art)
+    again = pred.run(list(batch))
+    rel = {k: rel_err(lg[k], lg["ref"]) for k in ("both", "w", "kv")}
+    say(f"serve-artifact (c) llama_1b fp32 -> int8: quantize_state_dict "
+        f"{quant_ms:.1f} ms on the card (with its device-to-host copies), "
+        f"save_llama_artifact(quantize='int8') {save_ms:.1f} ms (its own "
+        f"quantize included) to TMPDIR ({where}); artifact {nbytes} bytes "
+        f"against {4 * n_params} for fp32 weights "
+        f"({nbytes / (4 * n_params):.4f}); {n_q} tensors quantized, {n_pass} "
+        f"passed through; loaded in {load_ms:.1f} ms; first-token logits "
+        f"max rel err against the fp32 model (reported): {rel['both']:.4f} "
+        f"with int8 weights and int8 KV, {rel['w']:.4f} with the weights "
+        f"alone, {rel['kv']:.4f} with the KV alone; the weights alone on "
+        f"a 64-token prompt {short_rel[0]:.4f} on the card, "
+        f"{short_rel[1]:.4f} on the CPU (plain forward); greedy tokens agree "
+        f"with the fp32 model's on {agree:.4f} of generated positions "
+        f"(reported); {len(outs) * ART_NEW / wall:.1f} tokens/s; "
+        f"reload_weights {reload_ms:.1f} ms, tokens unchanged: "
+        f"{same_tokens(again, outs)}")
+    check(got is None and same_tokens(again, outs),
+          "reloading the int8 artifact leaves the tokens bit for bit")
+    pred.close()
+    return counts
+
+
+def phase_ptq():
+    """Phase 10d: PTQ on llama_125m fp32 (abs-max activations, per-channel
+    weights), calibrated over 4 seeded batches: the converted model's
+    logits equal the fake-quant simulation's within ``PTQ_ATOL``, and its
+    int8 codes equal the same flow's on the CPU bit for bit."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_125m,
+                                         load_paddle_tpu_state_dict,
+                                         to_numpy_state_dict)
+    from paddle_tpu_torch.quantization import (PTQ, QuantConfig,
+                                               QuantedLinear)
+    from paddle_tpu_torch.quantization.base import fake_quant
+    from paddle_tpu_torch.quantization.observers import (
+        AbsmaxObserver, PerChannelAbsmaxObserver)
+
+    cfg = llama_125m()
+    rng = np.random.RandomState(SEED + 12)
+    batches = [rng.randint(0, cfg.vocab_size, (2, 128)) for _ in range(4)]
+    x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
+
+    def flow(model, dev):
+        ptq = PTQ(QuantConfig(activation=AbsmaxObserver(),
+                              weight=PerChannelAbsmaxObserver()))
+        qm, q_ms = timed_ms(ptq.quantize, model)
+        n, c_ms = timed_ms(ptq.calibrate, qm, [torch.from_numpy(b).to(dev)
+                                               for b in batches])
+        conv, v_ms = timed_ms(ptq.convert, qm)
+        return qm, conv, (q_ms, c_ms, v_ms)
+
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                             seed=SEED)
+    state = to_numpy_state_dict(model)
+    qm, conv, ms = flow(model, "cuda")
+    with torch.no_grad():
+        got = conv(x.cuda()).cpu().numpy()
+        # the simulation: each weight fake-quantized at its frozen scales
+        for mod in qm.modules():
+            if isinstance(mod, QuantedLinear):
+                w = mod._inner.weight
+                w.copy_(fake_quant(w, mod.weight_quanter.scales()))
+        sim = qm(x.cuda()).cpu().numpy()
+    err = float(np.abs(got - sim).max())
+    codes = {n: m.weight_q.cpu().numpy() for n, m in conv.named_modules()
+             if hasattr(m, "weight_q")}
+    del model, qm, conv
+    free_cuda()
+    cpu = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32)
+    load_paddle_tpu_state_dict(cpu, state)
+    _, cpu_conv, _ = flow(cpu, "cpu")
+    cpu_codes = {n: m.weight_q.numpy() for n, m in cpu_conv.named_modules()
+                 if hasattr(m, "weight_q")}
+    same = codes.keys() == cpu_codes.keys() and all(
+        np.array_equal(v, cpu_codes[k]) for k, v in codes.items())
+    say(f"serve-artifact (d) PTQ llama_125m fp32 (abs-max activations, "
+        f"per-channel weights), 4 calibration batches of 2 x 128: quantize "
+        f"{ms[0]:.1f} ms, calibrate {ms[1]:.1f} ms, convert {ms[2]:.1f} ms "
+        f"on the card; {len(codes)} linears converted; logits max abs diff "
+        f"converted vs fake-quant simulation {err:.3e} (limit {PTQ_ATOL:g}); "
+        f"int8 codes card = CPU bit for bit: {same}")
+    check(len(codes) == 12 * 7 + 1 and err <= PTQ_ATOL and same,
+          "PTQ converts every linear, matches its simulation, and the "
+          "card's codes are the CPU's")
+
+
+def phase_serve_artifact():
+    """Phase 10: serving artifacts on llama_1b (10a-c) and PTQ on
+    llama_125m (10d); the artifacts live in a temporary directory under
+    ``TMPDIR``, removed at the end. Returns the paged kernels' launches
+    in each counted predictor run, {"bf16": (a)'s, "int8": (c)'s}, each
+    read from its own run with the counts set to 0 just before it."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.models import llama_1b
+
+    prompts = serve_prompts(llama_1b().vocab_size)
+    batch = padded_batch(prompts)
+    root = tempfile.mkdtemp(prefix="serve-artifact-")
+    where = fs_type(root)
+    try:
+        counts, _ = timed(phase_artifact_bf16, root, where, prompts, batch)
+        free_cuda()
+        int8 = timed(phase_artifact_int8, root, where, prompts, batch)
+        free_cuda()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timed(phase_ptq)
+    free_cuda()
+    return {"bf16": counts, "int8": int8}
 
 
 def tensor_core_ptxas(built):
@@ -3875,6 +4392,9 @@ def main():
     timed(phase_train_graphs)
     timed(phase_deepfm)
     timed(phase_supervised)
+    # phase 10's predictor runs, each counted on its own (not added to
+    # phase 4's, which ``launches`` keeps)
+    art = timed(phase_serve_artifact)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
@@ -3904,6 +4424,10 @@ def main():
                     bound_by=times[name]["bound_by"],
                     library_ms=times[name]["library_ms"])
                for name in replaces]
+    for k in kernels:
+        if k["name"].startswith("paged_"):
+            k["launches_phase10"] = {arm: c[k["name"] + "_cuda"]
+                                     for arm, c in art.items()}
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

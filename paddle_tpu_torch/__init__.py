@@ -13,7 +13,11 @@ resumable sampler, heartbeats, graceful preemption, the stall guard
 (:class:`TrainStallError`) and the divergence sentinel
 (:class:`TrainDivergenceError`). ``set_flags``/``get_flags`` are the flag
 registry (:mod:`.core.flags`); ``save``/``load`` pickle state with tensors
-as numpy payloads.
+as numpy payloads; ``get_default_dtype``/``set_default_dtype`` the
+default float dtype the artifact loader builds in. ``inference`` saves
+and loads serving artifacts (plain and int8), hot-swaps an engine's
+weights in place and serves an artifact through ``create_predictor``;
+``quantization`` is QAT and PTQ for ``nn.Linear``.
 
 It imports ``torch`` and never ``jax`` or ``paddle_tpu``. Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; asking for CUDA
@@ -21,11 +25,15 @@ where there is none raises (see :func:`core.device.resolve_device`).
 """
 
 from .core.device import default_device, resolve_device
+from .core.dtype import get_default_dtype, set_default_dtype
 from .core.exceptions import TrainDivergenceError, TrainStallError
 from .core.flags import get_flags, set_flags
 from .distributed.checkpoint import CheckpointManager
 from .framework.io import load, save
 
-__all__ = ["default_device", "resolve_device", "get_flags", "set_flags",
+__version__ = "0.1.0"
+
+__all__ = ["default_device", "resolve_device", "get_default_dtype",
+           "set_default_dtype", "get_flags", "set_flags",
            "TrainDivergenceError", "TrainStallError", "CheckpointManager",
            "save", "load"]

@@ -12,9 +12,11 @@ Across the packages: numpy arrays and builtins pickle the same in both,
 so a ``FusedTrainStep.state_dict()`` (numpy moments, ints, floats, the
 scheduler's dict) written by either is read by the other. A tensor
 payload of the JAX package's ``save`` loads here too: its class is
-resolved to this module's :class:`_TensorPayload`. bfloat16 tensors,
-which numpy has no dtype for, travel as their uint16 bits with the dtype
-named beside them.
+resolved to this module's :class:`_TensorPayload`, and its bfloat16
+payloads (ml_dtypes arrays) load as bfloat16 tensors. The port's
+bfloat16 tensors, which numpy has no dtype for, travel as their uint16
+bits with the dtype named beside them (``load(..., return_numpy=True)``
+gives those bits).
 """
 
 from __future__ import annotations
@@ -53,14 +55,30 @@ def tensor_to_numpy(t):
     return arr, arr.dtype.name
 
 
-def numpy_to_tensor(arr, dtype_name=None):
-    """The CPU tensor of ``arr``; ``dtype_name`` "bfloat16" reads uint16
-    bits as bfloat16."""
+def numpy_to_tensor(arr, dtype_name=None, copy=True):
+    """The CPU tensor of ``arr`` (a copy unless ``copy=False``, which may
+    share its memory). bfloat16 comes as uint16 bits with ``dtype_name``
+    "bfloat16" (the port's payloads), or as an ml_dtypes bfloat16 array
+    (the JAX package's); either is read back as bfloat16 values, never as
+    integers."""
     arr = np.ascontiguousarray(arr)
-    if dtype_name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16).copy()).view(
+    copy = copy or not arr.flags.writeable  # torch wants writable memory
+    if dtype_name == "bfloat16" or arr.dtype.name == "bfloat16":
+        bits = arr.view(np.int16)
+        return torch.from_numpy(bits.copy() if copy else bits).view(
             torch.bfloat16)
-    return torch.from_numpy(arr.copy())
+    return torch.from_numpy(arr.copy() if copy else arr)
+
+
+def host_value(v):
+    """A host copy of a state value that keeps its values: a numpy array
+    where numpy has the dtype, a bfloat16 tensor as a CPU bfloat16 tensor
+    (the inverse of :func:`numpy_to_tensor` without the bits)."""
+    if not isinstance(v, torch.Tensor):
+        return np.asarray(v.numpy() if hasattr(v, "numpy") else v)
+    v = v.detach()
+    v = v.clone() if v.device.type == "cpu" else v.cpu()
+    return v if v.dtype == torch.bfloat16 else v.numpy()
 
 
 class _TensorPayload:

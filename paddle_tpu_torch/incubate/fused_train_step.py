@@ -621,8 +621,12 @@ class FusedTrainStep:
         graph = torch.cuda.CUDAGraph()
         for g in self._generators:
             graph.register_generator_state(g)
+        # thread_local: a CUDA call another thread makes meanwhile (the
+        # prefetcher's first pinned allocation, its event queries) must
+        # not invalidate this capture, as the default global mode lets it
         with entry.launches.capture(), torch.cuda.graph(
-                graph, pool=self._pool, stream=self._stream):
+                graph, pool=self._pool, stream=self._stream,
+                capture_error_mode="thread_local"):
             entry.loss, entry.finite = self._step_body(
                 entry.args, entry.kwargs, self._lr_dev, self._scale_dev,
                 guard, track_gnorm)

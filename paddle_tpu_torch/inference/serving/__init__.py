@@ -1,8 +1,14 @@
 """LLM serving for the port: a paged KV cache, a continuous-batching
 scheduler and ``LLMEngine``, with paged attention on hand-written CUDA
-kernels (counterpart of ``paddle_tpu.inference.serving``)."""
+kernels (counterpart of ``paddle_tpu.inference.serving``), and the
+llama serving artifacts (plain and int8) that ``LLMEngine.reload_weights``
+and ``inference.create_predictor`` read."""
 
-from .engine import LLMEngine, StepOutput
+from .engine import (ARTIFACT_QMAX, LLMEngine, StepOutput,
+                     dequantize_state_dict, is_llama_artifact,
+                     is_quantized_artifact, load_llama_artifact,
+                     load_llama_state_dict, quantize_state_dict,
+                     save_llama_artifact)
 from .errors import EngineClosedError
 from .kv_cache import (KV_QMAX, BlockAllocator, PagedKVCache, PrefixCache,
                        kv_pool_bytes_per_block, quantize_kv_rows)
@@ -14,4 +20,8 @@ __all__ = ["LLMEngine", "StepOutput", "EngineClosedError", "KV_QMAX",
            "BlockAllocator", "PagedKVCache", "PrefixCache",
            "kv_pool_bytes_per_block", "quantize_kv_rows",
            "paged_decode_attention", "paged_multiquery_attention",
-           "Request", "SamplingParams", "Scheduler"]
+           "Request", "SamplingParams", "Scheduler", "ARTIFACT_QMAX",
+           "quantize_state_dict", "dequantize_state_dict",
+           "save_llama_artifact", "is_llama_artifact",
+           "is_quantized_artifact", "load_llama_state_dict",
+           "load_llama_artifact"]

@@ -47,7 +47,12 @@ server over a paged KV pool on one device (``cuda`` by default):
   fetched. Emission is bit-exact against sequential greedy decode;
   rejected rows are rolled back and lookahead blocks trimmed;
 * ``stream`` yields tokens as they are produced, ``generate`` runs a batch
-  to completion.
+  to completion;
+* ``reload_weights`` hot-swaps the weights from a checkpoint manager, a
+  step directory, a serving artifact or a state-dict file, in place, so
+  the captured graphs stay valid. The artifact functions at the end of
+  this module save and load the reference's llama serving artifacts,
+  plain or int8 per channel.
 
 Prefill chunks, the per-step decode and the verify run eagerly; pools are
 written in place (see ``kv_cache``). Sharding plans,
@@ -61,6 +66,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import os
 import queue
 import threading
 import time
@@ -70,8 +76,11 @@ import numpy as np
 import torch
 
 from ...core.device import resolve_device
+from ...core.dtype import get_default_dtype
+from ...framework.io import host_value
 from ...models.llama import (LlamaForCausalLM, _rope_apply, _rotate,
                              greedy_tokens_in_graph, sample_next_tokens)
+from ...nn.layer.layers import set_state_dict
 from ...observability import metrics as _obs_metrics
 from ...observability import trace as _obs_trace
 from ...ops.cuda import GraphLaunches
@@ -83,7 +92,11 @@ from .scheduler import (Request, SamplingParams, Scheduler, _M_ADMITTED,
                         _M_COW, _M_EVICTIONS, _M_FINISHED, _M_PREFIX_REUSED,
                         _M_QUEUED_EXH)
 
-__all__ = ["LLMEngine", "StepOutput", "EngineClosedError"]
+__all__ = ["LLMEngine", "StepOutput", "EngineClosedError", "ARTIFACT_QMAX",
+           "quantize_state_dict", "dequantize_state_dict",
+           "save_llama_artifact", "is_llama_artifact",
+           "is_quantized_artifact", "load_llama_state_dict",
+           "load_llama_artifact"]
 
 _H_TTFT = _obs_metrics.histogram(
     "serving_ttft_ms", "time to first token per request (submit -> first "
@@ -297,7 +310,10 @@ class _GraphStep:
             self.fn(self.buf, tables)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with self.launches.capture(), torch.cuda.graph(graph, stream=side):
+        # thread_local: the ingest thread's pinned allocations and copies
+        # meanwhile must not invalidate this capture
+        with self.launches.capture(), torch.cuda.graph(
+                graph, stream=side, capture_error_mode="thread_local"):
             out = self.fn(self.buf, tables)
         self.graph, self.out = graph, out
 
@@ -1219,6 +1235,42 @@ class LLMEngine:
             self.release(r)
         return outs
 
+    def reload_weights(self, source):
+        """Hot-swap the target model's weights, writing in place: from a
+        ``CheckpointManager`` (its ``latest_healthy_step()``, else its
+        ``latest_valid_step()``; ``FileNotFoundError`` when it has none),
+        a checkpoint step directory, a serving artifact (dequantized when
+        it is the int8 format) or a state-dict file. Every value is
+        ``copy_``'d into the live parameter, cast to its dtype and device,
+        so no ``data_ptr()`` moves and the captured decode windows and
+        catch-up graphs stay valid with nothing recaptured. A partial
+        state dict loads the names it has (the reference's lenient
+        ``set_state_dict``). Returns the restored step, or None. The
+        reference's sharding-plan, weight-audit and prefix-store branches
+        are not ported (this engine takes none of their arguments)."""
+        from ...distributed.checkpoint import (CheckpointManager,
+                                               load_state_dict)
+        from ...framework import io as _fio
+
+        if isinstance(source, CheckpointManager):
+            step = source.latest_healthy_step()
+            if step is None:
+                step = source.latest_valid_step()
+            if step is None:
+                raise FileNotFoundError(
+                    "reload_weights: no committed checkpoint in "
+                    f"{source.root}")
+            load_state_dict(self.model.state_dict(), source.step_dir(step))
+            return step
+        path = os.fspath(source)
+        if os.path.isdir(path):
+            load_state_dict(self.model.state_dict(), path)
+        elif is_llama_artifact(path):
+            set_state_dict(self.model, load_llama_state_dict(path))
+        else:
+            set_state_dict(self.model, _fio.load(path))
+        return None
+
     # ------------------------------------------------------------------
     # observability + teardown
     # ------------------------------------------------------------------
@@ -1310,3 +1362,186 @@ class LLMEngine:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+# ----------------------------------------------------------------------
+# llama serving artifacts (read by inference.create_predictor)
+# ----------------------------------------------------------------------
+
+ARTIFACT_QMAX = 127.0
+
+
+def _quantizable(v):
+    """The reference's rule: >= 2 dims and a numpy float dtype (kind
+    "f"). bfloat16 is kind "V" there (ml_dtypes), so it passes through;
+    a bfloat16 tensor does here too."""
+    if isinstance(v, torch.Tensor):
+        return v.dim() >= 2 and v.dtype in (torch.float16, torch.float32,
+                                            torch.float64)
+    return v.ndim >= 2 and v.dtype.kind == "f"
+
+
+def quantize_state_dict(state_dict, qmax=ARTIFACT_QMAX):
+    """Per-channel int8 quantization of a weights state dict (the int8
+    artifact format): every float tensor or array with >= 2 dims becomes
+    int8 codes and an fp32 per-channel scale row (abs-max over all axes
+    but the LAST, the output channel of every ``Linear``); everything
+    else passes through. A tensor is quantized on its own device by the
+    shared :func:`~paddle_tpu_torch.quantization.base.per_channel_int8`
+    (bit for bit the reference's numpy quantizer), then copied to the
+    host. As in the reference, a bfloat16 weight is not quantized (its
+    numpy dtype there has kind "V"): an "int8" artifact of a bf16 model is
+    bf16 passthrough with no scales.
+
+    Returns ``(packed, scales)`` of host values: codes, passthrough numpy
+    arrays (bfloat16: CPU tensors) and, for the quantized names only, the
+    DEQUANT MULTIPLIER ``absmax / qmax`` (fp32, in numpy)."""
+    from ...quantization.base import per_channel_int8
+
+    packed, scales = {}, {}
+    for name, val in state_dict.items():
+        if not isinstance(val, torch.Tensor):
+            val = host_value(val)
+        if _quantizable(val):
+            codes, absmax = per_channel_int8(val, qmax=qmax)
+            packed[name] = host_value(codes)
+            scales[name] = (host_value(absmax) / qmax).astype(np.float32)
+        else:
+            packed[name] = host_value(val)
+    return packed, scales
+
+
+def dequantize_state_dict(packed, scales, dtype=np.float32):
+    """Inverse of :func:`quantize_state_dict`: codes x scale back to
+    ``dtype`` host arrays, passthrough entries untouched."""
+    out = {}
+    for name, arr in packed.items():
+        if name in scales:
+            out[name] = (host_value(arr).astype(np.float32)
+                         * host_value(scales[name])).astype(dtype)
+        else:
+            out[name] = arr
+    return out
+
+
+def _base(path):
+    path = os.fspath(path)
+    return path[: -len(".pdmodel")] if path.endswith(".pdmodel") else path
+
+
+def save_llama_artifact(model, path, quantize=None):
+    """Persist a llama model as a serving artifact, the reference's files:
+    ``<path>.llamacfg.json`` (the ``LlamaConfig``, whose fields are a
+    subset of the reference's, so the JAX package reads it) and
+    ``<path>.pdiparams`` (the weights, through ``framework.io.save``).
+
+    ``quantize="int8"`` writes the quantized format: ``<path>.pdiparams``
+    holds the packed int8 codes (per-channel abs-max) and passthrough
+    tensors, ``<path>.qscales.pdiparams`` the scales and
+    ``<path>.quant.json`` the scheme. A plain save removes a previous int8
+    save's two sidecars.
+
+    The weights are stored as numpy arrays, which both packages' ``load``
+    return as they are, so the JAX package reads the port's fp32 and int8
+    artifacts; bfloat16 weights are stored as the port's bfloat16 payloads
+    (numpy has no bfloat16), which only the port reads."""
+    import json
+
+    from ...framework.io import save as fsave
+
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize must be None or 'int8'; got "
+                         f"{quantize!r}")
+    path = os.fspath(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path + ".llamacfg.json", "w") as f:
+        json.dump(dataclasses.asdict(model.config), f)
+    if quantize == "int8":
+        packed, scales = quantize_state_dict(model.state_dict())
+        fsave(packed, path + ".pdiparams")
+        fsave(scales, path + ".qscales.pdiparams")
+        with open(path + ".quant.json", "w") as f:
+            json.dump({"scheme": "int8_per_channel",
+                       "qmax": ARTIFACT_QMAX,
+                       "quantized_tensors": sorted(scales)}, f)
+    else:
+        fsave({k: host_value(v) for k, v in model.state_dict().items()},
+              path + ".pdiparams")
+        # a resave over a previously-quantized path must not leave a
+        # stale scheme sidecar claiming the fp weights are codes
+        for ext in (".quant.json", ".qscales.pdiparams"):
+            try:
+                os.remove(path + ext)
+            except OSError:
+                pass
+
+
+def is_llama_artifact(path):
+    return os.path.exists(_base(path) + ".llamacfg.json")
+
+
+def is_quantized_artifact(path):
+    return os.path.exists(_base(path) + ".quant.json")
+
+
+def load_llama_state_dict(path):
+    """The weights of an artifact as host values, the int8 format
+    dequantized to fp32 (``LLMEngine.reload_weights`` casts them into the
+    live parameters). bfloat16 weights come back as bfloat16 tensors,
+    never as their integer bits."""
+    import json
+
+    from ...framework.io import load as fload
+
+    path = _base(path)
+    if is_quantized_artifact(path):
+        with open(path + ".quant.json") as f:
+            meta = json.load(f)
+        if meta.get("scheme") != "int8_per_channel":
+            raise ValueError(
+                f"unknown quantized-artifact scheme {meta.get('scheme')!r} "
+                f"in {path}.quant.json")
+        packed = fload(path + ".pdiparams")
+        scales = fload(path + ".qscales.pdiparams")
+        return dequantize_state_dict(packed, scales)
+    return fload(path + ".pdiparams")
+
+
+# the reference's LlamaConfig fields the port's lacks, at the only values
+# it runs: (default, what a different value needs)
+_REFERENCE_ONLY = {
+    "dropout": (0.0, "llama dropout is not ported"),
+    "use_ring_attention": (False, "ring attention is not ported yet "
+                           "(ROADMAP Queue 1, item 8)"),
+    "use_sep_attention": (False, "Ulysses (sep) attention is not ported "
+                          "yet (ROADMAP Queue 1, item 8)"),
+}
+
+
+def _llama_config(raw):
+    """A ``LlamaConfig`` from an artifact's JSON: the reference's extra
+    fields are accepted at their defaults and refused otherwise."""
+    from ...models.llama import LlamaConfig
+
+    raw = dict(raw)
+    for key, (default, why) in _REFERENCE_ONLY.items():
+        if key in raw and raw.pop(key) != default:
+            raise NotImplementedError(
+                f"artifact config sets {key}; {why}")
+    return LlamaConfig(**raw)
+
+
+def load_llama_artifact(path, device=None):
+    """Rebuild the model saved by :func:`save_llama_artifact` (either
+    package's): built on ``device`` (default ``cuda``; raises without it)
+    in the global default dtype (``get_default_dtype()``), the weights
+    cast into it (an int8 artifact dequantized), in eval mode."""
+    import json
+
+    path = _base(path)
+    with open(path + ".llamacfg.json") as f:
+        cfg = _llama_config(json.load(f))
+    model = LlamaForCausalLM(cfg, device=device, dtype=get_default_dtype())
+    set_state_dict(model, load_llama_state_dict(path))
+    model.eval()
+    return model

@@ -19,27 +19,21 @@ def load_paddle_tpu_state_dict(model: torch.nn.Module, state) -> None:
     and persistent buffers, on their device and in their dtype.
 
     Every name must match and every shape must agree; a missing, extra or
-    mis-shaped entry raises ``ValueError`` before anything is copied."""
+    mis-shaped entry raises ``ValueError`` before anything is copied. The
+    copy is :func:`paddle_tpu_torch.nn.layer.layers.set_state_dict`'s."""
+    from ..nn.layer.layers import set_state_dict
+
     own = model.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
     if missing or extra:
         raise ValueError(f"state_dict names differ: missing {missing}, "
                          f"unexpected {extra}")
-    arrays = {}
     for name, dst in own.items():
-        src = np.asarray(state[name])
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"{name}: shape {tuple(src.shape)} != "
-                             f"{tuple(dst.shape)}")
-        arrays[name] = src
-    with torch.no_grad():
-        for name, dst in own.items():
-            # floats go through float32, which holds bf16/f16 exactly
-            src = torch.from_numpy(np.array(
-                arrays[name],
-                dtype=np.float32 if dst.is_floating_point() else None))
-            dst.copy_(src.to(device=dst.device, dtype=dst.dtype))
+        shape = tuple(np.shape(state[name]))
+        if shape != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {shape} != {tuple(dst.shape)}")
+    set_state_dict(model, state)
 
 
 def to_numpy_state_dict(model: torch.nn.Module) -> dict:

@@ -7,6 +7,9 @@ which stamps the attributes the optimizers read on it, as the reference's
 automatic one), ``regularizer``, ``need_clip``, ``optimize_attr =
 {"learning_rate": ...}`` (stored, read by no optimizer, as in the
 reference) and ``requires_grad`` from ``trainable``.
+
+:func:`set_state_dict` is the reference's lenient ``Layer.set_state_dict``
+for any module: it writes in place.
 """
 
 from __future__ import annotations
@@ -14,10 +17,13 @@ from __future__ import annotations
 import copy
 import itertools
 
+import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["ParamAttr", "Parameter", "create_parameter"]
+from ...framework.io import numpy_to_tensor
+
+__all__ = ["ParamAttr", "Parameter", "create_parameter", "set_state_dict"]
 
 # automatic parameter names, unique in the process as the reference's
 # ``tensor_<n>`` (the numbers cannot match the reference's: they count
@@ -102,3 +108,34 @@ def create_parameter(shape, attr=None, default_initializer=None, *, device,
     p.regularizer = attr.regularizer
     p.need_clip = attr.need_clip
     return p
+
+
+def set_state_dict(module, state_dict):
+    """Load ``state_dict`` (name -> tensor or numpy array) into
+    ``module``'s parameters and persistent buffers the way the reference's
+    lenient ``Layer.set_state_dict`` does: every name present is loaded,
+    cast to the live tensor's dtype and reshaped to its shape; missing and
+    unexpected names are returned, not raised. Unlike the reference, the
+    write is in place (``copy_`` onto the live tensor's device), so every
+    ``data_ptr()`` stays as it was (what captured CUDA graphs read), and
+    a value whose size does not fit raises ``ValueError`` before anything
+    is written. Returns ``(missing, unexpected)``."""
+    own = module.state_dict()
+    missing = [k for k in own if k not in state_dict]
+    unexpected = [k for k in state_dict if k not in own]
+    srcs = {}
+    for name, dst in own.items():
+        if name not in state_dict:
+            continue
+        src = state_dict[name]
+        src = (src.detach() if isinstance(src, torch.Tensor)
+               else numpy_to_tensor(np.asarray(src), copy=False))
+        if src.numel() != dst.numel():
+            raise ValueError(f"{name}: {tuple(src.shape)} does not fit "
+                             f"{tuple(dst.shape)}")
+        srcs[name] = src.reshape(dst.shape)
+    with torch.no_grad():
+        for name, src in srcs.items():
+            dst = own[name]
+            dst.copy_(src.to(device=dst.device, dtype=dst.dtype))
+    return missing, unexpected

@@ -45,6 +45,11 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.utils.retry\n"
             "import paddle_tpu_torch.utils.fault_injection\n"
             "import paddle_tpu_torch.core.exceptions\n"
+            "import paddle_tpu_torch.core.dtype\n"
+            "import paddle_tpu_torch.inference\n"
+            "import paddle_tpu_torch.quantization\n"
+            "import paddle_tpu_torch.quantization.observers\n"
+            "import paddle_tpu_torch.quantization.quanters\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"

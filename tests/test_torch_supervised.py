@@ -14,7 +14,9 @@ Against the JAX package:
   sentinel bookkeeping, and parameters and moments within atol 1e-5 (the
   tolerances of ``tests/test_torch_training.py``); and a resume of that
   run from its step-4 checkpoint in a fresh stack continues it within
-  the same tolerances.
+  the same tolerances. At AdamW lr 1e-3 the same rollback run stays
+  within twice the larger rounding floor (each package against itself
+  from weights perturbed by 1e-7), a tolerance the run measures.
 
 Within the port, the reference's invariants (``tests/test_sentinel.py``,
 ``tests/test_supervision.py``, ``tests/test_overlap.py``'s deferred
@@ -59,7 +61,9 @@ STATE_ATOL = 1e-5
 # llama_tiny's AdamW step size (epsilon 1e-6): Adam scales an update's
 # sensitivity to a gradient near zero by lr / epsilon, and at 1e-3 the
 # two frameworks' rounding alone ends the rollback run nearly STATE_ATOL
-# apart; at 1e-4 ten times less
+# apart; at 1e-4 ten times less. The lr 1e-3 run is held to the rounding
+# floor it measures (test_llama_rollback_at_lr_1e3_sits_at_the_rounding_
+# floor)
 LR = 1e-4
 
 _DEFAULTS = {
@@ -519,15 +523,16 @@ class _Side:
     """One package's llama_tiny stack: model, fused AdamW step, loader,
     manager, rollback sentinel, fault sites."""
 
-    def __init__(self, pkg, root, weights):
+    def __init__(self, pkg, root, weights, lr=LR):
         self.jax = pkg == "jax"
         if self.jax:
             paddle.seed(3)
-            self.model = _JW(jax_llama.LlamaForCausalLM(
-                jax_llama.llama_tiny()))
+            inner = jax_llama.LlamaForCausalLM(jax_llama.llama_tiny())
+            inner.set_state_dict(weights)
+            self.model = _JW(inner)
             self.step = paddle.incubate.fused_train_step(
                 self.model, paddle.optimizer.AdamW(
-                    learning_rate=LR, epsilon=1e-6,
+                    learning_rate=lr, epsilon=1e-6,
                     parameters=self.model.parameters()))
             self.loader = _llama_loader(jio)
             self.mgr = paddle.CheckpointManager(root, keep_last_n=3)
@@ -540,7 +545,7 @@ class _Side:
             self.model = _TW(inner)
             self.step = incubate.fused_train_step(
                 self.model, optimizer.AdamW(
-                    learning_rate=LR, epsilon=1e-6,
+                    learning_rate=lr, epsilon=1e-6,
                     parameters=self.model.parameters()))
             self.loader = _llama_loader(io)
             self.mgr = pt.CheckpointManager(root, keep_last_n=3)
@@ -631,6 +636,57 @@ def test_llama_rollback_matches_reference(tmp_path):
     assert t.step.state_dict()["step_count"] == \
         j.step.state_dict()["step_count"] == N // 2 - 2 * LOG
     _assert_close_states(t.state(), j.state())
+
+
+# AdamW at lr 1e-3, the step size at which the card once read 1.2e-05
+# from the CPU: each package's own run from weights perturbed by NOISE
+# (relative) shows how far rounding alone carries the trajectory. If each
+# package stays within its own floor of the unperturbed trajectory, the
+# two packages differ by at most the sum of the floors, i.e. at most
+# twice the larger: FLOOR_MULTIPLE.
+LR_HIGH = 1e-3
+NOISE = 1e-7
+FLOOR_MULTIPLE = 2.0
+
+
+def _perturbed(weights, noise=NOISE, seed=0):
+    """``weights`` times (1 + noise * N(0, 1)), drawn per tensor in name
+    order, computed in float64 and rounded to fp32."""
+    rng = np.random.RandomState(seed)
+    return {k: (v.astype(np.float64) * (1.0 + noise * rng.standard_normal(
+        v.shape))).astype(np.float32) for k, v in sorted(weights.items())}
+
+
+def _state_gap(a, b):
+    """Largest absolute difference over parameters and moments."""
+    return max(float(np.abs(x[k] - y[k]).max())
+               for x, y in zip(a, b) for k in y)
+
+
+def test_llama_rollback_at_lr_1e3_sits_at_the_rounding_floor(tmp_path):
+    """The rollback run of test_llama_rollback_matches_reference at lr
+    1e-3: the port against the reference stays within FLOOR_MULTIPLE of
+    the larger of the two packages' rounding floors (each against itself
+    from perturbed weights), with the same rollback bookkeeping and the
+    losses at LOSS_RTOL."""
+    weights = _jax_weights()
+    runs = {}
+    for name, pkg, w in (("jax", "jax", weights),
+                         ("jax_floor", "jax", _perturbed(weights)),
+                         ("port", "port", weights),
+                         ("port_floor", "port", _perturbed(weights))):
+        with jax.default_matmul_precision("highest"):
+            side = _Side(pkg, str(tmp_path / name), w, lr=LR_HIGH)
+            hist = side.drive(POISONED_WINDOW)
+        runs[name] = (hist, side.state())
+    for name, (hist, _) in runs.items():
+        assert hist["rollbacks"] == 1 and hist["steps"] == N // 2, name
+    np.testing.assert_allclose(runs["port"][0]["loss"],
+                               runs["jax"][0]["loss"], rtol=LOSS_RTOL)
+    gap = _state_gap(runs["port"][1], runs["jax"][1])
+    floor = max(_state_gap(runs["jax_floor"][1], runs["jax"][1]),
+                _state_gap(runs["port_floor"][1], runs["port"][1]))
+    assert 0 < floor and gap <= FLOOR_MULTIPLE * floor, (gap, floor)
 
 
 def test_llama_resume_through_drive(tmp_path):
