@@ -151,12 +151,28 @@ Phases, one printed line per result:
    the CPU's plain forward of the same file within 1e-4, a reload bit for
    bit; (d) PTQ on llama_125m
    fp32: the converted logits equal the fake-quant simulation's within
-   2e-4 and its int8 codes the CPU's bit for bit.
+   2e-4 and its int8 codes the CPU's bit for bit;
+11. KV pages that leave and re-enter the pool, llama_1b bf16 with phase
+   4's prompts, windows of 8, 32 new tokens: (a) a ``prefill_only``
+   engine prefills each prompt, its pages are exported, packed, unpacked
+   and imported by a second engine that decodes them: tokens equal a
+   colocated engine's bit for bit, the prefill engine builds no window
+   and launches no #1, the decode engine launches no #2, each equal to
+   the profiler's count; page bytes, export/pack/unpack/import ms and
+   GB/s, tokens/s and decode-side TTFT; (a') the same on int8 pools
+   (bytes ~0.52 of bf16's); (b) the host tier on a pool that holds the
+   eight prompts but not their growth: spills revived by import, no
+   miss, tokens equal the never-evicting run's, beside the same pool
+   re-prefilling; (c) the prefix store: a cold engine saves it on
+   ``close`` (``TMPDIR``), a new engine boots from it, revives the
+   chains (every revived block equal to its stored payload) and runs
+   fewer #2 launches; fp32 llama_tiny warm tokens card = CPU.
 
 Then one JSON line with every kernel's numbers (``launches`` from the
 run named in the phase that returns them; #1 and #2 also
 ``launches_phase10``, the count of each of 10a's and 10c's predictor
-runs), the card line, and last
+runs, and ``launches_phase11``, each of phase 11's counted runs), the
+card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 1.
 """
@@ -1156,9 +1172,10 @@ def serve_prompts(vocab):
     return [rng.randint(0, vocab, n).astype(np.int32) for n in lens]
 
 
-def check_profiled_launches(prof, launched, label):
+def check_profiled_launches(prof, launched, label, zero=()):
     """The paged kernels' launches the wrappers counted over a profiled
-    run (``launched``) equal the profiler's count of their kernels."""
+    run (``launched``) equal the profiler's count of their kernels: more
+    than none, or none for the wrappers named in ``zero``."""
     for kernels, wrapper in (
             (("paged_decode_split_kernel",), "paged_decode_attention_cuda"),
             (MQ_KERNELS, "paged_multiquery_attention_cuda")):
@@ -1166,8 +1183,10 @@ def check_profiled_launches(prof, launched, label):
                    if any(k in name for k in kernels))
         say(f"{label}: profiler saw {seen} {'/'.join(kernels)} launches, "
             f"the wrapper counted {launched[wrapper]}")
-        check(seen == launched[wrapper] and seen > 0,
-              f"{wrapper} launches {launched[wrapper]} == profiler's {seen}")
+        check(seen == launched[wrapper]
+              and (seen == 0 if wrapper in zero else seen > 0),
+              f"{wrapper} launches {launched[wrapper]} == profiler's {seen}"
+              f"{' == 0' if wrapper in zero else ''}")
 
 
 def same_share(outs, ref):
@@ -4285,6 +4304,530 @@ def phase_serve_artifact():
     return {"bf16": counts, "int8": int8}
 
 
+# -- pages that leave and re-enter the pool ----------------------------------
+
+# phase 11: phase 4's pool, batch and prompts, decode windows of 8
+DISAGG_ENGINE = dict(num_blocks=2048, block_size=16, max_batch_size=8,
+                     max_model_len=2048, decode_steps_per_sync=SERVE_WINDOW)
+DISAGG_NEW = 32
+# (b): the host tier's budget, more than the small pool holds
+TIER_HOST_BLOCKS = 512
+# (c): eight prompts sharing a 1024-token prefix, with suffixes of 64-512
+# tokens, prefilled in chunks of at most 256 new tokens a step, so the
+# chains the warm engine revives show as chunks it does not run
+STORE_PREFIX = 1024
+STORE_SUFFIX = (64, 512)
+STORE_CHUNK = 256
+STORE_HOST_BLOCKS = 1024
+# (c) at fp32 llama_tiny, card against CPU
+STORE_TINY = dict(num_blocks=64, block_size=16, max_batch_size=3,
+                  decode_steps_per_sync=SERVE_WINDOW,
+                  max_prefill_tokens_per_step=32)
+
+
+def sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dev_ms(dev, fn, *args):
+    """(fn(*args), its wall ms between two device syncs)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def counted(dev, fn):
+    """(fn(), the paged kernels' launches over it, its wall s): the counts
+    are set to 0 just before ``fn`` and read just after."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as K
+
+    sync(dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    return out, K.launch_counts(), wall
+
+
+def launches_str(c):
+    return (f"#1 {c['paged_decode_attention_cuda']}, "
+            f"#2 {c['paged_multiquery_attention_cuda']}")
+
+
+def page_bytes(pages):
+    import numpy as np
+
+    return sum(int(v.nbytes) for v in pages.values()
+               if isinstance(v, np.ndarray))
+
+
+def warmup_prompt(vocab):
+    import numpy as np
+
+    return np.random.RandomState(SEED + 14).randint(0, vocab, 64).astype(
+        np.int32)
+
+
+def prefill_handoffs(pre, prompts, dev):
+    """Each prompt through the prefill-only engine ``pre`` to its first
+    token; its pages exported, packed and unpacked (the wire format), the
+    request cancelled. Returns ``(handoffs, t)``: (prompt + first token,
+    unpacked pages) pairs, and each request's export, pack and unpack ms
+    and page bytes."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import (SamplingParams,
+                                                    pack_kv_pages,
+                                                    unpack_kv_pages)
+
+    handoffs = []
+    t = {"export": [], "pack": [], "unpack": [], "bytes": []}
+    for p in prompts:
+        rid = pre.add_request(p, SamplingParams(max_new_tokens=DISAGG_NEW))
+        first = None
+        while first is None:
+            for out in pre.step():
+                first = out
+        pages, ms = dev_ms(dev, pre.export_kv_pages, rid)
+        t["export"].append(ms)
+        pre.cancel(rid, reason="handoff")
+        pre.release(rid)
+        blob, ms = dev_ms(dev, pack_kv_pages, pages)
+        t["pack"].append(ms)
+        back, ms = dev_ms(dev, unpack_kv_pages, blob)
+        t["unpack"].append(ms)
+        t["bytes"].append(page_bytes(pages))
+        handoffs.append((np.concatenate([p, [first.token]]).astype(
+            np.int32), back))
+    return handoffs, t
+
+
+def decode_handoffs(dec, handoffs):
+    """Every handoff admitted to ``dec`` with its pages and decoded to the
+    end; returns each request's tokens."""
+    from paddle_tpu_torch.inference.serving import SamplingParams
+
+    rids = [dec.add_request_with_pages(
+        p2, pages, SamplingParams(max_new_tokens=DISAGG_NEW - 1))
+        for p2, pages in handoffs]
+    for _ in dec.stream():
+        pass
+    outs = [dec.output_tokens(r) for r in rids]
+    for r in rids:
+        dec.release(r)
+    return outs
+
+
+def import_ms(cache, payloads, dev):
+    """Each payload's ``import_request_pages`` into free blocks of
+    ``cache`` (ms between device syncs)."""
+    out = []
+    for pages in payloads:
+        blocks = cache.allocator.allocate(pages["k"].shape[1])
+        _, ms = dev_ms(dev, cache.import_request_pages, blocks, pages)
+        cache.allocator.free(blocks)
+        out.append(ms)
+    return out
+
+
+def ttft(m):
+    return m["ttft_ms"].get("p50")
+
+
+def handoff_arm(model, prompts, dev, kv_dtype=None, profile=True):
+    """Phase 11a (11a' with ``kv_dtype="int8"`` on both sides): a
+    colocated window engine serves ``prompts``; then a ``prefill_only``
+    engine prefills each, its pages go through export, pack and unpack,
+    and a second window engine imports and decodes them. Gates: the
+    tokens equal the colocated run's bit for bit, the prefill engine
+    launched no #1 and built no window graph, the decode engine launched
+    no #2, and (``profile``) each engine's launches equal the profiler's
+    count in a repeat. Returns tokens, launches and page bytes."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+    from paddle_tpu_torch.ops.cuda import paged_attention as K
+
+    label = ("serve-disagg (a') int8" if kv_dtype == "int8"
+             else "serve-disagg (a) bf16")
+    kw = dict(DISAGG_ENGINE, kv_dtype=kv_dtype, device=dev)
+    warm = [warmup_prompt(model.config.vocab_size)]
+    sp = SamplingParams(max_new_tokens=DISAGG_NEW)
+    L = model.config.num_hidden_layers
+    with LLMEngine(model, **kw) as col:
+        col.generate(warm, SamplingParams(max_new_tokens=2))  # capture
+        col.reset_metrics()
+        ref, col_counts, col_wall = counted(
+            dev, lambda: col.generate(prompts, sp))
+        cm = col.metrics()
+    pre = LLMEngine(model, prefill_only=True, **kw)
+    dec = LLMEngine(model, **kw)
+    try:
+        # outside the counted runs: cuBLAS, the allocators, the pinned
+        # host buffers, the decode window's capture
+        decode_handoffs(dec, prefill_handoffs(pre, warm, dev)[0])
+        pre.reset_metrics()
+        dec.reset_metrics()
+        (handoffs, t), pre_counts, pre_wall = counted(
+            dev, lambda: prefill_handoffs(pre, prompts, dev))
+        outs, dec_counts, dec_wall = counted(
+            dev, lambda: decode_handoffs(dec, handoffs))
+        pm, dm = pre.metrics(), dec.metrics()
+        imp = import_ms(dec.cache, [pg for _, pg in handoffs], dev)
+        graphs = (pre._window is not None, dec._window is not None
+                  and dec._window.graph is not None)
+        again = None
+        if profile:
+            K.reset_launch_counts()
+            rep = {}
+            prof = device_profile(
+                lambda: rep.update(t=prefill_handoffs(pre, prompts, dev)[1]),
+                f"{label} prefill engine (same prompts again)",
+                mark=("paged_decode", "paged_multiquery"))
+            if prof is not None:
+                check_profiled_launches(
+                    prof, K.launch_counts(), f"{label} prefill engine",
+                    zero=("paged_decode_attention_cuda",))
+            again = sum(rep["t"]["export"])
+            K.reset_launch_counts()
+            prof = device_profile(
+                lambda: decode_handoffs(dec, handoffs),
+                f"{label} decode engine (same pages again)",
+                mark=("paged_decode", "paged_multiquery"))
+            if prof is not None:
+                check_profiled_launches(
+                    prof, K.launch_counts(), f"{label} decode engine",
+                    zero=("paged_multiquery_attention_cuda",))
+    finally:
+        pre.close()
+        dec.close()
+    same = len(outs) == len(ref) and all(
+        np.array_equal(a, b) for a, b in zip(outs, ref))
+    total = sum(t["bytes"])
+    n_tok = len(prompts) * DISAGG_NEW
+    exp_s, imp_s = sum(t["export"]) / 1e3, sum(imp) / 1e3
+    cached = ("not measured" if again is None else
+              f"{again:.1f} ms ({total / again / 1e6:.2f} GB/s)")
+    say(f"{label}: {len(prompts)} requests x {DISAGG_NEW} new tokens; "
+        f"pages per request {t['bytes']} bytes, {total} in all; export "
+        f"{sum(t['export']):.1f} ms ({total / exp_s / 1e9:.2f} GB/s device "
+        f"to host; the profiled repeat, its pinned buffers cached: "
+        f"{cached}), pack {sum(t['pack']):.1f} ms, unpack "
+        f"{sum(t['unpack']):.1f} ms, import {sum(imp):.1f} ms "
+        f"({total / imp_s / 1e9:.2f} GB/s host to device); prefill side "
+        f"(with export, pack, unpack) {pre_wall:.3f} s, decode side "
+        f"{dec_wall:.3f} s: {n_tok / (pre_wall + dec_wall):.1f} tokens/s "
+        f"end to end in one process vs colocated {n_tok / col_wall:.1f} "
+        f"({col_wall:.3f} s), decode side alone "
+        f"{len(prompts) * (DISAGG_NEW - 1) / dec_wall:.1f} tokens/s; TTFT "
+        f"p50 decode side {ttft(dm)} ms (submit to first decoded token) "
+        f"vs colocated {ttft(cm)} ms; launches: colocated "
+        f"{launches_str(col_counts)}, prefill engine "
+        f"{launches_str(pre_counts)} ({pm['prefill_chunks']} chunks, "
+        f"{pm['decode_steps']} decode steps, window built: {graphs[0]}), "
+        f"decode engine {launches_str(dec_counts)} ({dm['decode_steps']} "
+        f"decode iterations, {dm['prefill_chunks']} chunks, window graph "
+        f"captured: {graphs[1]}); tokens equal the colocated run's: {same}")
+    check(same, f"{label}: disaggregated tokens equal colocated bit for bit")
+    check(not graphs[0] and pre_counts["paged_decode_attention_cuda"] == 0
+          and pm["decode_steps"] == 0
+          and pre_counts["paged_multiquery_attention_cuda"]
+          == L * pm["prefill_chunks"] > 0,
+          f"{label}: the prefill engine built no window and launched no "
+          f"#1 ({launches_str(pre_counts)})")
+    check(dec_counts["paged_multiquery_attention_cuda"] == 0
+          and dm["prefill_chunks"] == 0
+          and dec_counts["paged_decode_attention_cuda"]
+          == L * dm["decode_steps"] > 0,
+          f"{label}: the decode engine launched no #2 "
+          f"({launches_str(dec_counts)})")
+    return {"ref": ref, "prefill": pre_counts, "decode": dec_counts,
+            "bytes": total}
+
+
+def tier_arm(model, prompts, ref, dev):
+    """Phase 11b: a window engine that admits every request in its first
+    step into a pool that holds them but not their growth, with the host
+    tier (``TIER_HOST_BLOCKS``), then the same pool without it
+    (re-prefill). Gates on the tier arm: a decode-ready
+    request spilled, every spill revived, no revive missed, tokens equal
+    the never-evicting run's (``ref``) bit for bit. The re-prefill arm's
+    tokens are a share (a re-prefill recomputes the generated tokens' K/V
+    in prefill-sized GEMMs). Returns the tier arm's launches."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+
+    bs = DISAGG_ENGINE["block_size"]
+    nb = 1 + sum(-(-(len(p) + 1) // bs) for p in prompts) + 8
+    warm = [warmup_prompt(model.config.vocab_size)]
+    cuda = torch.device(dev).type == "cuda"
+    arms = {}
+    for arm, host in (("tier", TIER_HOST_BLOCKS), ("re-prefill", 0)):
+        with LLMEngine(model, kv_host_blocks=host, device=dev,
+                       max_prefills_per_step=len(prompts),
+                       **dict(DISAGG_ENGINE, num_blocks=nb)) as eng:
+            eng.generate(warm, SamplingParams(max_new_tokens=2))
+            eng.reset_metrics()
+            if cuda:
+                reset_peak_memory()
+            outs, counts, wall = counted(dev, lambda: eng.generate(
+                prompts, SamplingParams(max_new_tokens=DISAGG_NEW)))
+            m, st = eng.metrics(), eng.stats()
+            peak = (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                    else float("nan"))
+        arms[arm] = dict(outs=outs, counts=counts, wall=wall, m=m, st=st,
+                         peak=peak)
+    t, r = arms["tier"], arms["re-prefill"]
+    m = t["m"]
+    same = all(np.array_equal(a, b) for a, b in zip(t["outs"], ref))
+    share = same_share(r["outs"], ref)
+    n_tok = len(prompts) * DISAGG_NEW
+    sp, rv = m["kv_spill_ms"], m["kv_revive_ms"]
+
+    def rate(nbytes, ms):
+        return "not measured" if not ms else f"{nbytes / ms / 1e6:.2f} GB/s"
+
+    say(f"serve-disagg (b) host tier: pool {nb} blocks (1 + sum of "
+        f"ceil((len+1)/{bs}) + 8), all {len(prompts)} admitted in one step, "
+        f"kv_host_blocks {TIER_HOST_BLOCKS}: "
+        f"evictions {t['st']['evictions']}, spills {m['kv_spills']}, "
+        f"revives {m['kv_revives']}, revive misses {m['revive_misses']}, "
+        f"host evictions {m['kv_host_evictions']}; spilled "
+        f"{m['kv_spill_bytes']} bytes in {sp['sum']:.1f} ms on the "
+        f"transfer thread ({rate(m['kv_spill_bytes'], sp['sum'])}, p50 "
+        f"{sp['p50']} ms an event), revived {m['kv_revive_bytes']} bytes "
+        f"in {rv['sum']:.1f} ms ({rate(m['kv_revive_bytes'], rv['sum'])}); "
+        f"prefills {m['prefills']} vs {r['m']['prefills']} without the "
+        f"tier; launches {launches_str(t['counts'])} vs "
+        f"{launches_str(r['counts'])} without the tier ({r['st']['evictions']}"
+        f" evictions, re-prefilled); tokens/s {n_tok / t['wall']:.1f} vs "
+        f"{n_tok / r['wall']:.1f} without the tier; peak memory "
+        f"{t['peak']:.2f} vs {r['peak']:.2f} GiB; tier tokens equal the "
+        f"2048-block run's: {same}; without the tier {share:.3f} of "
+        f"requests equal (reported: a re-prefill recomputes the generated "
+        f"tokens' K/V in prefill-sized GEMMs, which round apart)")
+    check(t["st"]["evictions"] >= 1 and m["kv_spills"] >= 1
+          and m["kv_revives"] == m["kv_spills"] and m["revive_misses"] == 0,
+          f"host tier: a decode-ready request spilled ({m['kv_spills']}), "
+          f"every spill revived ({m['kv_revives']}), no revive missed")
+    check(same, "host tier tokens equal the never-evicting run's")
+    return t["counts"]
+
+
+def store_prompts(vocab, prefix_len, suffix, seed):
+    """Eight prompts sharing a ``prefix_len``-token prefix, with suffixes
+    of ``suffix`` (lo, hi) tokens."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(0, vocab, prefix_len)
+    return [np.concatenate([prefix, rng.randint(0, vocab, n)]).astype(
+        np.int32) for n in rng.randint(suffix[0], suffix[1] + 1, 8)]
+
+
+def store_header_entries(path):
+    """The entry count a prefix store's header (its first record)
+    promises, read without the entries."""
+    from paddle_tpu_torch.io.streaming import MAGIC, _FRAME
+
+    with open(path, "rb") as f:
+        f.seek(len(MAGIC))
+        n, _ = _FRAME.unpack(f.read(_FRAME.size))
+        return json.loads(f.read(n))["entries"]
+
+
+def revived_match_store(eng, path):
+    """(the revived chains of ``eng``'s prefix cache: published on the
+    device, found in the store at ``path`` and gone from the host tier;
+    whether every such block's pool bytes equal the stored payload). A
+    stored chain prefilled again (a prompt's last full block, which the
+    match leaves to prefill) is still in the tier and not compared."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import load_prefix_store
+
+    stored = dict(load_prefix_store(path,
+                                    fingerprint=eng._store_fingerprint,
+                                    geometry=eng._store_geometry))
+    chains = [(h, b) for h, b in eng.prefix_cache.registered_chains()
+              if h in stored and not eng.kv_tier.has_prefix(h)]
+    same = True
+    for h, b in chains:
+        got = eng.cache.export_request_pages([b], eng.block_size)
+        same = same and all(np.array_equal(got[k], stored[h][k])
+                            for k in got if isinstance(got[k], np.ndarray))
+    return len(chains), same
+
+
+def store_engine_run(model, prompts, path, dev, kw, check_store=False):
+    """One engine with the prefix cache, the host tier and the store at
+    ``path``: booted (its load counted), a warm-up request, ``prompts``
+    counted, then (``check_store``) the revived blocks against the store,
+    then ``close`` (which saves the store). Returns a dict."""
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+
+    eng, boot_ms = dev_ms(dev, lambda: LLMEngine(
+        model, enable_prefix_cache=True, prefix_store_path=path,
+        device=dev, **kw))
+    loaded = eng.metrics()["prefix_store_loaded"]
+    eng.generate([warmup_prompt(model.config.vocab_size)],
+                 SamplingParams(max_new_tokens=2))
+    eng.reset_metrics()
+    outs, counts, wall = counted(dev, lambda: eng.generate(
+        prompts, SamplingParams(max_new_tokens=DISAGG_NEW)))
+    m = eng.metrics()
+    matched = revived_match_store(eng, path) if check_store else None
+    _, close_ms = dev_ms(dev, eng.close)
+    return dict(outs=outs, counts=counts, wall=wall, m=m, boot_ms=boot_ms,
+                loaded=loaded, close_ms=close_ms, matched=matched)
+
+
+def store_arm(model, root, dev):
+    """Phase 11c: a cold engine serves prompts sharing a prefix and saves
+    the store on ``close``; a new engine boots from it and serves them
+    again. Gates: entries loaded equal entries saved, revives, fewer #2
+    launches by the chunks the revived chains spared, every revived block
+    equal to its stored payload. The warm tokens against the cold ones are
+    a share (the warm prefill runs shorter chunks, whose bf16 GEMMs round
+    apart). Returns the warm run's launches."""
+    import numpy as np
+
+    prompts = store_prompts(model.config.vocab_size, STORE_PREFIX,
+                            STORE_SUFFIX, SEED + 13)
+    path = os.path.join(root, "prefix.pdstream")
+    kw = dict(DISAGG_ENGINE, kv_host_blocks=STORE_HOST_BLOCKS,
+              max_prefill_tokens_per_step=STORE_CHUNK)
+    cold = store_engine_run(model, prompts, path, dev, kw)
+    saved, nbytes = store_header_entries(path), os.path.getsize(path)
+    warm = store_engine_run(model, prompts, path, dev, kw, check_store=True)
+    L = model.config.num_hidden_layers
+    cm, wm = cold["m"], warm["m"]
+    c_mq = cold["counts"]["paged_multiquery_attention_cuda"]
+    w_mq = warm["counts"]["paged_multiquery_attention_cuda"]
+    chains, same_bytes = warm["matched"]
+    share = same_share(warm["outs"], cold["outs"])
+    n_tok = len(prompts) * DISAGG_NEW
+    say(f"serve-disagg (c) prefix store: 8 prompts sharing a "
+        f"{STORE_PREFIX}-token prefix, suffixes "
+        f"{sorted(len(p) - STORE_PREFIX for p in prompts)}, chunks of "
+        f"{STORE_CHUNK}; cold engine: {cm['prefill_chunks']} chunks, "
+        f"{launches_str(cold['counts'])}, {n_tok / cold['wall']:.1f} "
+        f"tokens/s, TTFT p50 {ttft(cm)} ms; close saved {saved} entries, "
+        f"{nbytes} bytes, in {cold['close_ms']:.1f} ms (close) to TMPDIR "
+        f"({fs_type(root)}); warm engine booted in {warm['boot_ms']:.1f} "
+        f"ms (weight fingerprint and load), {warm['loaded']} entries "
+        f"loaded; warm run: {wm['kv_revives']} blocks revived "
+        f"({wm['kv_revive_bytes']} bytes in "
+        f"{wm['kv_revive_ms']['sum']:.1f} ms), {wm['prefill_chunks']} "
+        f"chunks, {launches_str(warm['counts'])}, "
+        f"{n_tok / warm['wall']:.1f} tokens/s, TTFT p50 {ttft(wm)} ms; "
+        f"{chains} revived blocks equal the stored payload: {same_bytes}; "
+        f"warm tokens vs cold: {share:.3f} of requests equal (reported: "
+        f"the warm prefill runs shorter chunks, whose bf16 GEMMs round "
+        f"apart)")
+    check(warm["loaded"] == saved > 0,
+          f"entries loaded {warm['loaded']} == entries saved {saved}")
+    check(wm["kv_revives"] > 0, "the warm run revived from the store")
+    check(w_mq < c_mq and c_mq - w_mq == L * (cm["prefill_chunks"]
+                                              - wm["prefill_chunks"]),
+          f"#2 launches warm {w_mq} < cold {c_mq}, by the revived chunks")
+    check(chains > 0 and same_bytes,
+          "every revived block's bytes equal the stored payload")
+    return warm["counts"]
+
+
+def store_card_vs_cpu(root):
+    """Phase 11c on fp32 llama_tiny, card against CPU: the cold run saves
+    the store, the warm run boots from it and revives; the warm tokens on
+    the card equal the CPU's."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
+                                         load_paddle_tpu_state_dict)
+
+    cfg = llama_tiny()
+    rng = np.random.RandomState(SEED + 15)
+    ref = LlamaForCausalLM(cfg, device="cpu")
+    state = {k: (np.ones(v.shape, np.float32) if "norm" in k else
+                 (rng.standard_normal(v.shape) * 0.02).astype(np.float32))
+             for k, v in ref.state_dict().items()}
+    prompts = store_prompts(cfg.vocab_size, 64, (8, 40), SEED + 16)
+    outs, revived = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = LlamaForCausalLM(cfg, device=dev)
+        load_paddle_tpu_state_dict(m, state)
+        kw = dict(STORE_TINY, enable_prefix_cache=True, kv_host_blocks=64,
+                  prefix_store_path=os.path.join(root, f"tiny-{dev}"),
+                  device=dev)
+        runs = []
+        for _ in ("cold", "warm"):
+            with LLMEngine(m, **kw) as eng:
+                runs.append(eng.generate(prompts,
+                                         SamplingParams(max_new_tokens=16)))
+                revived[dev] = eng.metrics()["kv_revives"]
+        outs[dev] = runs
+    same = all((a == b).all() for a, b in zip(outs["cpu"][1],
+                                              outs["cuda"][1]))
+    say(f"serve-disagg (c) card vs cpu llama_tiny fp32 warm restart: "
+        f"blocks revived {revived['cuda']} (card), {revived['cpu']} (CPU); "
+        f"warm tokens card = CPU: {same}; warm = cold: card "
+        f"{same_share(outs['cuda'][1], outs['cuda'][0]):.3f}, CPU "
+        f"{same_share(outs['cpu'][1], outs['cpu'][0]):.3f} of requests")
+    check(same and revived["cuda"] > 0 and revived["cpu"] > 0,
+          "the card's warm tokens equal the CPU's, both revived")
+
+
+def phase_serve_disagg():
+    """Phase 11: pages that leave and re-enter the pool, llama_1b bf16 at
+    full width with phase 4's prompts: (a) the disaggregated handoff, (a')
+    the same on int8 pools, (b) the host tier under pool pressure, (c) the
+    prefix store's warm restart (the store under ``TMPDIR``, removed at
+    the end) and its fp32 llama_tiny card-vs-CPU check. Returns the paged
+    kernels' launches of each counted run, each read from its own run with
+    the counts set to 0 just before it."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b
+
+    cfg = llama_1b()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=SEED)
+    prompts = serve_prompts(cfg.vocab_size)
+    a = timed(handoff_arm, model, prompts, "cuda")
+    free_cuda()
+    a8 = timed(handoff_arm, model, prompts, "cuda", kv_dtype="int8",
+               profile=False)
+    say(f"serve-disagg (a') int8 pages {a8['bytes']} bytes = "
+        f"{a8['bytes'] / a['bytes']:.4f} of bf16's {a['bytes']}")
+    free_cuda()
+    tier = timed(tier_arm, model, prompts, a["ref"], "cuda")
+    free_cuda()
+    root = tempfile.mkdtemp(prefix="serve-disagg-")
+    try:
+        warm = timed(store_arm, model, root, "cuda")
+        del model
+        free_cuda()
+        timed(store_card_vs_cpu, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_cuda()
+    return {"prefill": a["prefill"], "decode": a["decode"],
+            "int8_prefill": a8["prefill"], "int8_decode": a8["decode"],
+            "tier": tier, "warm": warm}
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -4395,6 +4938,8 @@ def main():
     # phase 10's predictor runs, each counted on its own (not added to
     # phase 4's, which ``launches`` keeps)
     art = timed(phase_serve_artifact)
+    # phase 11's runs, each counted on its own as well
+    disagg = timed(phase_serve_disagg)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
@@ -4428,6 +4973,8 @@ def main():
         if k["name"].startswith("paged_"):
             k["launches_phase10"] = {arm: c[k["name"] + "_cuda"]
                                      for arm, c in art.items()}
+            k["launches_phase11"] = {arm: c[k["name"] + "_cuda"]
+                                     for arm, c in disagg.items()}
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -43,12 +43,13 @@ class CheckpointCorruptionError(RuntimeError):
     skips torn/corrupt step directories)."""
 
 
-def tensor_to_numpy(t):
+def tensor_to_numpy(t, copy=True):
     """(a host numpy copy of ``t``, never sharing its storage; its dtype
     name): bfloat16 as its uint16 bits, named "bfloat16" (the JAX
-    package's checkpoint spelling)."""
+    package's checkpoint spelling). ``copy=False`` lets the array share a
+    CPU tensor's memory (one nothing else writes)."""
     t = t.detach()
-    host = t.clone() if t.device.type == "cpu" else t.cpu()
+    host = (t.clone() if copy else t) if t.device.type == "cpu" else t.cpu()
     if host.dtype == torch.bfloat16:
         return host.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = host.numpy()
@@ -68,6 +69,18 @@ def numpy_to_tensor(arr, dtype_name=None, copy=True):
         return torch.from_numpy(bits.copy() if copy else bits).view(
             torch.bfloat16)
     return torch.from_numpy(arr.copy() if copy else arr)
+
+
+def numpy_holds(arr, dtype):
+    """Whether host array ``arr`` holds ``dtype`` (a torch dtype) elements
+    the way this module carries them: bfloat16 as the port's uint16 bits
+    or the JAX package's ml_dtypes array, every other dtype as numpy's
+    own. Reading an array of another type into ``dtype`` would be a cast
+    (of bits, for bfloat16), not a load."""
+    name = arr.dtype.name
+    if dtype == torch.bfloat16:
+        return name in ("uint16", "bfloat16")
+    return name == torch.empty(0, dtype=dtype).numpy().dtype.name
 
 
 def host_value(v):

@@ -48,6 +48,20 @@ server over a paged KV pool on one device (``cuda`` by default):
   rejected rows are rolled back and lookahead blocks trimmed;
 * ``stream`` yields tokens as they are produced, ``generate`` runs a batch
   to completion;
+* **disaggregated prefill/decode**: a ``prefill_only=True`` engine runs
+  prefills and samples each request's first token but never decodes (no
+  decode window is built, no decode attention launched);
+  ``export_kv_pages(rid)`` hands the request's pages to the host, and
+  another engine's ``add_request_with_pages(prompt + [first token],
+  pages)`` admits it decode-ready: the pages are written into its pool in
+  place before the step decodes, and no prefill runs for it;
+* **the host KV tier** (``kv_host_blocks > 0``): a preempted decode-ready
+  request's pages and reclaimed prefix blocks spill to host memory on a
+  transfer thread and revive by page import instead of re-prefill;
+* **the prefix store** (``prefix_store_path``, with the prefix cache and
+  the tier): the registered chains are saved on ``close`` (and every
+  ``prefix_store_autosave_chains`` new chains) and loaded into the tier at
+  boot, so a restarted engine revives them;
 * ``reload_weights`` hot-swaps the weights from a checkpoint manager, a
   step directory, a serving artifact or a state-dict file, in place, so
   the captured graphs stay valid. The artifact functions at the end of
@@ -55,10 +69,9 @@ server over a paged KV pool on one device (``cuda`` by default):
   plain or int8 per channel.
 
 Prefill chunks, the per-step decode and the verify run eagerly; pools are
-written in place (see ``kv_cache``). Sharding plans,
-prefill-only/disaggregated serving, the host KV tier, the prefix store,
-integrity checks, deadlines and tenants are not ported, and the
-constructor does not take their arguments.
+written in place (see ``kv_cache``). Sharding plans, integrity checks
+(page checksums, the weight audit), deadlines and tenants are not ported,
+and the constructor does not take their arguments.
 """
 
 from __future__ import annotations
@@ -85,9 +98,16 @@ from ...observability import metrics as _obs_metrics
 from ...observability import trace as _obs_trace
 from ...ops.cuda import GraphLaunches
 from .errors import EngineClosedError
-from .kv_cache import PagedKVCache, PrefixCache, quantize_kv_rows
+from .kv_cache import (HostKVTier, PagedKVCache, PrefixCache,
+                       _G_HOST_BLOCKS, _H_REVIVE_MS, _H_SPILL_MS,
+                       _M_HOST_EVICT, _M_REVIVE_BYTES, _M_REVIVES,
+                       _M_SPILL_BYTES, _M_SPILLS, _nbytes, quantize_kv_rows)
 from .paged_attention import (paged_decode_attention,
                               paged_multiquery_attention)
+from .prefix_store import (PrefixStoreMismatch, _M_STORE_LOADED,
+                           _M_STORE_REJECTED, _M_STORE_SAVED,
+                           load_prefix_store, pool_geometry,
+                           save_prefix_store, weights_fingerprint)
 from .scheduler import (Request, SamplingParams, Scheduler, _M_ADMITTED,
                         _M_COW, _M_EVICTIONS, _M_FINISHED, _M_PREFIX_REUSED,
                         _M_QUEUED_EXH)
@@ -165,7 +185,12 @@ _SERVING_METRICS = (_M_ADMITTED, _M_EVICTIONS, _M_FINISHED, _M_QUEUED_EXH,
                     _M_SPEC_VERIFY, _M_SPEC_DRAFT, _M_DECODE_STEPS,
                     _M_TOKENS, _M_KV_SAVED, _H_TTFT, _H_ITL, _G_KV_UTIL,
                     _G_OCCUPANCY, _G_QUANT_BLOCKS, _M_HOST_SYNCS,
-                    _M_FETCH_BYTES)
+                    _M_FETCH_BYTES,
+                    # the host tier and the prefix store (the reason-
+                    # labeled _M_STORE_REJECTED is removed by label set)
+                    _M_SPILLS, _M_REVIVES, _M_SPILL_BYTES, _M_REVIVE_BYTES,
+                    _M_HOST_EVICT, _G_HOST_BLOCKS, _H_SPILL_MS,
+                    _H_REVIVE_MS, _M_STORE_SAVED, _M_STORE_LOADED)
 
 
 @dataclasses.dataclass
@@ -346,6 +371,8 @@ class LLMEngine:
                  max_prefills_per_step=1, ingest_async=True,
                  enable_prefix_cache=False, max_prefill_tokens_per_step=None,
                  draft_model=None, spec_tokens=2, kv_dtype=None,
+                 prefill_only=False, kv_host_blocks=0,
+                 prefix_store_path=None, prefix_store_autosave_chains=None,
                  fuse_draft_catchup=True, decode_steps_per_sync=1,
                  in_graph_sampling=None, capture_logits=False, device=None):
         for m in (model, draft_model):
@@ -360,6 +387,34 @@ class LLMEngine:
                 raise NotImplementedError(
                     "serving a Llama-MoE model is not ported yet (ROADMAP "
                     "Queue 1); the port trains it")
+        # prefill-only mode: the disaggregated prefill worker prefills and
+        # samples each request's FIRST token, but never decodes; requests
+        # wait decode-ready for export_kv_pages and cancel
+        self.prefill_only = bool(prefill_only)
+        if self.prefill_only and draft_model is not None:
+            raise ValueError("prefill_only engines never decode; a "
+                             "draft_model would be dead weight")
+        kv_host_blocks = int(kv_host_blocks)
+        if kv_host_blocks < 0:
+            raise ValueError("kv_host_blocks must be >= 0")
+        if prefix_store_path is not None:
+            if not enable_prefix_cache:
+                raise ValueError(
+                    "prefix_store_path requires enable_prefix_cache=True: "
+                    "the store persists prefix hash chains")
+            if kv_host_blocks == 0:
+                raise ValueError(
+                    "prefix_store_path requires kv_host_blocks > 0: "
+                    "loaded entries land in the host tier until a "
+                    "matching request revives them")
+        if prefix_store_autosave_chains is not None:
+            prefix_store_autosave_chains = int(prefix_store_autosave_chains)
+            if prefix_store_autosave_chains < 1:
+                raise ValueError(
+                    "prefix_store_autosave_chains must be >= 1")
+            if prefix_store_path is None:
+                raise ValueError("prefix_store_autosave_chains without "
+                                 "prefix_store_path saves nowhere")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self._was_training = model.training
@@ -397,10 +452,23 @@ class LLMEngine:
                 raise ValueError("max_prefill_tokens_per_step must be >= 1")
         self.max_prefill_tokens_per_step = max_prefill_tokens_per_step
         self._name = f"llm_engine#{next(LLMEngine._instance_ids)}"
+        # the host tier: preempted decode-ready requests and reclaimed
+        # prefix blocks spill to it and revive by page import
+        self.kv_tier = (HostKVTier(self.cache, kv_host_blocks,
+                                   instance=self._name)
+                        if kv_host_blocks > 0 else None)
+        if self.kv_tier is not None and self.prefix_cache is not None:
+            self.prefix_cache.on_spill = self.kv_tier.spill_blocks
+        self._store_path = prefix_store_path
+        self._store_autosave = prefix_store_autosave_chains
+        self._store_fingerprint = None
+        self._store_geometry = None
+        self._store_saved_chains = -1  # force the first autosave crossing
         self.scheduler = Scheduler(self.cache.allocator, block_size,
                                    max_batch_size, max_prefills_per_step,
                                    instance=self._name,
-                                   prefix_cache=self.prefix_cache)
+                                   prefix_cache=self.prefix_cache,
+                                   kv_tier=self.kv_tier)
         if self.cache.quantized:
             _M_KV_SAVED.inc(self._kv_bytes_saved, instance=self._name)
             _G_QUANT_BLOCKS.set(0, instance=self._name)
@@ -480,6 +548,16 @@ class LLMEngine:
         # step running on the current one
         self._stage_stream = (torch.cuda.Stream(self.device)
                               if self.device.type == "cuda" else None)
+        if self.kv_tier is not None:
+            # the tier's series read zero from boot, not from a first spill
+            for m in (_M_SPILLS, _M_REVIVES, _M_SPILL_BYTES,
+                      _M_REVIVE_BYTES, _M_HOST_EVICT):
+                m.inc(0, instance=self._name)
+            _G_HOST_BLOCKS.set(0, instance=self._name)
+        if self._store_path is not None:
+            self._store_fingerprint = weights_fingerprint(model)
+            self._store_geometry = pool_geometry(self.cache, self.config)
+            self._load_prefix_store()
         self._ingest = (_IngestThread(self._stage_request, self._name)
                         if ingest_async else None)
 
@@ -487,6 +565,71 @@ class LLMEngine:
         if self._closed:
             raise EngineClosedError(
                 f"{self._name} is closed; create a new LLMEngine")
+
+    # ------------------------------------------------------------------
+    # the persistent prefix store
+    # ------------------------------------------------------------------
+    def _prefix_store_entries(self):
+        """Chain entries worth persisting: every device-registered chain
+        (gathered from the pool in one snapshot) plus every host-resident
+        one, deduped by hash; the device copy wins."""
+        chains = self.prefix_cache.registered_chains()
+        entries = {}
+        if chains:
+            snap = self.cache.snapshot_request_pages(
+                [b for _, b in chains], len(chains) * self.block_size)
+            for i, (h, _) in enumerate(chains):
+                entries[h] = snap.view(i).materialize()
+        for h, pages in self.kv_tier.prefix_items():
+            entries.setdefault(h, pages)
+        return list(entries.items())
+
+    def save_prefix_store(self):
+        """Serialize the current prefix chains to ``prefix_store_path``
+        (atomic publish: the previous store stays intact on any failure).
+        Returns the number of entries written."""
+        if self._store_path is None:
+            raise ValueError(f"{self._name} has no prefix_store_path")
+        entries = self._prefix_store_entries()
+        save_prefix_store(self._store_path, entries,
+                          fingerprint=self._store_fingerprint,
+                          geometry=self._store_geometry,
+                          instance=self._name)
+        self._store_saved_chains = len(self.prefix_cache)
+        return len(entries)
+
+    def _load_prefix_store(self):
+        """Import the on-disk store into the host tier; a mismatch (CRC,
+        version, fingerprint, geometry) is a clean cold start. Returns the
+        entries loaded."""
+        try:
+            entries = load_prefix_store(
+                self._store_path, fingerprint=self._store_fingerprint,
+                geometry=self._store_geometry, instance=self._name)
+        except PrefixStoreMismatch as e:
+            warnings.warn(
+                f"{self._name}: rejecting prefix store "
+                f"(reason={e.reason}): {e}; cold-starting the prefix "
+                "cache", RuntimeWarning)
+            return 0
+        if entries is None:
+            return 0
+        return sum(bool(self.kv_tier.put_prefix_payload(h, pages))
+                   for h, pages in entries)
+
+    def _maybe_autosave_store(self):
+        if self._store_path is None or self._store_autosave is None:
+            return
+        grown = len(self.prefix_cache) - max(self._store_saved_chains, 0)
+        if (grown >= self._store_autosave
+                or self._store_saved_chains < 0 and len(self.prefix_cache)):
+            try:
+                self.save_prefix_store()
+            except OSError as e:
+                # saving is an optimisation; serving never dies for it
+                warnings.warn(f"{self._name}: prefix store autosave "
+                              f"failed: {e}", RuntimeWarning)
+                self._store_saved_chains = len(self.prefix_cache)
 
     # ------------------------------------------------------------------
     # request lifecycle
@@ -559,6 +702,131 @@ class LLMEngine:
                 f"bucket is {self.prefill_buckets[-1]}")
         if req.sampling.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+
+    # -- disaggregated prefill/decode handoff ----------------------------
+    def export_kv_pages(self, rid):
+        """The pages of a decode-ready request (the prefill side of the
+        handoff): its blocks holding the ``num_cached`` tokens written so
+        far, as host arrays (``PagedKVCache.export_request_pages``)."""
+        req = self._requests[rid]
+        if req.finished or req.prefilling or req.num_cached < 1:
+            raise ValueError(
+                f"request {rid} is not decode-ready "
+                f"(state={req.state}, prefilling={req.prefilling}); only "
+                "a completed prefill exports pages")
+        n_pages = self.cache.blocks_for_tokens(req.num_cached)
+        return self.cache.export_request_pages(req.blocks[:n_pages],
+                                               req.num_cached)
+
+    def add_request_with_pages(self, prompt_ids, pages,
+                               sampling: SamplingParams | None = None):
+        """Admit a request whose prompt pages were computed elsewhere (the
+        decode side of the handoff): ``prompt_ids`` is the original prompt
+        PLUS the first token the prefill engine sampled, and ``pages`` (an
+        ``export_kv_pages`` payload) covers every position but the last.
+        Admission allocates blocks as usual (queueing on exhaustion); the
+        next ``step`` writes the pages into them in place and the request
+        decodes from that step on, with no prefill. The payload is
+        validated here, before any request or allocator state moves; a
+        sealed one raises ``NotImplementedError``. Returns the id."""
+        self._ensure_open()
+        if self.prefill_only:
+            raise ValueError("prefill_only engines never decode; "
+                             "imported pages have nowhere to go")
+        req = Request(prompt_ids, sampling)
+        covered = int(pages["covered"])
+        if covered != len(req.prompt) - 1:
+            raise ValueError(
+                f"pages cover {covered} tokens but the prompt has "
+                f"{len(req.prompt)} — the handoff prompt is the original "
+                "prompt plus the prefill engine's first sampled token, "
+                "so coverage must be len(prompt) - 1")
+        n_payload = self.cache.validate_request_pages(pages)
+        if n_payload != self.cache.blocks_for_tokens(covered):
+            raise ValueError(
+                f"pages hold {n_payload} blocks but cover {covered} "
+                f"tokens ({self.cache.blocks_for_tokens(covered)} blocks "
+                f"at block_size={self.block_size})")
+        self._check_admissible(req)
+        req.preloaded = pages
+        req.t_submit = req.t_queue_start = time.perf_counter_ns()
+        self._requests[req.rid] = req
+        # nothing to prefill, so nothing to stage: straight to the queue
+        self.scheduler.waiting.append(req)
+        return req.rid
+
+    def _adopt_preloaded(self, req):
+        """Write a just-admitted preloaded request's pages (a handoff, or a
+        revival from the host tier) into its blocks, in place, before this
+        step decodes, and publish their identities to the prefix cache.
+        One-shot: afterwards the request is one prefilled here (an
+        eviction re-prefills through the staged path)."""
+        pages, req.preloaded = req.preloaded, None
+        revived, req.revived_from_tier = req.revived_from_tier, False
+        t0 = time.perf_counter()
+        self.cache.import_request_pages(req.blocks, pages)
+        if revived:
+            _M_REVIVES.inc(instance=self._name)
+            _M_REVIVE_BYTES.inc(_nbytes(pages), instance=self._name)
+            _H_REVIVE_MS.observe((time.perf_counter() - t0) * 1e3,
+                                 instance=self._name)
+        if self.prefix_cache is not None:
+            # the imported pages are byte for byte local prefill's
+            self.prefix_cache.register(req.tokens, req.blocks,
+                                       req.num_cached)
+        req.t_decode_start = time.perf_counter_ns()
+        _obs_trace.add_complete(
+            "request.import", getattr(req, "_t_admit", req.t_queue_start),
+            req.t_decode_start, cat="request", tid=req.rid,
+            args={"rid": req.rid, "engine": self._name,
+                  "covered": req.num_cached})
+
+    def _drain_revives(self):
+        """Land this step's host-tier prefix hits (queued by the
+        scheduler's ``match_with_tier``) in their allocated blocks, ONE
+        batched import a request, and adopt their chain identities. A hash
+        that left the tier between match and drain degrades to prefilling
+        that span and everything after it (a chain with a hole is no
+        chain)."""
+        sched = self.scheduler
+        if not sched.pending_revive:
+            return
+        spans = {}   # rid -> (req, [(block, h, pages), ...])
+        dead = set()  # rids whose chain broke
+        for req, block, h in sched.pending_revive:
+            if req.finished:
+                self.kv_tier.pop_prefix(h)
+                continue
+            idx = req.blocks.index(block)
+            if req.rid in dead:
+                req.num_cached = min(req.num_cached, idx * self.block_size)
+                self.kv_tier.pop_prefix(h)  # unreachable behind the hole
+                continue
+            pages = self.kv_tier.pop_prefix(h)
+            if pages is None:
+                dead.add(req.rid)
+                req.num_cached = min(req.num_cached, idx * self.block_size)
+                continue
+            spans.setdefault(req.rid, (req, []))[1].append((block, h,
+                                                            pages))
+        sched.pending_revive.clear()
+        for req, parts in spans.values():
+            t0 = time.perf_counter()
+            merged = dict(parts[0][2])
+            merged["covered"] = len(parts) * self.block_size
+            if len(parts) > 1:
+                for key in ("k", "v", "k_scale", "v_scale"):
+                    if key in merged:
+                        merged[key] = np.concatenate(
+                            [p[key] for _, _, p in parts], axis=1)
+            self.cache.import_request_pages([b for b, _, _ in parts],
+                                            merged)
+            for b, h, _ in parts:
+                self.prefix_cache.adopt(b, h)
+            _M_REVIVES.inc(len(parts), instance=self._name)
+            _M_REVIVE_BYTES.inc(_nbytes(merged), instance=self._name)
+            _H_REVIVE_MS.observe((time.perf_counter() - t0) * 1e3,
+                                 instance=self._name)
 
     def request(self, rid):
         return self._requests[rid]
@@ -927,9 +1195,18 @@ class LLMEngine:
                 cat="request", tid=req.rid,
                 args={"rid": req.rid, "engine": self._name,
                       "evictions": req.evictions})
+            if req.preloaded is not None:
+                # a handoff or a tier revival: its pages land in the fresh
+                # blocks before this step decodes
+                self._adopt_preloaded(req)
+        self._drain_revives()
         for req, start, take in sched.prefill_work(
                 self.max_prefill_tokens_per_step):
             self._run_chunk(req, start, take, outputs)
+        if self.prefill_only:
+            # decode-ready requests wait for export_kv_pages + cancel
+            self._update_gauges()
+            return outputs
 
         sched.ensure_decode_room(
             extra=self._spec_k,
@@ -967,6 +1244,7 @@ class LLMEngine:
             for i, req in ready:
                 req.num_cached += 1
                 outputs.extend(self._emit(req, logits[i]))
+        self._maybe_autosave_store()
         self._update_gauges()
         return outputs
 
@@ -1009,7 +1287,8 @@ class LLMEngine:
         fetch) in one pass: the accept scan mirrors the device's freezing
         (stop after the eos id or at ``max_new_tokens``), and the one clock
         read at the window's end is spread over the m accepted tokens as m
-        ITL observations of dt / m. Appends StepOutputs to ``outputs``."""
+        ITL observations of dt / m (an imported request's first window
+        observes its TTFT only). Appends StepOutputs to ``outputs``."""
         s = req.sampling
         accepted = []
         for t in toks:
@@ -1024,9 +1303,19 @@ class LLMEngine:
         self.stats_extra["tokens_out"] += m
         now = time.perf_counter_ns()
         _M_TOKENS.inc(m, instance=self._name)
-        dt_ms = (now - req.t_last_token) / 1e6 / m
-        for _ in range(m):
-            _H_ITL.observe(dt_ms, instance=self._name)
+        spread = m
+        if req.t_first_token is None:
+            # a first emission in decode: an imported request (a handoff or
+            # a tier revival); TTFT takes the window, with no ITL before it
+            req.t_first_token = now
+            if req.t_submit is not None:
+                _H_TTFT.observe((now - req.t_submit) / 1e6,
+                                instance=self._name)
+            spread = m - 1
+        if spread > 0 and req.t_last_token is not None:
+            dt_ms = (now - req.t_last_token) / 1e6 / spread
+            for _ in range(spread):
+                _H_ITL.observe(dt_ms, instance=self._name)
         req.t_last_token = now
         done = self._finish_if_done(req, now)
         for j, tok in enumerate(accepted):
@@ -1245,9 +1534,24 @@ class LLMEngine:
         so no ``data_ptr()`` moves and the captured decode windows and
         catch-up graphs stay valid with nothing recaptured. A partial
         state dict loads the names it has (the reference's lenient
-        ``set_state_dict``). Returns the restored step, or None. The
-        reference's sharding-plan, weight-audit and prefix-store branches
-        are not ported (this engine takes none of their arguments)."""
+        ``set_state_dict``). Returns the restored step, or None. With a
+        prefix store, weights of another fingerprint drop every cached
+        chain (device-registered and host-resident) and the store is read
+        again for the new fingerprint. The reference's sharding-plan and
+        weight-audit branches are not ported (this engine takes none of
+        their arguments)."""
+        step = self._reload_weights_impl(source)
+        if self._store_path is not None:
+            fp = weights_fingerprint(self.model)
+            if fp != self._store_fingerprint:
+                self.prefix_cache.invalidate()
+                self.kv_tier.drop_prefixes()
+                self._store_fingerprint = fp
+                self._store_saved_chains = -1
+                self._load_prefix_store()
+        return step
+
+    def _reload_weights_impl(self, source):
         from ...distributed.checkpoint import (CheckpointManager,
                                                load_state_dict)
         from ...framework import io as _fio
@@ -1320,15 +1624,48 @@ class LLMEngine:
                 if self.cache.quantized else None),
             "host_syncs": int(_M_HOST_SYNCS.value(instance=inst)),
             "decode_fetch_bytes": int(_M_FETCH_BYTES.value(instance=inst)),
+            # the host tier and the prefix store: zeros when they are off
+            "kv_spills": int(_M_SPILLS.value(instance=inst)),
+            "kv_revives": int(_M_REVIVES.value(instance=inst)),
+            "kv_spill_bytes": int(_M_SPILL_BYTES.value(instance=inst)),
+            "kv_revive_bytes": int(_M_REVIVE_BYTES.value(instance=inst)),
+            "kv_host_evictions": int(_M_HOST_EVICT.value(instance=inst)),
+            "kv_host_blocks": int(_G_HOST_BLOCKS.value(instance=inst)),
+            "kv_spill_ms": _H_SPILL_MS.summary(instance=inst),
+            "kv_revive_ms": _H_REVIVE_MS.summary(instance=inst),
+            "revive_misses": self.scheduler.revive_misses,
+            "prefix_store_saved": int(_M_STORE_SAVED.value(instance=inst)),
+            "prefix_store_loaded": int(
+                _M_STORE_LOADED.value(instance=inst)),
+            "prefix_store_rejected": sum(
+                self._store_rejected_by_reason().values()),
+            "prefix_store_rejected_by_reason":
+                self._store_rejected_by_reason(),
         }
+
+    def _store_rejected_series(self):
+        """THIS instance's label sets of the reason-labeled store-rejected
+        counter."""
+        return [d for d in (dict(lb) for lb in _M_STORE_REJECTED.labels())
+                if d.get("instance") == self._name]
+
+    def _store_rejected_by_reason(self):
+        return {d.get("reason", "corrupt"): int(_M_STORE_REJECTED.value(**d))
+                for d in self._store_rejected_series()}
 
     def reset_metrics(self):
         """Drop THIS instance's registry series (a benchmark window's
-        start); the construction-time KV saving is republished."""
+        start); the construction-time KV saving and the host tier's
+        occupancy (current state, not window activity) are republished."""
         for m in _SERVING_METRICS:
             m.remove(instance=self._name)
+        for d in self._store_rejected_series():
+            _M_STORE_REJECTED.remove(**d)
         if self.cache.quantized and not self._closed:
             _M_KV_SAVED.inc(self._kv_bytes_saved, instance=self._name)
+        if self.kv_tier is not None and not self._closed:
+            _G_HOST_BLOCKS.set(self.kv_tier.host_blocks_in_use,
+                               instance=self._name)
 
     def close(self):
         """Join the ingest thread, abort every live request, drop
@@ -1337,6 +1674,14 @@ class LLMEngine:
         afterwards the request API raises :class:`EngineClosedError`."""
         if self._closed:
             return
+        if self._store_path is not None:
+            # persist the warm chains BEFORE teardown frees their blocks; a
+            # failed save keeps the previous store and never blocks close
+            try:
+                self.save_prefix_store()
+            except OSError as e:
+                warnings.warn(f"{self._name}: prefix store save on close "
+                              f"failed: {e}", RuntimeWarning)
         self._closed = True
         if self._ingest is not None:
             self._ingest.close()
@@ -1347,6 +1692,8 @@ class LLMEngine:
                 self.scheduler.waiting):
             self.scheduler.abort(req, "closed")
         self._requests.clear()
+        if self.kv_tier is not None:
+            self.kv_tier.close()
         # frees the graphs' memory pools
         self._window = None
         self._catchups.clear()

@@ -19,11 +19,20 @@ Token-granularity admission into a fixed set of decode slots:
 * **graceful degradation**: a request that cannot get blocks stays queued
   (FIFO). If a RUNNING request cannot grow by one block, the most recently
   admitted running request is evicted (blocks freed, re-queued at the
-  FRONT, re-prefilled later from its prompt + generated prefix).
+  FRONT, re-prefilled later from its prompt + generated prefix);
+* **preloaded admission** (the disaggregated handoff and the host tier's
+  revival): a request carrying imported pages (``Request.preloaded``) is
+  admitted decode-ready, charging full blocks and skipping prefix
+  matching; the engine imports the pages before the step decodes;
+* **the host KV tier** (``kv_tier``, a :class:`~.kv_cache.HostKVTier`):
+  eviction spills a decode-ready victim's pages instead of dropping them,
+  and its re-admission revives them as a ``preloaded`` import; admission
+  also extends a device prefix match into host-resident chain links,
+  queued on ``pending_revive`` for the engine to import.
 
 ``version`` counts every block-table mutation so the engine can cache the
-device block-table tensor against it. Tenants, tiers, deadlines, the host
-KV tier and page handoff are not part of the port yet.
+device block-table tensor against it. Tenants, tiers (QoS) and deadlines
+are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -104,6 +113,14 @@ class Request:
         self.draft_cached = 0
         self.admit_seq = -1               # admission order (eviction policy)
         self.evictions = 0
+        # disaggregated handoff: pages computed elsewhere, imported at
+        # admission instead of prefilling; cleared after the one import
+        self.preloaded = None
+        # host tier: the tier key while this request's pages sit there
+        # (set at spill-eviction); ``revived_from_tier`` marks an admission
+        # whose ``preloaded`` payload came back FROM the tier
+        self.spill_key = None
+        self.revived_from_tier = False
         # the last logits row sampled from, with the engine's
         # ``capture_logits=True`` ([V] fp32 numpy)
         self.last_logits = None
@@ -151,12 +168,14 @@ class Request:
 class Scheduler:
     """Slots + FIFO wait queue over a :class:`~.kv_cache.BlockAllocator`.
     ``instance`` names this scheduler's registry label (the owning engine
-    passes its own name)."""
+    passes its own name); ``prefix_cache`` arms prefix-aware admission and
+    ``kv_tier`` the host tier's spills and revivals."""
 
     _ids = itertools.count(1)
 
     def __init__(self, allocator, block_size, max_batch_size,
-                 max_prefills_per_step=1, instance=None, prefix_cache=None):
+                 max_prefills_per_step=1, instance=None, prefix_cache=None,
+                 kv_tier=None):
         self.allocator = allocator
         self.block_size = int(block_size)
         self.slots: list[Request | None] = [None] * int(max_batch_size)
@@ -165,6 +184,13 @@ class Scheduler:
         self._admit_seq = itertools.count()
         self.instance = instance or f"scheduler#{next(Scheduler._ids)}"
         self.prefix_cache = prefix_cache
+        self.kv_tier = kv_tier
+        # (req, block_id, chain_hash) host-prefix revivals the engine must
+        # import and adopt before this step's prefill work
+        self.pending_revive: list[tuple] = []
+        # spill revivals that missed (the tier LRU-dropped the entry): each
+        # one degrades to re-prefill
+        self.revive_misses = 0
         self.version = 0
         # (src, dst) page copies the engine must run before the next pool
         # write — queued by the COW guard, drained by the engine's step
@@ -184,6 +210,7 @@ class Scheduler:
             "prefix_blocks_reused": int(
                 _M_PREFIX_REUSED.value(instance=inst)),
             "cow_copies": int(_M_COW.value(instance=inst)),
+            "revive_misses": self.revive_misses,
         }
 
     @property
@@ -203,15 +230,32 @@ class Scheduler:
         """Pop up to ``max_prefills_per_step`` waiting requests that fit (a
         free slot + blocks for prompt and first token, charging only blocks
         the prefix cache cannot supply). The FIFO head that does not fit
-        stays queued — no overtaking. Returns ``[(slot, request)]``."""
+        stays queued — no overtaking. A request spilled to the host tier
+        revives as a ``preloaded`` import (re-prefill if the tier dropped
+        it); a preloaded request is admitted decode-ready; otherwise
+        host-resident chain links continuing the device match are queued on
+        ``pending_revive``. Returns ``[(slot, request)]``."""
         picked = []
         while len(picked) < self.max_prefills_per_step and self.waiting:
             slot = self._free_slot()
             if slot is None:
                 break
             req = self.waiting[0]
-            if self.prefix_cache is not None:
-                matched, mtok = self.prefix_cache.match(req.tokens)
+            if req.spill_key is not None and self.kv_tier is not None:
+                payload = self.kv_tier.peek_request(req.spill_key)
+                if payload is not None:
+                    req.preloaded = payload
+                    req.revived_from_tier = True
+                else:
+                    self.revive_misses += 1
+                    req.spill_key = None
+            # preloaded requests charge full blocks and skip prefix
+            # matching: their pages arrive by import (the engine registers
+            # the imported full blocks afterwards)
+            host_hits = []
+            if self.prefix_cache is not None and req.preloaded is None:
+                matched, mtok, host_hits = self.prefix_cache.match_with_tier(
+                    req.tokens, self.kv_tier)
             else:
                 matched, mtok = [], 0
             need = -(-(req.num_tokens + 1) // self.block_size) - len(matched)
@@ -227,11 +271,28 @@ class Scheduler:
                 break
             self.waiting.popleft()
             req.blocks = list(matched) + blocks
-            req.num_cached = mtok
-            # the draft pool shares the matched blocks' ids, and every
-            # target chunk is mirrored into it, so it holds the same prefix
-            req.draft_cached = mtok
-            req.prefilling = True
+            if req.preloaded is not None:
+                # decode-ready: the pages cover every token but the last
+                # (whose K/V the first decode writes). The draft pool is
+                # not transferred; its catch-up re-derives the positions
+                req.num_cached = int(req.preloaded["covered"])
+                req.draft_cached = 0
+                req.prefilling = False
+                if req.revived_from_tier:
+                    self.kv_tier.drop_request(req.spill_key)
+                    req.spill_key = None
+            else:
+                # host-resident chain links continue the device match: the
+                # engine imports them before prefill, so num_cached starts
+                # past them. The draft pool mirrors only the DEVICE match
+                for j, h in enumerate(host_hits):
+                    self.pending_revive.append((req, blocks[j], h))
+                req.num_cached = mtok + len(host_hits) * self.block_size
+                # the draft pool shares the matched blocks' ids, and every
+                # target chunk is mirrored into it, so it holds the same
+                # prefix
+                req.draft_cached = mtok
+                req.prefilling = True
             req.prefill_upto = req.num_tokens
             req.state = RUNNING
             req.admit_seq = next(self._admit_seq)
@@ -352,6 +413,18 @@ class Scheduler:
 
     def _evict(self, req):
         slot = self.slots.index(req)
+        # host tier: spill a decode-ready victim's pages BEFORE its blocks
+        # free. The snapshot's gathers are enqueued on the pools' stream
+        # ahead of any later write, so reusing the blocks cannot corrupt
+        # the spilled copy. Mid-prefill victims are not spilled (their
+        # pages are incomplete); a failed or over-budget spill degrades to
+        # plain recompute preemption
+        if (self.kv_tier is not None and not req.prefilling
+                and req.num_cached > 0
+                and req.num_cached == req.num_tokens - 1):
+            if self.kv_tier.spill_request(req.rid, req.blocks,
+                                          req.num_cached):
+                req.spill_key = req.rid
         self.allocator.free(req.blocks)
         req.blocks = []
         req.num_cached = 0
@@ -371,6 +444,17 @@ class Scheduler:
         counted as ``serving_requests_finished_total``."""
         if req.state == FINISHED:
             return
+        # unwind queued device-page work referencing the dying request: a
+        # pending revive would index its emptied block list (and its host
+        # pages, pinned for this admission, would sit in the tier forever)
+        if self.pending_revive:
+            mine = [t for t in self.pending_revive if t[0] is req]
+            if mine:
+                self.pending_revive = [t for t in self.pending_revive
+                                       if t[0] is not req]
+                for _, _, h in mine:
+                    if self.kv_tier is not None:
+                        self.kv_tier.pop_prefix(h)
         if req.state == RUNNING:
             slot = self.slots.index(req)
             if self.pending_cow and req.blocks:
@@ -388,6 +472,10 @@ class Scheduler:
             except ValueError:
                 pass
         req.prefilling = False
+        req.preloaded = None  # never-imported handoff pages die here
+        if req.spill_key is not None and self.kv_tier is not None:
+            self.kv_tier.drop_request(req.spill_key)  # host pages too
+            req.spill_key = None
         req.abort_reason = reason
         req.state = FINISHED
 
