@@ -166,12 +166,36 @@ Phases, one printed line per result:
    re-prefilling; (c) the prefix store: a cold engine saves it on
    ``close`` (``TMPDIR``), a new engine boots from it, revives the
    chains (every revived block equal to its stored payload) and runs
-   fewer #2 launches; fp32 llama_tiny warm tokens card = CPU.
+   fewer #2 launches; fp32 llama_tiny warm tokens card = CPU;
+12. deadlines, tenants and QoS tiers, and serving integrity, llama_1b
+   bf16 with phase 4's prompts, windows of 8, four slots, the host tier:
+   (a) four "bronze" batch-tier requests decoding when four "gold"
+   latency-tier ones arrive (weights 1:3), against the same engine
+   arguments under FIFO: tokens bit for bit, yields = spills = revives
+   with no miss, TTFT p50 by tier, tenant tokens, the gold:bronze ratio
+   while both wait, tokens/s, one window graph, #1/#2 launches equal to
+   the profiler's; a quota arm (bronze throttled, nothing shed); (b) two
+   of four running requests with deadlines expiring mid-decode: streams
+   end in (-1, "timeout"), blocks back, the freed slot admits a waiting
+   request whose tokens equal its batch-of-one run, the abort's lag
+   against a window, ``generate`` with a passed deadline raising with the
+   allocator untouched; (c) (a) with ``kv_page_checksums``: verified =
+   spilled blocks, none rejected, same tokens, seal and verify ms and
+   GB/s; a flipped host-tier entry rejected and re-prefilled; a sealed
+   handoff verified, a flipped one refused before any block moves; the
+   weight audit (ms; a weight flip in place fails it; ``reload_weights``
+   from a bf16 artifact re-anchors it with the tokens of before and no
+   recapture); a pool page flipped in place under a decoding request
+   (no CRC sees it; whether its tokens changed is reported); (d) fp32
+   llama_tiny with tenants, tiers, a quota, a deadline and a flipped
+   spill: the card's admission order, tokens and tenant tokens equal the
+   CPU's.
 
 Then one JSON line with every kernel's numbers (``launches`` from the
 run named in the phase that returns them; #1 and #2 also
 ``launches_phase10``, the count of each of 10a's and 10c's predictor
-runs, and ``launches_phase11``, each of phase 11's counted runs), the
+runs, ``launches_phase11``, each of phase 11's counted runs, and
+``launches_phase12``, phase 12's QoS, FIFO and checksummed runs), the
 card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 1.
@@ -4828,6 +4852,749 @@ def phase_serve_disagg():
             "tier": tier, "warm": warm}
 
 
+# -- deadlines, tenants and QoS tiers; serving integrity ----------------------
+
+# phase 12: phase 4's pool and prompts, windows of 8, four slots; the first
+# four prompts are tenant "bronze" (batch tier), the last four "gold"
+# (latency tier), all admitted in one step when slots allow
+QOS_ENGINE = dict(num_blocks=2048, block_size=16, max_batch_size=4,
+                  max_prefills_per_step=4, max_model_len=2048,
+                  decode_steps_per_sync=SERVE_WINDOW, ingest_async=False)
+QOS_NEW = 32
+QOS_HOST_BLOCKS = 512        # more than the four bronze requests' pages
+QOS_WEIGHTS = {"gold": 3.0, "bronze": 1.0}
+QOS_QUOTA = 500.0            # bronze tokens/s in the quota arm: one
+                             # prefill puts it over for the 1 s window
+QOS_LONG_NEW = 512           # (a'): bronze tokens when it holds its slots
+                             # long enough for a yield to pay
+# (b): five 256-token prompts; two of four running requests expire
+# DEADLINE_S after submission, long before DEADLINE_NEW tokens
+DEADLINE_PROMPT = 256
+DEADLINE_NEW = 1024
+DEADLINE_S = 0.5
+# (d): fp32 llama_tiny, the same traffic at tiny size
+QOS_TINY = dict(num_blocks=160, block_size=4, max_batch_size=4,
+                max_prefills_per_step=4, decode_steps_per_sync=SERVE_WINDOW,
+                ingest_async=False, kv_host_blocks=96,
+                kv_page_checksums=True)
+QOS_TINY_NEW = 16
+
+
+def qos_arm(eng, prompts, dev, qos=True, flip=False, deadlines=None,
+            hook=None, new=QOS_NEW, bronze_new=None):
+    """One run of phase 12's traffic on ``eng``: the first half of
+    ``prompts`` submitted (``qos``: tenant "bronze", batch tier) and
+    stepped until each has its first token, then the second half (``qos``:
+    "gold", latency tier); driven to the end. ``flip`` flips one byte of
+    the oldest host-tier entry as soon as one is resident (the
+    ``host_entry`` drill); ``deadlines`` maps a prompt index to its
+    absolute deadline; ``hook(eng, step, reqs)`` runs after every step;
+    ``bronze_new`` gives the first half another token budget.
+    Returns a dict: tokens in prompt order, finish reasons, TTFT ms a
+    request, wall s, the tenant tokens when the gold requests arrived and
+    when the last finished, the flip's description, steps, and the wall
+    ms of each step and of its admission (``pick_prefills``: yields and
+    their spills' snapshots included)."""
+    from paddle_tpu_torch.inference.serving import (TIER_BATCH,
+                                                    TIER_LATENCY,
+                                                    SamplingParams)
+    from paddle_tpu_torch.inference.serving import integrity as I
+
+    half = len(prompts) // 2
+    deadlines = deadlines or {}
+
+    def submit(i, tenant, tier):
+        tags = dict(tenant=tenant, tier=tier) if qos else {}
+        n = bronze_new if bronze_new and i < half else new
+        return eng.add_request(prompts[i], SamplingParams(max_new_tokens=n),
+                               deadline=deadlines.get(i), **tags)
+
+    step_ms, admit_ms = [], []
+    pick = eng.scheduler.pick_prefills
+
+    def timed_pick():
+        t = time.perf_counter()
+        try:
+            return pick()
+        finally:
+            admit_ms[-1] += (time.perf_counter() - t) * 1e3
+
+    eng.scheduler.pick_prefills = timed_pick
+    sync(dev)
+    t0 = time.perf_counter()
+    rids = [submit(i, "bronze", TIER_BATCH) for i in range(half)]
+    reqs = [eng.request(r) for r in rids]
+    flipped, steps = None, 0
+
+    def step():
+        nonlocal flipped, steps
+        admit_ms.append(0.0)
+        t = time.perf_counter()
+        eng.step()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        steps += 1
+        if flip and flipped is None and eng.kv_tier is not None \
+                and len(eng.kv_tier):
+            flipped = I.flip_bit(eng, "host_entry")
+        if hook is not None:
+            hook(eng, steps, reqs)
+
+    while not all(r.output_tokens or r.finished for r in reqs):
+        step()
+    before = dict(eng.metrics()["tenant_tokens"])
+    rids += [submit(i, "gold", TIER_LATENCY)
+             for i in range(half, len(prompts))]
+    reqs = [eng.request(r) for r in rids]
+    t_gold = time.perf_counter()
+    during, gold_done = None, {}
+    while eng.has_work():
+        step()
+        for r in reqs[half:]:
+            if r.finished and r.rid not in gold_done:
+                gold_done[r.rid] = time.perf_counter() - t_gold
+        if during is None and all(r.finished for r in reqs[half:]):
+            during = dict(eng.metrics()["tenant_tokens"])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    eng.scheduler.pick_prefills = pick
+    out = dict(outs=[eng.output_tokens(r) for r in rids],
+               reasons=[r.finish_reason() for r in reqs],
+               ttft=[(r.t_first_token - r.t_submit) / 1e6
+                     if r.t_first_token is not None else None for r in reqs],
+               wall=wall, before=before, during=during or before,
+               flipped=flipped, steps=steps, rids=list(rids),
+               step_ms=step_ms, admit_ms=admit_ms,
+               gold_done_s=list(gold_done.values()))
+    for r in rids:
+        eng.release(r)
+    return out
+
+
+def qos_engine(model, dev, **kw):
+    """A phase 12 engine over ``model``, its window captured by a warm-up
+    request outside the counted runs, its metrics reset."""
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+
+    eng = LLMEngine(model, device=dev, **{**QOS_ENGINE, **kw})
+    eng.generate([warmup_prompt(model.config.vocab_size)],
+                 SamplingParams(max_new_tokens=2))
+    eng.reset_metrics()
+    return eng
+
+
+def configure_tiers(eng, **bronze):
+    for name, w in QOS_WEIGHTS.items():
+        eng.configure_tenant(name, weight=w,
+                             **(bronze if name == "bronze" else {}))
+
+
+def steps_str(run):
+    return ", ".join(f"{w:.1f} ({a:.1f})"
+                     for w, a in zip(run["step_ms"], run["admit_ms"]))
+
+
+def p50(xs):
+    xs = [x for x in xs if x is not None]
+    return statistics.median(xs) if xs else float("nan")
+
+
+def new_tokens(outs, prompts):
+    return sum(len(o) - len(p) for o, p in zip(outs, prompts))
+
+
+def window_graph(eng):
+    """(the window's graph step, its captures, its replays)."""
+    w = eng._window
+    return w, (w.captures if w is not None else 0), \
+        (w.replays if w is not None else 0)
+
+
+def qos_arms(model, prompts, dev, profile=True):
+    """Phase 12a: the FIFO arm (default traffic) and the QoS arm (bronze
+    batch then gold latency, weights 3:1) on two engines with the same
+    arguments and the host tier, then the QoS arm again under the profiler
+    and the quota arm. Gates: the QoS tokens equal FIFO's bit for bit,
+    yields = spills = revives with no miss, no recapture, #1/#2 launches
+    equal to the profiler's; the quota arm throttles, sheds nothing and
+    finishes every request. Returns both arms' tokens and launches."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import paged_attention as K
+
+    cuda = torch.device(dev).type == "cuda"
+    kw = dict(kv_host_blocks=QOS_HOST_BLOCKS)
+    fifo_eng = qos_engine(model, dev, **kw)
+    fifo, fifo_counts, _ = counted(dev, lambda: qos_arm(
+        fifo_eng, prompts, dev, qos=False))
+    fm = fifo_eng.metrics()
+    fifo_eng.close()
+    eng = qos_engine(model, dev, **kw)
+    configure_tiers(eng)
+    graph0, cap0, rep0 = window_graph(eng)
+    qos, counts, _ = counted(dev, lambda: qos_arm(eng, prompts, dev))
+    m, st = eng.metrics(), eng.stats()
+    graph1, cap1, rep1 = window_graph(eng)
+    half = len(prompts) // 2
+    same = same_tokens(qos["outs"], fifo["outs"])
+    toks = new_tokens(qos["outs"], prompts)
+    gold = qos["during"].get("gold", 0) - qos["before"].get("gold", 0)
+    bronze = qos["during"].get("bronze", 0) - qos["before"].get(
+        "bronze", 0)
+    ratio = gold / bronze if bronze else float("inf")
+    say(f"serve-qos (a) llama_1b: {len(prompts)} requests x {QOS_NEW} new "
+        f"tokens, {half} bronze (batch tier, weight 1) decoding when {half} "
+        f"gold (latency tier, weight 3) arrive, batch "
+        f"{QOS_ENGINE['max_batch_size']}, kv_host_blocks {QOS_HOST_BLOCKS}: "
+        f"batch yields {m['batch_yields']}, spills {m['kv_spills']}, revives "
+        f"{m['kv_revives']}, revive misses {m['revive_misses']}, evictions "
+        f"{st['evictions']}; TTFT p50 gold {p50(qos['ttft'][half:]):.1f} ms "
+        f"vs the same requests under FIFO {p50(fifo['ttft'][half:]):.1f} ms; "
+        f"bronze {p50(qos['ttft'][:half]):.1f} vs "
+        f"{p50(fifo['ttft'][:half]):.1f} ms; tenant_tokens "
+        f"{m['tenant_tokens']}; gold:bronze tokens while both were "
+        f"backlogged {gold}:{bronze} = {ratio:.2f}; tokens/s "
+        f"{toks / qos['wall']:.1f} vs FIFO {toks / fifo['wall']:.1f} "
+        f"({qos['steps']} vs {fifo['steps']} steps); spilled "
+        f"{m['kv_spill_bytes']} bytes in {m['kv_spill_ms']['sum']:.1f} ms, "
+        f"revived {m['kv_revive_bytes']} in {m['kv_revive_ms']['sum']:.1f} "
+        f"ms; launches QoS {launches_str(counts)}, FIFO "
+        f"{launches_str(fifo_counts)}; window graph captures "
+        f"{cap0} -> {cap1}, replays {rep0} -> {rep1}; tokens equal FIFO's: "
+        f"{same}")
+    say(f"serve-qos (a) step wall ms (admission ms, yields' snapshots "
+        f"included): QoS {steps_str(qos)}; FIFO {steps_str(fifo)}")
+    check(same, "QoS tokens equal the FIFO arm's bit for bit (QoS moves "
+          "when work runs, never which tokens)")
+    check(m["batch_yields"] > 0
+          and m["batch_yields"] == m["kv_spills"] == m["kv_revives"]
+          and m["revive_misses"] == 0,
+          f"yields {m['batch_yields']} = spills {m['kv_spills']} = revives "
+          f"{m['kv_revives']}, no miss")
+    check(set(m["tenant_tokens"]) <= {"gold", "bronze", "default"}
+          and m["tenant_tokens"]["gold"] > 0
+          and m["tenant_tokens"]["bronze"] > 0, "tenant tokens by tenant")
+    check(graph1 is graph0 and cap1 == cap0 == (1 if cuda else 0)
+          and (rep1 > rep0 or not cuda),
+          f"no recapture: one window graph, {cap1} capture(s)")
+    if cuda:
+        L = model.config.num_hidden_layers
+        check(counts["paged_decode_attention_cuda"] == L * m["decode_steps"]
+              and counts["paged_multiquery_attention_cuda"]
+              == L * m["prefill_chunks"],
+              f"QoS launches {launches_str(counts)} == layers x decode "
+              f"iterations, layers x chunks")
+        if profile:
+            K.reset_launch_counts()
+            prof = device_profile(lambda: qos_arm(eng, prompts, dev),
+                                  "serve-qos (a) QoS arm (again)",
+                                  mark=("paged_decode", "paged_multiquery"))
+            if prof is not None:
+                check_profiled_launches(prof, K.launch_counts(),
+                                        "serve-qos (a) QoS arm")
+    # the quota arm: bronze over its rate after its first prefills
+    eng.reset_metrics()
+    configure_tiers(eng, rate_tokens_per_s=QOS_QUOTA, window_s=1.0)
+    quota = qos_arm(eng, prompts, dev)
+    qm = eng.metrics()
+    configure_tiers(eng)
+    eng.close()
+    done = all(r == "length" for r in quota["reasons"])
+    say(f"serve-qos (a) quota arm: bronze {QOS_QUOTA} tokens/s over 1 s: "
+        f"throttled admission passes {qm['quota_throttled']}, finished "
+        f"{qm['finished']} of {len(prompts)} (reasons "
+        f"{sorted(set(quota['reasons']))}), wall {quota['wall']:.3f} s vs "
+        f"{qos['wall']:.3f} s without the quota; tokens equal FIFO's: "
+        f"{same_share(quota['outs'], fifo['outs']):.3f} of requests; "
+        f"tenant_tokens {qm['tenant_tokens']}")
+    check(qm["quota_throttled"] > 0 and done
+          and qm["finished"] == len(prompts),
+          "the quota throttles bronze, sheds nothing, every request "
+          "finishes")
+    # (a'): bronze holding its slots for QOS_LONG_NEW tokens, QoS vs FIFO
+    long = {}
+    for arm, on in (("qos", True), ("fifo", False)):
+        e = qos_engine(model, dev, **kw)
+        if on:
+            configure_tiers(e)
+        long[arm] = qos_arm(e, prompts, dev, qos=on,
+                            bronze_new=QOS_LONG_NEW)
+        long[arm]["m"] = e.metrics()
+        e.close()
+    lq, lf = long["qos"], long["fifo"]
+    lsame = same_tokens(lq["outs"], lf["outs"])
+    say(f"serve-qos (a') bronze of {QOS_LONG_NEW} new tokens: TTFT p50 gold "
+        f"{p50(lq['ttft'][half:]):.1f} ms under QoS vs "
+        f"{p50(lf['ttft'][half:]):.1f} ms under FIFO; the gold requests' "
+        f"last token {max(lq['gold_done_s'], default=0):.3f} s vs "
+        f"{max(lf['gold_done_s'], default=0):.3f} s after they arrived; "
+        f"yields {lq['m']['batch_yields']}, spills {lq['m']['kv_spills']}, "
+        f"revives {lq['m']['kv_revives']}; wall {lq['wall']:.3f} vs "
+        f"{lf['wall']:.3f} s; tokens equal FIFO's: {lsame}")
+    check(lsame and lq["m"]["batch_yields"] == lq["m"]["kv_spills"]
+          == lq["m"]["kv_revives"] > 0 and lq["m"]["revive_misses"] == 0,
+          "(a') tokens equal FIFO's, yields = spills = revives")
+    return dict(fifo=fifo, qos=qos, counts=counts, fifo_counts=fifo_counts,
+                fm=fm)
+
+
+def deadline_prompts(vocab):
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 17)
+    return [rng.randint(0, vocab, DEADLINE_PROMPT).astype(np.int32)
+            for _ in range(5)]
+
+
+def deadline_arm(model, dev):
+    """Phase 12b: four requests of ``DEADLINE_NEW`` tokens fill the slots,
+    two with a deadline ``DEADLINE_S`` out; a fifth waits. Gates: the two
+    streams end in (-1, "timeout") mid-decode, their blocks are back, the
+    freed slot admits the waiting request at the same step and its tokens
+    equal its batch-of-one run's; no recapture; ``generate`` with a passed
+    deadline raises with the allocator untouched."""
+    import torch
+
+    from paddle_tpu_torch.inference.serving import (RequestTimeoutError,
+                                                    SamplingParams)
+
+    cuda = torch.device(dev).type == "cuda"
+    prompts = deadline_prompts(model.config.vocab_size)
+    eng = qos_engine(model, dev)
+    try:
+        want = eng.generate([prompts[4]],
+                            SamplingParams(max_new_tokens=QOS_NEW))[0]
+        usable = eng.cache.num_blocks - 1
+        free0 = eng.cache.allocator.num_free
+        graph0, cap0, _ = window_graph(eng)
+        deadline = time.time() + DEADLINE_S
+        rids = [eng.add_request(
+            p, SamplingParams(max_new_tokens=DEADLINE_NEW),
+            deadline=deadline if i < 2 else None)
+            for i, p in enumerate(prompts[:4])]
+        waiting = eng.add_request(prompts[4],
+                                  SamplingParams(max_new_tokens=QOS_NEW))
+        ends, windows = [], []
+        lag, admitted_with, balanced = float("nan"), (None, False, None), \
+            False
+        while eng.has_work():
+            t = time.time()
+            outs = eng.step()
+            sync(dev)
+            timed_out = [o for o in outs if o.finish_reason == "timeout"]
+            if timed_out:
+                ends += timed_out
+                lag = (t - deadline) * 1e3
+                r = eng.request(waiting)
+                admitted_with = (r.state, r.blocks != [],
+                                 [eng.request(x).blocks for x in rids[:2]])
+                held = sum(len(q.blocks) for q in eng.scheduler.running)
+                balanced = held + eng.cache.allocator.num_free == usable
+            elif not ends and all(eng.request(x).output_tokens
+                                  for x in rids):
+                windows.append((time.time() - t) * 1e3)
+            if eng.request(waiting).finished:
+                break
+        got = eng.output_tokens(waiting)
+        decoded = [len(eng.request(x).output_tokens) for x in rids[:2]]
+        for x in rids[2:]:
+            eng.cancel(x)
+        free1 = eng.cache.allocator.num_free
+        graph1, cap1, _ = window_graph(eng)
+        m = eng.metrics()
+        n_req = len(eng._requests)
+        with contextlib.suppress(RequestTimeoutError):
+            eng.generate([prompts[0]], SamplingParams(max_new_tokens=4),
+                         deadline=time.time() - 1.0)
+            check(False, "generate(deadline=<past>) raised")
+        untouched = (eng.cache.allocator.num_free == free1
+                     and len(eng._requests) == n_req and not eng.has_work())
+    finally:
+        eng.close()
+    same = bool((got == want).all()) and len(got) == len(want)
+    win = statistics.median(windows) if windows else float("nan")
+    say(f"serve-qos (b) deadlines: 4 x {DEADLINE_PROMPT}-token requests of "
+        f"{DEADLINE_NEW} new tokens, two with a deadline {DEADLINE_S} s out, "
+        f"a fifth waiting: streams ended {[(o.token, o.finish_reason) for o in ends]} "
+        f"after {decoded} tokens; the abort came {lag:.1f} ms after the "
+        f"deadline against a window's wall {win:.1f} ms (median of "
+        f"{len(windows)}); the waiting request was {admitted_with[0]} with "
+        f"blocks {admitted_with[1]} in that step, the expired ones' blocks "
+        f"{admitted_with[2]}, held + free = usable: {balanced}; its tokens "
+        f"equal its batch-of-one run: {same}; deadline_expired "
+        f"{m['deadline_expired']}; blocks free after {free1} of {free0}; "
+        f"window captures {cap0} -> {cap1}; generate(deadline=<past>) "
+        f"raised with the allocator untouched: {untouched}")
+    check(len(ends) == 2 and all(o.token == -1 and o.finished for o in ends)
+          and all(0 < d < DEADLINE_NEW for d in decoded),
+          "two streams end in (-1, timeout) mid-decode")
+    check(admitted_with[0] == "running" and admitted_with[1]
+          and admitted_with[2] == [[], []] and balanced,
+          "the freed slot admits the waiting request; the expired blocks "
+          "are back")
+    check(same, "the admitted request's tokens equal its batch-of-one run")
+    check(m["deadline_expired"] == 2 and free1 == free0 and untouched
+          and graph1 is graph0 and cap1 == cap0 == (1 if cuda else 0),
+          "deadline counter, every block back, no recapture, past deadline "
+          "raises")
+    return lag, win
+
+
+@contextlib.contextmanager
+def crc_timing():
+    """Time every ``seal_pages`` and ``verify_pages`` the engine's pages go
+    through (the kv_cache module calls them through the integrity
+    module). Yields {"seal"|"verify": [ms, bytes, blocks]}."""
+    from paddle_tpu_torch.inference.serving import integrity as I
+
+    acc = {"seal": [0.0, 0, 0], "verify": [0.0, 0, 0]}
+    seal, verify = I.seal_pages, I.verify_pages
+
+    def timed_call(kind, fn, pages, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(pages, **kw)
+        finally:
+            a = acc[kind]
+            a[0] += (time.perf_counter() - t0) * 1e3
+            a[1] += sum(int(v.nbytes) for k, v in pages.items()
+                        if k != "crc" and hasattr(v, "nbytes"))
+            a[2] += int(pages["k"].shape[1])
+
+    I.seal_pages = functools.partial(timed_call, "seal", seal)
+    I.verify_pages = functools.partial(timed_call, "verify", verify)
+    try:
+        yield acc
+    finally:
+        I.seal_pages, I.verify_pages = seal, verify
+
+
+def rate_str(a):
+    ms, nbytes, blocks = a
+    if not ms:
+        return "not measured"
+    return (f"{blocks} blocks, {nbytes} bytes in {ms:.1f} ms "
+            f"({nbytes / ms / 1e6:.2f} GB/s)")
+
+
+def integrity_arms(model, prompts, a, dev, root):
+    """Phase 12c: (a)'s QoS arm with ``kv_page_checksums=True`` (verified
+    blocks = spilled blocks, none rejected, tokens = (a)'s); the same with
+    a host-tier entry flipped (rejected once, re-prefilled); a sealed
+    handoff between a prefill-only and a decode engine (verified; a flipped
+    payload raises before any block moves); the weight audit (its ms; a
+    weight flip in place fails it; ``reload_weights`` from a bf16 artifact
+    re-anchors it with the tokens of before and no recapture; a pool-page
+    flip in place, which no CRC sees). Returns the checksummed arm's
+    launches."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.serving import (
+        KVIntegrityError, LLMEngine, SamplingParams, pack_kv_pages,
+        save_llama_artifact, unpack_kv_pages)
+    from paddle_tpu_torch.inference.serving import integrity as I
+
+    cuda = torch.device(dev).type == "cuda"
+    half = len(prompts) // 2
+    fifo = a["fifo"]["outs"]
+    eng = qos_engine(model, dev, kv_host_blocks=QOS_HOST_BLOCKS,
+                     kv_page_checksums=True)
+    configure_tiers(eng)
+    with crc_timing() as acc:
+        sealed, counts, _ = counted(dev, lambda: qos_arm(eng, prompts, dev))
+    m = eng.metrics()
+    per_block = (2 * model.config.num_hidden_layers * eng.block_size
+                 * model.config.num_key_value_heads * model.config.head_dim
+                 * eng.cache.k[0].element_size())
+    spilled = (m["kv_spill_bytes"] - 4 * acc["seal"][2]) // per_block
+    same = same_tokens(sealed["outs"], a["qos"]["outs"])
+    say(f"serve-qos (c) checksums on (a)'s QoS arm: yields "
+        f"{m['batch_yields']}, spilled blocks {spilled}, sealed "
+        f"{acc['seal'][2]}, verified {m['kv_pages_verified']}, rejected "
+        f"{m['kv_pages_rejected']}; seal {rate_str(acc['seal'])}, verify "
+        f"{rate_str(acc['verify'])}; tokens/s "
+        f"{new_tokens(sealed['outs'], prompts) / sealed['wall']:.1f} vs "
+        f"{new_tokens(a['qos']['outs'], prompts) / a['qos']['wall']:.1f} "
+        f"without; launches {launches_str(counts)}; tokens equal (a)'s: "
+        f"{same}")
+    check(spilled > 0 and m["kv_pages_verified"] == spilled
+          == acc["seal"][2] and m["kv_pages_rejected"] == 0 and same,
+          "checksums: verified = spilled blocks, none rejected, tokens = (a)'s")
+    # the host_entry drill: the oldest resident spill flipped after its seal
+    eng.reset_metrics()
+    misses0 = eng.scheduler.revive_misses
+    with warnings_ignored():
+        drill = qos_arm(eng, prompts, dev, flip=True)
+    dm = eng.metrics()
+    eng.close()
+    key = drill["flipped"]["key"] if drill["flipped"] else None
+    idx = drill["rids"].index(key[1]) if key else None
+    flip_same = idx is not None and bool(
+        (drill["outs"][idx] == fifo[idx]).all())
+    say(f"serve-qos (c) host_entry flip on spill {key}: rejected "
+        f"{dm['kv_pages_rejected']}, verified {dm['kv_pages_verified']}, "
+        f"revive misses {eng.scheduler.revive_misses - misses0}, revives "
+        f"{dm['kv_revives']} of {dm['kv_spills']} spills, prefills "
+        f"{dm['prefills']} (one a request plus the re-prefill); the flipped "
+        f"request's tokens equal FIFO's: {flip_same} (reported: the "
+        f"re-prefill recomputes its generated tokens' K/V in prefill-sized "
+        f"bf16 GEMMs, which round apart from the decode's, as phase 11b's "
+        f"re-prefill arm; (d) gates the re-prefilled tokens in fp32); all "
+        f"requests: {same_share(drill['outs'], fifo):.3f}")
+    check(key is not None and dm["kv_pages_rejected"] == 1
+          and eng.scheduler.revive_misses - misses0 == 1
+          and dm["prefills"] == len(prompts) + 1
+          and all(r == "length" for r in drill["reasons"]),
+          "the flipped spill is rejected once and its request re-prefilled")
+    # a sealed handoff: prefill-only engine -> wire format -> decode engine
+    pre = LLMEngine(model, device=dev, prefill_only=True,
+                    kv_page_checksums=True, **QOS_ENGINE)
+    dec = qos_engine(model, dev)
+    try:
+        hs, _ = prefill_handoffs(pre, [prompts[1]], dev)
+        (p2, pages), = hs
+        rid, imp_ms = dev_ms(dev, dec.add_request_with_pages, p2, pages,
+                             SamplingParams(max_new_tokens=QOS_NEW - 1))
+        for _ in dec.stream():
+            pass
+        got = dec.output_tokens(rid)
+        dm = dec.metrics()
+        n_blocks = int(pages["k"].shape[1])
+        flipped = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+                   for k, v in pages.items()}
+        flipped["k"].view(np.uint8).flat[flipped["k"].nbytes // 3] ^= 0x10
+        free0, n0 = dec.cache.allocator.num_free, len(dec._requests)
+        try:
+            dec.add_request_with_pages(p2, flipped,
+                                       SamplingParams(max_new_tokens=4))
+            raised = False
+        except KVIntegrityError:
+            raised = True
+        moved = (dec.cache.allocator.num_free != free0
+                 or len(dec._requests) != n0 or dec.has_work())
+        rejected = dec.metrics()["kv_pages_rejected"]
+    finally:
+        pre.close()
+        dec.close()
+    hand_same = len(got) == len(fifo[1]) and bool((got == fifo[1]).all())
+    say(f"serve-qos (c) sealed handoff: {n_blocks} blocks "
+        f"({page_bytes(pages)} bytes) verified on import "
+        f"({dm['kv_pages_verified']}), add_request_with_pages {imp_ms:.1f} ms "
+        f"with the verify; decoded tokens equal FIFO's: {hand_same}; a "
+        f"flipped payload raised KVIntegrityError: {raised}, blocks or "
+        f"requests moved: {moved}, rejected {rejected}")
+    check(dm["kv_pages_verified"] == n_blocks and hand_same,
+          "the sealed handoff verifies every block and decodes FIFO's tokens")
+    check(raised and not moved and rejected == 1,
+          "a flipped payload raises KVIntegrityError before any block moves")
+    # the weight audit
+    path = os.path.join(root, "llama_1b")
+    _, save_ms = dev_ms(dev, save_llama_artifact, model, path)
+    aud, boot_ms = dev_ms(dev, lambda: LLMEngine(
+        model, device=dev, weight_audit=True, **QOS_ENGINE))
+    plain, plain_ms = dev_ms(dev, lambda: LLMEngine(model, device=dev,
+                                                    **QOS_ENGINE))
+    plain.close()
+    try:
+        sp = SamplingParams(max_new_tokens=QOS_NEW)
+        before = aud.generate(prompts[:half], sp)
+        graph0, cap0, rep0 = window_graph(aud)
+        ok0, audit_ms = dev_ms(dev, aud.audit_weights)
+        ptrs = [p.data_ptr() for p in model.parameters()]
+        flip = I.flip_bit(aud, "weights")
+        ok1 = aud.audit_weights()
+        fails = aud.metrics()["weight_audit_failures"]
+        flipped_toks = aud.generate(prompts[:half], sp)
+        _, reload_ms = dev_ms(dev, aud.reload_weights, path)
+        ok2 = aud.audit_weights()
+        after = aud.generate(prompts[:half], sp)
+        in_place = [p.data_ptr() for p in model.parameters()] == ptrs
+        # a pool page flipped in place under a decoding request, against
+        # the same request alone unflipped
+        clean = aud.generate([prompts[0]], sp)[0]
+        rid = aud.add_request(prompts[0], sp)
+        while not aud.request(rid).output_tokens:
+            aud.step()
+        page = aud.request(rid).blocks[0]
+        pool_ptr = aud.cache._groups["k"].data_ptr()
+        kv_flip = I.flip_bit(aud, "kv_page", block=page)
+        for _ in aud.stream():
+            pass
+        kv_toks = aud.output_tokens(rid)
+        kv_ptr_same = aud.cache._groups["k"].data_ptr() == pool_ptr
+        graph1, cap1, rep1 = window_graph(aud)
+        am = aud.metrics()
+    finally:
+        aud.close()
+    restored = same_tokens(after, before)
+    changed = not same_tokens(flipped_toks, before)
+    kv_changed = not bool((kv_toks == clean).all())
+    say(f"serve-qos (c) weight audit: artifact saved in {save_ms:.1f} ms; "
+        f"engine built in {boot_ms:.1f} ms with the audit's anchor vs "
+        f"{plain_ms:.1f} ms without; audit_weights {audit_ms:.1f} ms "
+        f"({ok0}); flip_bit(weights) flipped {flip['flips']} tensors in "
+        f"place ({in_place}): audit {ok1}, failures {fails}, tokens changed "
+        f"{changed}; reload_weights(artifact) {reload_ms:.1f} ms: audit "
+        f"{ok2}, tokens equal before the flip {restored}; window captures "
+        f"{cap0} -> {cap1}, replays {rep0} -> {rep1}; flip_bit(kv_page) on "
+        f"block {page} under a decoding request in place ({kv_ptr_same}): "
+        f"pages rejected {am['kv_pages_rejected']} (no CRC covers the pool), "
+        f"its tokens changed: {kv_changed}; audits {am['weight_audits']}")
+    check(ok0 and not ok1 and fails == 1 and ok2 and restored and in_place
+          and am["weight_audit_failures"] == 1,
+          "the weight audit fails on the flip and passes after the reload, "
+          "tokens restored, in place")
+    check(graph1 is graph0 and cap1 == cap0 == (1 if cuda else 0)
+          and (rep1 > rep0 or not cuda),
+          "no recapture across the flip and the reload")
+    check(kv_flip == {"target": "kv_page", "block": page} and kv_ptr_same
+          and am["kv_pages_rejected"] == 0,
+          "the pool-page flip lands in place, unseen by the page CRCs")
+    return counts
+
+
+@contextlib.contextmanager
+def warnings_ignored():
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        yield
+
+
+def tiny_prompts(vocab, seed=SEED + 18):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, vocab, n).astype(np.int32)
+            for n in rng.randint(20, 61, 8)]
+
+
+def qos_tiny_run(dev, state, prompts, qos=True):
+    """Phase 12d on ``dev``: fp32 llama_tiny, (a)'s traffic at tiny size
+    with tenants and tiers, bronze's quota on a step clock, checksums and
+    a ``host_entry`` flip, and gold request 5's deadline expiring at the
+    start of step 3, mid-decode. Returns (tokens, reasons, tenant_tokens, admission order,
+    metrics)."""
+    from paddle_tpu_torch.inference.serving import LLMEngine
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
+                                         load_paddle_tpu_state_dict)
+
+    model = LlamaForCausalLM(llama_tiny(), device=dev)
+    load_paddle_tpu_state_dict(model, state)
+    eng = LLMEngine(model, device=dev, **QOS_TINY)
+    try:
+        if qos:
+            configure_tiers(eng)
+            eng.scheduler.configure_tenant(
+                "bronze", weight=QOS_WEIGHTS["bronze"],
+                rate_tokens_per_s=40.0, window_s=1.0,
+                clock=lambda: eng.stats_extra["steps"] * 0.25)
+        order = []
+        pick = eng.scheduler.pick_prefills
+
+        def recording():
+            got = pick()
+            order.extend(int(r.rid) for _, r in got)
+            return got
+
+        eng.scheduler.pick_prefills = recording
+
+        def expire(e, step, reqs):
+            if qos and step == 2 and len(reqs) > 5:
+                reqs[5].deadline = time.time() - 1.0
+
+        run = qos_arm(eng, prompts, dev, qos=qos, flip=qos,
+                      deadlines={5: time.time() + 3600} if qos else None,
+                      hook=expire, new=QOS_TINY_NEW)
+        m = eng.metrics()
+        order = [run["rids"].index(r) for r in order]
+        return run["outs"], run["reasons"], m["tenant_tokens"], order, m
+    finally:
+        eng.close()
+
+
+def qos_card_vs_cpu():
+    """Phase 12d: the tiny run on the CPU and on the card. Gates: equal
+    admission order, tokens and tenant tokens; the run throttled, yielded,
+    rejected the flipped spill and timed out one request; every finished
+    request (the flipped one re-prefilled) equals its FIFO run's."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+
+    cfg = llama_tiny()
+    rng = np.random.RandomState(SEED + 19)
+    ref = LlamaForCausalLM(cfg, device="cpu")
+    state = {k: (np.ones(v.shape, np.float32) if "norm" in k else
+                 (rng.standard_normal(v.shape) * 0.02).astype(np.float32))
+             for k, v in ref.state_dict().items()}
+    prompts = tiny_prompts(cfg.vocab_size)
+    runs = {dev: qos_tiny_run(dev, state, prompts)
+            for dev in ("cpu", "cuda")}
+    fifo = {dev: qos_tiny_run(dev, state, prompts, qos=False)
+            for dev in ("cpu", "cuda")}
+    c, g = runs["cpu"], runs["cuda"]
+    same = same_tokens(c[0], g[0])
+    m = g[4]
+    live = [i for i, r in enumerate(g[1]) if r != "timeout"]
+    fifo_share = {dev: sum(bool((runs[dev][0][i] == fifo[dev][0][i]).all())
+                           for i in live) / len(live) for dev in runs}
+    say(f"serve-qos (d) card vs cpu llama_tiny fp32: admission order "
+        f"{g[3]} (card) vs {c[3]} (CPU); reasons {g[1]}; tenant_tokens "
+        f"{g[2]} vs {c[2]}; throttled {m['quota_throttled']}, yields "
+        f"{m['batch_yields']}, rejected {m['kv_pages_rejected']}, verified "
+        f"{m['kv_pages_verified']}, deadline_expired {m['deadline_expired']}; "
+        f"tokens card = CPU: {same}; requests that finished equal their FIFO "
+        f"run's: card {fifo_share['cuda']:.3f}, CPU {fifo_share['cpu']:.3f}")
+    check(same and g[1:4] == c[1:4],
+          "card = CPU: admission order, tokens, reasons and tenant tokens")
+    check(fifo_share["cuda"] == fifo_share["cpu"] == 1.0,
+          "every finished request, the re-prefilled one included, equals "
+          "its FIFO run on both devices")
+    check(m["quota_throttled"] > 0 and m["batch_yields"] > 0
+          and m["kv_pages_rejected"] == 1 and m["deadline_expired"] == 1,
+          "the tiny run throttled, yielded, rejected the flip, timed out")
+    return fifo_share
+
+
+def phase_serve_qos():
+    """Phase 12: deadlines, tenants and QoS tiers, and serving integrity,
+    llama_1b bf16 at full width with phase 4's prompts: (a) QoS against
+    FIFO, the quota arm; (b) deadlines; (c) page checksums, the
+    host_entry drill, a sealed handoff, the weight audit and the pool-page
+    flip (the artifact under ``TMPDIR``, removed at the end); (d) fp32
+    llama_tiny card = CPU. Returns the paged kernels' launches of the QoS,
+    FIFO and checksummed runs, each read from its own run with the counts
+    set to 0 just before it."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b
+
+    cfg = llama_1b()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=SEED)
+    prompts = serve_prompts(cfg.vocab_size)
+    a = timed(qos_arms, model, prompts, "cuda")
+    free_cuda()
+    timed(deadline_arm, model, "cuda")
+    free_cuda()
+    root = tempfile.mkdtemp(prefix="serve-qos-")
+    try:
+        integrity = timed(integrity_arms, model, prompts, a, "cuda", root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model
+    free_cuda()
+    timed(qos_card_vs_cpu)
+    free_cuda()
+    return {"qos": a["counts"], "fifo": a["fifo_counts"],
+            "integrity": integrity}
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -4940,6 +5707,8 @@ def main():
     art = timed(phase_serve_artifact)
     # phase 11's runs, each counted on its own as well
     disagg = timed(phase_serve_disagg)
+    # and phase 12's
+    qos = timed(phase_serve_qos)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
@@ -4975,6 +5744,8 @@ def main():
                                      for arm, c in art.items()}
             k["launches_phase11"] = {arm: c[k["name"] + "_cuda"]
                                      for arm, c in disagg.items()}
+            k["launches_phase12"] = {arm: c[k["name"] + "_cuda"]
+                                     for arm, c in qos.items()}
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

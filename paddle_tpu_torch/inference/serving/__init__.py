@@ -6,14 +6,18 @@ serving artifacts (plain and int8) that ``LLMEngine.reload_weights`` and
 pool: the disaggregated prefill/decode handoff (``export_kv_pages``,
 ``add_request_with_pages``, ``pack_kv_pages``/``unpack_kv_pages``), the
 host-RAM tier (``HostKVTier``) and the on-disk prefix store
-(``prefix_store``)."""
+(``prefix_store``); deadlines, tenants and QoS tiers (``TenantQuota``,
+``TIER_LATENCY``/``TIER_BATCH``, ``LLMEngine.configure_tenant``); and
+serving integrity (page checksums and the weight audit, ``integrity``)."""
 
 from .engine import (ARTIFACT_QMAX, LLMEngine, StepOutput,
                      dequantize_state_dict, is_llama_artifact,
                      is_quantized_artifact, load_llama_artifact,
                      load_llama_state_dict, quantize_state_dict,
                      save_llama_artifact)
-from .errors import EngineClosedError
+from .errors import (DeadlineInfeasibleError, EngineClosedError,
+                     KVIntegrityError, RequestTimeoutError,
+                     TenantQuotaExceededError)
 from .kv_cache import (KV_QMAX, BlockAllocator, HostKVTier, PagedKVCache,
                        PageSnapshot, PrefixCache, kv_pool_bytes_per_block,
                        pack_kv_pages, quantize_kv_rows, unpack_kv_pages)
@@ -22,7 +26,8 @@ from .paged_attention import (paged_decode_attention,
 from .prefix_store import (PrefixStoreMismatch, load_prefix_store,
                            pool_geometry, save_prefix_store,
                            weights_fingerprint)
-from .scheduler import Request, SamplingParams, Scheduler
+from .scheduler import (TIER_BATCH, TIER_LATENCY, Request, SamplingParams,
+                        Scheduler, TenantQuota)
 
 __all__ = ["LLMEngine", "StepOutput", "EngineClosedError", "KV_QMAX",
            "BlockAllocator", "PagedKVCache", "PrefixCache",
@@ -35,4 +40,6 @@ __all__ = ["LLMEngine", "StepOutput", "EngineClosedError", "KV_QMAX",
            "load_llama_artifact", "pack_kv_pages", "unpack_kv_pages",
            "HostKVTier", "PageSnapshot", "PrefixStoreMismatch",
            "weights_fingerprint", "pool_geometry", "save_prefix_store",
-           "load_prefix_store"]
+           "load_prefix_store", "RequestTimeoutError",
+           "TenantQuotaExceededError", "DeadlineInfeasibleError",
+           "KVIntegrityError", "TenantQuota", "TIER_LATENCY", "TIER_BATCH"]

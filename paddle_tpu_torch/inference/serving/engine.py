@@ -66,12 +66,29 @@ server over a paged KV pool on one device (``cuda`` by default):
   step directory, a serving artifact or a state-dict file, in place, so
   the captured graphs stay valid. The artifact functions at the end of
   this module save and load the reference's llama serving artifacts,
-  plain or int8 per channel.
+  plain or int8 per channel;
+* **deadlines**: ``add_request(..., deadline=)`` (absolute
+  ``time.time()``) raises :class:`~.errors.RequestTimeoutError` at once
+  when it has passed, before any allocation; one that passes later is
+  checked at the start of each ``step`` (a window boundary, never inside
+  a captured graph), and the request is aborted through the scheduler
+  (blocks freed, slot recycled) with a final ``StepOutput(rid, -1, True,
+  "timeout")``;
+* **tenants and QoS tiers**: ``tenant=`` and ``tier=`` (``latency`` |
+  ``batch``) on both admission doors, ``configure_tenant`` (weight, a
+  token-rate quota, host-tier and prefix-cache shares): weighted-fair
+  admission, batch-tier yields through the host tier, per-tenant served
+  tokens (``scheduler``);
+* **integrity**: ``kv_page_checksums=True`` seals every page payload
+  that reaches host memory with per-block CRC32s and verifies them where
+  they come back (tier revivals, ``add_request_with_pages``, the prefix
+  store's entries); ``weight_audit=True`` anchors the weight fingerprint
+  at construction, and ``audit_weights`` compares the live weights with
+  it (``integrity``).
 
 Prefill chunks, the per-step decode and the verify run eagerly; pools are
-written in place (see ``kv_cache``). Sharding plans, integrity checks
-(page checksums, the weight audit), deadlines and tenants are not ported,
-and the constructor does not take their arguments.
+written in place (see ``kv_cache``). Sharding plans are not ported, and
+the constructor does not take ``plan``.
 """
 
 from __future__ import annotations
@@ -97,7 +114,9 @@ from ...nn.layer.layers import set_state_dict
 from ...observability import metrics as _obs_metrics
 from ...observability import trace as _obs_trace
 from ...ops.cuda import GraphLaunches
-from .errors import EngineClosedError
+from .errors import EngineClosedError, RequestTimeoutError
+from .integrity import (_M_PAGES_REJECTED, _M_PAGES_VERIFIED,
+                        _M_WEIGHT_AUDIT_FAIL, verify_pages)
 from .kv_cache import (HostKVTier, PagedKVCache, PrefixCache,
                        _G_HOST_BLOCKS, _H_REVIVE_MS, _H_SPILL_MS,
                        _M_HOST_EVICT, _M_REVIVE_BYTES, _M_REVIVES,
@@ -109,10 +128,12 @@ from .prefix_store import (PrefixStoreMismatch, _M_STORE_LOADED,
                            load_prefix_store, pool_geometry,
                            save_prefix_store, weights_fingerprint)
 from .scheduler import (Request, SamplingParams, Scheduler, _M_ADMITTED,
-                        _M_COW, _M_EVICTIONS, _M_FINISHED, _M_PREFIX_REUSED,
-                        _M_QUEUED_EXH)
+                        _M_BATCH_YIELD, _M_COW, _M_EVICTIONS, _M_FINISHED,
+                        _M_PREFIX_REUSED, _M_QUEUED_EXH, _M_TENANT_TOKENS,
+                        _M_THROTTLED)
 
-__all__ = ["LLMEngine", "StepOutput", "EngineClosedError", "ARTIFACT_QMAX",
+__all__ = ["LLMEngine", "StepOutput", "EngineClosedError",
+           "RequestTimeoutError", "ARTIFACT_QMAX",
            "quantize_state_dict", "dequantize_state_dict",
            "save_llama_artifact", "is_llama_artifact",
            "is_quantized_artifact", "load_llama_state_dict",
@@ -160,6 +181,11 @@ _G_KV_UTIL = _obs_metrics.gauge(
 _G_OCCUPANCY = _obs_metrics.gauge(
     "serving_decode_batch_occupancy",
     "fraction of decode slots occupied after the last step")
+_M_DEADLINE = _obs_metrics.counter(
+    "serving_deadline_expired_total",
+    "requests aborted by the engine because their deadline expired "
+    "(admission-time rejections raise before a request exists and are "
+    "not counted here)")
 _M_KV_SAVED = _obs_metrics.counter(
     "serving_kv_bytes_saved_total",
     "pool bytes saved by int8 KV quantization vs the same pool in the "
@@ -190,7 +216,13 @@ _SERVING_METRICS = (_M_ADMITTED, _M_EVICTIONS, _M_FINISHED, _M_QUEUED_EXH,
                     # labeled _M_STORE_REJECTED is removed by label set)
                     _M_SPILLS, _M_REVIVES, _M_SPILL_BYTES, _M_REVIVE_BYTES,
                     _M_HOST_EVICT, _G_HOST_BLOCKS, _H_SPILL_MS,
-                    _H_REVIVE_MS, _M_STORE_SAVED, _M_STORE_LOADED)
+                    _H_REVIVE_MS, _M_STORE_SAVED, _M_STORE_LOADED,
+                    # deadlines and QoS (the tenant-labeled
+                    # _M_TENANT_TOKENS is removed by label set too)
+                    _M_DEADLINE, _M_THROTTLED, _M_BATCH_YIELD,
+                    # integrity
+                    _M_PAGES_VERIFIED, _M_PAGES_REJECTED,
+                    _M_WEIGHT_AUDIT_FAIL)
 
 
 @dataclasses.dataclass
@@ -209,6 +241,16 @@ def _default_buckets(block_size, max_model_len):
         b *= 2
     buckets.append(max_model_len)
     return buckets
+
+
+def _check_deadline(deadline, what):
+    """Raise :class:`RequestTimeoutError` when the absolute ``time.time()``
+    ``deadline`` has already passed (admission, before any state moves)."""
+    if deadline is not None and time.time() >= float(deadline):
+        raise RequestTimeoutError(
+            f"deadline {deadline} already expired at admission "
+            f"(now={time.time():.3f}); {what} before any block allocation",
+            deadline=deadline)
 
 
 @dataclasses.dataclass
@@ -312,10 +354,11 @@ class _GraphStep:
     workspace for that stream; every pool write is one the replay repeats
     with the same values, and each row attends only up to its own
     position), then captures it into a ``torch.cuda.CUDAGraph``; every run
-    replays it. The capture launches nothing, so it records each kernel
-    wrapper's launches (``ops.cuda.GraphLaunches``) and puts the counts
-    back; each replay adds the recorded counts. A failed capture or
-    replay raises: there is no eager fallback on the card."""
+    replays it (``captures`` and ``replays`` count them). The capture
+    launches nothing, so it records each kernel wrapper's launches
+    (``ops.cuda.GraphLaunches``) and puts the counts back; each replay adds
+    the recorded counts. A failed capture or replay raises: there is no
+    eager fallback on the card."""
 
     def __init__(self, engine, fn, shape):
         self.engine, self.fn = engine, fn
@@ -324,6 +367,7 @@ class _GraphStep:
         self.graph = None
         self.out = None
         self.launches = GraphLaunches()
+        self.captures = 0
         self.replays = 0
 
     @torch.inference_mode()
@@ -341,6 +385,7 @@ class _GraphStep:
                 graph, stream=side, capture_error_mode="thread_local"):
             out = self.fn(self.buf, tables)
         self.graph, self.out = graph, out
+        self.captures += 1
 
     @torch.inference_mode()
     def run(self, host):
@@ -374,7 +419,8 @@ class LLMEngine:
                  prefill_only=False, kv_host_blocks=0,
                  prefix_store_path=None, prefix_store_autosave_chains=None,
                  fuse_draft_catchup=True, decode_steps_per_sync=1,
-                 in_graph_sampling=None, capture_logits=False, device=None):
+                 in_graph_sampling=None, capture_logits=False,
+                 kv_page_checksums=False, weight_audit=False, device=None):
         for m in (model, draft_model):
             if m is None:
                 continue
@@ -441,6 +487,9 @@ class LLMEngine:
         self.cache = PagedKVCache(self.config, num_blocks, block_size,
                                   dtype=model.dtype, kv_dtype=kv_dtype,
                                   device=self.device)
+        # seal every page payload that reaches host memory; the read-back
+        # boundaries verify and degrade to re-prefill on a mismatch
+        self.cache.page_checksums = bool(kv_page_checksums)
         self._kv_bytes_saved = self.cache.bytes_saved_vs_unquantized(
             self.config)
         self.prefix_cache = (PrefixCache(self.cache.allocator,
@@ -554,6 +603,18 @@ class LLMEngine:
                       _M_REVIVE_BYTES, _M_HOST_EVICT):
                 m.inc(0, instance=self._name)
             _G_HOST_BLOCKS.set(0, instance=self._name)
+        if self.cache.page_checksums:
+            _M_PAGES_VERIFIED.inc(0, instance=self._name)
+            _M_PAGES_REJECTED.inc(0, instance=self._name)
+        # the weight audit: the live fingerprint anchored now;
+        # audit_weights() re-hashes and compares (a divergence means the
+        # weights changed in place), reload_weights re-anchors
+        self._weight_audit = bool(weight_audit)
+        self._weight_audits = 0
+        self._weight_audit_ref = (weights_fingerprint(model)
+                                  if weight_audit else None)
+        if weight_audit:
+            _M_WEIGHT_AUDIT_FAIL.inc(0, instance=self._name)
         if self._store_path is not None:
             self._store_fingerprint = weights_fingerprint(model)
             self._store_geometry = pool_geometry(self.cache, self.config)
@@ -661,11 +722,21 @@ class LLMEngine:
             ready.record()
         req._staged = _Staged(ids, bucket, len(toks), host, ready)
 
-    def add_request(self, prompt_ids, sampling: SamplingParams | None = None):
+    def add_request(self, prompt_ids, sampling: SamplingParams | None = None,
+                    deadline=None, tenant=None, tier=None):
         """Enqueue a prompt; returns the request id. Never blocks on pool
-        exhaustion — the request queues until blocks free up."""
+        exhaustion — the request queues until blocks free up.
+
+        ``deadline`` is an absolute ``time.time()`` deadline: one that has
+        passed raises :class:`RequestTimeoutError` HERE, before the request
+        is registered, staged or allocated anything; one that passes later
+        aborts the request at the next step (``"timeout"``). ``tenant`` and
+        ``tier`` attach a QoS identity; the defaults (``"default"``,
+        latency) keep the exact FIFO behavior."""
         self._ensure_open()
-        req = Request(prompt_ids, sampling)
+        _check_deadline(deadline, "request rejected")
+        req = Request(prompt_ids, sampling, deadline=deadline, tenant=tenant,
+                      tier=tier)
         self._check_admissible(req)
         req.t_submit = req.t_queue_start = time.perf_counter_ns()
         self._requests[req.rid] = req
@@ -675,6 +746,33 @@ class LLMEngine:
             self._stage_request(req)
             self.scheduler.waiting.append(req)
         return req.rid
+
+    def configure_tenant(self, name, *, weight=1.0, rate_tokens_per_s=None,
+                         window_s=1.0, host_blocks=None, prefix_blocks=None):
+        """Declare one tenant's QoS envelope: its fair-share ``weight`` and
+        token-rate quota (the scheduler's), ``host_blocks`` capping its
+        resident host-tier blocks (needs ``kv_host_blocks``) and
+        ``prefix_blocks`` capping its published prefix blocks (needs
+        ``enable_prefix_cache``; over the cap it demotes its own oldest to
+        the tier). Unconfigured tenants serve at weight 1 with no quota;
+        QoS stays off until the first call. Returns the tenant's state."""
+        self._ensure_open()
+        if host_blocks is not None and self.kv_tier is None:
+            raise ValueError(
+                "host_blocks needs a host tier; construct the engine with "
+                "kv_host_blocks=")
+        if prefix_blocks is not None and self.prefix_cache is None:
+            raise ValueError(
+                "prefix_blocks needs prefix sharing; construct the engine "
+                "with enable_prefix_cache=True")
+        st = self.scheduler.configure_tenant(
+            name, weight=weight, rate_tokens_per_s=rate_tokens_per_s,
+            window_s=window_s)
+        if host_blocks is not None:
+            self.kv_tier.set_tenant_share(name, host_blocks)
+        if prefix_blocks is not None:
+            self.prefix_cache.set_tenant_share(name, prefix_blocks)
+        return st
 
     def _check_admissible(self, req):
         if self._spec_k and req.sampling.do_sample:
@@ -719,7 +817,8 @@ class LLMEngine:
                                                req.num_cached)
 
     def add_request_with_pages(self, prompt_ids, pages,
-                               sampling: SamplingParams | None = None):
+                               sampling: SamplingParams | None = None,
+                               deadline=None, tenant=None, tier=None):
         """Admit a request whose prompt pages were computed elsewhere (the
         decode side of the handoff): ``prompt_ids`` is the original prompt
         PLUS the first token the prefill engine sampled, and ``pages`` (an
@@ -727,13 +826,17 @@ class LLMEngine:
         Admission allocates blocks as usual (queueing on exhaustion); the
         next ``step`` writes the pages into them in place and the request
         decodes from that step on, with no prefill. The payload is
-        validated here, before any request or allocator state moves; a
-        sealed one raises ``NotImplementedError``. Returns the id."""
+        validated here, before any request or allocator state moves, and a
+        sealed one is verified: a CRC mismatch raises
+        :class:`~.errors.KVIntegrityError`. ``deadline``, ``tenant`` and
+        ``tier`` are :meth:`add_request`'s. Returns the id."""
         self._ensure_open()
         if self.prefill_only:
             raise ValueError("prefill_only engines never decode; "
                              "imported pages have nowhere to go")
-        req = Request(prompt_ids, sampling)
+        _check_deadline(deadline, "imported pages rejected")
+        req = Request(prompt_ids, sampling, deadline=deadline,
+                      tenant=tenant, tier=tier)
         covered = int(pages["covered"])
         if covered != len(req.prompt) - 1:
             raise ValueError(
@@ -742,6 +845,9 @@ class LLMEngine:
                 "prompt plus the prefill engine's first sampled token, "
                 "so coverage must be len(prompt) - 1")
         n_payload = self.cache.validate_request_pages(pages)
+        # the import boundary: a sealed payload verifies before admission
+        # (unsealed ones pass)
+        verify_pages(pages, instance=self._name, key=("import", req.rid))
         if n_payload != self.cache.blocks_for_tokens(covered):
             raise ValueError(
                 f"pages hold {n_payload} blocks but cover {covered} "
@@ -773,7 +879,7 @@ class LLMEngine:
         if self.prefix_cache is not None:
             # the imported pages are byte for byte local prefill's
             self.prefix_cache.register(req.tokens, req.blocks,
-                                       req.num_cached)
+                                       req.num_cached, tenant=req.tenant)
         req.t_decode_start = time.perf_counter_ns()
         _obs_trace.add_complete(
             "request.import", getattr(req, "_t_admit", req.t_queue_start),
@@ -822,7 +928,7 @@ class LLMEngine:
             self.cache.import_request_pages([b for b, _, _ in parts],
                                             merged)
             for b, h, _ in parts:
-                self.prefix_cache.adopt(b, h)
+                self.prefix_cache.adopt(b, h, tenant=req.tenant)
             _M_REVIVES.inc(len(parts), instance=self._name)
             _M_REVIVE_BYTES.inc(_nbytes(merged), instance=self._name)
             _H_REVIVE_MS.observe((time.perf_counter() - t0) * 1e3,
@@ -853,8 +959,28 @@ class LLMEngine:
         req = self._requests.get(rid)
         if req is None or req.finished:
             return False
-        self.scheduler.abort(req, reason)
+        self._abort(req, reason)
         return True
+
+    def _abort(self, req, reason):
+        """Abort through the scheduler: its blocks free and the table
+        version moves, so the next window's ``_tables()`` refill drops the
+        row before any replay could write through it."""
+        self.scheduler.abort(req, reason)
+        if reason == "timeout":
+            _M_DEADLINE.inc(instance=self._name)
+
+    def _expire_deadlines(self, outputs):
+        """Abort every queued or running request whose deadline has passed
+        (once a step, BEFORE admission and decode, so an expired request
+        never takes blocks it is about to release). Each expiry appends a
+        final ``StepOutput(rid, -1, True, "timeout")``."""
+        now = time.time()
+        for req in (list(self.scheduler.waiting)
+                    + list(self.scheduler.running)):
+            if req.deadline is not None and now >= req.deadline:
+                self._abort(req, "timeout")
+                outputs.append(StepOutput(req.rid, -1, True, "timeout"))
 
     def has_work(self):
         if self._closed:
@@ -1151,9 +1277,11 @@ class LLMEngine:
             req.draft_cached = start + take
         req.num_cached = start + take
         _M_PREFILL_CHUNKS.inc(instance=self._name)
+        # QoS: prefill work charges the tenant as it is served, by chunk
+        self.scheduler.note_served(req, take)
         if self.prefix_cache is not None:
             self.prefix_cache.register(req.tokens, req.blocks,
-                                       req.num_cached)
+                                       req.num_cached, tenant=req.tenant)
         if req.num_cached >= req.prefill_upto:
             req.prefilling = False
             self.stats_extra["prefills"] += 1
@@ -1185,6 +1313,10 @@ class LLMEngine:
                     self._stage_request(req)
                 sched.waiting.append(req)
         outputs = []
+        # before admission and decode: an expired request is never
+        # admitted or decoded once more, and its blocks and slot serve
+        # this very step's admissions
+        self._expire_deadlines(outputs)
         if not sched.has_work():
             return outputs
         self.stats_extra["steps"] += 1
@@ -1301,6 +1433,8 @@ class LLMEngine:
         req.output_tokens.extend(accepted)
         req.num_cached += m
         self.stats_extra["tokens_out"] += m
+        # QoS: one charge of m tokens at the window boundary
+        self.scheduler.note_served(req, m)
         now = time.perf_counter_ns()
         _M_TOKENS.inc(m, instance=self._name)
         spread = m
@@ -1468,6 +1602,7 @@ class LLMEngine:
         tok = int(tok)
         req.output_tokens.append(tok)
         self.stats_extra["tokens_out"] += 1
+        self.scheduler.note_served(req, 1)
         now = time.perf_counter_ns()
         _M_TOKENS.inc(instance=self._name)
         if req.t_first_token is None:
@@ -1503,22 +1638,37 @@ class LLMEngine:
         while self.has_work():
             yield from self.step()
 
-    def generate(self, prompts, sampling: SamplingParams | None = None):
+    def generate(self, prompts, sampling: SamplingParams | None = None,
+                 deadline=None):
         """Submit every prompt, run to completion, return the full token
-        arrays (prompt + generated) in order."""
+        arrays (prompt + generated) in order. With ``deadline``, a request
+        it kills makes the call raise :class:`RequestTimeoutError` once the
+        batch drains (partial outputs are ``stream()``'s). A failed
+        admission cancels and releases the requests already admitted, so
+        none is left to decode on a later ``stream()``."""
         self._ensure_open()
         rids = []
         try:
             for p in prompts:
                 rids.append(self.add_request(
-                    p, dataclasses.replace(sampling) if sampling else None))
-        except (ValueError, EngineClosedError):
+                    p, dataclasses.replace(sampling) if sampling else None,
+                    deadline=deadline))
+        except BaseException:
             for r in rids:
                 self.cancel(r)
                 self.release(r)
             raise
         for _ in self.stream():
             pass
+        timed_out = [r for r in rids
+                     if self._requests[r].abort_reason == "timeout"]
+        if timed_out:
+            for r in rids:
+                self.release(r)
+            raise RequestTimeoutError(
+                f"{len(timed_out)} of {len(rids)} requests hit the deadline "
+                f"mid-generation: rids {timed_out}", rid=timed_out[0],
+                deadline=deadline)
         outs = [self.output_tokens(r) for r in rids]
         for r in rids:
             self.release(r)
@@ -1537,19 +1687,43 @@ class LLMEngine:
         ``set_state_dict``). Returns the restored step, or None. With a
         prefix store, weights of another fingerprint drop every cached
         chain (device-registered and host-resident) and the store is read
-        again for the new fingerprint. The reference's sharding-plan and
-        weight-audit branches are not ported (this engine takes none of
-        their arguments)."""
+        again for the new fingerprint, and an armed (or already anchored)
+        weight audit re-anchors at the new weights. The reference's
+        sharding-plan branch is not ported (this engine takes no plan)."""
         step = self._reload_weights_impl(source)
-        if self._store_path is not None:
-            fp = weights_fingerprint(self.model)
-            if fp != self._store_fingerprint:
-                self.prefix_cache.invalidate()
-                self.kv_tier.drop_prefixes()
-                self._store_fingerprint = fp
-                self._store_saved_chains = -1
-                self._load_prefix_store()
+        audited = self._weight_audit_ref is not None or self._weight_audit
+        if not audited and self._store_path is None:
+            return step
+        fp = weights_fingerprint(self.model)
+        if audited:
+            # a reload changes the fingerprint legitimately: re-anchor
+            self._weight_audit_ref = fp
+        if self._store_path is not None and fp != self._store_fingerprint:
+            self.prefix_cache.invalidate()
+            self.kv_tier.drop_prefixes()
+            self._store_fingerprint = fp
+            self._store_saved_chains = -1
+            self._load_prefix_store()
         return step
+
+    def audit_weights(self):
+        """Re-hash the live weights and compare with the fingerprint
+        anchored at construction (``weight_audit=True``) or at the last
+        ``reload_weights``. True when they match; False, counting
+        ``serving_weight_audit_failures_total``, when the weights changed
+        in place. On an engine built without ``weight_audit`` the first
+        call anchors instead of comparing. It copies every weight to the
+        host and hashes it: seconds at llama_1b, so it runs when called,
+        never per step."""
+        fp = weights_fingerprint(self.model)
+        self._weight_audits += 1
+        if self._weight_audit_ref is None:
+            self._weight_audit_ref = fp
+            return True
+        if fp != self._weight_audit_ref:
+            _M_WEIGHT_AUDIT_FAIL.inc(instance=self._name)
+            return False
+        return True
 
     def _reload_weights_impl(self, source):
         from ...distributed.checkpoint import (CheckpointManager,
@@ -1641,17 +1815,47 @@ class LLMEngine:
                 self._store_rejected_by_reason().values()),
             "prefix_store_rejected_by_reason":
                 self._store_rejected_by_reason(),
+            # deadlines and QoS: zeros when unused
+            "deadline_expired": int(_M_DEADLINE.value(instance=inst)),
+            "quota_throttled": int(_M_THROTTLED.value(instance=inst)),
+            "batch_yields": int(_M_BATCH_YIELD.value(instance=inst)),
+            "tenant_tokens": self._by_label(_M_TENANT_TOKENS, "tenant",
+                                            "default"),
+            # integrity: zeros when checksums and the audit are off
+            "kv_pages_verified": int(
+                _M_PAGES_VERIFIED.value(instance=inst)),
+            "kv_pages_rejected": int(
+                _M_PAGES_REJECTED.value(instance=inst)),
+            "weight_audits": int(self._weight_audits),
+            "weight_audit_failures": int(
+                _M_WEIGHT_AUDIT_FAIL.value(instance=inst)),
         }
 
-    def _store_rejected_series(self):
-        """THIS instance's label sets of the reason-labeled store-rejected
-        counter."""
-        return [d for d in (dict(lb) for lb in _M_STORE_REJECTED.labels())
+    def _labeled_series(self, metric):
+        """THIS instance's label sets of a metric with a second label
+        (the store's ``reason``, the tenant counter's ``tenant``): an
+        exact-match ``remove(instance=)`` cannot reach them."""
+        return [d for d in (dict(lb) for lb in metric.labels())
                 if d.get("instance") == self._name]
 
+    def _by_label(self, metric, label, default):
+        return {d.get(label, default): int(metric.value(**d))
+                for d in self._labeled_series(metric)}
+
     def _store_rejected_by_reason(self):
-        return {d.get("reason", "corrupt"): int(_M_STORE_REJECTED.value(**d))
-                for d in self._store_rejected_series()}
+        return self._by_label(_M_STORE_REJECTED, "reason", "corrupt")
+
+    def _remove_tenant_series(self):
+        """Remove THIS instance's tenant- and reason-labeled series."""
+        for m in (_M_TENANT_TOKENS, _M_STORE_REJECTED):
+            for d in self._labeled_series(m):
+                m.remove(**d)
+
+    def reset_block_high_water(self):
+        """Re-anchor the allocator's high-water mark at the blocks in use
+        now (a benchmark window's start)."""
+        alloc = self.cache.allocator
+        alloc.high_water = (self.cache.num_blocks - 1) - alloc.num_free
 
     def reset_metrics(self):
         """Drop THIS instance's registry series (a benchmark window's
@@ -1659,8 +1863,7 @@ class LLMEngine:
         occupancy (current state, not window activity) are republished."""
         for m in _SERVING_METRICS:
             m.remove(instance=self._name)
-        for d in self._store_rejected_series():
-            _M_STORE_REJECTED.remove(**d)
+        self._remove_tenant_series()
         if self.cache.quantized and not self._closed:
             _M_KV_SAVED.inc(self._kv_bytes_saved, instance=self._name)
         if self.kv_tier is not None and not self._closed:

@@ -49,9 +49,20 @@ drained to host memory on a transfer thread; revival is
 their chain hashes as tier keys, so :meth:`PrefixCache.match_with_tier`
 extends a device chain walk into the host tier.
 
-Not ported: per-tenant shares (the reference's ``tenant=`` arguments and
-``set_tenant_share``, which come with QoS) and page checksums (a payload
-carrying a ``crc`` seal is refused with ``NotImplementedError``).
+**Tenant shares.** Published prefix blocks and resident tier entries are
+attributed to the tenant whose request wrote them (the ``tenant=``
+arguments). :meth:`PrefixCache.set_tenant_share` caps a tenant's
+published blocks (over the cap it demotes ITS OWN oldest to the tier);
+:meth:`HostKVTier.set_tenant_share` caps its resident host blocks (over
+the cap it evicts its own oldest entries before the shared LRU).
+
+**Page checksums** (``PagedKVCache.page_checksums``, armed by
+``LLMEngine(kv_page_checksums=True)``): :meth:`PageSnapshot.materialize`
+seals each payload with per-block CRC32s once its bytes have landed in
+host memory, and the tier verifies them at every read-back
+(``peek_request``, ``pop_prefix``, ``prefix_items``); an entry that
+fails is freed, counted, and its request re-prefills
+(``integrity.verify_pages``).
 """
 
 from __future__ import annotations
@@ -71,6 +82,8 @@ from ...core.device import resolve_device
 from ...framework.io import numpy_holds, numpy_to_tensor, tensor_to_numpy
 from ...observability import metrics as _obs_metrics
 from ...utils import fault_injection as _fi
+from . import integrity as _integrity
+from .errors import KVIntegrityError
 
 __all__ = ["BlockAllocator", "PagedKVCache", "PrefixCache", "HostKVTier",
            "PageSnapshot", "KV_QMAX", "quantize_kv_rows",
@@ -141,18 +154,6 @@ def kv_pool_bytes_per_block(block_size, num_kv_heads, head_dim,
     return 2 * payload * itemsize
 
 
-def _refuse_sealed(pages):
-    """A payload sealed with per-block CRCs (the JAX package's
-    ``kv_page_checksums``) cannot be verified here: refuse it rather than
-    import it unverified."""
-    if "crc" in pages:
-        raise NotImplementedError(
-            "this KV page payload carries a CRC seal (written with page "
-            "checksums armed); verifying it is ROADMAP item 2's integrity "
-            "bullet (kv_page_checksums and weight_audit), not ported yet, "
-            "and the port does not import a sealed payload unverified")
-
-
 def _nbytes(pages):
     return sum(int(v.nbytes) for v in pages.values()
                if isinstance(v, np.ndarray))
@@ -182,6 +183,11 @@ class BlockAllocator:
         self.on_reclaim = None
         self.cache_probe = None
         self.high_water = 0
+
+    @property
+    def _allocated(self):
+        """Set view of live (refcount >= 1) blocks."""
+        return set(self._ref)
 
     @property
     def num_free(self):
@@ -214,6 +220,14 @@ class BlockAllocator:
             self.on_reclaim(reclaimed)
         self.high_water = max(self.high_water, len(self._ref))
         return ids
+
+    def unpark(self, block_id):
+        """Move a parked reusable block back to the plain free list (its
+        cached identity was retracted by a tenant's prefix share). A block
+        that is live or already free is left alone."""
+        if block_id in self._reusable:
+            del self._reusable[block_id]
+            self._free.append(block_id)
 
     def acquire(self, ids):
         """Incref live or reusable blocks (all-or-nothing)."""
@@ -252,10 +266,15 @@ class PrefixCache:
     FULL blocks are registered, so in-place decode writes land in private
     blocks; the scheduler's copy-on-write guard enforces it anyway.
 
-    ``on_spill(pairs)`` (set by the engine when a :class:`HostKVTier` is
-    attached) receives each reclaim wave's ``(block_id, chain_hash)``
-    pairs BEFORE their identities are forgotten: a reclaim demotes the
-    content to the host tier instead of losing it."""
+    ``on_spill(pairs, tenants)`` (set by the engine when a
+    :class:`HostKVTier` is attached) receives each reclaim wave's
+    ``(block_id, chain_hash)`` pairs and their tenants (None where
+    untagged) BEFORE their identities are forgotten: a reclaim demotes the
+    content to the host tier instead of losing it.
+
+    Each published block is attributed to the tenant that wrote it; a
+    tenant over its :meth:`set_tenant_share` demotes its own oldest
+    published blocks, never another tenant's."""
 
     def __init__(self, allocator, block_size):
         self.allocator = allocator
@@ -265,9 +284,46 @@ class PrefixCache:
         self.on_spill = None
         allocator.on_reclaim = self._reclaim
         allocator.cache_probe = self
+        self._block_tenant = {}     # block id -> tenant name
+        self._tenant_lru = {}       # tenant -> OrderedDict[block id, None]
+        self._tenant_share = {}     # tenant -> max published blocks
 
     def __len__(self):
         return len(self._by_hash)
+
+    def set_tenant_share(self, name, max_blocks):
+        """Cap tenant ``name`` at ``max_blocks`` published blocks; ``None``
+        removes the cap."""
+        if max_blocks is None:
+            self._tenant_share.pop(str(name), None)
+        else:
+            if int(max_blocks) < 1:
+                raise ValueError(
+                    f"tenant prefix share must be >= 1, got {max_blocks}")
+            self._tenant_share[str(name)] = int(max_blocks)
+
+    def tenant_blocks(self, name):
+        """Published blocks currently attributed to tenant ``name``."""
+        return len(self._tenant_lru.get(str(name), ()))
+
+    def _tag(self, block_id, tenant):
+        if tenant is None:
+            return
+        self._block_tenant[block_id] = tenant
+        self._tenant_lru.setdefault(tenant, OrderedDict())[block_id] = None
+
+    def _enforce_share(self, tenant):
+        share = self._tenant_share.get(tenant)
+        if share is None:
+            return
+        lru = self._tenant_lru.get(tenant)
+        while lru and len(lru) > share:
+            b = next(iter(lru))  # the tenant's oldest published block
+            h = self._block_hash.get(b)
+            if self.on_spill is not None and h is not None:
+                self.on_spill([(b, h)], [tenant])  # demote, don't lose
+            self.forget(b)
+            self.allocator.unpark(b)
 
     def registered(self, block_id):
         return block_id in self._block_hash
@@ -313,21 +369,28 @@ class PrefixCache:
             i += 1
         return blocks, len(blocks) * bs, host
 
-    def register(self, tokens, blocks, upto):
+    def register(self, tokens, blocks, upto, tenant=None):
         """Publish every FULL block among ``blocks`` whose tokens
-        (``tokens[:upto]``) are in the pool. First writer wins."""
+        (``tokens[:upto]``) are in the pool. First writer wins. Newly
+        published blocks are attributed to ``tenant``; a tenant over its
+        share demotes its own oldest."""
         tokens = np.asarray(tokens)
         bs = self.block_size
         parent = b""
+        tagged = False
         for i in range(min(int(upto) // bs, len(blocks))):
             h = self._chunk_hash(parent, tokens[i * bs:(i + 1) * bs])
             if self._by_hash.get(h) is None and \
                     blocks[i] not in self._block_hash:
                 self._by_hash[h] = blocks[i]
                 self._block_hash[blocks[i]] = h
+                self._tag(blocks[i], tenant)
+                tagged = True
             parent = h
+        if tagged and tenant is not None:
+            self._enforce_share(tenant)
 
-    def adopt(self, block_id, chain_hash):
+    def adopt(self, block_id, chain_hash, tenant=None):
         """Publish a revived block under its KNOWN chain hash (host-tier or
         prefix-store revival: the imported pages are byte for byte the
         chain's original, so the identity moves with them). First writer
@@ -336,6 +399,9 @@ class PrefixCache:
             return
         self._by_hash[chain_hash] = block_id
         self._block_hash[block_id] = chain_hash
+        self._tag(block_id, tenant)
+        if tenant is not None:
+            self._enforce_share(tenant)
 
     def registered_chains(self):
         """``(chain_hash, block_id)`` pairs currently published (what the
@@ -348,12 +414,20 @@ class PrefixCache:
         hashes gone they recycle as plain free blocks, never spilled."""
         self._by_hash.clear()
         self._block_hash.clear()
+        self._block_tenant.clear()
+        self._tenant_lru.clear()
 
     def forget(self, block_id):
-        """Drop a block's identity (its content is about to diverge)."""
+        """Drop a block's identity (its content is about to diverge, it
+        was reclaimed, or its tenant is over its share)."""
         h = self._block_hash.pop(block_id, None)
         if h is not None:
             self._by_hash.pop(h, None)
+        t = self._block_tenant.pop(block_id, None)
+        if t is not None:
+            lru = self._tenant_lru.get(t)
+            if lru is not None:
+                lru.pop(block_id, None)
 
     def _reclaim(self, block_ids):
         """Allocator hook: a wave of reusable blocks goes to new owners.
@@ -363,7 +437,8 @@ class PrefixCache:
             pairs = [(b, self._block_hash[b]) for b in block_ids
                      if b in self._block_hash]
             if pairs:
-                self.on_spill(pairs)
+                self.on_spill(pairs,
+                              [self._block_tenant.get(b) for b, _ in pairs])
         for b in block_ids:
             self.forget(b)
 
@@ -381,6 +456,11 @@ class PagedKVCache:
     ``allocator`` shares another cache's :class:`BlockAllocator` (a
     speculative draft's pools ride the target's block ids and tables); by
     default the cache owns one."""
+
+    # armed by ``LLMEngine(kv_page_checksums=True)``: every
+    # :meth:`PageSnapshot.materialize` seals its payload with per-block
+    # CRC32s (``integrity.seal_pages``); read-back boundaries verify them
+    page_checksums = False
 
     def __init__(self, config, num_blocks, block_size, dtype=None,
                  kv_dtype=None, device=None, allocator=None):
@@ -455,11 +535,11 @@ class PagedKVCache:
 
     def validate_request_pages(self, pages):
         """Check an import payload against this pool WITHOUT writing
-        anything: no CRC seal, kv dtype, block size, every group's shape
+        anything: kv dtype, block size, every group's shape
         and element type (a bfloat16 pool takes uint16 bits or an ml_dtypes
         bfloat16 array), and on int8 pools the scale rows. Returns the
-        number of payload blocks."""
-        _refuse_sealed(pages)
+        number of payload blocks. A CRC seal is not checked here: the
+        read-back boundaries verify it (``integrity.verify_pages``)."""
         if pages.get("kv_dtype") != self.kv_dtype:
             raise ValueError(
                 f"imported pages carry kv_dtype={pages.get('kv_dtype')!r} "
@@ -530,6 +610,9 @@ class PageSnapshot:
     def __init__(self, cache, blocks, covered):
         self.nblocks = len(blocks)
         self.covered = int(covered)
+        # the arming flag at snapshot time, not whenever the transfer
+        # thread gets to the copy
+        self._seal = bool(cache.page_checksums)
         self._meta = {"covered": int(covered),
                       "block_size": cache.block_size,
                       "kv_dtype": cache.kv_dtype}
@@ -575,12 +658,16 @@ class PageSnapshot:
     def materialize(self):
         """Host payload dict (``export_request_pages`` format); the first
         caller pays the copy, and the byte/latency telemetry is recorded
-        once."""
+        once. With the seal armed, the CRCs are computed here, after
+        ``_to_host`` has waited for the copy into pinned memory to land:
+        a seal over bytes still being written would reject clean pages."""
         with self._lock:
             if self._pages is None:
                 t0 = time.perf_counter()
                 pages = dict(self._meta)
                 pages.update(self._to_host())
+                if self._seal:
+                    _integrity.seal_pages(pages)
                 self._pages = pages
                 self._parts = None  # release the device copies
                 if self.on_materialized is not None:
@@ -608,7 +695,10 @@ class _SnapshotView:
     def materialize(self):
         pages = self._snap.materialize()
         i = self._i
-        out = {k: (v[:, i:i + 1] if isinstance(v, np.ndarray) else v)
+        # the CRC sidecar is 1-D [nblocks]: sliced by block index, not by
+        # the [layer, block, ...] payload axes
+        out = {k: (v[i:i + 1] if k == "crc"
+                   else v[:, i:i + 1] if isinstance(v, np.ndarray) else v)
                for k, v in pages.items()}
         out["covered"] = self.covered
         return out
@@ -633,7 +723,12 @@ class HostKVTier:
     runs on a transfer thread (``async_transfer``), which dies once, warns
     once, and leaves the copy to the consumer; every access path calls
     ``materialize()`` itself, so correctness never depends on the thread
-    having run."""
+    having run.
+
+    Entries may be tagged with a tenant; :meth:`set_tenant_share` caps one
+    tenant's resident blocks. A sealed entry is verified at every
+    read-back and, when it fails, freed like an LRU drop (the caller
+    re-prefills)."""
 
     def __init__(self, cache, max_host_blocks, instance=None,
                  async_transfer=True):
@@ -645,6 +740,9 @@ class HostKVTier:
         self.instance = instance
         self._entries = OrderedDict()   # key -> PageSnapshot | view | dict
         self._blocks_used = 0
+        self._tenant_of = {}            # key -> tenant name (tagged only)
+        self._tenant_blocks = {}        # tenant -> resident block count
+        self._tenant_share = {}         # tenant -> max resident blocks
         self._lock = threading.RLock()
         self._q: queue.Queue = queue.Queue()
         self._thread = None
@@ -677,6 +775,8 @@ class HostKVTier:
         with self._lock:
             self._entries.clear()
             self._blocks_used = 0
+            self._tenant_of.clear()
+            self._tenant_blocks.clear()
         _G_HOST_BLOCKS.set(0, instance=self.instance)
 
     # -- internals ------------------------------------------------------
@@ -688,27 +788,70 @@ class HostKVTier:
     def _gauge(self):
         _G_HOST_BLOCKS.set(self._blocks_used, instance=self.instance)
 
+    def set_tenant_share(self, name, max_blocks):
+        """Cap one tenant's RESIDENT host blocks: an over-share insert
+        evicts that tenant's own oldest entries first, so one tenant's
+        flood of spills cannot push the others' warm pages out of the
+        shared LRU. ``None`` removes the cap."""
+        name = str(name)
+        with self._lock:
+            if max_blocks is None:
+                self._tenant_share.pop(name, None)
+                return
+            if max_blocks < 1:
+                raise ValueError(
+                    f"tenant share must be >= 1 block, got {max_blocks}")
+            self._tenant_share[name] = int(max_blocks)
+
     def _pop_entry(self, key):
-        """Remove ``key`` and its blocks from the budget (lock held)."""
+        """Remove ``key``, its blocks from the budget and its tenant's
+        count (lock held)."""
         entry = self._entries.pop(key, None)
         if entry is not None:
-            self._blocks_used -= self._entry_blocks(entry)
+            n = self._entry_blocks(entry)
+            self._blocks_used -= n
+            t = self._tenant_of.pop(key, None)
+            if t is not None:
+                left = self._tenant_blocks.get(t, 0) - n
+                if left > 0:
+                    self._tenant_blocks[t] = left
+                else:
+                    self._tenant_blocks.pop(t, None)
         return entry
 
-    def _put(self, key, entry, nblocks):
-        """Insert under the budget, LRU-evicting other entries to fit.
+    def _put(self, key, entry, nblocks, tenant=None):
+        """Insert under the budget, LRU-evicting other entries to fit; a
+        tagged tenant over its share evicts ITS OWN oldest entries first.
         Returns False (no state change) when the entry alone exceeds the
-        whole budget."""
+        whole budget or the tenant's share."""
         if nblocks > self.max_host_blocks:
             return False
+        tenant = str(tenant) if tenant is not None else None
         with self._lock:
+            share = (self._tenant_share.get(tenant)
+                     if tenant is not None else None)
+            if share is not None and nblocks > share:
+                return False
             self._pop_entry(key)
+            if share is not None:
+                while self._tenant_blocks.get(tenant, 0) + nblocks > share:
+                    victim = next((k for k in self._entries
+                                   if self._tenant_of.get(k) == tenant),
+                                  None)
+                    if victim is None:
+                        break
+                    self._pop_entry(victim)
+                    _M_HOST_EVICT.inc(instance=self.instance)
             while (self._blocks_used + nblocks > self.max_host_blocks
                    and self._entries):
                 self._pop_entry(next(iter(self._entries)))
                 _M_HOST_EVICT.inc(instance=self.instance)
             self._entries[key] = entry
             self._blocks_used += nblocks
+            if tenant is not None:
+                self._tenant_of[key] = tenant
+                self._tenant_blocks[tenant] = (
+                    self._tenant_blocks.get(tenant, 0) + nblocks)
             self._gauge()
         return True
 
@@ -722,7 +865,22 @@ class HostKVTier:
             else:
                 self._entries.move_to_end(key)
             self._gauge()
-        return entry if isinstance(entry, dict) else entry.materialize()
+        pages = entry if isinstance(entry, dict) else entry.materialize()
+        # the read-back boundary: a sealed payload verifies before it can
+        # revive. A mismatch degrades exactly like an LRU drop: the entry
+        # is freed and the caller re-prefills; a corrupt page is never
+        # served
+        try:
+            _integrity.verify_pages(pages, instance=self.instance, key=key)
+        except KVIntegrityError as e:
+            warnings.warn(f"HostKVTier dropping corrupt entry: {e}",
+                          RuntimeWarning)
+            with self._lock:
+                if self._entries.get(key) is entry:
+                    self._pop_entry(key)
+                    self._gauge()
+            return None
+        return pages
 
     def _on_spilled(self, snap):
         snap.on_materialized = lambda nbytes, ms: (
@@ -730,7 +888,7 @@ class HostKVTier:
             _H_SPILL_MS.observe(ms, instance=self.instance))
 
     # -- preempted-request entries (scheduler-facing) -------------------
-    def spill_request(self, rid, blocks, covered):
+    def spill_request(self, rid, blocks, covered, tenant=None):
         """Spill one preempted request's pages under ``("req", rid)``: fire
         the ``serve.kv_spill`` fault site (a failure degrades to recompute
         eviction), snapshot, insert, queue the copy. The caller frees the
@@ -742,7 +900,8 @@ class HostKVTier:
         n = self.cache.blocks_for_tokens(covered)
         snap = self.cache.snapshot_request_pages(list(blocks)[:n], covered)
         self._on_spilled(snap)
-        if not self._put(("req", int(rid)), snap, snap.nblocks):
+        if not self._put(("req", int(rid)), snap, snap.nblocks,
+                         tenant=tenant):
             return False
         _M_SPILLS.inc(instance=self.instance)
         if self._thread is not None:
@@ -752,7 +911,7 @@ class HostKVTier:
     def peek_request(self, rid):
         """Materialized payload for a spilled request (MRU-touched, NOT
         removed — :meth:`drop_request` removes it once admission
-        succeeds), or None if the LRU dropped it."""
+        succeeds), or None if the LRU dropped it or its seal failed."""
         return self._get(("req", int(rid)), pop=False)
 
     def drop_request(self, rid):
@@ -761,11 +920,13 @@ class HostKVTier:
                 self._gauge()
 
     # -- prefix-block entries -------------------------------------------
-    def spill_blocks(self, pairs):
+    def spill_blocks(self, pairs, tenants=None):
         """Demote a reclaim WAVE of registered blocks — ``(block_id,
         chain_hash)`` pairs — in one batch: one fault-site fire, one gather
         per group, one queued copy; each chain hash keys a one-block view
-        of the shared capture. Wired as ``PrefixCache.on_spill``."""
+        of the shared capture. ``tenants`` (parallel to ``pairs``, entries
+        may be None) tags each block for the tenant shares. Wired as
+        ``PrefixCache.on_spill``."""
         if not pairs:
             return
         try:
@@ -778,7 +939,9 @@ class HostKVTier:
         self._on_spilled(snap)
         put_any = False
         for i, (_, h) in enumerate(pairs):
-            if self._put(("prefix", bytes(h)), snap.view(i), 1):
+            tenant = tenants[i] if tenants is not None else None
+            if self._put(("prefix", bytes(h)), snap.view(i), 1,
+                         tenant=tenant):
                 put_any = True
                 _M_SPILLS.inc(instance=self.instance)
         if put_any and self._thread is not None:
@@ -795,16 +958,15 @@ class HostKVTier:
     def pop_prefix(self, chain_hash):
         """Materialized one-block payload for a host-resident chain link,
         removed (it is being revived into the device pool, where it is
-        re-registered under the same hash)."""
+        re-registered under the same hash); None if its seal failed."""
         return self._get(("prefix", bytes(chain_hash)), pop=True)
 
-    def put_prefix_payload(self, chain_hash, pages):
+    def put_prefix_payload(self, chain_hash, pages, tenant=None):
         """Insert an already-materialized one-block payload (the prefix
-        store's boot path). A sealed payload raises
-        ``NotImplementedError``."""
-        _refuse_sealed(pages)
+        store's boot path). A sealed payload stays sealed: it is verified
+        when it is first read back."""
         return self._put(("prefix", bytes(chain_hash)), pages,
-                         int(pages["k"].shape[1]))
+                         int(pages["k"].shape[1]), tenant=tenant)
 
     def prefix_items(self):
         """Materialized ``(chain_hash, payload)`` pairs currently resident
@@ -830,6 +992,15 @@ class HostKVTier:
     def host_blocks_in_use(self):
         with self._lock:
             return self._blocks_used
+
+    def tenant_blocks_in_use(self, name):
+        """Resident host blocks currently accounted to one tenant."""
+        with self._lock:
+            return self._tenant_blocks.get(str(name), 0)
+
+    def __len__(self):
+        with self._lock:
+            return len(self._entries)
 
 
 def pack_kv_pages(pages):

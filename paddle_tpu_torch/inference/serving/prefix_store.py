@@ -12,7 +12,11 @@ Wrong pages are worse than no pages, so loading is gated three ways, each
 a clean cold start (:class:`PrefixStoreMismatch`, counted by reason in
 ``serving_prefix_store_rejected_total``), never a partial import: CRC and
 framing; the weight fingerprint (:func:`weights_fingerprint`); the pool
-geometry (:func:`pool_geometry`).
+geometry (:func:`pool_geometry`). An entry sealed with page checksums
+(``kv_page_checksums``) is saved with its CRCs and loaded as it is; the
+host tier verifies it when it is first revived, and a flipped entry is
+freed there and its chain re-prefilled. A flip in the file itself fails
+the frame CRC and rejects the whole store as ``"corrupt"``.
 
 The file, the header and the fingerprint are the reference's byte for
 byte, so a store written by either package boots the other's engine when

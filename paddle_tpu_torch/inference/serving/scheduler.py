@@ -28,11 +28,23 @@ Token-granularity admission into a fixed set of decode slots:
   eviction spills a decode-ready victim's pages instead of dropping them,
   and its re-admission revives them as a ``preloaded`` import; admission
   also extends a device prefix match into host-resident chain links,
-  queued on ``pending_revive`` for the engine to import.
+  queued on ``pending_revive`` for the engine to import;
+* **multi-tenant QoS**: requests carry a ``tenant`` and a ``tier``
+  (``latency`` | ``batch``). Once a tenant is configured
+  (:meth:`Scheduler.configure_tenant`) or non-default traffic is queued,
+  admission is weighted-fair: the latency tier strictly outranks batch,
+  within a tier the backlogged tenant with the lowest virtual time
+  (served tokens / weight) admits next, and a tenant's own requests keep
+  their FIFO order, so QoS moves *when* work runs, never *which* tokens.
+  A :class:`TenantQuota` (a rolling-window token-rate bucket) DEFERS an
+  over-quota tenant's admissions, never sheds them. Batch-tier requests
+  yield their decode slots to waiting latency work through the normal
+  eviction (which spills decode-ready pages to the host tier) and
+  re-admit later. Default traffic keeps the exact FIFO order.
 
 ``version`` counts every block-table mutation so the engine can cache the
-device block-table tensor against it. Tenants, tiers (QoS) and deadlines
-are not part of the port yet.
+device block-table tensor against it. Deadlines are the engine's
+(``LLMEngine._expire_deadlines`` aborts through :meth:`Scheduler.abort`).
 """
 
 from __future__ import annotations
@@ -46,7 +58,8 @@ import numpy as np
 
 from ...observability import metrics as _obs_metrics
 
-__all__ = ["SamplingParams", "Request", "Scheduler"]
+__all__ = ["SamplingParams", "Request", "Scheduler", "TenantQuota",
+           "TIER_LATENCY", "TIER_BATCH"]
 
 _M_ADMITTED = _obs_metrics.counter(
     "serving_requests_admitted_total", "requests admitted to decode slots")
@@ -64,8 +77,98 @@ _M_PREFIX_REUSED = _obs_metrics.counter(
 _M_COW = _obs_metrics.counter(
     "serving_cow_copies_total",
     "copy-on-write block copies (divergent write to a shared block)")
+# multi-tenant QoS
+_M_THROTTLED = _obs_metrics.counter(
+    "serving_quota_throttled_total",
+    "admission passes that deferred every waiting tenant on its token-"
+    "rate quota (deferred, never shed)")
+_M_BATCH_YIELD = _obs_metrics.counter(
+    "serving_batch_yields_total",
+    "batch-tier requests preempted (spilled to the host tier when "
+    "decode-ready) so latency-tier work could take their slot")
+_M_TENANT_TOKENS = _obs_metrics.counter(
+    "serving_tenant_tokens_total",
+    "tokens served per tenant (prefill chunks + decode emissions); the "
+    "tenant label is bounded to configured tenant names plus 'default'")
 
 WAITING, RUNNING, FINISHED = "waiting", "running", "finished"
+TIER_LATENCY, TIER_BATCH = "latency", "batch"
+
+
+class TenantQuota:
+    """Per-tenant token-rate quota: a rolling-window leaky bucket over
+    SERVED tokens (events pruned past the window; an injectable ``clock``,
+    so tests never sleep). ``rate_tokens_per_s * window_s`` tokens may be
+    served per rolling ``window_s``. The scheduler charges tokens as they
+    are served and gates *admission* on the bucket: an over-quota
+    tenant's waiting requests are deferred, never shed. One in-flight
+    request may overshoot: throttling mid-decode would hold a decode slot
+    idle. :meth:`retry_after` estimates the wait."""
+
+    def __init__(self, rate_tokens_per_s, window_s=1.0,
+                 clock=time.monotonic):
+        self.rate = float(rate_tokens_per_s)
+        if self.rate <= 0:
+            raise ValueError(
+                f"rate_tokens_per_s must be > 0, got {rate_tokens_per_s}")
+        self.window_s = float(window_s)
+        self.limit = self.rate * self.window_s
+        self._clock = clock
+        self._events: deque[tuple[float, float]] = deque()
+        self._used = 0.0
+
+    def _prune(self, now):
+        ev = self._events
+        while ev and now - ev[0][0] > self.window_s:
+            self._used -= ev.popleft()[1]
+
+    @property
+    def used(self):
+        """Tokens served inside the current rolling window."""
+        self._prune(self._clock())
+        return self._used
+
+    def admissible(self):
+        return self.used < self.limit
+
+    def note(self, n):
+        """Charge ``n`` served tokens to the window."""
+        now = self._clock()
+        self._prune(now)
+        self._events.append((now, float(n)))
+        self._used += float(n)
+
+    def retry_after(self):
+        """Seconds until the bucket re-admits (0.0 while admissible)."""
+        now = self._clock()
+        self._prune(now)
+        if self._used < self.limit:
+            return 0.0
+        over = self._used - self.limit
+        expired = 0.0
+        for t, n in self._events:
+            expired += n
+            if expired > over:
+                return max(0.0, t + self.window_s - now)
+        return self.window_s
+
+
+class _TenantState:
+    """Per-tenant accounting: the weighted-fair virtual time plus the
+    optional rate quota. ``configured`` marks tenants registered through
+    ``configure_tenant``; only their names label the token counter (the
+    cardinality bound), others count under ``default``."""
+
+    __slots__ = ("name", "weight", "quota", "served_tokens", "vtime",
+                 "configured")
+
+    def __init__(self, name, weight=1.0, quota=None, vtime=0.0):
+        self.name = str(name)
+        self.weight = float(weight)
+        self.quota = quota
+        self.served_tokens = 0
+        self.vtime = float(vtime)
+        self.configured = False
 
 
 @dataclasses.dataclass
@@ -85,14 +188,26 @@ class Request:
     _ids = itertools.count(1)
 
     def __init__(self, prompt_ids, sampling: SamplingParams | None = None,
-                 rid=None):
+                 rid=None, deadline=None, tenant=None, tier=None):
         self.rid = rid if rid is not None else next(Request._ids)
         self.prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if self.prompt.size == 0:
             raise ValueError("empty prompt")
         self.sampling = sampling or SamplingParams()
-        # set by Scheduler.abort ("cancelled", "closed"); overrides the
-        # eos/length finish reasons
+        # QoS: who the request bills to and how urgent it is. Latency
+        # requests hold their slots; batch requests admit behind latency
+        # work and yield their slots under pressure
+        self.tenant = str(tenant) if tenant else "default"
+        tier = tier or TIER_LATENCY
+        if tier not in (TIER_LATENCY, TIER_BATCH):
+            raise ValueError(f"unknown tier {tier!r}; expected "
+                             f"{TIER_LATENCY!r} or {TIER_BATCH!r}")
+        self.tier = tier
+        # absolute wall-clock deadline (time.time() seconds): the engine
+        # checks it at admission and at every step boundary
+        self.deadline = float(deadline) if deadline is not None else None
+        # set by Scheduler.abort ("timeout", "cancelled", "closed");
+        # overrides the eos/length finish reasons
         self.abort_reason = None
         self.state = WAITING
         # observability timestamps (perf_counter_ns, host clocks only)
@@ -188,16 +303,23 @@ class Scheduler:
         # (req, block_id, chain_hash) host-prefix revivals the engine must
         # import and adopt before this step's prefill work
         self.pending_revive: list[tuple] = []
-        # spill revivals that missed (the tier LRU-dropped the entry): each
-        # one degrades to re-prefill
+        # spill revivals that missed (the tier LRU-dropped the entry, or
+        # its read-back CRC check freed it): each one degrades to
+        # re-prefill
         self.revive_misses = 0
         self.version = 0
         # (src, dst) page copies the engine must run before the next pool
         # write — queued by the COW guard, drained by the engine's step
         self.pending_cow: list[tuple[int, int]] = []
+        # per-tenant QoS state, created per tenant name on first sight;
+        # weighted-fair admission arms once a tenant is configured or
+        # non-default traffic is queued
+        self.tenants: dict[str, _TenantState] = {}
+        self._qos_configured = False
         for m in (_M_ADMITTED, _M_EVICTIONS, _M_FINISHED, _M_QUEUED_EXH,
-                  _M_PREFIX_REUSED, _M_COW):
+                  _M_PREFIX_REUSED, _M_COW, _M_THROTTLED, _M_BATCH_YIELD):
             m.inc(0, instance=self.instance)
+        _M_TENANT_TOKENS.inc(0, instance=self.instance, tenant="default")
 
     @property
     def stats(self):
@@ -210,8 +332,108 @@ class Scheduler:
             "prefix_blocks_reused": int(
                 _M_PREFIX_REUSED.value(instance=inst)),
             "cow_copies": int(_M_COW.value(instance=inst)),
+            "quota_throttled": int(_M_THROTTLED.value(instance=inst)),
+            "batch_yields": int(_M_BATCH_YIELD.value(instance=inst)),
             "revive_misses": self.revive_misses,
         }
+
+    # -- multi-tenant QoS -----------------------------------------------
+    def configure_tenant(self, name, *, weight=1.0, rate_tokens_per_s=None,
+                         window_s=1.0, clock=time.monotonic):
+        """Register (or refresh) tenant ``name``: its weighted-fair
+        ``weight`` and an optional :class:`TenantQuota`. The first
+        configured tenant arms QoS admission; until then it is FIFO."""
+        if float(weight) <= 0:
+            raise ValueError(f"tenant weight must be > 0, got {weight}")
+        st = self._tenant(name)
+        st.weight = float(weight)
+        st.quota = (TenantQuota(rate_tokens_per_s, window_s, clock=clock)
+                    if rate_tokens_per_s else None)
+        st.configured = True
+        self._qos_configured = True
+        return st
+
+    def _tenant(self, name):
+        st = self.tenants.get(name)
+        if st is None:
+            # a tenant joining late starts at the LOWEST live virtual time,
+            # not 0, or it would monopolize admission until it caught up
+            vt = min((s.vtime for s in self.tenants.values()), default=0.0)
+            st = self.tenants[name] = _TenantState(name, vtime=vt)
+        return st
+
+    def _qos_active(self):
+        return self._qos_configured or any(
+            r.tier != TIER_LATENCY or r.tenant != "default"
+            for r in self.waiting)
+
+    def note_served(self, req, n):
+        """Charge ``n`` served tokens (a prefill chunk or decode emissions)
+        to the request's tenant: its virtual time advances by
+        ``n / weight``, its quota and the per-tenant counter by ``n``.
+        Host arithmetic only."""
+        if n <= 0:
+            return
+        st = self._tenant(req.tenant)
+        st.served_tokens += int(n)
+        st.vtime += n / st.weight
+        if st.quota is not None:
+            st.quota.note(n)
+        _M_TENANT_TOKENS.inc(
+            n, instance=self.instance,
+            tenant=st.name if st.configured else "default")
+
+    def _admissible(self, st):
+        return st.quota is None or st.quota.admissible()
+
+    def _next_admission(self):
+        """The ``waiting`` position to admit next under QoS, or None when
+        every waiting tenant is quota-deferred: the latency tier outranks
+        batch; within a tier the tenant with the lowest virtual time wins
+        and its EARLIEST queued request goes (per-tenant FIFO);
+        over-quota tenants are skipped (deferred, never shed)."""
+        throttled = False
+        for tier in (TIER_LATENCY, TIER_BATCH):
+            best = None
+            seen = set()
+            for pos, req in enumerate(self.waiting):
+                if req.tier != tier or req.tenant in seen:
+                    continue
+                seen.add(req.tenant)
+                st = self._tenant(req.tenant)
+                if not self._admissible(st):
+                    throttled = True
+                    continue
+                if best is None or (st.vtime, pos) < best:
+                    best = (st.vtime, pos)
+            if best is not None:
+                return best[1]
+        if throttled:
+            _M_THROTTLED.inc(instance=self.instance)
+        return None
+
+    def _yield_batch_slot(self):
+        """The slots are full and a latency request waits admissibly:
+        preempt the most recently admitted batch-tier running request
+        through :meth:`_evict` (which spills decode-ready pages to the
+        host tier, so its revival is a page import). Returns True when a
+        slot was freed."""
+        wants_latency = any(
+            r.tier == TIER_LATENCY and self._admissible(self._tenant(
+                r.tenant))
+            for r in self.waiting)
+        if not wants_latency:
+            return False
+        batch = [r for r in self.running if r.tier == TIER_BATCH]
+        if not batch:
+            return False
+        # decode-ready victims first: their pages spill (a mid-prefill
+        # victim's pages are incomplete, so it re-prefills)
+        ready = [r for r in batch if not r.prefilling]
+        victim = max(ready or batch, key=lambda r: r.admit_seq)
+        self._evict(victim)
+        _M_BATCH_YIELD.inc(instance=self.instance)
+        return True
 
     @property
     def running(self):
@@ -229,24 +451,35 @@ class Scheduler:
     def pick_prefills(self):
         """Pop up to ``max_prefills_per_step`` waiting requests that fit (a
         free slot + blocks for prompt and first token, charging only blocks
-        the prefix cache cannot supply). The FIFO head that does not fit
-        stays queued — no overtaking. A request spilled to the host tier
+        the prefix cache cannot supply). Default traffic takes the FIFO
+        head; with QoS active :meth:`_next_admission` chooses, and a full
+        slot set may first make room by yielding a batch-tier request. The
+        chosen request that does not fit stays queued — no overtaking
+        within the step. A request spilled to the host tier
         revives as a ``preloaded`` import (re-prefill if the tier dropped
         it); a preloaded request is admitted decode-ready; otherwise
         host-resident chain links continuing the device match are queued on
         ``pending_revive``. Returns ``[(slot, request)]``."""
         picked = []
         while len(picked) < self.max_prefills_per_step and self.waiting:
-            slot = self._free_slot()
-            if slot is None:
-                break
-            req = self.waiting[0]
+            qos = self._qos_active()
+            if self._free_slot() is None:
+                # under latency pressure a full slot set preempts batch
+                # work to the host tier instead of queueing behind it
+                if not (qos and self._yield_batch_slot()):
+                    break
+            pos = self._next_admission() if qos else 0
+            if pos is None:
+                break  # every waiting tenant is quota-deferred
+            req = self.waiting[pos]
             if req.spill_key is not None and self.kv_tier is not None:
                 payload = self.kv_tier.peek_request(req.spill_key)
                 if payload is not None:
                     req.preloaded = payload
                     req.revived_from_tier = True
                 else:
+                    # LRU-dropped, or freed by the read-back CRC check:
+                    # both degrade to re-prefill, counted
                     self.revive_misses += 1
                     req.spill_key = None
             # preloaded requests charge full blocks and skip prefix
@@ -269,7 +502,8 @@ class Scheduler:
                     self.allocator.free(matched)
                 _M_QUEUED_EXH.inc(instance=self.instance)
                 break
-            self.waiting.popleft()
+            del self.waiting[pos]
+            slot = self._free_slot()
             req.blocks = list(matched) + blocks
             if req.preloaded is not None:
                 # decode-ready: the pages cover every token but the last
@@ -339,9 +573,15 @@ class Scheduler:
             if got is not None:
                 return got[0]
             peers = [r for r in self.running if r is not req]
-            victim = max(peers, key=lambda r: r.admit_seq, default=None)
+            # batch-tier peers yield first: growing latency work never
+            # preempts a latency peer while batch work holds slots
+            batch = [r for r in peers if r.tier == TIER_BATCH]
+            victim = max(batch or peers, key=lambda r: r.admit_seq,
+                         default=None)
             if victim is None:
                 victim = req  # alone and out of memory: preempt self
+            if victim.tier == TIER_BATCH and req.tier == TIER_LATENCY:
+                _M_BATCH_YIELD.inc(instance=self.instance)
             self._evict(victim)
             evicted.append(victim)
             if victim is req:
@@ -423,7 +663,8 @@ class Scheduler:
                 and req.num_cached > 0
                 and req.num_cached == req.num_tokens - 1):
             if self.kv_tier.spill_request(req.rid, req.blocks,
-                                          req.num_cached):
+                                          req.num_cached,
+                                          tenant=req.tenant):
                 req.spill_key = req.rid
         self.allocator.free(req.blocks)
         req.blocks = []

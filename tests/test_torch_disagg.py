@@ -4,7 +4,8 @@ engine-level cases of ``tests/test_disagg.py`` proved again in the port
 bit for bit the colocated engine's, prefill-only engines, lifecycle),
 plus the pages crossing between the port and the JAX package both ways,
 the in-place import under a decode-window engine, bf16 pages as bits, and
-the refusal of a sealed payload."""
+a payload the JAX package sealed: verified and served, or, flipped,
+refused with ``KVIntegrityError``."""
 
 import numpy as np
 import pytest
@@ -513,11 +514,10 @@ def test_packed_pages_read_the_same_in_both_packages(models, kv_dtype):
         np.testing.assert_allclose(a["k"], b["k"], rtol=1e-5, atol=1e-5)
 
 
-def test_sealed_payload_is_refused(models):
-    """A payload the JAX package sealed with per-block CRCs
-    (``kv_page_checksums=True``) raises ``NotImplementedError`` naming the
-    integrity bullet; nothing is admitted."""
-    jm, tm = models
+def _jax_sealed_handoff(jm):
+    """A handoff the JAX package's prefill engine sealed with per-block
+    CRCs (``kv_page_checksums=True``), through its wire format: (the
+    prompt plus its first token, the unpacked payload)."""
     pre = JaxEngine(jm, ingest_async=False, prefill_only=True,
                     kv_page_checksums=True, **ENGINE_KW)
     try:
@@ -527,12 +527,43 @@ def test_sealed_payload_is_refused(models):
         pre.close()
     pages = unpack_kv_pages(jax_pack(pages))
     assert "crc" in pages
+    return _handoff_prompt(p, first), pages
+
+
+def test_sealed_payload_is_verified_and_served(models):
+    """A payload the JAX package sealed is verified on import (every block
+    counted) and decodes the tokens of the same payload unsealed."""
+    jm, tm = models
+    p2, pages = _jax_sealed_handoff(jm)
+    plain = {k: v for k, v in pages.items() if k != "crc"}
     dec = LLMEngine(tm, **PORT_KW)
     try:
-        with pytest.raises(NotImplementedError, match="integrity"):
-            dec.add_request_with_pages(_handoff_prompt(p, first), pages,
+        got = _decode_all(dec, p2, pages, 3)
+        m = dec.metrics()
+        want = _decode_all(dec, p2, plain, 3)
+    finally:
+        dec.close()
+    assert m["kv_pages_verified"] == pages["k"].shape[1]
+    assert m["kv_pages_rejected"] == 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sealed_payload_is_refused(models):
+    """A payload the JAX package sealed whose bytes then changed raises
+    ``KVIntegrityError`` at ``add_request_with_pages``, before any block
+    moves; nothing is admitted."""
+    from paddle_tpu_torch.inference.serving import KVIntegrityError
+
+    jm, tm = models
+    p2, pages = _jax_sealed_handoff(jm)
+    pages["v"].view(np.uint8).flat[pages["v"].nbytes // 2] ^= 0x04
+    dec = LLMEngine(tm, **PORT_KW)
+    try:
+        with pytest.raises(KVIntegrityError, match="CRC mismatch"):
+            dec.add_request_with_pages(p2, pages,
                                        SamplingParams(max_new_tokens=3))
-        assert not dec.scheduler.waiting
+        assert not dec.scheduler.waiting and not dec._requests
         assert dec.cache.allocator.num_free == ENGINE_KW["num_blocks"] - 1
+        assert dec.metrics()["kv_pages_rejected"] == 1
     finally:
         dec.close()

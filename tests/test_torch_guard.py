@@ -52,6 +52,7 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.quantization.quanters\n"
             "import paddle_tpu_torch.io.streaming\n"
             "import paddle_tpu_torch.inference.serving.prefix_store\n"
+            "import paddle_tpu_torch.inference.serving.integrity\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"

@@ -6,7 +6,9 @@ against a never-evicted engine, the store's save/load/corrupt/
 fingerprint/geometry gates, warm restarts), plus the cross-package cases:
 equal weight fingerprints, a store written by either package booting the
 other's engine with the same warm tokens, byte-identical stream shards,
-and the refusal of a sealed store."""
+and a store the JAX package sealed: verified and served, rejected whole
+as "corrupt" when its file is flipped, an entry flipped under a valid
+frame rejected at its revive."""
 
 import copy
 import os
@@ -27,8 +29,9 @@ from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.models import llama_tiny as jax_tiny
 from paddle_tpu_torch.inference.serving import (
     HostKVTier, LLMEngine, PagedKVCache, PrefixCache, PrefixStoreMismatch,
-    SamplingParams, load_prefix_store, pool_geometry, save_prefix_store,
-    save_llama_artifact, weights_fingerprint)
+    SamplingParams, load_prefix_store, pack_kv_pages, pool_geometry,
+    save_prefix_store, save_llama_artifact, unpack_kv_pages,
+    weights_fingerprint)
 from paddle_tpu_torch.io.streaming import (read_stream_shard,
                                            write_stream_shard)
 from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
@@ -588,21 +591,103 @@ def test_stream_shards_are_byte_identical(tmp_path):
     assert got[-1] == b"raw payload"
 
 
-def test_sealed_store_is_refused(models, tmp_path):
-    """A store the JAX engine saved with page checksums armed holds sealed
-    entries: the port's engine raises ``NotImplementedError`` naming the
-    integrity bullet at boot instead of loading them unverified."""
-    jm, tm = models
-    path = str(tmp_path / "sealed.pdstream")
-    waves = _waves(tm.config, seed=111)
+def _jax_sealed_store(jm, path, waves):
+    """A store the JAX engine saved with page checksums armed: every
+    entry sealed."""
     eng = JaxEngine(jm, prefix_store_path=path, kv_page_checksums=True,
                     **STORE_KW)
     try:
         _serve(eng, waves[:1], 3, JaxSampling)
     finally:
         eng.close()
-    with pytest.raises(NotImplementedError, match="integrity"):
-        LLMEngine(tm, prefix_store_path=path, device="cpu", **STORE_KW)
+    entries = load_prefix_store(path, fingerprint=jax_fingerprint(jm),
+                                geometry=_geometry(jm))
+    assert entries and all("crc" in pg for _, pg in entries)
+    return len(entries)
+
+
+def _geometry(jm):
+    from paddle_tpu.inference.serving import pool_geometry as jax_geometry
+
+    je = JaxEngine(jm, **STORE_KW)
+    try:
+        return jax_geometry(je.cache, jm.config)
+    finally:
+        je.close()
+
+
+def test_sealed_store_is_verified_and_served(models, tmp_path):
+    """The port's engine boots a store the JAX engine sealed, verifies each
+    entry as it revives it, and serves the tokens of a run with no
+    store."""
+    jm, tm = models
+    path = str(tmp_path / "sealed.pdstream")
+    waves = _waves(tm.config, seed=111)
+    n = _jax_sealed_store(jm, path, waves)
+    with LLMEngine(tm, device="cpu", **STORE_KW) as eng:
+        cold = _serve(eng, waves[:1], 3)
+    with LLMEngine(tm, prefix_store_path=path, device="cpu",
+                   **STORE_KW) as eng:
+        assert eng.metrics()["prefix_store_loaded"] == n
+        warm = _serve(eng, waves[:1], 3)
+        m = eng.metrics()
+    assert m["kv_revives"] > 0
+    assert m["kv_pages_verified"] == m["kv_revives"]
+    assert m["kv_pages_rejected"] == 0
+    for a, b in zip(warm, cold):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sealed_store_is_refused(models, tmp_path):
+    """A sealed store with a flipped byte in the file fails its frame CRC:
+    the port's engine rejects it whole as ``"corrupt"`` and cold-starts."""
+    jm, tm = models
+    path = str(tmp_path / "sealed.pdstream")
+    waves = _waves(tm.config, seed=111)
+    _jax_sealed_store(jm, path, waves)
+    raw = bytearray(open(path, "rb").read())
+    raw[len(raw) // 2] ^= 0x01
+    open(path, "wb").write(bytes(raw))
+    with pytest.warns(RuntimeWarning, match="corrupt"):
+        eng = LLMEngine(tm, prefix_store_path=path, device="cpu",
+                        **STORE_KW)
+    try:
+        m = eng.metrics()
+        assert m["prefix_store_loaded"] == 0
+        assert m["prefix_store_rejected_by_reason"] == {"corrupt": 1}
+        assert len(eng.kv_tier) == 0
+    finally:
+        eng.close()
+
+
+def test_sealed_store_flipped_entry_is_rejected_at_revive(models,
+                                                          tmp_path):
+    """A sealed entry whose page bytes changed under a valid frame loads,
+    and is rejected when it revives: freed, counted, re-prefilled, and the
+    tokens still equal a run with no store."""
+    jm, tm = models
+    path = str(tmp_path / "sealed.pdstream")
+    waves = _waves(tm.config, seed=111)
+    n = _jax_sealed_store(jm, path, waves)
+    recs = read_stream_shard(path, decode_fn=bytes)
+    flipped = [recs[0]]
+    for rec in recs[1:]:
+        pages = unpack_kv_pages(rec[20:])
+        pages["k"].view(np.uint8).flat[3] ^= 0x08
+        flipped.append(rec[:20] + pack_kv_pages(pages))
+    write_stream_shard(path, flipped)
+    with LLMEngine(tm, device="cpu", **STORE_KW) as eng:
+        cold = _serve(eng, waves[:1], 3)
+    with LLMEngine(tm, prefix_store_path=path, device="cpu",
+                   **STORE_KW) as eng:
+        assert eng.metrics()["prefix_store_loaded"] == n
+        with pytest.warns(RuntimeWarning, match="corrupt"):
+            warm = _serve(eng, waves[:1], 3)
+        m = eng.metrics()
+    assert m["kv_pages_rejected"] > 0 and m["kv_revives"] == 0
+    assert m["kv_pages_verified"] == 0
+    for a, b in zip(warm, cold):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_pool_geometry_matches_the_reference(models):
