@@ -189,14 +189,36 @@ Phases, one printed line per result:
    (no CRC sees it; whether its tokens changed is reported); (d) fp32
    llama_tiny with tenants, tiers, a quota, a deadline and a flipped
    spill: the card's admission order, tokens and tenant tokens equal the
-   CPU's.
+   CPU's;
+13. the serving fleet (``inference.serving.fleet``), llama_1b bf16 from a
+   bf16 artifact in ``TMPDIR``, phase 4's prompts and phase 10's engine
+   arguments in every replica process (the kernels built in this process
+   first, so each replica only loads them): (a) two colocated replicas:
+   tokens equal one in-process engine's bit for bit, each replica's
+   spawn-to-ready s, TTFT p50 and tokens/s against the in-process
+   engine, each replica's #1/#2 launches (from its ``stats`` event, since
+   its ``ready``) equal to layers x its decode iterations and chunks;
+   (d) on the same fleet, ``drain(0, then="reload")`` mid-burst from a
+   ``CheckpointManager`` in ``TMPDIR``: nothing dropped, no typed error,
+   the reloaded step, tokens unchanged, the drain's wall; (b)
+   ``serve.replica_crash`` on replica 0 after its first windows:
+   death-to-detection ms, respawn-to-ready s, restarts, redispatches, the
+   liveness gauge's dip and recovery, every request complete with its
+   pre-kill tokens unchanged, the agreement after the kill; (c) a
+   ``["prefill", "decode"]`` fleet: tokens equal (a)'s, page bytes,
+   frames and GB/s on each pipe hop, no #1 on the prefill replica and no
+   #2 on the decode replica; (e) fp32 llama_tiny: a colocated fleet on
+   the card and a drill fleet of three (a crash, a hang under
+   ``hang_timeout_s``) equal a CPU fleet of the port bit for bit, with the
+   hang's escalation times.
 
 Then one JSON line with every kernel's numbers (``launches`` from the
 run named in the phase that returns them; #1 and #2 also
 ``launches_phase10``, the count of each of 10a's and 10c's predictor
-runs, ``launches_phase11``, each of phase 11's counted runs, and
-``launches_phase12``, phase 12's QoS, FIFO and checksummed runs), the
-card line, and last
+runs, ``launches_phase11``, each of phase 11's counted runs,
+``launches_phase12``, phase 12's QoS, FIFO and checksummed runs, and
+``launches_phase13``, phase 13's replicas: (a)'s two summed, (c)'s
+prefill and decode replica), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 1.
 """
@@ -5595,6 +5617,501 @@ def phase_serve_qos():
             "integrity": integrity}
 
 
+# -- the serving fleet ---------------------------------------------------------
+
+# phase 13: phase 10's engine arguments (the serving cell: 2048 blocks of 16,
+# eight slots, windows of 8) in every replica, phase 4's prompts, 32 new
+# tokens; replica 0 of the kill arm SIGKILLs itself at its 4th busy loop
+# tick (after its prefills and first windows: a replica's whole burst is
+# seven or eight steps)
+FLEET_ENGINE = dict(ART_ENGINE)
+FLEET_NEW = ART_NEW
+FLEET_KILL_AFTER = 4
+# (e): fp32 llama_tiny, windows of 4; the drill's crash and hang fire at
+# each victim's 3rd busy tick, the hang condemned after FLEET_HANG_S
+FLEET_TINY = dict(num_blocks=64, block_size=8, max_batch_size=4,
+                  decode_steps_per_sync=4)
+FLEET_TINY_NEW = 16
+FLEET_HANG_S = 3.0
+FLEET_BOOT_S = 180.0
+
+
+@contextlib.contextmanager
+def fleets(*specs, meanwhile=None):
+    """One ``Router`` for each spec (``artifact``, ``n``, ``dev``,
+    ``engine``, ``log_dir`` and Router keywords), all
+    spawned at once so their boots overlap (``meanwhile()``, if given,
+    runs while they boot); yields [(router, {replica: spawn-to-ready s})]
+    once every replica is ready, and closes every router (with the tail
+    of each replica log on stderr when the block raised)."""
+    from paddle_tpu_torch.inference.serving.fleet import Router
+
+    routers = []
+    try:
+        for spec in specs:
+            spec = dict(spec)
+            ekw = dict(spec.pop("engine"), device=spec.pop("dev"))
+            routers.append(Router(
+                artifact=spec.pop("artifact"), n_replicas=spec.pop("n"),
+                engine_kwargs=ekw, wait_ready=False, **spec))
+        if meanwhile is not None:
+            meanwhile()
+        yield [(r, fleet_boot(r)) for r in routers]
+    except BaseException:
+        for r in routers:
+            fleet_logs(r.supervisor.log_dir)
+        raise
+    finally:
+        for r in routers:
+            r.close()
+
+
+def fleet_boot(r):
+    """Wait for every replica's ``ready``; returns {replica: spawn-to-ready
+    s}."""
+    sup = r.supervisor
+    sup.wait_ready(FLEET_BOOT_S)
+    check(not sup.deaths, f"serve-fleet: no replica died while booting "
+          f"({sup.deaths})")
+    return {h.id: h.ready_time - h.spawn_time for h in sup.handles}
+
+
+def fleet_logs(log_dir):
+    """The tail of each replica's log on stderr (what a failed arm needs)."""
+    for f in sorted(os.listdir(log_dir)) if os.path.isdir(log_dir) else ():
+        if f.startswith("replica."):
+            with open(os.path.join(log_dir, f), errors="replace") as fh:
+                tail = fh.read()[-3000:]
+            print(f"--- {f}\n{tail}", file=sys.stderr)
+
+
+def fleet_pump(r, gids, until=None, timeout=180.0, each=None):
+    """Step ``r`` until every request in ``gids`` finished and
+    ``until()`` (if given) holds, calling ``each()`` after every step.
+    Returns the wall s."""
+    t0 = time.perf_counter()
+    t_end = time.time() + timeout
+    while (any(not r.request(g).finished for g in gids)
+           or (until is not None and not until())):
+        if not r.step():
+            time.sleep(0.0005)
+        if each is not None:
+            each()
+        check(time.time() < t_end, "serve-fleet: the burst finished in time")
+    return time.perf_counter() - t0
+
+
+def fleet_serve(r, prompts, new, each=None):
+    """Submit every prompt, pump to the end: (outputs, wall s, gids)."""
+    gids = [r.submit(p, max_new=new) for p in prompts]
+    wall = fleet_pump(r, gids, each=each)
+    return [r.result(g) for g in gids], wall, gids
+
+
+def fleet_stats(r):
+    """{replica: its ``stats`` event} for every live replica."""
+    out = {h.id: r.replica_stats(h.id) for h in r.supervisor.handles
+           if h.alive}
+    check(all(s is not None for s in out.values()),
+          "serve-fleet: every replica answered stats")
+    return out
+
+
+def fleet_launches(stats, layers, dev, label, zero=()):
+    """Each replica's paged-kernel launches since its ``ready``: #1 =
+    layers x decode iterations and #2 = layers x prefill chunks (graph
+    replays included), none of a kernel in ``zero`` (a role that never
+    runs it), and on the card each other kernel launched. Returns the
+    counts summed over ``stats``."""
+    total = {"paged_decode_attention_cuda": 0,
+             "paged_multiquery_attention_cuda": 0}
+    for i, s in stats.items():
+        c = s["launches"]
+        want = {"paged_decode_attention_cuda": layers * s["decode_steps"],
+                "paged_multiquery_attention_cuda":
+                    layers * s["prefill_chunks"]}
+        if dev != "cuda":
+            want = dict.fromkeys(want, 0)
+        check(c == want, f"serve-fleet {label}: replica {i} launches {c} "
+              f"== {layers} x ({s['decode_steps']} decode iterations, "
+              f"{s['prefill_chunks']} chunks)")
+        for k in c:
+            total[k] += c[k]
+    for k in total:
+        if k in zero:
+            check(total[k] == 0, f"serve-fleet {label}: no {k}")
+        elif dev == "cuda":
+            check(total[k] > 0, f"serve-fleet {label}: {k} launched")
+    return total
+
+
+def fleet_clean(stats, engine, label):
+    for i, s in stats.items():
+        check(s["blocks_free"] == engine["num_blocks"] - 1
+              and s["running"] == 0 and s["waiting"] == 0,
+              f"serve-fleet {label}: replica {i}'s allocator clean")
+
+
+def liveness(log_dir):
+    """The ``fleet_replicas_live`` gauge's values, transition by
+    transition (``<log_dir>/fleet_liveness.log``: time, value a line)."""
+    with open(os.path.join(log_dir, "fleet_liveness.log")) as f:
+        return [int(ln.split()[1]) for ln in f]
+
+
+class DeathWatch:
+    """Polls ``/proc/<pid>/stat`` of one process every millisecond on a
+    thread; ``.t`` is the wall time it was first seen dead (a zombie or
+    gone), for the death-to-detection lag of a kill."""
+
+    def __init__(self, pid):
+        import threading
+
+        self.pid, self.t = pid, None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                with open(f"/proc/{self.pid}/stat") as f:
+                    dead = f.read().rsplit(")", 1)[1].split()[0] == "Z"
+            except OSError:
+                dead = True
+            if dead:
+                self.t = time.time()
+                return
+            time.sleep(0.001)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def fleet_spec(art, n, dev, label, root, engine=None, **kw):
+    return dict(artifact=art, n=n, dev=dev, engine=engine or FLEET_ENGINE,
+                log_dir=os.path.join(root, label), **kw)
+
+
+def fleet_colocated_arm(r, boot, prompts, ref, dev, layers, ckpt):
+    """(a) two ``"both"`` replicas: tokens equal the in-process engine's
+    bit for bit; boot s, TTFT p50, tokens/s, launches. Then (d) on the
+    same fleet: ``drain(0, then="reload")`` mid-burst from the
+    ``CheckpointManager`` at ``ckpt["root"]``: nothing dropped, no typed error, the reloaded
+    step, tokens unchanged, and again after the reload. Returns (a)'s
+    launches summed over both replicas."""
+    outs, wall, served = fleet_serve(r, prompts, FLEET_NEW)
+    check(same_tokens(outs, ref["outs"]),
+          "serve-fleet (a): tokens equal the in-process engine's bit for "
+          "bit")
+    stats = fleet_stats(r)
+    counts = fleet_launches(stats, layers, dev, "(a)")
+    fleet_clean(stats, FLEET_ENGINE, "(a)")
+    n_tok = len(prompts) * FLEET_NEW
+    say(f"serve-fleet (a) colocated, 2 replicas: boot "
+        + ", ".join(f"replica {i} {boot[i]:.1f} s" for i in sorted(boot))
+        + f"; {n_tok} tokens in {wall:.3f} s, {n_tok / wall:.1f} "
+        f"tokens/s vs in-process {ref['tps']:.1f}; TTFT p50 "
+        f"{p50(r.ttft_seconds()) * 1e3:.1f} ms (router) vs "
+        f"{ref['ttft_p50']:.1f} ms (in-process engine); launches "
+        + "; ".join(f"replica {i} {launches_str(s['launches'])} = "
+                    f"{layers} x ({s['decode_steps']} decode iterations, "
+                    f"{s['prefill_chunks']} chunks)"
+                    for i, s in sorted(stats.items()))
+        + "; tokens bit for bit")
+    for g in served:
+        r.release(g)
+    # (d) drain-reload mid-burst
+    gids = [r.submit(p, max_new=FLEET_NEW) for p in prompts]
+    while not r.inflight(0) or r.metrics()["queue_depth"]:
+        r.step()
+    held = len(r.inflight(0))
+    t0 = time.perf_counter()
+    drained = []
+    r.drain(0, then="reload", ckpt_root=ckpt["root"])
+
+    def watch():
+        if not drained and r.drains_completed:
+            drained.append(time.perf_counter() - t0)
+
+    fleet_pump(r, gids, until=lambda: bool(drained), each=watch)
+    outs_d = [r.result(g) for g in gids]
+    m = r.metrics()
+    errors = [g for g in gids if r.request(g).error is not None]
+    check(not errors and same_tokens(outs_d, ref["outs"])
+          and m["requests_shed"] == 0 and m["deadline_expired"] == 0,
+          "serve-fleet (d): nothing dropped, no typed error, tokens "
+          "unchanged")
+    check(r.reloads == [(0, ckpt["step"])] and r.drains_completed == 1,
+          f"serve-fleet (d): replica 0 reloaded step {ckpt['step']} "
+          f"({r.reloads})")
+    again, _, _ = fleet_serve(r, prompts, FLEET_NEW)
+    check(same_tokens(again, ref["outs"]),
+          "serve-fleet (d): the reloaded fleet's tokens unchanged")
+    say(f"serve-fleet (d) drain(0, then='reload') with {held} requests in "
+        f"flight on replica 0: drain wall {drained[0]:.3f} s (they "
+        f"finished, then the weights reloaded from step {ckpt['step']}); "
+        f"dropped 0, typed errors 0, tokens bit for bit before and after "
+        f"the reload")
+    return counts
+
+
+def fleet_kill_arm(r, boot, prompts, ref):
+    """(b) ``serve.replica_crash`` on replica 0 after its first windows:
+    death-to-detection, respawn-to-ready, restarts, redispatches, the
+    liveness gauge's dip and recovery; every request ends with its 32
+    tokens, the tokens emitted before the kill unchanged, the agreement
+    after it reported."""
+    sup = r.supervisor
+    watch = DeathWatch(sup.handles[0].pid)
+    cut = {}
+    gids = [r.submit(p, max_new=FLEET_NEW) for p in prompts]
+
+    def each():
+        for g in gids:
+            q = r.request(g)
+            if q.redispatches and g not in cut:
+                cut[g] = len(q.emitted)
+
+    def respawned():
+        h = sup.handles[0]
+        return h.incarnation == 1 and h.ready
+
+    wall = fleet_pump(r, gids, each=each)
+    check(bool(sup.deaths), "serve-fleet (b): replica 0 was killed "
+          "mid-burst")
+    fleet_pump(r, [], until=respawned, each=each)
+    watch.stop()
+    h = sup.handles[0]
+    ready = h.ready_time - h.spawn_time
+    deaths = sup.deaths
+    outs = [r.result(g) for g in gids]
+    m = r.metrics()
+    dip = liveness(sup.log_dir)
+    check(len(deaths) == 1 and deaths[0]["reason"] == "crash",
+          f"serve-fleet (b): one crash reported ({deaths})")
+    check(all(len(o) == len(p) + FLEET_NEW for o, p in zip(outs, prompts)),
+          "serve-fleet (b): every request ends with its new tokens")
+    check(cut and all(
+        (outs[i][:len(prompts[i]) + cut[g]]
+         == ref["outs"][i][:len(prompts[i]) + cut[g]]).all()
+        for i, g in enumerate(gids) if g in cut),
+        "serve-fleet (b): the tokens emitted before the kill unchanged")
+    check(all(same_tokens([outs[i]], [ref["outs"][i]])
+              for i, g in enumerate(gids) if g not in cut),
+          "serve-fleet (b): requests never on the killed replica equal "
+          "(a)'s")
+    check(m["replica_restarts"] == 1 and m["redispatches"] == len(cut)
+          and m["replicas_live"] == 2 and min(dip) == 1 and dip[-1] == 2,
+          f"serve-fleet (b): restarts {m['replica_restarts']}, "
+          f"redispatches {m['redispatches']}, liveness {dip}")
+    fleet_clean(fleet_stats(r), FLEET_ENGINE, "(b)")
+    after = [(outs[i][len(prompts[i]) + cut[g]:],
+              ref["outs"][i][len(prompts[i]) + cut[g]:])
+             for i, g in enumerate(gids) if g in cut]
+    same_req = sum(bool((a == b).all()) for a, b in after)
+    same_tok = sum(int((a == b).sum()) for a, b in after)
+    n_tok = sum(len(a) for a, _ in after)
+    say(f"serve-fleet (b) kill: replica 0 SIGKILLed itself at its busy "
+        f"tick {FLEET_KILL_AFTER}; death-to-detection "
+        f"{(deaths[0]['detected'] - watch.t) * 1e3:.1f} ms (its main "
+        f"thread dead to the supervisor's waitpid; the final events "
+        f"drained in "
+        f"{(deaths[0]['handled'] - deaths[0]['detected']) * 1e3:.1f} ms); "
+        f"respawn-to-ready "
+        f"{ready:.1f} s (first boot {boot[0]:.1f} s); replica_restarts "
+        f"{m['replica_restarts']}, redispatches {m['redispatches']} "
+        f"(tokens emitted before the kill {sorted(cut.values())}, "
+        f"unchanged); liveness gauge {dip}; after the kill {same_req} of "
+        f"{len(after)} redispatched requests and {same_tok} of {n_tok} "
+        f"tokens equal (a)'s; all {len(prompts)} requests complete in "
+        f"{wall:.3f} s")
+
+
+def fleet_split_arm(r, boot, prompts, ref, dev, layers):
+    """(c) a ``["prefill", "decode"]`` fleet: tokens equal (a)'s bit for
+    bit; page bytes, frames and GB/s on each pipe hop; #1 = 0 on the
+    prefill replica, #2 = 0 on the decode replica. Returns the two
+    replicas' launches."""
+    outs, wall, _ = fleet_serve(r, prompts, FLEET_NEW)
+    m = r.metrics()
+    check(same_tokens(outs, ref["outs"]),
+          "serve-fleet (c): tokens equal (a)'s bit for bit")
+    check(m["prefill_handoffs"] == len(prompts)
+          and m["kv_transfer_retries"] == 0 and m["handoff_failovers"] == 0,
+          f"serve-fleet (c): {len(prompts)} handoffs, no retry ({m})")
+    stats = fleet_stats(r)
+    pre = fleet_launches({0: stats[0]}, layers, dev, "(c) prefill",
+                         zero=("paged_decode_attention_cuda",))
+    dec = fleet_launches({1: stats[1]}, layers, dev, "(c) decode",
+                         zero=("paged_multiquery_attention_cuda",))
+    fleet_clean(stats, FLEET_ENGINE, "(c)")
+    nbytes = stats[0]["kv_sent_bytes"]
+    check(stats[1]["kv_recv_bytes"] == nbytes,
+          f"serve-fleet (c): the decode replica received the "
+          f"{nbytes} page bytes the prefill replica sent "
+          f"({stats[1]['kv_recv_bytes']})")
+    up_s = stats[0]["kv_send_ms"] / 1e3
+    down_s = stats[1]["kv_recv_ms"] / 1e3
+    n_tok = len(prompts) * FLEET_NEW
+    say(f"serve-fleet (c) split prefill/decode: boot {boot[0]:.1f} / "
+        f"{boot[1]:.1f} s; {m['prefill_handoffs']} handoffs, {nbytes} "
+        f"page bytes in {m['kv_pages_transferred']} frames; "
+        f"prefill->router {nbytes / up_s / 1e9:.3f} GB/s "
+        f"({up_s * 1e3:.1f} ms: export, pack, base64 frames on the pipe), "
+        f"router->decode {nbytes / down_s / 1e9:.3f} GB/s "
+        f"({down_s * 1e3:.1f} ms: a handoff's first frame to its "
+        f"submit_pages at the decode replica); {n_tok} tokens in "
+        f"{wall:.3f} s, {n_tok / wall:.1f} "
+        f"tokens/s; TTFT p50 {p50(r.ttft_seconds()) * 1e3:.1f} ms; "
+        f"launches prefill {launches_str(pre)}, decode "
+        f"{launches_str(dec)}; tokens bit for bit")
+    return pre, dec
+
+
+def fleet_tiny_run(r, prompts):
+    """fp32 llama_tiny prompts through fleet ``r``, pumped until every
+    replica is back up: (outputs, metrics, the deaths its supervisor
+    reported)."""
+    sup = r.supervisor
+    gids = [r.submit(p, max_new=FLEET_TINY_NEW) for p in prompts]
+    fleet_pump(r, gids, until=lambda: all(
+        h.ready and h.alive for h in sup.handles))
+    return [r.result(g) for g in gids], r.metrics(), sup.deaths
+
+
+def fleet_tiny_card_vs_cpu(root):
+    """(e) fp32 llama_tiny: the colocated fleet on the card, and a drill
+    fleet of three (replica 0 crashes, replica 1 hangs under
+    ``hang_timeout_s``: SIGTERM, then SIGKILL after the grace), each equal
+    bit for bit to a colocated fleet of the port on the CPU; the
+    escalation's times. The three fleets boot together."""
+    from paddle_tpu_torch.inference.serving import save_llama_artifact
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+
+    model = LlamaForCausalLM(llama_tiny(), device="cpu", seed=SEED)
+    art = os.path.join(root, "tiny")
+    save_llama_artifact(model, art)
+    prompts = tiny_prompts(llama_tiny().vocab_size)
+    sites = [{"site": "serve.replica_crash", "replica": 0, "after": 3},
+             {"site": "serve.replica_hang", "replica": 1, "after": 3}]
+    specs = [fleet_spec(art, 2, "cpu", "tiny-cpu", root, FLEET_TINY),
+             fleet_spec(art, 2, "cuda", "tiny-card", root, FLEET_TINY),
+             fleet_spec(art, 3, "cuda", "tiny-drill", root, FLEET_TINY,
+                        env_extra={"CHAOS_SERVE_SITES": json.dumps(sites)},
+                        hang_timeout_s=FLEET_HANG_S, max_restarts=2)]
+    with fleets(*specs) as ((cpu_r, _), (card_r, _), (drill_r, _)):
+        cpu, _, _ = fleet_tiny_run(cpu_r, prompts)
+        card, _, _ = fleet_tiny_run(card_r, prompts)
+        check(same_tokens(card, cpu),
+              "serve-fleet (e): fp32 colocated fleet card = CPU bit for bit")
+        drill, m, deaths = fleet_tiny_run(drill_r, prompts)
+    check(same_tokens(drill, cpu),
+          "serve-fleet (e): the crash and hang replays on the card = the "
+          "CPU fleet bit for bit")
+    kinds = sorted((d["replica"], d["reason"]) for d in deaths)
+    check(kinds == [(0, "crash"), (1, "hang")]
+          and m["replica_restarts"] == 2 and m["redispatches"] >= 2,
+          f"serve-fleet (e): deaths {kinds}, restarts "
+          f"{m['replica_restarts']}, redispatches {m['redispatches']}")
+    hang = next(d for d in deaths if d["reason"] == "hang")
+    crash = next(d for d in deaths if d["reason"] == "crash")
+    how = ("SIGTERM sufficed" if hang["rc"] == -15
+           else "SIGKILL after the grace")
+    say(f"serve-fleet (e) fp32 llama_tiny card = CPU: colocated fleet "
+        f"bit for bit; drill fleet of 3 bit for bit with replica 0 "
+        f"crashed (rc {crash['rc']}) and replica 1 hung: condemned "
+        f"{hang['detected'] - hang['last_beat']:.3f} s after its last "
+        f"heartbeat (hang_timeout_s {FLEET_HANG_S}), SIGTERM to exit and "
+        f"the final events drained in "
+        f"{(hang['handled'] - hang['detected']) * 1e3:.1f} ms, rc "
+        f"{hang['rc']} ({how}); restarts {m['replica_restarts']}, "
+        f"redispatches {m['redispatches']}")
+
+
+def phase_serve_fleet():
+    """Phase 13: the serving fleet, llama_1b bf16 at full width from a
+    bf16 artifact (``TMPDIR``, removed at the end) with phase 4's prompts
+    and phase 10's engine arguments in each replica process: (a) two
+    colocated replicas against one in-process engine, then (d) a
+    drain-reload on the same fleet; (b) a replica killed mid-burst and
+    (c) a prefill/decode split, their fleets booted together; (e) fp32
+    llama_tiny fleets on the card against the CPU. Returns the replicas'
+    paged-kernel launches of (a) (both replicas summed) and of (c)'s
+    prefill and decode replicas, each counted since the replica's
+    ``ready``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.inference.serving import (LLMEngine,
+                                                    SamplingParams,
+                                                    save_llama_artifact)
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b
+    from paddle_tpu_torch.ops.cuda import _build
+
+    _build.build_all()  # every replica only loads the libraries
+    free_cuda()
+    cfg = llama_1b()
+    layers = cfg.num_hidden_layers
+    prompts = serve_prompts(cfg.vocab_size)
+    root = tempfile.mkdtemp(prefix="serve-fleet-")
+    try:
+        model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                 seed=SEED)
+        art = os.path.join(root, "llama_1b")
+        save_llama_artifact(model, art)
+        with LLMEngine(model, device="cuda", ingest_async=False,
+                       **FLEET_ENGINE) as eng:
+            eng.generate([prompts[1][:64]], SamplingParams(max_new_tokens=2))
+            eng.reset_metrics()
+            sync("cuda")
+            t0 = time.perf_counter()
+            outs = eng.generate(prompts, SamplingParams(
+                max_new_tokens=FLEET_NEW))
+            sync("cuda")
+            wall = time.perf_counter() - t0
+            ttft = eng.metrics()["ttft_ms"]["p50"]
+        ref = {"outs": outs, "tps": len(prompts) * FLEET_NEW / wall,
+               "ttft_p50": ttft}
+        free_cuda()
+        ckpt = {"root": os.path.join(root, "ckpt"), "step": 1}
+        t0 = time.perf_counter()
+        with fleets(fleet_spec(art, 2, "cuda", "colocated", root,
+                               ckpt_root=ckpt["root"]),
+                    # the checkpoint (d) reloads, written during the boot
+                    meanwhile=lambda: CheckpointManager(ckpt["root"]).save(
+                        ckpt["step"], model=model)) as [(r, b)]:
+            colocated = fleet_colocated_arm(r, b, prompts, ref, "cuda",
+                                            layers, ckpt)
+        say(f"wall serve-fleet (a), (d): {time.perf_counter() - t0:.1f} s")
+        del model
+        free_cuda()
+        t0 = time.perf_counter()
+        with fleets(fleet_spec(art, 2, "cuda", "kill", root, max_restarts=2,
+                               env_extra={
+                                   "CHAOS_SERVE_SITE": "serve.replica_crash",
+                                   "CHAOS_SERVE_REPLICA": "0",
+                                   "CHAOS_SERVE_AFTER_STEPS":
+                                       str(FLEET_KILL_AFTER)}),
+                    fleet_spec(art, 2, "cuda", "split", root,
+                               roles=["prefill", "decode"])) as (
+                (kill_r, kill_b), (split_r, split_b)):
+            fleet_kill_arm(kill_r, kill_b, prompts, ref)
+            pre, dec = fleet_split_arm(split_r, split_b, prompts, ref,
+                                       "cuda", layers)
+        say(f"wall serve-fleet (b), (c): {time.perf_counter() - t0:.1f} s")
+        timed(fleet_tiny_card_vs_cpu, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_cuda()
+    return {"colocated": colocated, "split_prefill": pre,
+            "split_decode": dec}
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -5709,6 +6226,8 @@ def main():
     disagg = timed(phase_serve_disagg)
     # and phase 12's
     qos = timed(phase_serve_qos)
+    # phase 13's replica processes, each counted in its replica
+    fleet = timed(phase_serve_fleet)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
@@ -5746,6 +6265,8 @@ def main():
                                      for arm, c in disagg.items()}
             k["launches_phase12"] = {arm: c[k["name"] + "_cuda"]
                                      for arm, c in qos.items()}
+            k["launches_phase13"] = {arm: c[k["name"] + "_cuda"]
+                                     for arm, c in fleet.items()}
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -12,14 +12,16 @@ guard), ``metric_fetch_interval`` (``FusedTrainStep.drive``'s default
 window), the supervised loop's ``prefetch_depth``, ``step_timeout_s``,
 ``ckpt_save_retries`` and ``ckpt_quarantine_keep``, and the ten
 ``sentinel_*`` flags of the divergence sentinel here, and
-``jit_compile_warn_threshold`` in :mod:`..jit.cache`. The others are
+``jit_compile_warn_threshold`` in :mod:`..jit.cache`, and
+``restart_window_s`` and ``restart_backoff_s`` in the restart budget
+(:mod:`..distributed.launch.controllers`). The others are
 registered ``inert=True``: accepted and validated, with no effect until
 the subsystem that reads them is ported.
 ``check_nan_inf`` and ``check_nan_inf_level`` are among them: their
 per-op output scan lives in the reference's eager dispatch layer, which
 the port does not have (ROADMAP Queue 1, item 6), and the reference's
 bridge into ``jax_debug_nans`` has no PyTorch counterpart here. So are
-the checkpoint, prefetch, supervision and divergence-sentinel flags
+the launcher's ``worker_hang_timeout_s`` and ``worker_term_grace_s``
 (ROADMAP Queue 1, item 3) and the reference's own inert allocator and
 cuDNN flags.
 """
@@ -266,13 +268,13 @@ register_flag(
          + _NOT_PORTED,
     on_change=_validate_non_negative("worker_hang_timeout_s"))
 register_flag(
-    "restart_window_s", 3600.0, inert=True,
-    help="rolling window of the launcher's restart budget" + _NOT_PORTED,
+    "restart_window_s", 3600.0,
+    help="rolling window of the restart budget (the launcher's, and each "
+         "serving replica slot's)",
     on_change=_validate_non_negative("restart_window_s"))
 register_flag(
-    "restart_backoff_s", 1.0, inert=True,
-    help="base delay of the launcher's exponential restart backoff"
-         + _NOT_PORTED,
+    "restart_backoff_s", 1.0,
+    help="base delay of the restart budget's exponential backoff",
     on_change=_validate_non_negative("restart_backoff_s"))
 register_flag(
     "worker_term_grace_s", 10.0, inert=True,

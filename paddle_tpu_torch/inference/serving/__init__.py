@@ -8,7 +8,9 @@ pool: the disaggregated prefill/decode handoff (``export_kv_pages``,
 host-RAM tier (``HostKVTier``) and the on-disk prefix store
 (``prefix_store``); deadlines, tenants and QoS tiers (``TenantQuota``,
 ``TIER_LATENCY``/``TIER_BATCH``, ``LLMEngine.configure_tenant``); and
-serving integrity (page checksums and the weight audit, ``integrity``)."""
+serving integrity (page checksums and the weight audit, ``integrity``);
+and the serving fleet (``fleet``: replica worker processes, their
+supervisor and the router)."""
 
 from .engine import (ARTIFACT_QMAX, LLMEngine, StepOutput,
                      dequantize_state_dict, is_llama_artifact,
@@ -16,8 +18,9 @@ from .engine import (ARTIFACT_QMAX, LLMEngine, StepOutput,
                      load_llama_state_dict, quantize_state_dict,
                      save_llama_artifact)
 from .errors import (DeadlineInfeasibleError, EngineClosedError,
-                     KVIntegrityError, RequestTimeoutError,
-                     TenantQuotaExceededError)
+                     FleetOverloadedError, KVIntegrityError,
+                     KVTransferError, ReplicaCrashLoopError,
+                     RequestTimeoutError, TenantQuotaExceededError)
 from .kv_cache import (KV_QMAX, BlockAllocator, HostKVTier, PagedKVCache,
                        PageSnapshot, PrefixCache, kv_pool_bytes_per_block,
                        pack_kv_pages, quantize_kv_rows, unpack_kv_pages)
@@ -28,6 +31,8 @@ from .prefix_store import (PrefixStoreMismatch, load_prefix_store,
                            weights_fingerprint)
 from .scheduler import (TIER_BATCH, TIER_LATENCY, Request, SamplingParams,
                         Scheduler, TenantQuota)
+
+from . import fleet  # noqa: E402  (the fleet imports the modules above)
 
 __all__ = ["LLMEngine", "StepOutput", "EngineClosedError", "KV_QMAX",
            "BlockAllocator", "PagedKVCache", "PrefixCache",
@@ -42,4 +47,6 @@ __all__ = ["LLMEngine", "StepOutput", "EngineClosedError", "KV_QMAX",
            "weights_fingerprint", "pool_geometry", "save_prefix_store",
            "load_prefix_store", "RequestTimeoutError",
            "TenantQuotaExceededError", "DeadlineInfeasibleError",
-           "KVIntegrityError", "TenantQuota", "TIER_LATENCY", "TIER_BATCH"]
+           "KVIntegrityError", "TenantQuota", "TIER_LATENCY", "TIER_BATCH",
+           "FleetOverloadedError", "ReplicaCrashLoopError",
+           "KVTransferError", "fleet"]

@@ -2081,17 +2081,29 @@ def _llama_config(raw):
     return LlamaConfig(**raw)
 
 
-def load_llama_artifact(path, device=None):
+def load_llama_artifact(path, device=None, dtype=None):
     """Rebuild the model saved by :func:`save_llama_artifact` (either
     package's): built on ``device`` (default ``cuda``; raises without it)
-    in the global default dtype (``get_default_dtype()``), the weights
-    cast into it (an int8 artifact dequantized), in eval mode."""
+    in the global default dtype (``get_default_dtype()``), or with
+    ``dtype="saved"`` in the dtype its weights load in (a bfloat16
+    artifact's bfloat16, float32 for the int8 format), the weights cast
+    into it (an int8 artifact dequantized), in eval mode."""
     import json
 
     path = _base(path)
     with open(path + ".llamacfg.json") as f:
         cfg = _llama_config(json.load(f))
-    model = LlamaForCausalLM(cfg, device=device, dtype=get_default_dtype())
-    set_state_dict(model, load_llama_state_dict(path))
+    state = load_llama_state_dict(path)
+    if dtype == "saved":
+        # fp32 weights load as numpy arrays, bf16 ones as tensors
+        dtype = (torch.float32 if is_quantized_artifact(path) else
+                 next(d for d in (torch.as_tensor(v).dtype
+                                  for v in state.values())
+                      if d.is_floating_point))
+    elif dtype is not None:
+        raise ValueError(f"dtype must be None or 'saved'; got {dtype!r}")
+    model = LlamaForCausalLM(cfg, device=device,
+                             dtype=dtype or get_default_dtype())
+    set_state_dict(model, state)
     model.eval()
     return model

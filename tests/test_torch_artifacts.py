@@ -9,6 +9,9 @@ weights (fp32 ``llama_tiny``, seed 7 in the reference).
   in the other, with logits equal within ``FP32_ATOL`` (fp32) or within
   the reference's ``LOGIT_REL_TOL`` of the unquantized model (int8, whose
   dequantized weights are also bit for bit the other package's).
+- ``load_llama_artifact(..., dtype="saved")`` builds in the dtype the
+  weights load in (bf16 stays bf16, int8 dequantizes to fp32) whatever
+  the default dtype.
 - ``reload_weights`` from a manager (it returns the step), a step
   directory, an artifact (fp32 and int8) and a state-dict file writes in
   place (every ``data_ptr()`` kept) and restores the tokens decoded
@@ -220,6 +223,27 @@ def test_bf16_artifacts_load_as_bf16_values(tmp_path, bf16_default):
     for k, v in got.state_dict().items():
         np.testing.assert_array_equal(
             v.numpy(), tm.state_dict()[k].float().numpy(), k)
+
+
+@pytest.mark.parametrize("dtype,quantize,want", [
+    (torch.float32, None, torch.float32),
+    (torch.bfloat16, None, torch.bfloat16),
+    (torch.bfloat16, "int8", torch.float32)])
+def test_artifact_loads_in_its_saved_dtype(tmp_path, dtype, quantize, want):
+    """``dtype="saved"`` builds in the dtype the weights load in, whatever
+    the default dtype (float32 here): bf16 values bit for bit, the int8
+    format dequantized to fp32; any other ``dtype`` is refused."""
+    tm = LlamaForCausalLM(llama_tiny(), device="cpu", dtype=dtype, seed=3)
+    art = str(tmp_path / "model")
+    srv.save_llama_artifact(tm, art, quantize=quantize)
+    got = srv.load_llama_artifact(art, device="cpu", dtype="saved")
+    assert {v.dtype for v in got.state_dict().values()} == {want}
+    plain = srv.load_llama_artifact(art, device="cpu")
+    for k, v in got.state_dict().items():
+        np.testing.assert_array_equal(v.float().numpy(),
+                                      plain.state_dict()[k].numpy(), k)
+    with pytest.raises(ValueError, match="'saved'"):
+        srv.load_llama_artifact(art, device="cpu", dtype=torch.float16)
 
 
 def test_fp_resave_retracts_sidecars(models, tmp_path):

@@ -35,7 +35,9 @@ READ_BY_THE_PORT = {
     "sentinel_warmup_windows", "sentinel_grad_norm_ceiling",
     "sentinel_patience", "sentinel_rollback_budget",
     "sentinel_budget_window_s", "sentinel_lr_cooldown",
-    "sentinel_healthy_windows"}
+    "sentinel_healthy_windows",
+    # the restart budget (the serving fleet's supervisor)
+    "restart_window_s", "restart_backoff_s"}
 
 # (flag, a value its validator rejects, a value it takes)
 VALIDATED = [

@@ -53,6 +53,10 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.io.streaming\n"
             "import paddle_tpu_torch.inference.serving.prefix_store\n"
             "import paddle_tpu_torch.inference.serving.integrity\n"
+            "import paddle_tpu_torch.inference.serving.fleet\n"
+            "import paddle_tpu_torch.inference.serving.fleet.replica\n"
+            "import paddle_tpu_torch.distributed.launch\n"
+            "import paddle_tpu_torch.distributed.launch.controllers\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"
