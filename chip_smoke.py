@@ -43,7 +43,7 @@ Phases, one printed line per result:
    replay a window) on the same model; the paged kernels' launch counts
    over each run must equal layers x decode iterations (through graph
    replays for the windows) and layers x prefill chunks, and in a
-   profiled repeat the profiler's count of the split kernel; the window's
+   profiled repeat the kernels' device tally; the window's
    tokens must equal the per-step run's, with one host sync a window;
    tokens/s, ITL p50, busy time and idle share of both; then per step
    with synchronous staging, in turns with the default ingest thread
@@ -52,7 +52,7 @@ Phases, one printed line per result:
    accept ratio, the ratio at least 0.5) and a random llama_125m draft,
    whose launches must be target layers x (chunks + verify steps) + draft
    layers x chunks (#2) and draft layers x draft decode iterations (#1),
-   equal to the profiler's counts in a profiled repeat; the share of
+   equal to the device tally in a profiled repeat; the share of
    requests equal to the per-step run's is reported; then ``generate``
    on 8 x 512 prompts (ms a step, agreement with the engine reported);
 5. training end to end (every fused step a captured CUDA graph after its
@@ -139,7 +139,7 @@ Phases, one printed line per result:
    to 1536, windows of 8, artifacts in ``TMPDIR``: (a) a bf16 artifact
    saved and served by ``create_predictor`` under
    ``set_default_dtype("bfloat16")``, tokens equal an engine over the
-   in-memory model bit for bit, #1/#2 launches equal to the profiler's;
+   in-memory model bit for bit, #1/#2 launches equal to the device tally;
    (b) ``reload_weights`` from the artifact and from a
    ``CheckpointManager`` after poisoning the embedding: tokens restored
    bit for bit, every ``data_ptr()`` kept, the captured window graph the
@@ -158,7 +158,7 @@ Phases, one printed line per result:
    and imported by a second engine that decodes them: tokens equal a
    colocated engine's bit for bit, the prefill engine builds no window
    and launches no #1, the decode engine launches no #2, each equal to
-   the profiler's count; page bytes, export/pack/unpack/import ms and
+   the device tally; page bytes, export/pack/unpack/import ms and
    GB/s, tokens/s and decode-side TTFT; (a') the same on int8 pools
    (bytes ~0.52 of bf16's); (b) the host tier on a pool that holds the
    eight prompts but not their growth: spills revived by import, no
@@ -174,7 +174,7 @@ Phases, one printed line per result:
    arguments under FIFO: tokens bit for bit, yields = spills = revives
    with no miss, TTFT p50 by tier, tenant tokens, the gold:bronze ratio
    while both wait, tokens/s, one window graph, #1/#2 launches equal to
-   the profiler's; a quota arm (bronze throttled, nothing shed); (b) two
+   the device tally; a quota arm (bronze throttled, nothing shed); (b) two
    of four running requests with deadlines expiring mid-decode: streams
    end in (-1, "timeout"), blocks back, the freed slot admits a waiting
    request whose tokens equal its batch-of-one run, the abort's lag
@@ -210,7 +210,30 @@ Phases, one printed line per result:
    #2 on the decode replica; (e) fp32 llama_tiny: a colocated fleet on
    the card and a drill fleet of three (a crash, a hang under
    ``hang_timeout_s``) equal a CPU fleet of the port bit for bit, with the
-   hang's escalation times.
+   hang's escalation times;
+14. sharding plans, llama_1b bf16 from a bf16 artifact in ``TMPDIR``,
+   phase 4's prompts and phase 10's engine arguments per step (a
+   multi-process plan's collectives cannot be captured in a window
+   graph): #1 and #2 at a tensor-parallel rank's shape (8 query and 8
+   KV heads) against their plain versions; (a) a tp=2 group of two
+   ``--tp-child`` processes on the one card, joined over gloo by
+   ``init_parallel_env``, each serving ``LLMEngine(plan=Plan.build(
+   {"tp": 2}, ["tp"]))``: both ranks' tokens equal, their agreement with
+   the single-process engine, each rank's #1/#2 launches = layers x its
+   decode iterations and chunks = the kernels' device tally, tokens/s,
+   TTFT p50 and the host time blocked in ``all_reduce`` over the wall,
+   decode windows refused with ``PlanError``; (b) two fleets whose slot
+   is a tp=2 group, booted together: one bit for bit (a)'s, drained and
+   retired (every member ended), the other with rank 1 SIGKILLing itself
+   mid-burst: the group felled and respawned on a fresh port, the
+   tokens before the kill (a)'s, every replay equal to its replay prompt
+   served afresh; (c) fp32 llama_tiny tp=2 tokens card = CPU; (d) a
+   stale ``plan.json`` refused with ``PlanMismatchError``, the weights
+   untouched.
+
+The five launch cross-checks of phases 4, 10a, 11a and 12a hold the
+wrappers' counts to the counts the paged kernels keep on the device
+(``device_tally``), not to the profiler's (printed beside them).
 
 Then one JSON line with every kernel's numbers (``launches`` from the
 run named in the phase that returns them; #1 and #2 also
@@ -218,7 +241,8 @@ run named in the phase that returns them; #1 and #2 also
 runs, ``launches_phase11``, each of phase 11's counted runs,
 ``launches_phase12``, phase 12's QoS, FIFO and checksummed runs, and
 ``launches_phase13``, phase 13's replicas: (a)'s two summed, (c)'s
-prefill and decode replica), the card line, and last
+prefill and decode replica, and ``launches_phase14``, phase 14a's two
+ranks), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 1.
 """
@@ -1121,8 +1145,8 @@ def serve_run(model, prompts, new, label, profile=True, **engine_kw):
     8), a warm-up request outside the counted run (cuBLAS handles, the
     allocator, and for a window engine the graph's capture), the counted
     run, then (``profile``) one profiled repeat whose paged-kernel launches
-    (counted through graph replays) must equal the profiler's count of the
-    split and multi-query kernels. The counted run's launches must be
+    (counted through graph replays) must equal the kernels' own device
+    tally of the split and multi-query kernels. The counted run's launches must be
     layers x decode iterations (#1) and layers x prefill chunks (#2); with
     a draft, #1 the draft's layers x its decode iterations, and #2 the
     target's layers x (chunks + verify steps) plus the draft's x chunks
@@ -1156,15 +1180,15 @@ def serve_run(model, prompts, new, label, profile=True, **engine_kw):
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
     m = engine.metrics()
-    K.reset_launch_counts()
+    reset_paged_counts()
     prof = None
     if profile:
         prof = device_profile(lambda: engine.generate(
             prompts, SamplingParams(max_new_tokens=new)),
             f"serve {label} (same batch again)",
             mark=("paged_decode", "paged_multiquery"))
-    if prof is not None:
-        check_profiled_launches(prof, K.launch_counts(), f"serve {label}")
+    if profile:
+        check_device_launches(prof, K.launch_counts(), f"serve {label}")
     engine.close()
     t_life = time.perf_counter() - t_life
     L = model.config.num_hidden_layers
@@ -1218,21 +1242,40 @@ def serve_prompts(vocab):
     return [rng.randint(0, vocab, n).astype(np.int32) for n in lens]
 
 
-def check_profiled_launches(prof, launched, label, zero=()):
+def reset_paged_counts():
+    """Zero the paged wrappers' launch counts and the kernels' own device
+    tally, together, before a cross-checked run."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as K
+
+    K.reset_launch_counts()
+    K.device_tally(reset=True)
+
+
+def check_device_launches(prof, launched, label, zero=()):
     """The paged kernels' launches the wrappers counted over a profiled
-    run (``launched``) equal the profiler's count of their kernels: more
-    than none, or none for the wrappers named in ``zero``."""
+    run (``launched``, since ``reset_paged_counts``) equal the launches
+    the kernels themselves counted on the device over it
+    (``device_tally``: exact, whatever the profiler keeps): more than
+    none, or none for the wrappers named in ``zero``. The profiler's
+    count of the same kernels is printed beside them, not checked (it
+    came up short in some whole runs, PERF.md)."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as K
+
+    tally = K.device_tally()
     for kernels, wrapper in (
             (("paged_decode_split_kernel",), "paged_decode_attention_cuda"),
             (MQ_KERNELS, "paged_multiquery_attention_cuda")):
-        seen = sum(n for name, (_, n) in prof["kernels"].items()
-                   if any(k in name for k in kernels))
-        say(f"{label}: profiler saw {seen} {'/'.join(kernels)} launches, "
-            f"the wrapper counted {launched[wrapper]}")
-        check(seen == launched[wrapper]
-              and (seen == 0 if wrapper in zero else seen > 0),
-              f"{wrapper} launches {launched[wrapper]} == profiler's {seen}"
-              f"{' == 0' if wrapper in zero else ''}")
+        ran = sum(tally[k] for k in kernels)
+        seen = ("not measured" if prof is None else
+                sum(n for name, (_, n) in prof["kernels"].items()
+                    if any(k in name for k in kernels)))
+        say(f"{label}: the kernels counted {ran} {'/'.join(kernels)} "
+            f"launches on the device, the wrapper {launched[wrapper]} "
+            f"(the profiler saw {seen})")
+        check(ran == launched[wrapper]
+              and (ran == 0 if wrapper in zero else ran > 0),
+              f"{wrapper} launches {launched[wrapper]} == the device "
+              f"tally's {ran}{' == 0' if wrapper in zero else ''}")
 
 
 def same_share(outs, ref):
@@ -4064,12 +4107,11 @@ def phase_artifact_bf16(root, where, prompts, batch):
         f"TMPDIR ({where}); tokens equal an LLMEngine over the in-memory "
         f"model, same windows: {same}")
     check(same, "the predictor's tokens equal the in-memory engine's")
-    K.reset_launch_counts()
+    reset_paged_counts()
     prof = device_profile(lambda: pred.run(list(batch)),
                           "serve-artifact (a) predictor (same batch again)",
                           mark=("paged_decode", "paged_multiquery"))
-    if prof is not None:
-        check_profiled_launches(prof, K.launch_counts(), "serve-artifact (a)")
+    check_device_launches(prof, K.launch_counts(), "serve-artifact (a)")
 
     # (b) hot swap in place under the captured window graph
     window = eng._window
@@ -4493,8 +4535,8 @@ def handoff_arm(model, prompts, dev, kv_dtype=None, profile=True):
     and a second window engine imports and decodes them. Gates: the
     tokens equal the colocated run's bit for bit, the prefill engine
     launched no #1 and built no window graph, the decode engine launched
-    no #2, and (``profile``) each engine's launches equal the profiler's
-    count in a repeat. Returns tokens, launches and page bytes."""
+    no #2, and (``profile``) each engine's launches equal the kernels'
+    device tally in a repeat. Returns tokens, launches and page bytes."""
     import numpy as np
 
     from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
@@ -4530,26 +4572,24 @@ def handoff_arm(model, prompts, dev, kv_dtype=None, profile=True):
                   and dec._window.graph is not None)
         again = None
         if profile:
-            K.reset_launch_counts()
+            reset_paged_counts()
             rep = {}
             prof = device_profile(
                 lambda: rep.update(t=prefill_handoffs(pre, prompts, dev)[1]),
                 f"{label} prefill engine (same prompts again)",
                 mark=("paged_decode", "paged_multiquery"))
-            if prof is not None:
-                check_profiled_launches(
-                    prof, K.launch_counts(), f"{label} prefill engine",
-                    zero=("paged_decode_attention_cuda",))
+            check_device_launches(
+                prof, K.launch_counts(), f"{label} prefill engine",
+                zero=("paged_decode_attention_cuda",))
             again = sum(rep["t"]["export"])
-            K.reset_launch_counts()
+            reset_paged_counts()
             prof = device_profile(
                 lambda: decode_handoffs(dec, handoffs),
                 f"{label} decode engine (same pages again)",
                 mark=("paged_decode", "paged_multiquery"))
-            if prof is not None:
-                check_profiled_launches(
-                    prof, K.launch_counts(), f"{label} decode engine",
-                    zero=("paged_multiquery_attention_cuda",))
+            check_device_launches(
+                prof, K.launch_counts(), f"{label} decode engine",
+                zero=("paged_multiquery_attention_cuda",))
     finally:
         pre.close()
         dec.close()
@@ -5037,7 +5077,7 @@ def qos_arms(model, prompts, dev, profile=True):
     arguments and the host tier, then the QoS arm again under the profiler
     and the quota arm. Gates: the QoS tokens equal FIFO's bit for bit,
     yields = spills = revives with no miss, no recapture, #1/#2 launches
-    equal to the profiler's; the quota arm throttles, sheds nothing and
+    equal to the device tally; the quota arm throttles, sheds nothing and
     finishes every request. Returns both arms' tokens and launches."""
     import torch
 
@@ -5106,13 +5146,12 @@ def qos_arms(model, prompts, dev, profile=True):
               f"QoS launches {launches_str(counts)} == layers x decode "
               f"iterations, layers x chunks")
         if profile:
-            K.reset_launch_counts()
+            reset_paged_counts()
             prof = device_profile(lambda: qos_arm(eng, prompts, dev),
                                   "serve-qos (a) QoS arm (again)",
                                   mark=("paged_decode", "paged_multiquery"))
-            if prof is not None:
-                check_profiled_launches(prof, K.launch_counts(),
-                                        "serve-qos (a) QoS arm")
+            check_device_launches(prof, K.launch_counts(),
+                                    "serve-qos (a) QoS arm")
     # the quota arm: bronze over its rate after its first prefills
     eng.reset_metrics()
     configure_tiers(eng, rate_tokens_per_s=QOS_QUOTA, window_s=1.0)
@@ -6112,6 +6151,424 @@ def phase_serve_fleet():
             "split_decode": dec}
 
 
+# phase 14: phase 10's engine arguments per step (a multi-process plan's
+# collectives cannot be captured in a window graph on the card); the
+# group's rank 1 is killed at its TP_KILL_AFTER-th busy tick in (b)
+TP_ENGINE = dict(ART_ENGINE, decode_steps_per_sync=1)
+TP_PLAN = {"axes": {"tp": 2}, "strategies": ["tp"]}
+TP_NEW = ART_NEW
+TP_KILL_AFTER = 24
+TP_TINY = dict(num_blocks=64, block_size=8, max_batch_size=4)
+TP_CHILD_S = 300.0
+
+
+def tp_kernel_cases(gen):
+    """#1 and #2 at a tensor-parallel rank's shape on llama_1b (8 query
+    and 8 KV heads, D 128, bf16 q and pool, block 16, 128 pages): the
+    decode of phase 4's batch at its contexts after 16 new tokens, and
+    the prefill chunk of its longest prompt (T 2048, 1536 real), each held
+    to its plain version. Returns {kernel: max abs error}."""
+    import numpy as np
+
+    prompts = serve_prompts(32000)
+    lens = np.array([len(p) + 16 for p in prompts])
+    c = Case(gen, B=8, H=8, Hkv=8, D=128, bs=16, P=128, q_dtype="bfloat16",
+             kv="bfloat16", lens=lens)
+    err, excess = compare(decode_kernel(c), decode_plain(c, upcast=True),
+                          "bfloat16")
+    check(excess <= 0, "decode at the tp rank's shape (8 heads)")
+    c2 = Case(gen, B=1, H=8, Hkv=8, D=128, bs=16, P=128, q_dtype="bfloat16",
+              kv="bfloat16", lens=[1536], T=2048, starts=[0])
+    got, want = mq_kernel(c2), mq_plain(c2, upcast=True)
+    err2, excess2 = compare(got[:, :1536], want[:, :1536], "bfloat16")
+    check(excess2 <= 0, "multi-query at the tp rank's shape (8 heads)")
+    tol = f"{ATOL:g} + {RTOL['bfloat16']:g}*|want|"
+    say(f"serve-plan kernels at a rank's shape (H 8, Hkv 8, D 128, bf16): "
+        f"decode B 8, contexts {sorted(int(x) for x in lens)}: max_abs_err "
+        f"{err:.3e}; multi-query T 2048 (1536 real): max_abs_err "
+        f"{err2:.3e} (tol {tol})")
+    return {"paged_decode_attention": err,
+            "paged_multiquery_attention": err2}
+
+
+def tp_child(rank, port, art, tiny_art, stale, out):
+    """``chip_smoke.py --tp-child RANK PORT ARTIFACT TINY STALE OUT``: one
+    rank of phase 14a's tp=2 group, joined over gloo by
+    ``init_parallel_env`` (two ranks share the one card), serving the
+    llama_1b artifact ``ARTIFACT`` per step with phase 10's engine
+    arguments: a warm-up request, then phase 4's prompts timed (tokens,
+    wall, TTFT p50, decode iterations and chunks, #1/#2 launches by the
+    wrapper and by the kernels' device tally, the all_reduce calls and
+    host seconds); the window refusal; then (c) fp32 llama_tiny
+    (``TINY``) on the card and on the CPU in the same group, and (d)
+    ``reload_weights`` from the stale checkpoint root ``STALE``. Writes
+    its results as JSON to ``OUT``."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import (communication,
+                                              init_parallel_env)
+    from paddle_tpu_torch.distributed.checkpoint import (CheckpointManager,
+                                                         PlanMismatchError)
+    from paddle_tpu_torch.distributed.plan import Plan, PlanError
+    from paddle_tpu_torch.inference.serving import (LLMEngine,
+                                                    SamplingParams,
+                                                    load_llama_artifact)
+    from paddle_tpu_torch.ops.cuda import paged_attention as K
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --tp-child: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_parallel_env(rank=rank, world_size=2,
+                      init_method=f"tcp://127.0.0.1:{port}", device="cuda",
+                      timeout_s=TP_CHILD_S)
+    import torch.distributed as dist
+
+    res = {"backend": dist.get_backend()}
+    plan = Plan.build(TP_PLAN["axes"], TP_PLAN["strategies"])
+    model = load_llama_artifact(art, device="cuda", dtype="saved")
+    try:
+        LLMEngine(model, plan=plan, device="cuda", ingest_async=False,
+                  **ART_ENGINE)
+        res["window_refused"] = None
+    except PlanError as e:
+        res["window_refused"] = str(e)
+    prompts = serve_prompts(model.config.vocab_size)
+    with LLMEngine(model, plan=plan, device="cuda", ingest_async=False,
+                   **TP_ENGINE) as eng:
+        attn = model.llama.layers[0].self_attn
+        res["local"] = [attn.num_heads, attn.num_kv_heads,
+                        list(eng.cache.k[0].shape)]
+        eng.generate([prompts[1][:64]], SamplingParams(max_new_tokens=2))
+        eng.reset_metrics()
+        reset_paged_counts()
+        communication.reset_collective_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, SamplingParams(max_new_tokens=TP_NEW))
+        torch.cuda.synchronize()
+        res["wall"] = time.perf_counter() - t0
+        m = eng.metrics()
+        res.update(tokens=[o.tolist() for o in outs],
+                   ttft_p50=m["ttft_ms"]["p50"],
+                   decode_steps=m["decode_steps"],
+                   chunks=m["prefill_chunks"], launches=K.launch_counts(),
+                   tally=K.device_tally(),
+                   collectives=communication.collective_stats())
+    del model
+    torch.cuda.empty_cache()
+    tiny = {}
+    for dev in ("cuda", "cpu"):
+        m = load_llama_artifact(tiny_art, device=dev)
+        with LLMEngine(m, plan=Plan.build(TP_PLAN["axes"],
+                                          TP_PLAN["strategies"]),
+                       device=dev, ingest_async=False, **TP_TINY) as eng:
+            tiny[dev] = [o.tolist() for o in eng.generate(
+                tiny_prompts(m.config.vocab_size),
+                SamplingParams(max_new_tokens=FLEET_TINY_NEW))]
+            if dev == "cuda":
+                before = {n: p.detach().clone()
+                          for n, p in m.named_parameters()}
+                try:
+                    eng.reload_weights(CheckpointManager(stale))
+                    res["stale"] = None
+                except PlanMismatchError as e:
+                    res["stale"] = str(e)
+                res["stale_untouched"] = all(
+                    torch.equal(p, before[n])
+                    for n, p in m.named_parameters())
+    res["tiny"] = tiny
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def tp_group_direct(art, tiny_art, stale, root):
+    """Phase 14a: the two ``--tp-child`` ranks at once; returns their
+    results (rank order). Both processes end before it returns."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    outs = [os.path.join(root, f"tp-rank{r}.json") for r in (0, 1)]
+    logs = [open(os.path.join(root, f"tp-rank{r}.log"), "w") for r in (0, 1)]
+    env = dict(os.environ, TORCH_CPP_LOG_LEVEL="ERROR")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-child", str(r),
+         str(port), art, tiny_art, stale, outs[r]], env=env,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in (0, 1)]
+    try:
+        for p in procs:
+            p.wait(timeout=TP_CHILD_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(p.returncode != 0 for p in procs):
+        for r in (0, 1):
+            with open(os.path.join(root, f"tp-rank{r}.log"),
+                      errors="replace") as f:
+                print(f"--- tp rank {r}\n{f.read()[-4000:]}",
+                      file=sys.stderr)
+    check(all(p.returncode == 0 for p in procs),
+          f"serve-plan (a): both ranks ran ({[p.returncode for p in procs]})")
+    res = []
+    for o in outs:
+        with open(o) as f:
+            res.append(json.load(f))
+    return res
+
+
+def tp_direct_report(ranks, ref, layers):
+    """Phase 14a's checks and line: both ranks' tokens identical, their
+    agreement with the single-process engine, each rank's #1/#2 launches
+    against 22 x its iterations and chunks (wrapper and device tally),
+    tokens/s, TTFT p50 and the all_reduce share of the wall. Returns the
+    ranks' launches."""
+    import numpy as np
+
+    r0, r1 = ranks
+    check(r0["tokens"] == r1["tokens"], "serve-plan (a): rank 0 and rank 1 "
+          "emit the same tokens")
+    check(all(r["backend"] == "gloo" for r in ranks),
+          "serve-plan (a): gloo, chosen for two ranks on one card")
+    check(all(r["local"] == [8, 8, [2048, 16, 8, 128]] for r in ranks),
+          f"serve-plan (a): each rank holds 8 query and 8 KV heads and a "
+          f"pool of its own heads ({r0['local']})")
+    check(all(r["window_refused"] and "decode_steps_per_sync"
+              in r["window_refused"] for r in ranks),
+          "serve-plan (a): decode windows refused with PlanError on the "
+          "card")
+    launches = {}
+    for i, r in enumerate(ranks):
+        want = {"paged_decode_attention_cuda": layers * r["decode_steps"],
+                "paged_multiquery_attention_cuda": layers * r["chunks"]}
+        t = r["tally"]
+        dev = {"paged_decode_attention_cuda": t["paged_decode_split_kernel"],
+               "paged_multiquery_attention_cuda":
+                   t["paged_multiquery_kernel"]
+                   + t["paged_multiquery_tc_kernel"]}
+        check(r["launches"] == want == dev and r["chunks"] > 0
+              and r["decode_steps"] > 0,
+              f"serve-plan (a): rank {i} launches {r['launches']} == device "
+              f"tally {dev} == {layers} x ({r['decode_steps']} decode "
+              f"iterations, {r['chunks']} chunks)")
+        launches[f"rank{i}"] = r["launches"]
+    outs = [np.asarray(t) for t in r0["tokens"]]
+    same = same_share(outs, ref["outs"])
+    n = sum(len(o) - len(p) for o, p in zip(outs, ref["prompts"]))
+    agree = sum(int((o[len(p):] == w[len(p):]).sum()) for o, w, p in
+                zip(outs, ref["outs"], ref["prompts"]))
+    ar = r0["collectives"].get("all_reduce", {"calls": 0, "seconds": 0.0})
+    tps = len(outs) * TP_NEW / r0["wall"]
+    say(f"serve-plan (a) llama_1b bf16 tp=2, two ranks on one card over "
+        f"gloo, per step: {tps:.1f} tokens/s (rank 0's wall "
+        f"{r0['wall']:.3f} s; the single-process engine per step "
+        f"{ref['tps']:.1f}), TTFT p50 {r0['ttft_p50']} ms (single "
+        f"{ref['ttft_p50']} ms); all_reduce {ar['calls']} calls, "
+        f"{ar['seconds']:.3f} s of host time blocked in them = "
+        f"{ar['seconds'] / r0['wall']:.3f} of the wall; tokens equal the "
+        f"single-process engine's in {same:.3f} of requests, {agree} of "
+        f"{n} tokens; launches a rank {r0['launches']} (rank 1 "
+        f"{r1['launches']}), {r0['decode_steps']} decode iterations, "
+        f"{r0['chunks']} chunks")
+    return launches
+
+
+def tp_fleet_exact(r, boot, prompts, direct):
+    """Phase 14b, the clean fleet: its tp=2 group's tokens bit for bit
+    (a)'s, rank 0's allocator clean, both members live; then drain and
+    retire end every member."""
+    outs, wall, _ = fleet_serve(r, prompts, TP_NEW)
+    check(same_tokens(outs, direct),
+          "serve-plan (b): the fleet's tp=2 group equals the directly "
+          "launched group bit for bit")
+    h = r.supervisor.handles[0]
+    stats = r.replica_stats(0)
+    check(stats["blocks_free"] == TP_ENGINE["num_blocks"] - 1
+          and stats["running"] == 0 and h.members_live == 2,
+          "serve-plan (b): rank 0's allocator clean, both members live")
+    t0 = time.perf_counter()
+    r.drain(0, then="retire", wait=True, timeout=120)
+    procs = [h.proc] + list(h.members)
+    check(h.retired and all(p.poll() is not None for p in procs),
+          "serve-plan (b): drain then retire ended every member")
+    say(f"serve-plan (b) fleet: Router(group_size=2, plan=tp2) over the "
+        f"artifact, boot {boot[0]:.1f} s, 8 requests in {wall:.3f} s "
+        f"({len(prompts) * TP_NEW / wall:.1f} tokens/s), bit for bit (a)'s; "
+        f"drain and retire {time.perf_counter() - t0:.3f} s, every member "
+        f"ended (rc {[p.poll() for p in procs]})")
+
+
+def tp_fleet_kill(r, boot, prompts, direct):
+    """Phase 14b, the drill fleet: rank 1 SIGKILLs itself at its
+    TP_KILL_AFTER-th busy tick. The whole group is felled and respawned
+    on a fresh port, the tokens emitted before the kill equal (a)'s, and
+    each replay equals the respawned group serving its replay prompt
+    (prompt + tokens before the kill) afresh."""
+    sup = r.supervisor
+    h = sup.handles[0]
+    port0 = h.coord_port
+    watch = DeathWatch(h.members[0].pid)
+    cut = {}
+    gids = [r.submit(p, max_new=TP_NEW) for p in prompts]
+
+    def each():
+        for g in gids:
+            q = r.request(g)
+            if q.redispatches and g not in cut:
+                cut[g] = len(q.emitted)
+
+    def respawned():
+        x = sup.handles[0]
+        return x.incarnation == 1 and x.ready
+
+    wall = fleet_pump(r, gids, each=each)
+    fleet_pump(r, [], until=respawned, each=each)
+    watch.stop()
+    deaths = sup.deaths
+    check(len(deaths) == 1 and deaths[0]["reason"] == "crash"
+          and deaths[0]["rank"] == 1,
+          f"serve-plan (b): one crash, at group rank 1 ({deaths})")
+    new = sup.handles[0]
+    check(new.coord_port != port0 and new.members_live == 2,
+          f"serve-plan (b): the group respawned whole on a fresh port "
+          f"(port {port0} -> {new.coord_port}, members live "
+          f"{new.members_live})")
+    killed = [r.result(g) for g in gids]
+    check(all(len(o) == len(p) + TP_NEW for o, p in zip(killed, prompts)),
+          "serve-plan (b): every request ends with its new tokens")
+    hit = [(i, g) for i, g in enumerate(gids) if g in cut]
+    check(hit and all((killed[i][:len(prompts[i]) + cut[g]]
+                       == direct[i][:len(prompts[i]) + cut[g]]).all()
+                      for i, g in hit),
+          "serve-plan (b): the tokens emitted before the kill equal (a)'s")
+    # each replay against the respawned group serving its replay prompt
+    again = [r.submit(killed[i][:len(prompts[i]) + cut[g]],
+                      max_new=TP_NEW - cut[g]) for i, g in hit]
+    fleet_pump(r, again)
+    replays = [killed[i] for i, _ in hit]
+    check(same_tokens([r.result(g) for g in again], replays),
+          "serve-plan (b): every replay equals the respawned group serving "
+          "its replay prompt afresh")
+    same_after = sum(bool((killed[i] == direct[i]).all()) for i, _ in hit)
+    m = r.metrics()
+    dip = liveness(sup.log_dir)
+    check(m["replica_restarts"] == 1 and m["redispatches"] == len(cut)
+          and min(dip) == 0 and dip[-1] == 1,
+          f"serve-plan (b): restarts {m['replica_restarts']}, "
+          f"redispatches {m['redispatches']}, liveness {dip}")
+    say(f"serve-plan (b) kill: rank 1 of the group SIGKILLed itself at its "
+        f"busy tick {TP_KILL_AFTER}: death-to-detection "
+        f"{(deaths[0]['detected'] - watch.t) * 1e3:.1f} ms, the group "
+        f"felled (rc {deaths[0]['rc']}) and respawned on a fresh port, "
+        f"ready {new.ready_time - new.spawn_time:.1f} s after its spawn "
+        f"(first boot {boot[0]:.1f} s); restarts {m['replica_restarts']}, "
+        f"redispatches {m['redispatches']} (tokens before the kill "
+        f"{sorted(cut.values())}, equal (a)'s), liveness {dip}; every "
+        f"replay equals its replay prompt served afresh, {same_after} of "
+        f"{len(hit)} also equal (a)'s uninterrupted tokens; the burst took "
+        f"{wall:.3f} s")
+
+
+def phase_serve_plan():
+    """Phase 14: sharding plans, llama_1b bf16 at full width from a bf16
+    artifact (``TMPDIR``) with phase 4's prompts and phase 10's engine
+    arguments per step: #1 and #2 at a rank's shape against their plain
+    versions; (a) a tp=2 group of two ``--tp-child`` processes on the one
+    card, against the single-process engine; (b) a ``Router`` whose slot
+    is a tp=2 group: bit for bit (a), a member's kill, drain and retire;
+    (c) fp32 llama_tiny tp=2, card = CPU; (d) a stale ``plan.json``
+    refused. Returns ({kernel: max abs error}, each rank's launches in
+    (a))."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed.plan import Plan
+    from paddle_tpu_torch.inference.serving import (LLMEngine,
+                                                    SamplingParams,
+                                                    save_llama_artifact)
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_1b,
+                                         llama_tiny)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    worst = tp_kernel_cases(gen)
+    free_cuda()
+    cfg = llama_1b()
+    prompts = serve_prompts(cfg.vocab_size)
+    root = tempfile.mkdtemp(prefix="serve-plan-")
+    try:
+        model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                 seed=SEED)
+        art = os.path.join(root, "llama_1b")
+        save_llama_artifact(model, art)
+        with LLMEngine(model, device="cuda", ingest_async=False,
+                       **TP_ENGINE) as eng:
+            eng.generate([prompts[1][:64]], SamplingParams(max_new_tokens=2))
+            eng.reset_metrics()
+            sync("cuda")
+            t0 = time.perf_counter()
+            outs = eng.generate(prompts, SamplingParams(
+                max_new_tokens=TP_NEW))
+            sync("cuda")
+            wall = time.perf_counter() - t0
+            ttft = eng.metrics()["ttft_ms"]["p50"]
+        ref = {"outs": outs, "prompts": prompts,
+               "tps": len(prompts) * TP_NEW / wall, "ttft_p50": ttft}
+        del model, eng
+        free_cuda()
+        tiny = LlamaForCausalLM(llama_tiny(), device="cpu", seed=SEED)
+        tiny_art = os.path.join(root, "tiny")
+        save_llama_artifact(tiny, tiny_art)
+        stale = os.path.join(root, "stale")
+        CheckpointManager(stale).save(
+            1, model=tiny, plan=Plan.build({"tp": 4}, ["tp"],
+                                           devices=range(4)))
+        t0 = time.perf_counter()
+        ranks = tp_group_direct(art, tiny_art, stale, root)
+        launches = tp_direct_report(ranks, ref, cfg.num_hidden_layers)
+        say(f"wall serve-plan (a): {time.perf_counter() - t0:.1f} s")
+        direct = [np.asarray(t) for t in ranks[0]["tokens"]]
+        cpu, card = ranks[0]["tiny"]["cpu"], ranks[0]["tiny"]["cuda"]
+        check(card == cpu and ranks[1]["tiny"] == ranks[0]["tiny"],
+              "serve-plan (c): fp32 llama_tiny tp=2 tokens card = CPU")
+        say(f"serve-plan (c) fp32 llama_tiny tp=2 over gloo: {len(card)} "
+            f"requests, tokens card = CPU")
+        check(all(r["stale"] and "mesh" in r["stale"] and
+                  r["stale_untouched"] for r in ranks),
+              "serve-plan (d): a stale plan.json refused with "
+              "PlanMismatchError, weights untouched")
+        say(f"serve-plan (d) stale plan.json refused: {ranks[0]['stale']}")
+        t0 = time.perf_counter()
+        group = dict(artifact=art, n=1, dev="cuda", engine=TP_ENGINE,
+                     group_size=2, plan=TP_PLAN)
+        kill = {"CHAOS_SERVE_SITES": json.dumps(
+            [{"site": "serve.group_member_crash", "replica": 0, "rank": 1,
+              "after": TP_KILL_AFTER}])}
+        # the clean fleet and the drill fleet boot together
+        with fleets(dict(group, log_dir=os.path.join(root, "clean")),
+                    dict(group, log_dir=os.path.join(root, "kill"),
+                         max_restarts=2, env_extra=kill)) as (
+                (clean_r, clean_b), (kill_r, kill_b)):
+            tp_fleet_exact(clean_r, clean_b, prompts, direct)
+            tp_fleet_kill(kill_r, kill_b, prompts, direct)
+        say(f"wall serve-plan (b): {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_cuda()
+    return worst, launches
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -6228,6 +6685,10 @@ def main():
     qos = timed(phase_serve_qos)
     # phase 13's replica processes, each counted in its replica
     fleet = timed(phase_serve_fleet)
+    # phase 14's tp=2 ranks, each counted in its rank
+    tp_worst, tp_launches = timed(phase_serve_plan)
+    for name, err in tp_worst.items():
+        worst[name] = max(worst[name], err)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
@@ -6267,6 +6728,8 @@ def main():
                                      for arm, c in qos.items()}
             k["launches_phase13"] = {arm: c[k["name"] + "_cuda"]
                                      for arm, c in fleet.items()}
+            k["launches_phase14"] = {arm: c[k["name"] + "_cuda"]
+                                     for arm, c in tp_launches.items()}
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {
@@ -6278,4 +6741,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--supervised-child"]:
         sys.exit(supervised_child(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--tp-child"]:
+        sys.exit(tp_child(int(sys.argv[2]), int(sys.argv[3]),
+                          *sys.argv[4:8]))
     sys.exit(main())

@@ -28,7 +28,7 @@ from .core.device import default_device, resolve_device
 from .core.dtype import get_default_dtype, set_default_dtype
 from .core.exceptions import TrainDivergenceError, TrainStallError
 from .core.flags import get_flags, set_flags
-from .distributed.checkpoint import CheckpointManager
+from .distributed.checkpoint import CheckpointManager, PlanMismatchError
 from .framework.io import load, save
 
 __version__ = "0.1.0"
@@ -36,4 +36,5 @@ __version__ = "0.1.0"
 __all__ = ["default_device", "resolve_device", "get_default_dtype",
            "set_default_dtype", "get_flags", "set_flags",
            "TrainDivergenceError", "TrainStallError", "CheckpointManager",
+           "PlanMismatchError",
            "save", "load"]

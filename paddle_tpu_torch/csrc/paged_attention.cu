@@ -103,6 +103,18 @@
 
 namespace {
 
+// The launch tally, kept on the device: thread 0 of block (0, 0, 0) of
+// each body's kernel adds one a launch (a graph replay's too), so the host
+// can read how many times each kernel really ran, a count independent of
+// the wrappers' own (paged_kernel_tally). Slot 0 the decode body's split
+// kernel, 1 `attend`, 2 the tensor-core body.
+__device__ unsigned long long g_tally[3];
+
+__device__ __forceinline__ void tally(int body) {
+  if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x) == 0)
+    atomicAdd(&g_tally[body], 1ull);
+}
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;           // tokens staged per iteration (one per lane)
@@ -334,6 +346,7 @@ __device__ __forceinline__ void attend(const Params& pr, int b, int hk,
 
 template <typename QT, typename KVT>
 __global__ void __launch_bounds__(kThreads) paged_multiquery_kernel(Params p) {
+  tally(1);
   attend<QT, KVT>(p, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
@@ -388,6 +401,7 @@ constexpr size_t smem_bytes() {
 template <typename KVT, int D>
 __global__ void __launch_bounds__(kThreads)
     paged_multiquery_tc_kernel(Params pr) {
+  tally(2);
   constexpr bool kI8 = IsI8<KVT>::value;
   constexpr int LD = D + 8, RLD = D + 16, KS = D / 16, NT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -728,6 +742,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr bool kInt8 = sizeof(KVT) == 1;
   constexpr int E = lane_elems<KVT, GR>(), NCH = E / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  tally(0);
   const int b = blockIdx.x, split = blockIdx.z;
   const int end = visible_end(p, b);
   const int span0 = split * kSplit;
@@ -1077,6 +1092,18 @@ int run(int body, int kv_dtype, const Params& p, int B, void* stream) {
 }  // namespace
 
 extern "C" {
+
+// Copy the launch tally (decode split kernel, attend, tensor-core body)
+// into out[3]; with reset, zero it after. Synchronous: call it with the
+// device idle. Returns the cudaError (0 = success).
+int paged_kernel_tally(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_tally, sizeof(g_tally));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero[3] = {0, 0, 0};
+    e = cudaMemcpyToSymbol(g_tally, zero, sizeof(zero));
+  }
+  return static_cast<int>(e);
+}
 
 // Context tokens of one block of the decode body (kSplit): the decode
 // workspace is [B, H, ceil(P * block_size / kSplit), D + 2] fp32.

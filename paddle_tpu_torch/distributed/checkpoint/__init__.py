@@ -12,10 +12,13 @@ unreadable member raises :class:`CheckpointCorruptionError`. bfloat16
 tensors are stored as their uint16 bits with the dtype "bfloat16" in the
 metadata, as the reference stores its extended dtypes.
 
-Single process only: the port has no process groups yet. A
-``process_group``, or an initialized ``torch.distributed`` world larger
-than one, raises ``NotImplementedError`` (ROADMAP Queue 1, item 8), and
-each save writes rank 0's shard holding every tensor whole.
+Saves are single-process: a ``process_group``, or a save in an
+initialized ``torch.distributed`` world larger than one (per-rank shards
+and the commit barrier), raises ``NotImplementedError`` (ROADMAP Queue 1,
+item 8), and each save writes rank 0's shard holding every tensor whole.
+Loading reads whole tensors, in any world; :func:`load_model_state` cuts
+them to a plan-sharded model's blocks (every rank of a tensor-parallel
+engine reads the same whole checkpoint).
 
 ``load_state_dict`` copies into the tensors of the given state dict in
 place (``copy_`` under ``no_grad``): a module's ``state_dict()`` shares
@@ -43,8 +46,10 @@ import torch
 from ...framework.io import (CheckpointCorruptionError, numpy_to_tensor,
                              tensor_to_numpy)
 
-__all__ = ["save_state_dict", "load_state_dict", "AsyncSaveHandle",
-           "CheckpointManager", "CheckpointCorruptionError", "is_committed",
+__all__ = ["save_state_dict", "load_state_dict", "load_model_state",
+           "AsyncSaveHandle",
+           "CheckpointManager", "PlanMismatchError",
+           "CheckpointCorruptionError", "is_committed",
            "verify_checkpoint"]
 
 COMMIT_FILE = "COMMIT"
@@ -422,4 +427,25 @@ def load_state_dict(state_dict, path, process_group=None,
     return state_dict
 
 
-from .manager import CheckpointManager  # noqa: E402  (needs the fns above)
+def load_model_state(model, path):
+    """Load the committed checkpoint at ``path`` into ``model`` in place.
+    A model that adopted a sharding plan (``model._plan_shards``) reads
+    each sharded tensor whole on the host and keeps its own block
+    (``nn.layer.layers.set_state_dict``); any other model loads through
+    :func:`load_state_dict`."""
+    shards = getattr(model, "_plan_shards", None)
+    if not shards:
+        return load_state_dict(model.state_dict(), path)
+    from ...nn.layer.layers import set_state_dict
+
+    own = model.state_dict()
+    whole = {name: (torch.empty(shards[name][0], dtype=t.dtype)
+                    if name in shards else t)
+             for name, t in own.items()}
+    load_state_dict(whole, path)
+    set_state_dict(model, {n: whole[n] for n in shards})
+    return own
+
+
+from .manager import (CheckpointManager,  # noqa: E402  (needs the fns above)
+                      PlanMismatchError)

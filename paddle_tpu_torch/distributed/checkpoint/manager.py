@@ -31,8 +31,17 @@ The reference's layout, so either package resumes the other's runs::
   (``note_window``); ``latest_healthy_step()`` is the rollback query and
   ``drop_steps_after(step)`` the post-rollback sweep.
 
-Single process (``distributed.checkpoint`` raises for a larger world);
-sharding plans (``plan=``) are ROADMAP Queue 1 item 8.
+- **The plan gate**: ``save(..., plan=)`` records the plan's
+  fingerprint (``plan.json``: mesh + rule digest, the reference's format)
+  and ``auto_resume(..., plan=)`` (and ``LLMEngine.reload_weights``)
+  raises :class:`PlanMismatchError` before touching any state when the
+  recorded plan differs. A plan-sharded model restores by reading each
+  tensor whole and keeping its block (``load_model_state``).
+
+Saves are single-process (``distributed.checkpoint`` raises for a larger
+world): rank 0 saves the full state dict of a model whose parameters are
+whole. Sharded per-rank checkpoints and the commit barrier are ROADMAP
+Queue 1 item 8, and saving a plan-sharded model raises naming it.
 """
 
 from __future__ import annotations
@@ -46,10 +55,10 @@ from ...framework import io as _fio
 from ...framework.io import CheckpointCorruptionError
 from ...observability import metrics as _obs_metrics
 from ...observability import trace as _obs_trace
-from . import (_write_commit, is_committed, load_state_dict, save_state_dict,
-               verify_checkpoint)
+from . import (_write_commit, is_committed, load_model_state,
+               save_state_dict, verify_checkpoint)
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "PlanMismatchError"]
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -73,6 +82,16 @@ _SCALER_FILE = "scaler.pdscaler"
 _SAMPLER_FILE = "sampler.pdsampler"
 _RANK_SAMPLER_RE = re.compile(r"^sampler\.rank(\d+)\.pdsampler$")
 _HEALTH_FILE = "HEALTHY"
+_PLAN_FILE = "plan.json"
+
+
+class PlanMismatchError(RuntimeError):
+    """A checkpoint written under one sharding plan is being restored
+    under an incompatible one (different mesh shape, or different
+    param-spec/strategy tables over the same mesh). Restoring anyway
+    would mis-shard silently. Re-create the Plan the checkpoint records
+    (``plan.json`` in the step directory holds its mesh + digest), or
+    restore with ``plan=None`` to skip the check deliberately."""
 
 
 def _rank_sampler_file(rank):
@@ -105,11 +124,16 @@ def _resolve_sampler(obj):
     return r
 
 
-def _no_plan(plan, what):
-    if plan is not None:
+def _whole(model, what):
+    """Refuse to save a plan-sharded model: its tensors are this rank's
+    blocks, and per-rank shards with their commit barrier are not
+    ported."""
+    if model is not None and getattr(model, "_plan_shards", None):
         raise NotImplementedError(
-            f"CheckpointManager.{what}(plan=...): sharding plans are not "
-            "ported yet (ROADMAP Queue 1, item 8)")
+            f"CheckpointManager.{what}: the model holds plan-sharded "
+            "blocks; sharded per-rank checkpoints and the commit barrier "
+            "are not ported yet (ROADMAP Queue 1, item 8) — save the whole "
+            "model from one process")
 
 
 class CheckpointManager:
@@ -262,6 +286,41 @@ class CheckpointManager:
                               ignore_errors=True)
         return dropped
 
+    # ---- plan fingerprint ----------------------------------------------
+    def plan_fingerprint(self, step):
+        """The ``{"mesh": {...}, "digest": ...}`` fingerprint recorded at
+        save time, or ``None`` for plan-less checkpoints."""
+        import json
+
+        p = os.path.join(self.step_dir(step), _PLAN_FILE)
+        if not os.path.exists(p):
+            return None
+        with open(p) as f:
+            return json.load(f)
+
+    @staticmethod
+    def _check_plan(recorded, plan, step):
+        """Raise :class:`PlanMismatchError` when ``plan``'s fingerprint
+        disagrees with the recorded one. A plan-less checkpoint restored
+        under a plan (or vice versa) passes — there is nothing recorded
+        to contradict."""
+        if recorded is None or plan is None:
+            return
+        fp = plan.fingerprint()
+        if dict(recorded.get("mesh", {})) != dict(fp["mesh"]):
+            raise PlanMismatchError(
+                f"checkpoint step_{step} was written under mesh "
+                f"{recorded.get('mesh')} but is being restored under mesh "
+                f"{fp['mesh']} — restoring would mis-shard silently; "
+                "rebuild the recorded mesh or pass plan=None to override")
+        if recorded.get("digest") != fp["digest"]:
+            raise PlanMismatchError(
+                f"checkpoint step_{step} was written under the same mesh "
+                f"{fp['mesh']} but a DIFFERENT plan table (digest "
+                f"{recorded.get('digest')} vs {fp['digest']}): param/"
+                "moment layouts differ — rebuild the recorded plan or "
+                "pass plan=None to override")
+
     # ---- save -----------------------------------------------------------
     def save(self, step, model=None, optimizer=None, scaler=None,
              state_dict=None, writer=None, async_save=None, sampler=None,
@@ -271,9 +330,9 @@ class CheckpointManager:
         ``optimizer`` / ``scaler`` / ``sampler`` state dicts pickled
         before the shards (``sampler``: the batch sampler, its DataLoader
         or a DevicePrefetcher), ``writer(dir_path)`` for extra files under
-        the same commit. Returns the :class:`AsyncSaveHandle` of an async
-        save, else ``None``."""
-        _no_plan(plan, "save")
+        the same commit, ``plan``'s fingerprint as ``plan.json``. Returns
+        the :class:`AsyncSaveHandle` of an async save, else ``None``."""
+        _whole(model, "save")
         # land the previous async save before this save's timer starts
         self.wait()
         t0_ns = time.perf_counter_ns()
@@ -281,7 +340,7 @@ class CheckpointManager:
             handle = self._save_impl(step, model=model, optimizer=optimizer,
                                      scaler=scaler, state_dict=state_dict,
                                      writer=writer, async_save=async_save,
-                                     sampler=sampler)
+                                     sampler=sampler, plan=plan)
         finally:
             t1_ns = time.perf_counter_ns()
             _H_SAVE_S.observe((t1_ns - t0_ns) / 1e9)
@@ -293,7 +352,7 @@ class CheckpointManager:
 
     def _save_impl(self, step, model=None, optimizer=None, scaler=None,
                    state_dict=None, writer=None, async_save=None,
-                   sampler=None):
+                   sampler=None, plan=None):
         if async_save is None:
             async_save = self.async_save
         # one snapshot serves both cursor files
@@ -321,6 +380,16 @@ class CheckpointManager:
                     if isinstance(sampler_state, dict) else 0)
             aux += [(_SAMPLER_FILE, sampler_state),
                     (_rank_sampler_file(rank), sampler_state)]
+        if plan is not None:
+            # step metadata: mesh shape + rule/strategy digest, so a
+            # restore under an incompatible plan fails typed
+            import json
+
+            from ...utils.retry import atomic_write
+
+            payload = json.dumps(plan.fingerprint()).encode()
+            atomic_write(os.path.join(d, _PLAN_FILE),
+                         lambda f: f.write(payload))
         if writer is not None:
             writer(d)
 
@@ -405,10 +474,12 @@ class CheckpointManager:
         """Restore ``model`` + ``optimizer`` + ``scaler`` + ``sampler``
         from the newest valid checkpoint (or the committed ``step``) and
         return its step; ``None``, touching nothing, when no committed
-        checkpoint exists. The model's tensors are written in place.
+        checkpoint exists. The model's tensors are written in place (a
+        plan-sharded model keeps its blocks of the whole tensors).
         ``verify=True`` CRC-walks candidate steps first; an uncommitted
-        ``step`` raises ValueError."""
-        _no_plan(plan, "auto_resume")
+        ``step`` raises ValueError. ``plan`` is checked against the
+        step's recorded fingerprint before any state is touched
+        (:class:`PlanMismatchError`)."""
         self.wait()
         if step is None:
             step = self.latest_valid_step(verify=verify)
@@ -424,11 +495,14 @@ class CheckpointManager:
                 verify_checkpoint(self.step_dir(step))
         if step is None:
             return None
+        # plan fingerprint gate before any state is touched: a mismatch
+        # must leave model/optimizer exactly as they were
+        self._check_plan(self.plan_fingerprint(step), plan, step)
         t0_ns = time.perf_counter_ns()
         d = self.step_dir(step)
         if model is not None and any(
                 fn.endswith(".npz") for fn in os.listdir(d)):
-            load_state_dict(model.state_dict(), d)
+            load_model_state(model, d)
         opt_p = os.path.join(d, _OPT_FILE)
         if optimizer is not None and os.path.exists(opt_p):
             optimizer.set_state_dict(_fio.load(opt_p))

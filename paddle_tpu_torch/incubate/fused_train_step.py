@@ -78,8 +78,8 @@ advanced once per trained batch, checkpoints through a
 window boundary (a committed save, exit 123), the stall guard
 (``FLAGS_step_timeout_s``), the divergence sentinel's ladder and the
 reference's fault sites (``train.grad_nan``, ``train.spike``,
-``train.stall``, ``proc.kill``). Sharding plans (``plan=``) and
-multi-process agreement are ROADMAP Queue 1 item 8.
+``train.stall``, ``proc.kill``). Training under a sharding plan
+(``plan=``) and multi-process agreement are ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -200,8 +200,9 @@ class FusedTrainStep:
                  plan=None):
         if plan is not None:
             raise NotImplementedError(
-                "fused_train_step(plan=...): sharding plans are not ported "
-                "yet (ROADMAP Queue 1, item 8)")
+                "fused_train_step(plan=...): training under a sharding plan "
+                "is not ported yet (ROADMAP Queue 1, item 8; the port "
+                "executes plans in LLMEngine)")
         if isinstance(optimizer, AdamW):
             self._kind = "adamw"
         elif isinstance(optimizer, Adam):

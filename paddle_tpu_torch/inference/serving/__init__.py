@@ -9,8 +9,10 @@ host-RAM tier (``HostKVTier``) and the on-disk prefix store
 (``prefix_store``); deadlines, tenants and QoS tiers (``TenantQuota``,
 ``TIER_LATENCY``/``TIER_BATCH``, ``LLMEngine.configure_tenant``); and
 serving integrity (page checksums and the weight audit, ``integrity``);
-and the serving fleet (``fleet``: replica worker processes, their
-supervisor and the router)."""
+the serving fleet (``fleet``: replica worker processes, their supervisor
+and the router, and model-parallel replica groups); and Megatron tensor
+parallelism across processes (``LLMEngine(plan=)``, a
+``distributed.plan.Plan``)."""
 
 from .engine import (ARTIFACT_QMAX, LLMEngine, StepOutput,
                      dequantize_state_dict, is_llama_artifact,

@@ -86,9 +86,29 @@ server over a paged KV pool on one device (``cuda`` by default):
   at construction, and ``audit_weights`` compares the live weights with
   it (``integrity``).
 
+* **sharding plans** (``plan=``, a ``distributed.plan.Plan``): Megatron
+  tensor parallelism over the ranks of the default ``torch.distributed``
+  process group, one engine a process (``_mp``), every rank driven with
+  the same calls in SPMD lockstep. The plan cuts the weights
+  (``Plan.apply_to_model``; the model's tensor-parallel forms reduce
+  ``o_proj``/``down_proj`` and rebuild the embedding and the logits
+  exactly), each rank's pools hold only its KV heads, and #1 and #2 run
+  on its local heads. Rank 0 is the group's mouth (the fleet's replica
+  groups); every rank fetches the same logits, so host decisions agree.
+  Time-driven decisions (deadlines, tenant quotas) read rank 0's clock
+  (one broadcast a step, only while one is live), staging is synchronous
+  (an ingest thread would admit on a different step on each rank), a
+  sampled request needs a seed, and what the reference refuses on a
+  process-spanning mesh (``kv_host_blocks``, ``prefix_store_path``,
+  ``draft_model``, ``prefill_only``) is refused at construction. On the
+  card a multi-rank plan serves per step: a decode window is a CUDA
+  graph, and gloo's collectives (ranks sharing a card) cannot be
+  captured, nor are NCCL's proven here (ROADMAP Queue 1 item 8); on the
+  CPU the window runs eagerly, collectives included. ``plan=None``, or a
+  plan whose every degree is 1, is today's engine exactly.
+
 Prefill chunks, the per-step decode and the verify run eagerly; pools are
-written in place (see ``kv_cache``). Sharding plans are not ported, and
-the constructor does not take ``plan``.
+written in place (see ``kv_cache``).
 """
 
 from __future__ import annotations
@@ -107,6 +127,7 @@ import torch
 
 from ...core.device import resolve_device
 from ...core.dtype import get_default_dtype
+from ...distributed import communication as _comm
 from ...framework.io import host_value
 from ...models.llama import (LlamaForCausalLM, _rope_apply, _rotate,
                              greedy_tokens_in_graph, sample_next_tokens)
@@ -243,13 +264,17 @@ def _default_buckets(block_size, max_model_len):
     return buckets
 
 
-def _check_deadline(deadline, what):
+def _check_deadline(deadline, what, now=None):
     """Raise :class:`RequestTimeoutError` when the absolute ``time.time()``
-    ``deadline`` has already passed (admission, before any state moves)."""
-    if deadline is not None and time.time() >= float(deadline):
+    ``deadline`` has already passed at ``now`` (default the wall clock;
+    admission, before any state moves)."""
+    if deadline is None:
+        return
+    now = time.time() if now is None else now
+    if now >= float(deadline):
         raise RequestTimeoutError(
             f"deadline {deadline} already expired at admission "
-            f"(now={time.time():.3f}); {what} before any block allocation",
+            f"(now={now:.3f}); {what} before any block allocation",
             deadline=deadline)
 
 
@@ -413,7 +438,7 @@ class LLMEngine:
 
     def __init__(self, model, *, num_blocks=64, block_size=16,
                  max_batch_size=4, max_model_len=None, prefill_buckets=None,
-                 max_prefills_per_step=1, ingest_async=True,
+                 max_prefills_per_step=1, ingest_async=True, plan=None,
                  enable_prefix_cache=False, max_prefill_tokens_per_step=None,
                  draft_model=None, spec_tokens=2, kv_dtype=None,
                  prefill_only=False, kv_host_blocks=0,
@@ -461,8 +486,46 @@ class LLMEngine:
             if prefix_store_path is None:
                 raise ValueError("prefix_store_autosave_chains without "
                                  "prefix_store_path saves nowhere")
+        # a plan over more than one rank: one engine a process, in SPMD
+        # lockstep (see the module docstring)
+        self._plan = plan
+        self._mp = plan is not None and plan.size > 1
+        if self._mp:
+            # features whose data path fetches pool pages to the host (or
+            # runs a second model) are incompatible with a process-spanning
+            # mesh; fail at construction, not mid-burst
+            for flag, why in (
+                    (int(kv_host_blocks) > 0,
+                     "kv_host_blocks > 0 (host KV tier spills pool "
+                     "pages to host RAM)"),
+                    (prefix_store_path is not None,
+                     "prefix_store_path (the store exports pool "
+                     "pages)"),
+                    (draft_model is not None,
+                     "draft_model (speculative decoding)"),
+                    (bool(prefill_only),
+                     "prefill_only (disaggregated handoff exports "
+                     "pool pages)")):
+                if flag:
+                    raise ValueError(
+                        f"a plan whose mesh spans multiple processes "
+                        f"does not support {why}; run these features "
+                        "on single-process engines")
         self.device = resolve_device(device)
+        if (self._mp and self.device.type == "cuda"
+                and (int(decode_steps_per_sync) > 1 or in_graph_sampling)):
+            from ...distributed.plan import PlanError
+
+            raise PlanError(
+                "device-resident decode (decode_steps_per_sync > 1 or "
+                "in_graph_sampling) captures the decode step as a CUDA "
+                "graph, and a multi-process plan's collectives cannot be "
+                "captured on the card: gloo's (ranks sharing a card) never "
+                "are, NCCL's (one rank a card) are not proven (ROADMAP "
+                "Queue 1, item 8); serve per step (decode_steps_per_sync=1)")
         self.model = model.to(self.device)
+        if plan is not None:
+            plan.apply_to_model(self.model)
         self._was_training = model.training
         model.eval()
         self.config = model.config
@@ -484,9 +547,10 @@ class LLMEngine:
                 RuntimeWarning)
         self.max_pages = self.max_model_len // self.block_size
         self.kv_dtype = kv_dtype
-        self.cache = PagedKVCache(self.config, num_blocks, block_size,
-                                  dtype=model.dtype, kv_dtype=kv_dtype,
-                                  device=self.device)
+        self.cache = PagedKVCache(
+            self.config, num_blocks, block_size, dtype=model.dtype,
+            kv_dtype=kv_dtype, device=self.device,
+            num_kv_heads=model.llama.layers[0].self_attn.num_kv_heads)
         # seal every page payload that reaches host memory; the read-back
         # boundaries verify and degrade to re-prefill on a mismatch
         self.cache.page_checksums = bool(kv_page_checksums)
@@ -619,8 +683,13 @@ class LLMEngine:
             self._store_fingerprint = weights_fingerprint(model)
             self._store_geometry = pool_geometry(self.cache, self.config)
             self._load_prefix_store()
+        # lockstep admission needs every rank to see the same queue at
+        # the same step: a multi-process plan stages synchronously
         self._ingest = (_IngestThread(self._stage_request, self._name)
-                        if ingest_async else None)
+                        if ingest_async and not self._mp else None)
+        # rank 0's (time.time(), time.monotonic()) for this step's
+        # time-driven decisions under a multi-process plan
+        self._clock = (0.0, 0.0)
 
     def _ensure_open(self):
         if self._closed:
@@ -734,7 +803,9 @@ class LLMEngine:
         ``tier`` attach a QoS identity; the defaults (``"default"``,
         latency) keep the exact FIFO behavior."""
         self._ensure_open()
-        _check_deadline(deadline, "request rejected")
+        _check_deadline(deadline, "request rejected",
+                        self._agreed_clock()[0]
+                        if self._mp and deadline is not None else None)
         req = Request(prompt_ids, sampling, deadline=deadline, tenant=tenant,
                       tier=tier)
         self._check_admissible(req)
@@ -765,9 +836,12 @@ class LLMEngine:
             raise ValueError(
                 "prefix_blocks needs prefix sharing; construct the engine "
                 "with enable_prefix_cache=True")
+        # under a multi-process plan the quota reads the step's agreed
+        # clock, so every rank throttles on the same step
         st = self.scheduler.configure_tenant(
             name, weight=weight, rate_tokens_per_s=rate_tokens_per_s,
-            window_s=window_s)
+            window_s=window_s,
+            **({"clock": lambda: self._clock[1]} if self._mp else {}))
         if host_blocks is not None:
             self.kv_tier.set_tenant_share(name, host_blocks)
         if prefix_blocks is not None:
@@ -775,6 +849,12 @@ class LLMEngine:
         return st
 
     def _check_admissible(self, req):
+        if (self._mp and req.sampling.do_sample
+                and req.sampling.seed is None):
+            raise ValueError(
+                "a do_sample request on a multi-process plan needs "
+                "SamplingParams(seed=...): every rank samples its own copy "
+                "of the logits, and only one seed makes them agree")
         if self._spec_k and req.sampling.do_sample:
             raise ValueError(
                 "speculative decoding is greedy-only (the verify step "
@@ -834,7 +914,9 @@ class LLMEngine:
         if self.prefill_only:
             raise ValueError("prefill_only engines never decode; "
                              "imported pages have nowhere to go")
-        _check_deadline(deadline, "imported pages rejected")
+        _check_deadline(deadline, "imported pages rejected",
+                        self._agreed_clock()[0]
+                        if self._mp and deadline is not None else None)
         req = Request(prompt_ids, sampling, deadline=deadline,
                       tenant=tenant, tier=tier)
         covered = int(pages["covered"])
@@ -970,12 +1052,28 @@ class LLMEngine:
         if reason == "timeout":
             _M_DEADLINE.inc(instance=self._name)
 
+    def _agreed_clock(self):
+        """``(time.time(), time.monotonic())``; under a multi-process plan
+        rank 0's, broadcast (every rank calls this at the same point)."""
+        now = [time.time(), time.monotonic()]
+        if self._mp:
+            _comm.broadcast_object_list(now, src=0)
+        return tuple(now)
+
+    def _needs_clock(self):
+        sched = self.scheduler
+        return (any(r.deadline is not None for r in
+                    list(sched.waiting) + list(sched.running))
+                or any(st.quota is not None
+                       for st in sched.tenants.values()))
+
     def _expire_deadlines(self, outputs):
         """Abort every queued or running request whose deadline has passed
         (once a step, BEFORE admission and decode, so an expired request
         never takes blocks it is about to release). Each expiry appends a
-        final ``StepOutput(rid, -1, True, "timeout")``."""
-        now = time.time()
+        final ``StepOutput(rid, -1, True, "timeout")``. Under a
+        multi-process plan "now" is the step's agreed clock."""
+        now = self._clock[0] if self._mp else time.time()
         for req in (list(self.scheduler.waiting)
                     + list(self.scheduler.running)):
             if req.deadline is not None and now >= req.deadline:
@@ -1042,7 +1140,7 @@ class LLMEngine:
         cos = llama.rope_cos[start:start + C]
         sin = llama.rope_sin[start:start + C]
         scale = 1.0 / math.sqrt(model.config.head_dim)
-        x = llama.embed_tokens(ids)
+        x = llama.embed(ids)
         for li, layer in enumerate(llama.layers):
             attn = layer.self_attn
             q, k, v = attn.project(layer.input_layernorm(x))
@@ -1055,7 +1153,7 @@ class LLMEngine:
             out = paged_multiquery_attention(
                 q, kp, vp, tables, lens, starts, scale=scale,
                 k_scale=ks, v_scale=vs)
-            x = x + attn.o_proj(out.reshape(1, C, -1))
+            x = x + attn.output(out.reshape(1, C, -1))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         h = llama.norm(x)
         return model.head(h[:, upto - 1 - start])
@@ -1088,7 +1186,7 @@ class LLMEngine:
         c = llama.rope_cos[pos][:, None, None, :]
         s = llama.rope_sin[pos][:, None, None, :]
         scale = 1.0 / math.sqrt(model.config.head_dim)
-        x = llama.embed_tokens(ids[:, None])
+        x = llama.embed(ids[:, None])
         for li, layer in enumerate(llama.layers):
             attn = layer.self_attn
             q, k, v = attn.project(layer.input_layernorm(x))
@@ -1099,7 +1197,7 @@ class LLMEngine:
             out = paged_decode_attention(q, kp, vp, tables, lens,
                                          scale=scale, k_scale=ks,
                                          v_scale=vs)
-            x = x + attn.o_proj(out.reshape(B, 1, -1))
+            x = x + attn.output(out.reshape(B, 1, -1))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         h = llama.norm(x)
         return model.head(h[:, -1])
@@ -1181,7 +1279,7 @@ class LLMEngine:
         c = llama.rope_cos[grid][:, :, None, :]
         s = llama.rope_sin[grid][:, :, None, :]
         scale = 1.0 / math.sqrt(model.config.head_dim)
-        x = llama.embed_tokens(ids)
+        x = llama.embed(ids)
         for li, layer in enumerate(llama.layers):
             attn = layer.self_attn
             q, k, v = attn.project(layer.input_layernorm(x))
@@ -1194,7 +1292,7 @@ class LLMEngine:
             out = paged_multiquery_attention(
                 q, kp, vp, tables, lens, starts, scale=scale, k_scale=ks,
                 v_scale=vs)
-            x = x + attn.o_proj(out.reshape(B, T, -1))
+            x = x + attn.output(out.reshape(B, T, -1))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         tgt = torch.argmax(model.head(llama.norm(x)), dim=-1)   # [B, T]
         counts = torch.cumprod((tgt[:, :K] == drafts).long(), dim=1).sum(1)
@@ -1313,6 +1411,8 @@ class LLMEngine:
                     self._stage_request(req)
                 sched.waiting.append(req)
         outputs = []
+        if self._mp and self._needs_clock():
+            self._clock = self._agreed_clock()
         # before admission and decode: an expired request is never
         # admitted or decoded once more, and its blocks and slot serve
         # this very step's admissions
@@ -1688,8 +1788,11 @@ class LLMEngine:
         prefix store, weights of another fingerprint drop every cached
         chain (device-registered and host-resident) and the store is read
         again for the new fingerprint, and an armed (or already anchored)
-        weight audit re-anchors at the new weights. The reference's
-        sharding-plan branch is not ported (this engine takes no plan)."""
+        weight audit re-anchors at the new weights. Under a plan the
+        source is the whole (unsharded) state and each rank copies its
+        block in place; a manager's step recorded under another plan
+        raises :class:`~...distributed.checkpoint.PlanMismatchError`
+        before anything is written (the group rejoin gate)."""
         step = self._reload_weights_impl(source)
         audited = self._weight_audit_ref is not None or self._weight_audit
         if not audited and self._store_path is None:
@@ -1727,7 +1830,7 @@ class LLMEngine:
 
     def _reload_weights_impl(self, source):
         from ...distributed.checkpoint import (CheckpointManager,
-                                               load_state_dict)
+                                               load_model_state)
         from ...framework import io as _fio
 
         if isinstance(source, CheckpointManager):
@@ -1738,11 +1841,16 @@ class LLMEngine:
                 raise FileNotFoundError(
                     "reload_weights: no committed checkpoint in "
                     f"{source.root}")
-            load_state_dict(self.model.state_dict(), source.step_dir(step))
+            if self._plan is not None:
+                # the rejoin gate: a step recorded under another plan is
+                # never written into this engine's layout
+                CheckpointManager._check_plan(
+                    source.plan_fingerprint(step), self._plan, step)
+            load_model_state(self.model, source.step_dir(step))
             return step
         path = os.fspath(source)
         if os.path.isdir(path):
-            load_state_dict(self.model.state_dict(), path)
+            load_model_state(self.model, path)
         elif is_llama_artifact(path):
             set_state_dict(self.model, load_llama_state_dict(path))
         else:

@@ -7,7 +7,9 @@ leaky-bucket restart budget, checkpoint rejoin, autoscale) behind a
 bounded admission with load shedding, redispatch of in-flight requests off
 dead replicas, graceful drain, the two-stage prefill→decode handoff, the
 sampled output audit and quarantine). Replicas take their device from
-``engine_kwargs["device"]`` (default ``cuda``).
+``engine_kwargs["device"]`` (default ``cuda``). ``group_size > 1`` with a
+``plan`` makes each slot a model-parallel group of processes serving one
+tensor-parallel engine (``supervisor``, ``replica``).
 """
 
 from ..errors import (  # noqa: F401

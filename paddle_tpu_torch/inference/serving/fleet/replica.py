@@ -1,6 +1,6 @@
 """Replica worker process (counterpart of
-``paddle_tpu/inference/serving/fleet/replica.py``, for single-process
-replicas): one ``LLMEngine`` behind a line-JSON RPC loop, runnable as
+``paddle_tpu/inference/serving/fleet/replica.py``): one ``LLMEngine``
+behind a line-JSON RPC loop, runnable as
 ``python -m paddle_tpu_torch.inference.serving.fleet.replica``.
 
 Config arrives in ``PADDLE_REPLICA_CONFIG`` (JSON: ``artifact`` path from
@@ -70,6 +70,24 @@ replica runs clean:
 ``PADDLE_SERVE_WEIGHT_AUDIT_TICKS=N`` re-hashes the live weights every N
 loop ticks; a mismatch emits ``{"e":"integrity","kind":"weight_audit"}``
 and reloads the artifact's weights in place.
+
+**Replica groups** (``PADDLE_REPLICA_GROUP_SIZE`` > 1, a ``plan`` in the
+config: ``{"axes": {"tp": n}, "strategies": ["tp"]}``): every member
+joins a ``torch.distributed`` group on the incarnation's fresh
+coordination port (a ``TCPStore`` that rank 0 hosts; the backend is
+gloo when the ranks share a card or run on the CPU, NCCL for a card a
+rank), builds the plan over it and serves its shard of the engine in
+SPMD lockstep. Rank 0 is the group's one mouth: it alone reads commands
+and emits events, and publishes each busy tick's commands on the store
+(:class:`_GroupChannel`, the counterpart of the reference's coordination
+KV store) before applying them; members apply exactly those, in order,
+so every collective lines up. Deadlines are stripped (the router
+enforces them: a wall clock cannot be followed in lockstep). Every
+member heartbeats under ``hb.<replica>.<rank>``, warms its engine and
+passes a barrier before rank 0 reports ``ready``. The chaos sites take a
+``"rank"`` (``CHAOS_SERVE_RANK``; default 0), and
+``serve.group_member_crash``/``serve.group_member_hang`` kill or wedge
+one member. The periodic weight audit is off in groups.
 """
 
 from __future__ import annotations
@@ -84,15 +102,87 @@ import time
 import zlib
 
 from .framing import decode_frame, encode_frame, join_frames, split_frames
-from .supervisor import (_GROUPS_NOT_PORTED, ENV_CONFIG, ENV_ID,
-                         ENV_INCARNATION)
+from .supervisor import (ENV_CONFIG, ENV_COORD_PORT, ENV_GROUP_RANK,
+                         ENV_GROUP_SIZE, ENV_ID, ENV_INCARNATION)
 
 __all__ = ["replica_worker_main"]
 
+# a group's non-zero ranks run the same engine in lockstep but own no RPC
+# stream: rank 0 is the group's one mouth
+_SILENT = [False]
+
+#: seconds a group's store calls and collectives may block
+GROUP_TIMEOUT_S = 300.0
+
 
 def _emit(obj):
+    if _SILENT[0]:
+        return
     sys.stdout.write(json.dumps(obj) + "\n")
     sys.stdout.flush()
+
+
+class _GroupChannel:
+    """Rank 0 → member command broadcast for a replica group, over the
+    group's ``TCPStore``. The contract is SPMD lockstep: rank 0 publishes
+    one ``fleet.tick.<seq>`` entry per busy loop iteration carrying
+    exactly the commands it is about to apply; every member applies the
+    same commands to an identical engine and then steps, so the
+    collectives inside the step line up by construction. Idle iterations
+    publish nothing; members poll with a timeout so their heartbeats stay
+    fresh while idle. Consumed entries are deleted ``_GC_LAG`` ticks
+    behind the publisher."""
+
+    _GC_LAG = 512
+
+    def __init__(self, store):
+        self._store = store
+        self._seq = 0
+
+    def publish(self, cmds):
+        self._store.set(f"fleet.tick.{self._seq}", json.dumps(cmds))
+        old = self._seq - self._GC_LAG
+        if old >= 0:
+            self._store.delete_key(f"fleet.tick.{old}")
+        self._seq += 1
+
+    def fetch(self, timeout_ms=250):
+        """The next tick's commands, or ``None`` on timeout (idle)."""
+        import datetime
+
+        import torch.distributed as dist
+
+        key = f"fleet.tick.{self._seq}"
+        try:
+            self._store.wait([key],
+                             datetime.timedelta(milliseconds=timeout_ms))
+        except dist.DistStoreError:
+            # the wait's timeout; a lost store (rank 0 gone) raises
+            # DistNetworkError and ends this member
+            return None
+        self._seq += 1
+        return json.loads(self._store.get(key))
+
+
+def _join_group(group_size, group_rank, device):
+    """Rendezvous on the incarnation's coordination port: rank 0 hosts
+    the ``TCPStore``, every member joins the default process group over
+    it (``init_parallel_env`` chooses the backend from the placement).
+    Returns the store (the command channel's)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ....distributed import init_parallel_env
+
+    timeout = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
+    store = dist.TCPStore("127.0.0.1", int(os.environ[ENV_COORD_PORT]),
+                          group_size, is_master=group_rank == 0,
+                          timeout=timeout)
+    init_parallel_env(rank=group_rank, world_size=group_size,
+                      store=dist.PrefixStore("pg", store), device=device,
+                      timeout_s=GROUP_TIMEOUT_S)
+    return store
 
 
 # the armed inject() context managers must outlive _arm_chaos: a collected
@@ -100,8 +190,10 @@ def _emit(obj):
 _CHAOS_CMS: list = []
 
 
-def _chaos_specs(replica_id):
-    """Armed (site, after, max_fires) specs for this replica."""
+def _chaos_specs(replica_id, group_rank=0):
+    """Armed (site, after, max_fires) specs for this process. Specs may
+    carry a ``"rank"`` (default 0), so a group drill poisons one
+    member."""
     multi = os.environ.get("CHAOS_SERVE_SITES")
     if multi:
         try:
@@ -110,21 +202,24 @@ def _chaos_specs(replica_id):
             return []
         return [(s["site"], int(s.get("after", 1) or 1),
                  s.get("max_fires")) for s in specs
-                if str(s.get("replica")) == str(replica_id)]
+                if str(s.get("replica")) == str(replica_id)
+                and int(s.get("rank", 0) or 0) == int(group_rank)]
     site = os.environ.get("CHAOS_SERVE_SITE")
-    if site and os.environ.get("CHAOS_SERVE_REPLICA") == str(replica_id):
+    if site and os.environ.get("CHAOS_SERVE_REPLICA") == str(replica_id) \
+            and int(os.environ.get("CHAOS_SERVE_RANK", "0")
+                    or 0) == int(group_rank):
         return [(site,
                  int(os.environ.get("CHAOS_SERVE_AFTER_STEPS", "1") or 1),
                  None)]
     return []
 
 
-def _arm_chaos(replica_id):
+def _arm_chaos(replica_id, group_rank=0):
     if int(os.environ.get(ENV_INCARNATION, "0") or 0) != 0:
         return  # restarted incarnations run clean
     from ....utils import fault_injection as fi
 
-    for site, after, max_fires in _chaos_specs(replica_id):
+    for site, after, max_fires in _chaos_specs(replica_id, group_rank):
         cm = fi.inject(site, every_n=after, max_fires=max_fires)
         cm.__enter__()
         _CHAOS_CMS.append(cm)
@@ -132,12 +227,14 @@ def _arm_chaos(replica_id):
 
 def replica_worker_main():
     replica_id = int(os.environ[ENV_ID])
+    group_size = int(os.environ.get(ENV_GROUP_SIZE, "1") or 1)
+    group_rank = int(os.environ.get(ENV_GROUP_RANK, "0") or 0)
+    _SILENT[0] = group_rank != 0
     cfg = json.loads(os.environ[ENV_CONFIG])
-    if cfg.get("plan") is not None:
-        raise NotImplementedError(_GROUPS_NOT_PORTED)
-    _arm_chaos(replica_id)
+    _arm_chaos(replica_id, group_rank)
 
     import numpy as np
+    import torch
 
     from ....distributed.checkpoint.manager import CheckpointManager
     from ....distributed.launch import heartbeat as hb
@@ -152,8 +249,24 @@ def replica_worker_main():
     role = cfg.get("role") or "both"
     engine_kw = dict(cfg.get("engine") or {})
     device = engine_kw.pop("device", None) or "cuda"
+    store = None
+    if group_size > 1:
+        if (torch.device(device).type == "cuda"
+                and torch.cuda.device_count() >= group_size):
+            device = f"cuda:{group_rank}"  # a card a rank: NCCL
+        store = _join_group(group_size, group_rank, device)
     model = load_llama_artifact(cfg["artifact"], device=device,
                                 dtype="saved")
+    plan_spec = cfg.get("plan")
+    if plan_spec:
+        # the plan from its JSON spec, over the group's ranks (or this
+        # process alone)
+        from ....distributed.plan import Plan
+
+        engine_kw["plan"] = Plan.build(
+            dict(plan_spec["axes"]),
+            [s if isinstance(s, str) else tuple(s)
+             for s in plan_spec.get("strategies") or ()])
     if engine_kw.get("prefix_store_path"):
         # each replica persists its own prefix-store shard: the fleet API
         # takes a ``{replica}`` template
@@ -173,12 +286,18 @@ def replica_worker_main():
                 or mgr.latest_valid_step() is not None):
             reloaded = eng.reload_weights(mgr)
     hb_dir = cfg.get("hb_dir")
-    hb.write(step=0, dir=hb_dir, rank=replica_id)
+    # group members heartbeat under hb.<replica>.<rank>: every member
+    # beats, so the watchdog condemns the group when any member wedges
+    hb_rank = (f"{replica_id}.{group_rank}" if group_size > 1
+               else replica_id)
+    hb.write(step=0, dir=hb_dir, rank=hb_rank)
 
     # Window engines warm before ready: the first window captures its
     # CUDA graph, which must not read as a hang to the watchdog, and the
-    # boot grace (not the heartbeat) covers one-time work.
-    if eng._in_graph and role != "prefill":
+    # boot grace (not the heartbeat) covers one-time work. Groups warm
+    # too (every member runs the same warm-up, so its collectives line
+    # up): their first collectives connect the group.
+    if (eng._in_graph or group_size > 1) and role != "prefill":
         wid = eng.add_request(np.zeros(4, dtype=np.int64),
                               SamplingParams(max_new_tokens=2))
         while not any(o.rid == wid and o.finished for o in eng.step()):
@@ -188,11 +307,21 @@ def replica_worker_main():
         eng.reset_block_high_water()
         _kernels.reset_launch_counts()
         # the warm-up ran past the boot heartbeat: refresh it before ready
-        hb.write(step=0, dir=hb_dir, rank=replica_id)
+        hb.write(step=0, dir=hb_dir, rank=hb_rank)
+
+    chan = None
+    if group_size > 1:
+        # ready only after every rank acks its warm-up: a group where one
+        # rank is still building must not take traffic
+        from ....distributed import barrier
+
+        barrier()
+        hb.write(step=0, dir=hb_dir, rank=hb_rank)
+        chan = _GroupChannel(store)
 
     _emit({"e": "ready", "replica": replica_id, "role": role,
            "incarnation": int(os.environ.get(ENV_INCARNATION, "0") or 0),
-           "reloaded_step": reloaded, "group_size": 1})
+           "reloaded_step": reloaded, "group_size": group_size})
 
     cmd_q: queue.Queue = queue.Queue()
 
@@ -207,7 +336,9 @@ def replica_worker_main():
                 continue
         cmd_q.put({"op": "shutdown"})  # EOF: the router is gone
 
-    threading.Thread(target=_reader, daemon=True).start()
+    if group_rank == 0:
+        # only rank 0 owns an RPC stream; a member's stdin is /dev/null
+        threading.Thread(target=_reader, daemon=True).start()
 
     rid_of = {}    # gid -> engine rid
     meta = {}      # gid -> {"gen": k}
@@ -221,6 +352,10 @@ def replica_worker_main():
     shutting = False
     audit_every = int(os.environ.get("PADDLE_SERVE_WEIGHT_AUDIT_TICKS",
                                      "0") or 0)
+    if group_size > 1:
+        # a reload after a failed audit is host-side state one rank would
+        # take alone: the group's lockstep must not fork on it
+        audit_every = 0
 
     def _sampling(cmd):
         return SamplingParams(max_new_tokens=int(cmd["max_new"]),
@@ -415,15 +550,20 @@ def replica_worker_main():
         now = time.monotonic()
         if now - last_hb[0] >= 0.25:
             last_hb[0] = now
-            hb.write(step=steps, dir=hb_dir, rank=replica_id)
+            hb.write(step=steps, dir=hb_dir, rank=hb_rank)
 
     while True:
         # chaos probes count busy ticks only: the interesting failure is
-        # mid-serve, with in-flight requests for the router to recover
+        # mid-serve, with in-flight requests for the router to recover.
+        # The group sites are armed on one member: member_crash is the
+        # partial-group kill, member_hang wedges this rank so the next
+        # collective stalls the whole group
         if eng.has_work():
-            if fi.should_fire("serve.replica_crash"):
+            if fi.should_fire("serve.replica_crash") or \
+                    fi.should_fire("serve.group_member_crash"):
                 os.kill(os.getpid(), signal.SIGKILL)
-            if fi.should_fire("serve.replica_hang"):
+            if fi.should_fire("serve.replica_hang") or \
+                    fi.should_fire("serve.group_member_hang"):
                 while True:  # wedged: no heartbeat, no service, no exit
                     time.sleep(3600)
             if fi.should_fire("serve.bit_flip"):
@@ -432,17 +572,37 @@ def replica_worker_main():
                 _integrity.flip_bit(
                     eng, os.environ.get("CHAOS_SERVE_BIT_FLIP_TARGET",
                                         "weights"))
-        try:
-            cmd = (cmd_q.get_nowait() if eng.has_work() or shutting
-                   else cmd_q.get(timeout=0.05))
-        except queue.Empty:
-            cmd = None
-        while cmd is not None:
-            _handle(cmd)
+        if chan is not None and group_rank > 0:
+            # a member: commands arrive only on the channel, in rank 0's
+            # order; a fetch timeout is an idle tick
+            cmds = chan.fetch()
+            if cmds is None:
+                steps += 1
+                _beat()
+                continue
+        else:
             try:
-                cmd = cmd_q.get_nowait()
+                cmd = (cmd_q.get_nowait() if eng.has_work() or shutting
+                       else cmd_q.get(timeout=0.05))
             except queue.Empty:
                 cmd = None
+            cmds = []
+            while cmd is not None:
+                cmds.append(cmd)
+                try:
+                    cmd = cmd_q.get_nowait()
+                except queue.Empty:
+                    cmd = None
+            if chan is not None:
+                # a deadline expiring between two ranks' checks would
+                # split the lockstep: the router enforces deadlines (its
+                # cancels ride this ordered channel)
+                for c in cmds:
+                    c.pop("deadline", None)
+                if cmds or eng.has_work():
+                    chan.publish(cmds)
+        for cmd in cmds:
+            _handle(cmd)
         if eng.has_work():
             gid_by_rid = {rid: gid for gid, rid in rid_of.items()}
             per_gid = {}

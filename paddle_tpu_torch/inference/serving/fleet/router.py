@@ -69,9 +69,12 @@ restart-budget slot, its in-flight requests redispatched. Off by default.
 
 The router is single-threaded: all state mutates inside :meth:`step`
 (the pump), as in ``LLMEngine.step``. ``submit`` + ``join``/``step`` +
-``result`` is the whole client API. Model-parallel replica groups
-(``group_size > 1``, ``plan=``) raise ``NotImplementedError`` in the
-supervisor (ROADMAP item 2, the sharding-plans bullet).
+``result`` is the whole client API. Model-parallel replica groups:
+``group_size > 1`` makes every slot a multi-process group serving one
+plan-sharded engine, ``plan`` is the JSON plan spec (``{"axes": {"tp":
+2}, "strategies": ["tp"]}``) every member rebuilds over its group. The
+router is group-blind: a group is one handle, placed by rank 0's load
+like any other replica.
 """
 
 from __future__ import annotations
@@ -274,8 +277,8 @@ class Router:
             if artifact is None or n_replicas is None:
                 raise ValueError("pass either a supervisor or "
                                  "artifact= + n_replicas=")
-            # group_size > 1 and plan= (model-parallel replica groups)
-            # are refused by the supervisor: not ported yet
+            # model-parallel replica groups: group_size > 1 makes every
+            # slot a multi-process group; `plan` is its JSON spec
             config = {"artifact": artifact, "engine": engine_kwargs,
                       "ckpt_root": ckpt_root}
             if plan is not None:

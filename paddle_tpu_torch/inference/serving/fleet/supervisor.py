@@ -1,6 +1,5 @@
 """Replica process supervision (counterpart of
-``paddle_tpu/inference/serving/fleet/supervisor.py``, for single-process
-replicas).
+``paddle_tpu/inference/serving/fleet/supervisor.py``).
 
 ``ReplicaSupervisor`` spawns N replica worker processes (``fleet.replica``,
 each owning one ``LLMEngine`` over a shared model artifact) and keeps them
@@ -36,9 +35,17 @@ drain and then retire. Hysteresis (distinct watermarks and a cooldown)
 and a leaky-bucket scale-event budget keep flapping load from churning
 the fleet.
 
-Model-parallel replica groups (``group_size > 1``) need sharding plans on
-``torch.distributed`` and raise ``NotImplementedError`` (ROADMAP item 2's
-sharding-plan bullet).
+**Model-parallel replica groups** (``group_size > 1``): every slot is a
+group of ``group_size`` processes serving one plan-sharded ``LLMEngine``
+in SPMD lockstep (``replica.py``), meeting on the incarnation's fresh
+coordination port (a respawned group never meets a dead predecessor).
+Rank 0 keeps the RPC pipes; the group is atomic: it is alive only while
+every member runs, any member's crash or hang (judged by the stalest
+``hb.<replica>.<rank>``) fells every member (SIGTERM to all, then
+SIGKILL after the shared grace) against one budget slot, the boot grace
+scales with the group size, and the gauges ``fleet_group_members_live``
+and ``fleet_group_restarts_total`` follow it. Groups cannot take the
+prefill role (the handoff exports pages to one host).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from __future__ import annotations
 import json
 import os
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -79,6 +87,20 @@ _M_SCALE_DOWN = _obs_metrics.counter(
     "fleet_scale_down_total",
     "replicas nominated for drain-then-retire by autoscale (fleet calm "
     "below the low watermark past the cooldown)")
+# model-parallel replica groups: per-replica member liveness and
+# whole-group restarts. A group is atomic — members_live < group_size is
+# a transient state the supervisor resolves by felling the whole group,
+# never a serving state.
+_G_GROUP_MEMBERS = _obs_metrics.gauge(
+    "fleet_group_members_live",
+    "processes of this replica group currently running (a value below "
+    "the group size means the group is being felled or respawned — a "
+    "partial group never serves)")
+_M_GROUP_RESTARTS = _obs_metrics.counter(
+    "fleet_group_restarts_total",
+    "whole-group respawns performed by the supervisor (any member "
+    "crash/hang fells and restarts the entire group, charging ONE "
+    "restart-budget slot)")
 
 # repo root (five levels up: fleet/serving/inference/paddle_tpu_torch/<repo>)
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -87,11 +109,45 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
 ENV_ID = "PADDLE_REPLICA_ID"
 ENV_CONFIG = "PADDLE_REPLICA_CONFIG"
 ENV_INCARNATION = "PADDLE_REPLICA_INCARNATION"
+# model-parallel replica groups
+ENV_GROUP_SIZE = "PADDLE_REPLICA_GROUP_SIZE"
+ENV_GROUP_RANK = "PADDLE_REPLICA_GROUP_RANK"
+ENV_COORD_PORT = "PADDLE_REPLICA_COORD_PORT"
 
-_GROUPS_NOT_PORTED = (
-    "model-parallel replica groups (group_size > 1, plan=) need sharding "
-    "plans on torch.distributed, which are not ported yet (ROADMAP item 2, "
-    "the sharding-plans bullet)")
+
+def _free_port():
+    """A currently free TCP port for an incarnation's private
+    coordination store (racy but fine: the group binds it within
+    moments, and a collision fails the boot, which the supervisor turns
+    into an ordinary group restart on a new port)."""
+    sock = socket.socket()
+    try:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+    finally:
+        sock.close()
+
+
+def _check_group_plan(spec, group_size):
+    """Validate a replica group's JSON plan spec (``{"axes": {...},
+    "strategies": [...]}``) before anything spawns: its ranks must be the
+    group's processes, and only the ``tp`` axis executes (the other axes
+    are ROADMAP Queue 1 item 8)."""
+    if spec is None:
+        return
+    axes = dict(spec.get("axes") or {})
+    ranks = 1
+    for axis, n in axes.items():
+        ranks *= int(n)
+        if axis != "tp" and int(n) > 1:
+            raise NotImplementedError(
+                f"plan axis {axis!r} of degree {n}: the port executes "
+                "tensor parallelism (tp) only; the other axes are ROADMAP "
+                "Queue 1, item 8")
+    if ranks != int(group_size):
+        raise ValueError(
+            f"plan {axes} spans {ranks} ranks but group_size is "
+            f"{group_size}: every rank of a replica group is one process")
 
 
 class ReplicaHandle:
@@ -100,12 +156,21 @@ class ReplicaHandle:
     Commands go down the child's stdin (one JSON object per line); events
     come back on stdout, pumped by a daemon reader thread into a queue
     that :meth:`events` drains. stderr goes to a per-replica log file
-    (nothing chatty may reach the RPC stream)."""
+    (nothing chatty may reach the RPC stream).
+
+    ``group_size > 1`` makes the handle a multi-process group: rank 0
+    keeps the RPC pipes (``proc``/``pid`` stay rank 0's) and ranks 1+
+    are spawned headless (stdin ``/dev/null``, stdout and stderr to
+    their own log, ``<log>.r<rank>``). The group is atomic:
+    :attr:`alive` demands every member running, and :meth:`kill` fells
+    them all."""
 
     def __init__(self, replica_id, config, *, env=None, log_path=None,
-                 incarnation=0):
+                 incarnation=0, group_size=1, coord_port=None):
         self.id = int(replica_id)
         self.incarnation = int(incarnation)
+        self.group_size = int(group_size)
+        self.coord_port = coord_port
         self.spawn_time = time.time()
         # wall time the reader thread received ``ready`` (boot latency)
         self.ready_time = None
@@ -115,18 +180,39 @@ class ReplicaHandle:
         self._lock = threading.Lock()
         self._events: list = []
         self._log_file = open(log_path, "ab") if log_path else None
+        self._member_logs = []
         child_env = dict(env if env is not None else os.environ)
         child_env[ENV_ID] = str(self.id)
         child_env[ENV_CONFIG] = json.dumps(config)
         child_env[ENV_INCARNATION] = str(self.incarnation)
         child_env["PYTHONPATH"] = (_REPO + os.pathsep
                                    + child_env.get("PYTHONPATH", ""))
+        if self.group_size > 1:
+            # a member's idle polls of the group store time out by design;
+            # c10d would log a warning for each
+            child_env.setdefault("TORCH_CPP_LOG_LEVEL", "ERROR")
+            child_env[ENV_GROUP_SIZE] = str(self.group_size)
+            child_env[ENV_COORD_PORT] = str(coord_port)
+            child_env[ENV_GROUP_RANK] = "0"
+        cmd = [sys.executable, "-u", "-m",
+               "paddle_tpu_torch.inference.serving.fleet.replica"]
         self.proc = subprocess.Popen(
-            [sys.executable, "-u", "-m",
-             "paddle_tpu_torch.inference.serving.fleet.replica"],
-            env=child_env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            cmd, env=child_env, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE,
             stderr=(self._log_file or subprocess.DEVNULL), text=True,
             bufsize=1)
+        # ranks 1+: the same engine in SPMD lockstep, no RPC stream
+        self.members = []
+        for rank in range(1, self.group_size):
+            member_env = dict(child_env)
+            member_env[ENV_GROUP_RANK] = str(rank)
+            mlog = (open(f"{log_path}.r{rank}", "ab") if log_path
+                    else None)
+            self._member_logs.append(mlog)
+            self.members.append(subprocess.Popen(
+                cmd, env=member_env, stdin=subprocess.DEVNULL,
+                stdout=(mlog or subprocess.DEVNULL),
+                stderr=(mlog or subprocess.DEVNULL)))
         self._reader = threading.Thread(target=self._read, daemon=True,
                                         name=f"replica{self.id}-reader")
         self._reader.start()
@@ -150,11 +236,31 @@ class ReplicaHandle:
 
     @property
     def alive(self):
-        return not self.retired and self.proc.poll() is None
+        """Every member running (a group missing any member must not look
+        placeable)."""
+        return (not self.retired and self.proc.poll() is None
+                and all(m.poll() is None for m in self.members))
 
     @property
     def pid(self):
         return self.proc.pid
+
+    @property
+    def members_live(self):
+        """Running member processes (rank 0 included): the
+        ``fleet_group_members_live`` gauge."""
+        n = 1 if self.proc.poll() is None else 0
+        return n + sum(1 for m in self.members if m.poll() is None)
+
+    def dead_member(self):
+        """``(rank, rc)`` of the first exited member, or ``None`` while
+        all run: the group-crash probe, naming the failing rank."""
+        if self.proc.poll() is not None:
+            return 0, self.proc.poll()
+        for rank, m in enumerate(self.members, start=1):
+            if m.poll() is not None:
+                return rank, m.poll()
+        return None
 
     def send(self, obj):
         """Write one command line; False when the pipe is gone (the
@@ -191,32 +297,43 @@ class ReplicaHandle:
 
     def kill(self, grace_s=5.0):
         """SIGTERM, wait ``grace_s``, then SIGKILL (the launcher's
-        escalation)."""
-        p = self.proc
-        if p.poll() is None:
-            try:
-                p.send_signal(signal.SIGTERM)
-            except OSError:
-                pass
-            try:
-                p.wait(timeout=max(float(grace_s), 0.0))
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
-        if self._log_file is not None:
-            try:
-                self._log_file.close()
-            except OSError:
-                pass
+        escalation), applied to every group member: SIGTERM goes to all
+        first, so the grace is shared, and no survivor of a partial
+        failure is left to answer."""
+        procs = [self.proc] + list(self.members)
+        for p in procs:
+            if p.poll() is None:
+                try:
+                    p.send_signal(signal.SIGTERM)
+                except OSError:
+                    pass
+        deadline = time.time() + max(float(grace_s), 0.0)
+        for p in procs:
+            if p.poll() is None:
+                try:
+                    p.wait(timeout=max(deadline - time.time(), 0.0))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        for f in [self._log_file] + self._member_logs:
+            if f is not None:
+                try:
+                    f.close()
+                except OSError:
+                    pass
         self._log_file = None
+        self._member_logs = []
 
     def close(self):
-        """Polite shutdown: ask, wait briefly, then escalate."""
+        """Polite shutdown: ask (rank 0 relays it to a group's members),
+        wait briefly for every member, then escalate."""
         self.send({"op": "shutdown"})
-        try:
-            self.proc.wait(timeout=3.0)
-        except subprocess.TimeoutExpired:
-            pass
+        deadline = time.time() + 3.0
+        for p in [self.proc] + list(self.members):
+            try:
+                p.wait(timeout=max(deadline - time.time(), 0.0))
+            except subprocess.TimeoutExpired:
+                pass
         self.kill(grace_s=1.0)
 
 
@@ -229,10 +346,19 @@ class ReplicaSupervisor:
                  roles=None, group_size=1):
         if int(n_replicas) < 1:
             raise ValueError("n_replicas must be >= 1")
-        if int(group_size) != 1 or config.get("plan") is not None:
-            if int(group_size) < 1:
-                raise ValueError("group_size must be >= 1")
-            raise NotImplementedError(_GROUPS_NOT_PORTED)
+        # model-parallel replica groups: every slot is a group of
+        # group_size processes serving one plan-sharded engine in SPMD
+        # lockstep (group_size=1 is the single-process replica)
+        self.group_size = int(group_size)
+        if self.group_size < 1:
+            raise ValueError("group_size must be >= 1")
+        if self.group_size > 1 and roles is not None \
+                and any(r == "prefill" for r in roles):
+            raise ValueError(
+                "prefill-role slots cannot be multi-process groups: the "
+                "disaggregated handoff exports KV pages to one host, "
+                "which a process-spanning plan does not support yet")
+        _check_group_plan(config.get("plan"), self.group_size)
         # role-disaggregated serving: each slot is "prefill", "decode" or
         # "both" (colocated). The role belongs to the slot, not the
         # incarnation: a restarted replica respawns with the same role.
@@ -254,8 +380,11 @@ class ReplicaSupervisor:
         # a replica writes its first heartbeat only after the imports and
         # the engine build (and its warm-up), so a booting replica is
         # judged against this longer grace: otherwise a tight watchdog
-        # condemns every restart before it can beat
-        self.boot_grace_s = max(float(boot_grace_s), self.hang_timeout_s)
+        # condemns every restart before it can beat. Groups boot slower
+        # (the rendezvous, the sharded weights, the all-ranks warm-up
+        # barrier): the grace scales with the group size
+        self.boot_grace_s = (max(float(boot_grace_s), self.hang_timeout_s)
+                             * max(1, self.group_size))
         self.log_dir = log_dir
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
@@ -270,7 +399,8 @@ class ReplicaSupervisor:
         # gets its share of intra-op threads (a CPU fleet of N processes
         # with every core each spins itself to a crawl)
         self._env.setdefault("OMP_NUM_THREADS", str(
-            max(1, (os.cpu_count() or 1) // int(n_replicas))))
+            max(1, (os.cpu_count() or 1)
+                // (int(n_replicas) * self.group_size))))
         self._env.update(env_extra or {})
         # sleep=no-op: backoff() only computes the delay; the supervisor
         # schedules the respawn at now + delay instead of sleeping inside
@@ -282,7 +412,8 @@ class ReplicaSupervisor:
         # every death reported (check's and quarantine's dicts without
         # their final events), with the wall times it was found
         # (``detected``) and handled (``handled``: killed, final events
-        # drained) and the replica's last heartbeat before (``last_beat``)
+        # drained), the replica's last heartbeat before (``last_beat``;
+        # a group's stalest member's) and a group's failing rank
         self.deaths: list = []
         self.handles = [self._spawn(i, 0) for i in range(int(n_replicas))]
         self._last_live = None
@@ -304,8 +435,12 @@ class ReplicaSupervisor:
         config = self._config
         if self._roles is not None:
             config = dict(config, role=self._roles[i])
+        # a fresh coordination port per incarnation: a respawned group
+        # never meets a predecessor's half-dead store
+        port = _free_port() if self.group_size > 1 else None
         h = ReplicaHandle(i, config, env=self._env, log_path=log_path,
-                          incarnation=incarnation)
+                          incarnation=incarnation,
+                          group_size=self.group_size, coord_port=port)
         h.role = self.role(i)
         return h
 
@@ -342,7 +477,7 @@ class ReplicaSupervisor:
         h = self.handles[i]
         h.retired = True
         h.close()
-        self._note_liveness()
+        self._note_liveness()  # zeroes a group's member gauge
 
     def shutdown(self):
         for h in self.handles:
@@ -352,6 +487,11 @@ class ReplicaSupervisor:
         _M_RESTARTS.remove(instance=self.instance)
         _M_SCALE_UP.remove(instance=self.instance)
         _M_SCALE_DOWN.remove(instance=self.instance)
+        if self.group_size > 1:
+            _M_GROUP_RESTARTS.remove(instance=self.instance)
+            for h in self.handles:
+                _G_GROUP_MEMBERS.remove(instance=self.instance,
+                                        replica=h.id)
 
     # -- fleet autoscaling ----------------------------------------------
     @property
@@ -445,10 +585,18 @@ class ReplicaSupervisor:
         if not h.ready:
             # still booting: only the boot grace can condemn it
             return (now - h.spawn_time) > self.boot_grace_s
-        t = beats.get(str(h.id), {}).get("time")
-        if t is None:
-            t = h.spawn_time  # not written yet: grace from the spawn
-        return (now - float(t)) > self.hang_timeout_s
+        return (now - self._last_beat(h, beats)) > self.hang_timeout_s
+
+    @staticmethod
+    def _last_beat(h, beats):
+        """The replica's last heartbeat time (its spawn time before the
+        first). A group runs in lockstep, so one wedged rank stalls every
+        member's next collective: it is judged by its stalest member's
+        ``hb.<replica>.<rank>``."""
+        keys = ([f"{h.id}.{r}" for r in range(h.group_size)]
+                if getattr(h, "group_size", 1) > 1 else [str(h.id)])
+        ts = [beats.get(k, {}).get("time") for k in keys]
+        return min(h.spawn_time if t is None else float(t) for t in ts)
 
     def check(self, now=None):
         """One supervision tick. Detects dead and hung replicas, kills the
@@ -471,32 +619,42 @@ class ReplicaSupervisor:
                 # death already reported; respawn when the backoff lapses
                 if now >= self._pending_respawn[i]:
                     del self._pending_respawn[i]
-                    # a stale heartbeat must not condemn the new life
-                    self._clear_heartbeat(i)
+                    # stale heartbeats must not condemn the new life
+                    self._clear_heartbeats(i)
                     self.handles[i] = self._spawn(i, h.incarnation + 1)
                     _M_RESTARTS.inc(instance=self.instance)
+                    if self.group_size > 1:
+                        _M_GROUP_RESTARTS.inc(instance=self.instance)
                 continue
-            rc = h.proc.poll()
+            dead = (h.dead_member() if hasattr(h, "dead_member")
+                    else ((0, h.proc.poll())
+                          if h.proc.poll() is not None else None))
             detected = time.time()
-            if rc is not None:
+            if dead is not None:
+                # any member exiting fells the whole group: survivors are
+                # killed before the death is even reported
                 reason = "crash"
                 h.kill(grace_s=self.term_grace_s)
+                rank, rc = dead
             elif self._hung(h, beats, now):
                 reason = "hang"
                 h.kill(grace_s=self.term_grace_s)
-                rc = h.proc.poll()
+                rank, rc = None, h.proc.poll()
             else:
                 continue
+            if self.group_size == 1:
+                rank = None
             leftovers = h.final_events()
-            self._log_death(i, reason, rc, detected, beats)
+            self._log_death(i, reason, rc, detected, beats, rank)
             # the dip must be visible before the respawn restores it
             self._note_liveness()
             budget = self._budgets[i]
             if not budget.try_acquire():
                 self.shutdown()
+                at_rank = f" at group rank {rank}" if rank else ""
                 raise ReplicaCrashLoopError(
-                    f"replica {i} crash loop ({reason}, rc={rc}): restart "
-                    f"budget exhausted ({budget.max_restarts} per "
+                    f"replica {i} crash loop ({reason}{at_rank}, rc={rc}): "
+                    f"restart budget exhausted ({budget.max_restarts} per "
                     f"{budget.window_s:.0f}s window, "
                     f"{budget.total_restarts} performed)"
                     + (f"; see its log in {self.log_dir}"
@@ -508,7 +666,7 @@ class ReplicaSupervisor:
             # unplaceable (dead handle) until the delayed respawn
             self._pending_respawn[i] = now + budget.backoff()
             deaths.append({"replica": i, "reason": reason, "rc": rc,
-                           "rank": None, "events": leftovers})
+                           "rank": rank, "events": leftovers})
         self._note_liveness(beats=beats, now=now)
         return deaths
 
@@ -547,18 +705,27 @@ class ReplicaSupervisor:
         return {"replica": i, "reason": "quarantine", "rc": rc,
                 "rank": None, "events": leftovers}
 
-    def _log_death(self, i, reason, rc, detected, beats=None):
+    def _log_death(self, i, reason, rc, detected, beats=None, rank=None):
         if beats is None:
             beats = _hb.read_all(self._hb_dir)
+        keys = ([f"{i}.{r}" for r in range(self.group_size)]
+                if self.group_size > 1 else [str(i)])
+        ts = [beats.get(k, {}).get("time") for k in keys]
         self.deaths.append({"replica": i, "reason": reason, "rc": rc,
-                            "detected": detected, "handled": time.time(),
-                            "last_beat": beats.get(str(i), {}).get("time")})
+                            "rank": rank, "detected": detected,
+                            "handled": time.time(),
+                            "last_beat": (None if None in ts
+                                          else min(float(t) for t in ts))})
 
-    def _clear_heartbeat(self, i):
-        try:
-            os.remove(os.path.join(self._hb_dir, f"hb.{i}"))
-        except OSError:
-            pass
+    def _clear_heartbeats(self, i):
+        """Remove slot ``i``'s heartbeat files: the bare ``hb.<i>`` and
+        every group member's ``hb.<i>.<rank>``."""
+        for r in [None] + list(range(self.group_size)):
+            fn = f"hb.{i}" if r is None else f"hb.{i}.{r}"
+            try:
+                os.remove(os.path.join(self._hb_dir, fn))
+            except OSError:
+                pass
 
     def _note_liveness(self, beats=None, now=None):
         now = time.time() if now is None else now
@@ -567,6 +734,11 @@ class ReplicaSupervisor:
         n = sum(1 for h in self.handles
                 if h.alive and not self._hung(h, beats, now))
         _G_LIVE.set(n, instance=self.instance)
+        if self.group_size > 1:
+            for h in self.handles:
+                _G_GROUP_MEMBERS.set(
+                    0 if h.retired else h.members_live,
+                    instance=self.instance, replica=h.id)
         if n != self._last_live:
             self._last_live = n
             if self.log_dir:

@@ -455,7 +455,9 @@ class PagedKVCache:
     num_kv_heads]`` fp32 pools; otherwise those lists are empty.
     ``allocator`` shares another cache's :class:`BlockAllocator` (a
     speculative draft's pools ride the target's block ids and tables); by
-    default the cache owns one."""
+    default the cache owns one. ``num_kv_heads`` (default the config's)
+    is the heads this rank holds: a tensor-parallel engine's pools hold
+    only its own heads' pages."""
 
     # armed by ``LLMEngine(kv_page_checksums=True)``: every
     # :meth:`PageSnapshot.materialize` seals its payload with per-block
@@ -463,7 +465,8 @@ class PagedKVCache:
     page_checksums = False
 
     def __init__(self, config, num_blocks, block_size, dtype=None,
-                 kv_dtype=None, device=None, allocator=None):
+                 kv_dtype=None, device=None, allocator=None,
+                 num_kv_heads=None):
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype must be None (model dtype) or "
                              f"'int8'; got {kv_dtype!r}")
@@ -473,8 +476,9 @@ class PagedKVCache:
         self.kv_dtype = kv_dtype
         self.quantized = kv_dtype == "int8"
         self.base_dtype = dtype or torch.float32
+        self.num_kv_heads = int(num_kv_heads or config.num_key_value_heads)
         shape = (config.num_hidden_layers, self.num_blocks, self.block_size,
-                 config.num_key_value_heads, config.head_dim)
+                 self.num_kv_heads, config.head_dim)
         pool_dtype = torch.int8 if self.quantized else self.base_dtype
         kw = dict(device=self.device)
         # name -> [layers, num_blocks, ...] tensor; the per-layer lists
@@ -500,7 +504,7 @@ class PagedKVCache:
         dtype (0 unquantized), scale rows charged against the saving."""
         if not self.quantized:
             return 0
-        geo = (self.block_size, config.num_key_value_heads, config.head_dim)
+        geo = (self.block_size, self.num_kv_heads, config.head_dim)
         fp = kv_pool_bytes_per_block(*geo, base_dtype=self.base_dtype)
         q8 = kv_pool_bytes_per_block(*geo, kv_dtype="int8")
         return (fp - q8) * self.num_blocks * config.num_hidden_layers

@@ -20,10 +20,13 @@ def load_paddle_tpu_state_dict(model: torch.nn.Module, state) -> None:
 
     Every name must match and every shape must agree; a missing, extra or
     mis-shaped entry raises ``ValueError`` before anything is copied. The
-    copy is :func:`paddle_tpu_torch.nn.layer.layers.set_state_dict`'s."""
+    copy is :func:`paddle_tpu_torch.nn.layer.layers.set_state_dict`'s, so
+    on a model that adopted a sharding plan ``state`` is the whole
+    (unsharded) state dict and each rank keeps its own block."""
     from ..nn.layer.layers import set_state_dict
 
     own = model.state_dict()
+    shards = getattr(model, "_plan_shards", None) or {}
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
     if missing or extra:
@@ -31,8 +34,9 @@ def load_paddle_tpu_state_dict(model: torch.nn.Module, state) -> None:
                          f"unexpected {extra}")
     for name, dst in own.items():
         shape = tuple(np.shape(state[name]))
-        if shape != tuple(dst.shape):
-            raise ValueError(f"{name}: shape {shape} != {tuple(dst.shape)}")
+        want = shards[name][0] if name in shards else tuple(dst.shape)
+        if shape != tuple(want):
+            raise ValueError(f"{name}: shape {shape} != {tuple(want)}")
     set_state_dict(model, state)
 
 

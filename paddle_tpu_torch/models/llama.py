@@ -25,6 +25,27 @@ through ``cached_step``, eagerly, with plain dense attention
 (``sdpa_reference``), as the reference uses ``_sdpa_ref``. Ring/sep
 attention, the pipeline variants and the concat-grown MHA caches are not
 ported.
+
+**Tensor parallelism** (Megatron, for inference) is the same modules
+driven by a sharding plan's rules, not a second model class:
+``distributed.plan.Plan.apply_to_model`` cuts each parameter the ``tp``
+rules shard to this rank's block, then :meth:`LlamaForCausalLM.adopt_plan`
+wires the forms. ``q_proj``/``k_proj``/``v_proj``/``gate_proj``/
+``up_proj`` are column-sharded (``Linear.weight`` is ``[in, out]``, so
+the rule is ``{1: "tp"}``): a rank keeps ``num_attention_heads / tp``
+query heads and ``num_key_value_heads / tp`` KV heads (contiguous, so
+GQA's grouping holds) and its slice of the intermediate width.
+``o_proj``/``down_proj`` are row-sharded, each followed by an
+``all_reduce`` of the partial sums (:meth:`LlamaAttention.output`,
+:meth:`LlamaMLP.forward`). ``embed_tokens`` is vocab-parallel
+(:meth:`LlamaModel.embed`: the lookup of the ids in this rank's rows, the
+others zero, then an ``all_reduce``) and ``lm_head`` column-parallel
+(:meth:`LlamaForCausalLM.head`: this rank's logits written into a
+zero-filled full-width buffer, then an ``all_reduce``), so the full
+logits are rebuilt exactly on every rank (one non-zero term an entry):
+gloo has no ``all_gather`` for CUDA tensors. The plan's degrade rule
+decides what stays whole; a tp degree that splits a head raises.
+Without a plan every ``tp`` attribute is ``None`` and nothing changes.
 """
 
 from __future__ import annotations
@@ -37,6 +58,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
+from ..distributed import communication as _comm
 from ..incubate.distributed.models.moe.moe_layer import (
     combine_from_experts, dispatch_to_experts, moe_capacity,
     top_k_capacity_gating)
@@ -53,7 +75,8 @@ from ..ops.cuda.rms_norm import fused_add_rms_norm, use_fused_rms_norm
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "LlamaAttention", "LlamaMLP", "LlamaMoE", "LlamaDecoderLayer",
-           "StaticKVCache", "sample_next_tokens", "greedy_tokens_in_graph",
+           "StaticKVCache", "TensorParallel", "sample_next_tokens",
+           "greedy_tokens_in_graph",
            "llama_tiny", "llama_small", "llama_125m",
            "llama_1b", "llama_7b", "llama_13b"]
 
@@ -131,6 +154,28 @@ def _cached_attn_step(q, k, v, k_buf, v_buf, pos):
     return sdpa_reference(q, k_buf, v_buf, attn_mask=col <= pos + row)
 
 
+class TensorParallel:
+    """This rank's place in a tensor-parallel group of ``degree`` ranks
+    (its block ``index``), reducing over the default process group."""
+
+    def __init__(self, degree, index, group=None):
+        self.degree, self.index, self.group = int(degree), int(index), group
+
+    def reduce(self, x):
+        """Sum ``x`` over the group, in place; returns it."""
+        _comm.all_reduce(x, group=self.group)
+        return x
+
+    def gather_last(self, local, whole):
+        """The full last dim (``whole`` wide) from each rank's contiguous
+        block ``local``: written into a zero-filled buffer, then one
+        ``all_reduce`` (exact: one non-zero term an entry)."""
+        n = local.shape[-1]
+        buf = local.new_zeros(*local.shape[:-1], whole)
+        buf[..., self.index * n:(self.index + 1) * n] = local
+        return self.reduce(buf)
+
+
 class StaticKVCache:
     """Preallocated static-capacity KV cache for autoregressive decode:
     per-layer K/V buffers ``[batch, capacity, num_kv_heads, head_dim]`` on
@@ -142,8 +187,9 @@ class StaticKVCache:
     __slots__ = ("k", "v", "pos")
 
     def __init__(self, config: LlamaConfig, batch_size, capacity,
-                 dtype=None, device=None):
-        shape = (batch_size, capacity, config.num_key_value_heads,
+                 dtype=None, device=None, num_kv_heads=None):
+        shape = (batch_size, capacity,
+                 num_kv_heads or config.num_key_value_heads,
                  config.head_dim)
         kw = dict(dtype=dtype or torch.float32, device=resolve_device(device))
         self.k = [torch.zeros(shape, **kw)
@@ -213,6 +259,9 @@ class LlamaAttention(nn.Module):
                              self.num_kv_heads * self.head_dim, **kw)
         self.o_proj = Linear(self.num_heads * self.head_dim, c.hidden_size,
                              **kw)
+        # tensor parallelism (adopt_plan): this rank's heads, o_proj's
+        # partial sums reduced
+        self.tp = None
 
     def project(self, x):
         """q [B, S, H, D], k and v [B, S, Hkv, D], before rope."""
@@ -222,13 +271,19 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
         return q, k, v
 
+    def output(self, out):
+        """``o_proj`` of the heads' outputs [B, S, H*D]; under tensor
+        parallelism the row-parallel partial sums are reduced."""
+        y = self.o_proj(out)
+        return y if self.tp is None else self.tp.reduce(y)
+
     def forward(self, x, cos, sin):
         b, s = x.shape[0], x.shape[1]
         q, k, v = self.project(x)
         q = _rope_apply(q, cos, sin)
         k = _rope_apply(k, cos, sin)
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return self.output(out.reshape(b, s, self.num_heads * self.head_dim))
 
     def forward_cached(self, x, k_buf, v_buf, pos, cos_t, sin_t):
         """Static-cache step (prefill when ``pos == 0`` with s > 1, decode
@@ -239,7 +294,7 @@ class LlamaAttention(nn.Module):
         q = _rope_apply_at(q, cos_t, sin_t, pos)
         k = _rope_apply_at(k, cos_t, sin_t, pos)
         out = _cached_attn_step(q, k, v, k_buf, v_buf, pos)
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return self.output(out.reshape(b, s, self.num_heads * self.head_dim))
 
     def forward_einsum_block(self, x, cos, sin):
         """Head-major attention block (``PT_ATTN_EINSUM=1``): the whole
@@ -249,7 +304,7 @@ class LlamaAttention(nn.Module):
         decoder's self-attention always has ``seq_q == seq_k`` and no
         mask). A CPU tensor takes the kernels' plain versions, a CUDA
         tensor the kernels."""
-        if (os.environ.get("PT_ATTN_EINSUM", "0") != "1"
+        if (os.environ.get("PT_ATTN_EINSUM", "0") != "1" or self.tp
                 or self.head_dim not in HEAD_DIMS
                 or x.dtype not in (torch.float32, torch.bfloat16)):
             return None
@@ -272,7 +327,7 @@ class LlamaAttention(nn.Module):
         out = F.fused_rope_attention(q, k, v, cos, sin, is_causal=True)
         if out is None:
             return None
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return self.output(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
 class LlamaMLP(nn.Module):
@@ -285,9 +340,11 @@ class LlamaMLP(nn.Module):
                               **kw)
         self.down_proj = Linear(config.intermediate_size, config.hidden_size,
                                 **kw)
+        self.tp = None  # tensor parallelism: down_proj's sums reduced
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        y = self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return y if self.tp is None else self.tp.reduce(y)
 
 
 def _moe_topk_capacity(x, logits, gate_w, up_w, down_w, top_k=2,
@@ -399,19 +456,36 @@ class LlamaModel(nn.Module):
                              persistent=False)
         self.register_buffer("rope_sin", torch.from_numpy(sin).to(device),
                              persistent=False)
+        # vocab-parallel embedding (adopt_plan): (TensorParallel, first
+        # row, rows) of this rank's block of the table
+        self.vocab_tp = None
+
+    def embed(self, ids):
+        """Token embeddings of ``ids``; vocab-parallel under tensor
+        parallelism: the rows this rank holds, zeros for the others, then
+        one ``all_reduce`` (exact: one non-zero term an entry)."""
+        if self.vocab_tp is None:
+            return self.embed_tokens(ids)
+        tp, start, rows = self.vocab_tp
+        local = ids - start
+        inside = (local >= 0) & (local < rows)
+        x = self.embed_tokens(torch.where(inside, local,
+                                          torch.zeros_like(local)))
+        x = torch.where(inside[..., None], x, torch.zeros_like(x))
+        return tp.reduce(x)
 
     def forward_cached(self, input_ids, k_bufs, v_bufs, pos):
         """Static-cache forward over per-layer buffers ``k_bufs``/``v_bufs``
         (written in place) at offset ``pos``; returns the normed hidden
         states."""
-        x = self.embed_tokens(input_ids)
+        x = self.embed(input_ids)
         for layer, kb, vb in zip(self.layers, k_bufs, v_bufs):
             x = layer.forward_cached(x, kb, vb, pos, self.rope_cos,
                                      self.rope_sin)
         return self.norm(x)
 
     def forward(self, input_ids):
-        x = self.embed_tokens(input_ids)
+        x = self.embed(input_ids)
         s = input_ids.shape[1]
         cos, sin = self.rope_cos[:s], self.rope_sin[:s]
         for layer in self.layers:
@@ -435,6 +509,8 @@ class LlamaForCausalLM(nn.Module):
         self.lm_head = (None if config.tie_word_embeddings
                         else Linear(config.hidden_size, config.vocab_size,
                                     bias_attr=False, **kw))
+        # column-parallel head (adopt_plan): logits rebuilt full width
+        self.head_tp = None
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         with torch.no_grad():
             for mod in self.modules():
@@ -454,10 +530,91 @@ class LlamaForCausalLM(nn.Module):
 
     def head(self, h):
         """Logits from final hidden states; the tied head is
-        ``embed_tokens.weight.t()``."""
+        ``embed_tokens.weight.t()``. Under tensor parallelism each rank
+        computes its vocab block and the full logits are rebuilt."""
         if self.lm_head is not None:
-            return self.lm_head(h)
-        return h @ self.llama.embed_tokens.weight.t()
+            logits = self.lm_head(h)
+        else:
+            logits = h @ self.llama.embed_tokens.weight.t()
+        if self.head_tp is None:
+            return logits
+        return self.head_tp.gather_last(logits, self.config.vocab_size)
+
+    def adopt_plan(self, plan):
+        """Wire the tensor-parallel forms after ``plan.apply_to_model``
+        cut the parameters (``self._plan_shards``): a layer whose q, k, v
+        and o projections are sharded keeps ``1 / tp`` of its heads and
+        reduces ``o_proj``; an MLP whose gate, up and down projections are
+        sharded reduces ``down_proj``; a vocab-sharded table embeds
+        vocab-parallel; a vocab-sharded head (or tied table) rebuilds the
+        logits. Raises :class:`~..distributed.plan.PlanError` on a layout
+        these forms do not execute: a pair sharded on only one side, a
+        dim other than the Megatron one, a degree that splits a head, or
+        any other parameter sharded."""
+        from ..distributed.plan import PlanError
+
+        shards = getattr(self, "_plan_shards", None) or {}
+        if not shards:
+            return
+        degree = int(plan._axis_size("tp"))
+        tp = TensorParallel(degree, plan.coords()["tp"])
+        done = set()
+
+        def sharded(names, dim):
+            """True when every one of ``names`` is sharded on ``dim``
+            alone, False when none is; anything else raises."""
+            got = [n in shards for n in names]
+            if not any(got):
+                return False
+            for n in names:
+                spec = plan.spec_for(n, shards[n][0]) if n in shards else ()
+                want = tuple("tp" if i == dim else None
+                             for i in range(len(spec)))
+                if n not in shards or spec != want:
+                    raise PlanError(
+                        f"tensor parallelism takes {names} all sharded on "
+                        f"dim {dim} over 'tp'; {n} is "
+                        f"{spec or 'whole'}")
+            done.update(names)
+            return True
+
+        c = self.config
+        for i, layer in enumerate(self.llama.layers):
+            pre = f"llama.layers.{i}."
+            attn = layer.self_attn
+            if (sharded([f"{pre}self_attn.{p}.weight"
+                         for p in ("q_proj", "k_proj", "v_proj")], 1)
+                    | sharded([f"{pre}self_attn.o_proj.weight"], 0)):
+                missing = {f"{pre}self_attn.{p}.weight" for p in
+                           ("q_proj", "k_proj", "v_proj", "o_proj")} - done
+                if missing or attn.num_kv_heads % degree:
+                    raise PlanError(
+                        f"layer {i}: tensor parallelism over {degree} ranks "
+                        f"needs q, k, v and o sharded together and "
+                        f"num_key_value_heads ({attn.num_kv_heads}) "
+                        f"divisible by the degree")
+                attn.num_heads //= degree
+                attn.num_kv_heads //= degree
+                attn.tp = tp
+            if isinstance(layer.mlp, LlamaMLP):
+                cols = sharded([f"{pre}mlp.{p}.weight"
+                                for p in ("gate_proj", "up_proj")], 1)
+                if cols != sharded([f"{pre}mlp.down_proj.weight"], 0):
+                    raise PlanError(f"layer {i}: gate, up and down "
+                                    "projections shard together")
+                if cols:
+                    layer.mlp.tp = tp
+        if sharded(["llama.embed_tokens.weight"], 0):
+            rows = c.vocab_size // degree
+            self.llama.vocab_tp = (tp, tp.index * rows, rows)
+            if self.lm_head is None:
+                self.head_tp = tp
+        if self.lm_head is not None and sharded(["lm_head.weight"], 1):
+            self.head_tp = tp
+        rest = sorted(set(shards) - done)
+        if rest:
+            raise PlanError(f"sharded parameters the llama tensor-parallel "
+                            f"forms do not execute: {rest}")
 
     def forward(self, input_ids, labels=None):
         """Logits [B, S, V]; with ``labels`` [B, S], ``(loss, logits)``
@@ -521,8 +678,9 @@ class LlamaForCausalLM(nn.Module):
                 f"({limit})")
         bucket = self.DECODE_CAPACITY_BUCKET
         capacity = min(-(-(s + max_new_tokens) // bucket) * bucket, limit)
-        cache = StaticKVCache(self.config, b, capacity, dtype=self.dtype,
-                              device=self.device)
+        cache = StaticKVCache(
+            self.config, b, capacity, dtype=self.dtype, device=self.device,
+            num_kv_heads=self.llama.layers[0].self_attn.num_kv_heads)
         logits = self.cached_step(ids, cache)
         out = [ids]
         finished = np.zeros(b, bool)

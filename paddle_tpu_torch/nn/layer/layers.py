@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import copy
 import itertools
+import math
 
 import numpy as np
 import torch
@@ -119,8 +120,12 @@ def set_state_dict(module, state_dict):
     write is in place (``copy_`` onto the live tensor's device), so every
     ``data_ptr()`` stays as it was (what captured CUDA graphs read), and
     a value whose size does not fit raises ``ValueError`` before anything
-    is written. Returns ``(missing, unexpected)``."""
+    is written. On a module that adopted a sharding plan
+    (``module._plan_shards``: name -> (whole shape, block)) a sharded
+    tensor takes its whole value and keeps this rank's block. Returns
+    ``(missing, unexpected)``."""
     own = module.state_dict()
+    shards = getattr(module, "_plan_shards", None) or {}
     missing = [k for k in own if k not in state_dict]
     unexpected = [k for k in state_dict if k not in own]
     srcs = {}
@@ -130,6 +135,13 @@ def set_state_dict(module, state_dict):
         src = state_dict[name]
         src = (src.detach() if isinstance(src, torch.Tensor)
                else numpy_to_tensor(np.asarray(src), copy=False))
+        if name in shards:
+            whole, index = shards[name]
+            if src.numel() != math.prod(whole):
+                raise ValueError(f"{name}: {tuple(src.shape)} is not the "
+                                 f"whole {tuple(whole)} this rank's block "
+                                 "is cut from")
+            src = src.reshape(whole)[index]
         if src.numel() != dst.numel():
             raise ValueError(f"{name}: {tuple(src.shape)} does not fit "
                              f"{tuple(dst.shape)}")

@@ -24,7 +24,9 @@ call the CUDA-core body. All count in
 wrapper checks device, dtype, contiguity, alignment and shapes and raises
 on anything the kernel does not take, allocates the output with
 ``torch.empty``, launches on the current stream and raises if the launch
-was refused. ``launches`` on each wrapper counts its kernel launches.
+was refused. ``launches`` on each wrapper counts its kernel launches;
+:func:`device_tally` reads a second count that each kernel keeps on the
+device itself (one atomic add a launch), independent of the wrappers'.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from ._build import load
 
 __all__ = ["paged_decode_attention_cuda", "paged_multiquery_attention_cuda",
            "multiquery_route", "multiquery_tc_smem_bytes", "split_tokens",
-           "reset_launch_counts", "launch_counts", "MAX_ROWS",
+           "reset_launch_counts", "launch_counts", "device_tally",
+           "MAX_ROWS",
            "TC_HEAD_DIMS"]
 
 #: query rows (query tile x GQA group) one block holds; at head_dim 256
@@ -65,6 +68,9 @@ def _lib():
         lib.paged_multiquery_tc_smem_bytes.restype = ctypes.c_long
         lib.paged_decode_split_tokens.argtypes = []
         lib.paged_decode_split_tokens.restype = _I
+        lib.paged_kernel_tally.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong), _I]
+        lib.paged_kernel_tally.restype = _I
         lib._pa_typed = True
     return lib
 
@@ -252,3 +258,26 @@ def reset_launch_counts():
 def launch_counts():
     """``{wrapper name: launches}``."""
     return {w.__name__: w.launches for w in _WRAPPERS}
+
+
+#: the kernels whose launches :func:`device_tally` counts, in its order
+TALLIED = ("paged_decode_split_kernel", "paged_multiquery_kernel",
+           "paged_multiquery_tc_kernel")
+
+
+def device_tally(reset=False):
+    """``{kernel: launches}`` that each kernel counted on the device since
+    the last reset (thread 0 of its block (0, 0, 0) adds one a launch,
+    graph replays included): the decode body's split kernel (#1, and a
+    multi-query call with T = 1), and the multi-query CUDA-core and
+    tensor-core bodies (#2). Independent of the wrappers' ``launches``,
+    so a run can be checked against it exactly. Synchronises the device
+    first; ``reset`` zeroes the tally after reading it."""
+    lib = _lib()
+    out = (ctypes.c_ulonglong * len(TALLIED))()
+    torch.cuda.synchronize()
+    err = lib.paged_kernel_tally(out, int(bool(reset)))
+    if err:
+        raise RuntimeError(f"reading the paged kernels' device tally "
+                           f"failed (cudaError {err})")
+    return dict(zip(TALLIED, (int(n) for n in out)))

@@ -431,9 +431,16 @@ class TestCheckpointManager:
                 np.testing.assert_array_equal(s2.state_dict()[k], v, k)
 
     def test_plan_is_not_ported(self, tmp_path):
+        # plan= is ported (tests/test_torch_plan.py); what stays out is a
+        # model holding plan-sharded blocks: per-rank shards and their
+        # commit barrier are ROADMAP item 8
         mgr = pt.CheckpointManager(str(tmp_path))
+        m = _linear()
+        m._plan_shards = {"weight": (tuple(m.weight.shape),
+                                     (slice(None), slice(None)))}
         with pytest.raises(NotImplementedError, match="item 8"):
-            mgr.auto_resume(model=_linear(), plan=object())
+            mgr.save(1, model=m)
+        assert mgr.committed_steps() == []
 
 
 class TestHealthTagging:

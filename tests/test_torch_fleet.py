@@ -1973,11 +1973,248 @@ def test_supervisor_autoscale_decides_as_the_reference(monkeypatch,
 
 
 def test_groups_and_plans_are_refused():
+    # tp groups are ported (the group cases below and
+    # tests/test_torch_fleet_procs.py); what stays refused, before any
+    # process spawns: an axis other than tp (ROADMAP item 8) and a plan
+    # whose ranks are not the group's processes
     from paddle_tpu_torch.inference.serving.fleet import ReplicaSupervisor
 
-    with pytest.raises(NotImplementedError, match="sharding-plans"):
-        ReplicaSupervisor(1, {}, group_size=2)
-    with pytest.raises(NotImplementedError, match="sharding-plans"):
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ReplicaSupervisor(1, {"plan": {"axes": {"dp": 2}}}, group_size=2)
+    with pytest.raises(ValueError, match="group_size"):
         ReplicaSupervisor(1, {"plan": {"axes": {"tp": 2}}})
-    with pytest.raises(NotImplementedError, match="sharding-plans"):
-        Router(artifact="unused", n_replicas=1, plan={"axes": {"tp": 2}})
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Router(artifact="unused", n_replicas=1, group_size=4,
+               plan={"axes": {"tp": 2, "dp": 2}})
+
+
+# ===========================================================================
+# tests/test_fleet.py:618-845: model-parallel replica groups, the
+# supervisor's unit matrix. GroupFakeHandle implements the group-handle
+# contract (members_live, dead_member, the atomic kill), so the watchdog,
+# budget and gauge logic run without subprocesses; real groups are
+# tests/test_torch_fleet_procs.py's.
+# ===========================================================================
+
+class GroupFakeHandle:
+    class _Proc:
+        def poll(self):
+            return None
+
+    def __init__(self, hid, incarnation=0, group_size=2):
+        self.id = int(hid)
+        self.incarnation = int(incarnation)
+        self.group_size = int(group_size)
+        self.ready = True
+        self.ready_info = {"e": "ready", "replica": hid}
+        self.retired = False
+        self.spawn_time = time.time()
+        self.killed = False
+        self.dead = None  # (rank, rc) set by tests
+        self.proc = self._Proc()
+        self.role = "both"
+
+    @property
+    def alive(self):
+        return not self.retired and not self.killed and self.dead is None
+
+    @property
+    def members_live(self):
+        if self.killed:
+            return 0
+        return self.group_size - (1 if self.dead is not None else 0)
+
+    def dead_member(self):
+        return self.dead
+
+    def kill(self, grace_s=0.0):
+        self.killed = True
+
+    def final_events(self, timeout=2.0):
+        return []
+
+    def send(self, obj):
+        return not self.killed
+
+    def events(self):
+        return []
+
+    def close(self):
+        self.killed = True
+
+
+def make_group_supervisor(monkeypatch, n=1, group_size=2, cls=None, **kw):
+    if cls is None:
+        from paddle_tpu_torch.inference.serving.fleet.supervisor import (
+            ReplicaSupervisor as cls)
+
+    monkeypatch.setattr(
+        cls, "_spawn",
+        lambda self, i, inc: GroupFakeHandle(i, inc, self.group_size))
+    kw.setdefault("instance", f"grouptest#{time.monotonic_ns()}")
+    return cls(n, {"artifact": "unused"}, group_size=group_size, **kw)
+
+
+class TestGroupSupervisor:
+    def test_validates_group_size_and_prefill_roles(self):
+        from paddle_tpu_torch.inference.serving.fleet.supervisor import (
+            ReplicaSupervisor)
+
+        with pytest.raises(ValueError, match="group_size"):
+            ReplicaSupervisor(1, {}, group_size=0)
+        # disaggregated prefill slots cannot be groups: the handoff
+        # exports pages to one host
+        with pytest.raises(ValueError, match="prefill"):
+            ReplicaSupervisor(2, {}, group_size=2,
+                              roles=["prefill", "decode"])
+
+    def test_boot_grace_scales_with_group_size(self, monkeypatch):
+        sup = make_group_supervisor(monkeypatch, group_size=2,
+                                    boot_grace_s=10.0, hang_timeout_s=5.0)
+        try:
+            assert sup.boot_grace_s == 20.0
+            h = sup.handles[0]
+            h.ready = False
+            now = time.time()
+            h.spawn_time = now - 15.0  # inside the scaled grace
+            assert not sup._hung(h, {}, now)
+            h.spawn_time = now - 25.0  # past it: condemned
+            assert sup._hung(h, {}, now)
+        finally:
+            sup.shutdown()
+        sup1 = make_group_supervisor(monkeypatch, group_size=1,
+                                     boot_grace_s=10.0, hang_timeout_s=5.0)
+        try:
+            assert sup1.boot_grace_s == 10.0
+        finally:
+            sup1.shutdown()
+
+    def test_hang_judged_by_stalest_member_heartbeat(self, monkeypatch):
+        sup = make_group_supervisor(monkeypatch, group_size=2,
+                                    hang_timeout_s=5.0)
+        try:
+            h = sup.handles[0]
+            now = time.time()
+            fresh = {"0.0": {"time": now}, "0.1": {"time": now}}
+            assert not sup._hung(h, fresh, now)
+            stale1 = {"0.0": {"time": now}, "0.1": {"time": now - 10.0}}
+            assert sup._hung(h, stale1, now)
+            # a member that never beat is judged from spawn_time
+            h.spawn_time = now - 10.0
+            assert sup._hung(h, {"0.0": {"time": now}}, now)
+        finally:
+            sup.shutdown()
+
+    def test_member_crash_fells_group_one_budget_slot(self, monkeypatch):
+        sup = make_group_supervisor(monkeypatch, group_size=2,
+                                    max_restarts=3)
+        try:
+            h = sup.handles[0]
+            assert om.REGISTRY.get("fleet_group_members_live").value(
+                instance=sup.instance, replica=0) == 2
+            h.dead = (1, -9)  # a non-zero rank SIGKILLed
+            now = time.time()
+            deaths = sup.check(now=now)
+            # the death names the failing rank; the survivors were felled
+            assert deaths == [{"replica": 0, "reason": "crash", "rc": -9,
+                               "rank": 1, "events": []}]
+            assert h.killed
+            assert om.REGISTRY.get("fleet_group_members_live").value(
+                instance=sup.instance, replica=0) == 0
+            # the whole-group restart charges exactly one budget slot
+            assert sup._budgets[0].used == 1
+            deaths = sup.check(now=now + 120.0)
+            assert deaths == []
+            assert sup.handles[0] is not h
+            assert sup.handles[0].incarnation == 1
+            assert om.REGISTRY.get("fleet_group_members_live").value(
+                instance=sup.instance, replica=0) == 2
+            assert om.REGISTRY.get("fleet_group_restarts_total").value(
+                instance=sup.instance) == 1
+            assert om.REGISTRY.get("fleet_replica_restarts_total").value(
+                instance=sup.instance) == 1
+        finally:
+            sup.shutdown()
+        # shutdown removes the per-replica member gauge series
+        snap = om.REGISTRY.snapshot().get("fleet_group_members_live",
+                                          {"series": {}})
+        assert not any(sup.instance in k for k in snap["series"])
+
+    def test_crash_loop_error_names_failing_rank(self, monkeypatch):
+        sup = make_group_supervisor(monkeypatch, group_size=2,
+                                    max_restarts=0)
+        with pytest.raises(ReplicaCrashLoopError, match="at group rank 1"):
+            sup.handles[0].dead = (1, -9)
+            sup.check()
+
+    def test_group_retire_zeroes_member_gauge(self, monkeypatch):
+        sup = make_group_supervisor(monkeypatch, n=2, group_size=2)
+        try:
+            sup.retire(1)
+            assert om.REGISTRY.get("fleet_group_members_live").value(
+                instance=sup.instance, replica=1) == 0
+            assert om.REGISTRY.get("fleet_group_members_live").value(
+                instance=sup.instance, replica=0) == 2
+        finally:
+            sup.shutdown()
+
+    @pytest.mark.parametrize("dead,stale", [((1, -9), False),
+                                            ((0, 1), False),
+                                            (None, True)])
+    def test_group_deaths_equal_the_references(self, monkeypatch, dead,
+                                               stale):
+        """The same group fault through both supervisors: the same death
+        record (reason, rc, rank), budget charge and member gauge."""
+        from paddle_tpu.inference.serving.fleet.supervisor import (
+            ReplicaSupervisor as RefSupervisor)
+        from paddle_tpu.observability import metrics as ref_om
+
+        got = []
+        for cls, reg in ((None, om.REGISTRY), (RefSupervisor,
+                                                ref_om.REGISTRY)):
+            sup = make_group_supervisor(monkeypatch, group_size=2, cls=cls,
+                                        hang_timeout_s=5.0)
+            try:
+                h = sup.handles[0]
+                now = time.time()
+                if stale:
+                    h.spawn_time = now - 10.0  # no member ever beat
+                h.dead = dead
+                deaths = sup.check(now=now)
+                got.append((deaths, sup._budgets[0].used, h.killed,
+                            reg.get("fleet_group_members_live").value(
+                                instance=sup.instance, replica=0)))
+            finally:
+                sup.shutdown()
+        assert got[0] == got[1]
+        assert got[0][0][0]["reason"] == ("hang" if stale else "crash")
+
+
+class TestGroupRejoinGate:
+    def test_reload_rejects_stale_plan_fingerprint(self, tmp_path):
+        """The group rejoin gate: reloading from the fleet's checkpoint
+        root refuses a checkpoint recorded under another sharding plan
+        (typed PlanMismatchError) and writes nothing. One process here:
+        the gate is the same for every plan (the tp=2 group's is
+        tests/test_torch_plan_engine.py's)."""
+        import torch
+
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch.distributed.plan import Plan
+        from paddle_tpu_torch.inference.serving import LLMEngine
+        from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+
+        model = LlamaForCausalLM(llama_tiny(), device="cpu", seed=0)
+        mgr = pt.CheckpointManager(str(tmp_path / "ckpt"))
+        mgr.save(100, model=LlamaForCausalLM(llama_tiny(), device="cpu",
+                                             seed=1),
+                 plan=Plan.build({"tp": 4}, ["tp"], devices=range(4)))
+        with LLMEngine(model, num_blocks=8, block_size=8,
+                       max_batch_size=2, ingest_async=False, device="cpu",
+                       plan=Plan.build({"tp": 1}, ["tp"])) as eng:
+            before = {n: p.detach().clone()
+                      for n, p in model.named_parameters()}
+            with pytest.raises(pt.PlanMismatchError, match="mesh"):
+                eng.reload_weights(mgr)
+            assert all(torch.equal(p, before[n])
+                       for n, p in model.named_parameters())

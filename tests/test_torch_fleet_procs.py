@@ -181,3 +181,82 @@ def test_cuda_replica_without_a_card_is_a_crash_loop(setup, tmp_path):
     assert ei.value.replica == 0 and ei.value.exit_code != 0
     log = (tmp_path / "logs" / "replica.0.log").read_text()
     assert "torch.cuda.is_available() is False" in log
+
+
+# ---------------------------------------------------------------------------
+# tests/test_fleet.py:846 on: real multi-process replica groups, each slot
+# a tp=2 group of two gloo processes (slow, as the reference marks them)
+# ---------------------------------------------------------------------------
+
+TP2_PLAN = {"axes": {"tp": 2}, "strategies": ["tp"]}
+
+
+def group_fleet(setup, tmp_path, **kw):
+    return fleet(setup, tmp_path, group_size=2, plan=TP2_PLAN, **kw)
+
+
+@pytest.mark.slow
+class TestRealGroupFleet:
+    def test_group_bit_exact_stats_and_retire(self, setup, tmp_path):
+        """A tp=2 group serves bit for bit the single-process engine's
+        tokens; stats come through rank 0 (the group's one mouth);
+        drain-then-retire ends every member process."""
+        f = group_fleet(setup, tmp_path)
+        try:
+            assert f.supervisor.handles[0].ready_info["group_size"] == 2
+            assert_same(serve(f, setup["prompts"]), setup["port"])
+            stats = f.replica_stats(0)
+            assert stats["blocks_free"] == KW["num_blocks"] - 1
+            assert stats["running"] == 0 and stats["waiting"] == 0
+            assert om.REGISTRY.get("fleet_group_members_live").value(
+                instance=f._name, replica=0) == 2
+            h = f.supervisor.handles[0]
+            f.drain(0, then="retire", wait=True)
+            assert h.retired
+            assert h.proc.poll() is not None
+            assert all(m.poll() is not None for m in h.members)
+        finally:
+            f.close()
+
+    def test_group_member_crash_fells_group_and_replays(self, setup,
+                                                       tmp_path):
+        """A SIGKILL of rank 1 mid-burst: the supervisor fells the whole
+        group and respawns it on a fresh coordination port; the
+        redispatched requests replay bit for bit."""
+        import json
+
+        f = group_fleet(setup, tmp_path, max_restarts=2, env_extra={
+            "CHAOS_SERVE_SITES": json.dumps(
+                [{"site": "serve.group_member_crash", "replica": 0,
+                  "rank": 1, "after": 3}])})
+        try:
+            port0 = f.supervisor.handles[0].coord_port
+            assert_same(serve(f, setup["prompts"]), setup["port"])
+            m = f.metrics()
+            assert m["replica_restarts"] >= 1 and m["redispatches"] >= 1
+            h = f.supervisor.handles[0]
+            assert h.incarnation >= 1 and h.coord_port != port0
+            assert f.supervisor.deaths[0]["rank"] == 1
+            assert om.REGISTRY.get("fleet_group_restarts_total").value(
+                instance=f._name) >= 1
+        finally:
+            f.close()
+
+    def test_group_member_hang_watchdog_escalation(self, setup, tmp_path):
+        """A wedged rank 1 stalls the group's collectives with no process
+        exiting: only the watchdog (stale member heartbeats) fells the
+        group; the respawn replays bit for bit."""
+        import json
+
+        f = group_fleet(setup, tmp_path, max_restarts=2, hang_timeout_s=4.0,
+                        env_extra={"CHAOS_SERVE_SITES": json.dumps(
+                            [{"site": "serve.group_member_hang",
+                              "replica": 0, "rank": 1, "after": 3}])})
+        try:
+            gids = [f.submit(p, max_new=NEW) for p in setup["prompts"]]
+            f.join(timeout=120)
+            assert_same([f.result(g) for g in gids], setup["port"])
+            assert f.metrics()["replica_restarts"] >= 1
+            assert f.supervisor.deaths[0]["reason"] == "hang"
+        finally:
+            f.close()

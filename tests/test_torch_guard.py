@@ -57,6 +57,12 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.inference.serving.fleet.replica\n"
             "import paddle_tpu_torch.distributed.launch\n"
             "import paddle_tpu_torch.distributed.launch.controllers\n"
+            "import paddle_tpu_torch.distributed.plan\n"
+            "import paddle_tpu_torch.distributed.plan.mesh\n"
+            "import paddle_tpu_torch.distributed.plan.strategies\n"
+            "import paddle_tpu_torch.distributed.parallel\n"
+            "import paddle_tpu_torch.distributed.collective\n"
+            "import paddle_tpu_torch.distributed.communication\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"

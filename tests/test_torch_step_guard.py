@@ -302,18 +302,22 @@ def test_drive_with_an_enabled_scaler_fetches_per_step():
 
 def test_unported_drive_hooks_raise(tmp_path):
     """What the supervised loop still leaves out raises: sharding plans
-    (item 8), a checkpoint under a plan (item 8) and loader workers (item
-    10); a ``sampler=`` that is not a resumable stream is a TypeError, as
-    in the reference."""
+    in the fused step (item 8), a checkpoint of a plan-sharded model
+    (per-rank shards, item 8; ``plan=`` on the manager itself is ported)
+    and loader workers (item 10); a ``sampler=`` that is not a resumable
+    stream is a TypeError, as in the reference."""
     _, t, x, _ = _stacks()
     data = [(torch.from_numpy(x),)]
     with pytest.raises(TypeError, match="resumable"):
         t.step.drive(data, sampler=object())
     with pytest.raises(NotImplementedError, match="item 8"):
         incubate.FusedTrainStep(t.model, t.step.optimizer, plan=object())
+    name, p = next(iter(t.model.named_parameters()))
+    t.model._plan_shards = {name: (tuple(p.shape),
+                                   (slice(None),) * p.dim())}
     with pytest.raises(NotImplementedError, match="item 8"):
         paddle_tpu_torch.CheckpointManager(str(tmp_path)).save(
-            1, model=t.model, plan=object())
+            1, model=t.model)
     with pytest.raises(NotImplementedError, match="item 10"):
         paddle_tpu_torch.io.DataLoader(data, num_workers=2)
 
