@@ -229,7 +229,43 @@ Phases, one printed line per result:
    tokens before the kill (a)'s, every replay equal to its replay prompt
    served afresh; (c) fp32 llama_tiny tp=2 tokens card = CPU; (d) a
    stale ``plan.json`` refused with ``PlanMismatchError``, the weights
-   untouched.
+   untouched;
+15. ``bench.py bert_varlen``'s bucketed stream on the port
+   (``scripts/bench_bucketing.py``'s harness, ported as ``varlen_*``):
+   #3, #4 and #5 at BERT-base's heads (bf16, non-causal, B 32, H 12, D
+   64) against their plain versions at S 72 and 232; then the three arms
+   of ``run_stream`` (naive exact-length padding, the
+   ``BucketedBatchSampler`` + ``PadToBucket`` pipeline, ``shape_buckets``
+   inside the step), each from a fresh BERT-base (bf16, both dropouts 0,
+   ``PT_FUSED_NORM``, AdamW(2e-5), loss ``o[0]``) over 2 epochs of 20
+   batches of 32 drawn from 10 lengths in [72, 232) into buckets [96,
+   160, 232]: tokens/s on real tokens, wall with the captures, captures
+   and hits, pad waste, the bucket histogram, the last loss; naive's
+   captures equal its distinct batch shapes, pipeline's and jit's at most
+   3, every loss finite, each flash kernel launched 12 x steps and #8 24
+   x steps; then fp32 bert_tiny (its sizing) through the three arms on
+   the card and on the CPU: the same batches and capture counts, losses
+   within ``TRAIN_LOSS_RTOL``;
+16. the launcher (``python -m paddle_tpu_torch.distributed.launch
+   --nproc_per_node 2 --devices 0 --max_restart 2``) over ``chip_smoke.py
+   --launch-child``: two ranks of phase 9's llama_125m run share the card
+   as independent replicas (no process group, a checkpoint directory a
+   rank, a committed checkpoint every second window), in three jobs:
+   kill (rank 1 SIGKILLs itself after its first committed window: the
+   group felled and restarted under the budget), preempt (every rank
+   SIGTERMs itself at its first window boundary and exits 123 with a
+   checkpoint: relaunched with the budget untouched) and hang (rank 1
+   stalls with the stall guard off: the heartbeat watchdog, its timeout
+   twice the kill job's first incarnation's largest heartbeat gap,
+   condemns the group): each ends in exit 0 with both ranks' losses,
+   keyed by global step, bit for bit 9c's uninterrupted run and no
+   re-trained step's loss different; kill and hang charge one restart,
+   preempt none; the liveness log dips and recovers; each rank's flash
+   launches in its last incarnation are 12 x the steps it trained; the
+   detection time (from the death, or from the last heartbeat, to the
+   launcher's kill) and relaunch to resume; then a crash loop whose
+   workers always exit 3 (``--max_restart 1``, no torch, no card) ends
+   the launcher with exit 3.
 
 The five launch cross-checks of phases 4, 10a, 11a and 12a hold the
 wrappers' counts to the counts the paged kernels keep on the device
@@ -242,7 +278,9 @@ runs, ``launches_phase11``, each of phase 11's counted runs,
 ``launches_phase12``, phase 12's QoS, FIFO and checksummed runs, and
 ``launches_phase13``, phase 13's replicas: (a)'s two summed, (c)'s
 prefill and decode replica, and ``launches_phase14``, phase 14a's two
-ranks), the card line, and last
+ranks; #3, #4, #5 and #8 ``launches_phase15``, each of phase 15's arms;
+#3, #4 and #5 ``launches_phase16``, each phase 16 job's ranks in their
+last incarnation), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 1.
 """
@@ -743,15 +781,57 @@ def flash_calls(rope, s, d):
             bind(K.flash_attention_rope_bwd_dkv_plain, 6))
 
 
-def phase_flash_kernels(gen, rope=False):
-    """Phase 2b: each flash kernel (``rope``: its rope form, on pre-rotary
-    q and k with the llama tables) against its plain version (evaluated in
-    fp32 on the exactly upcast inputs; the backward's plain versions take
-    the kernel's own out and lse). Returns {kernel: max abs error}."""
+def flash_case(gen, case, rope=False):
+    """One flash case ``(B, H, S, D, dtype, causal, what)``: the forward,
+    dq and dkv kernels (``rope``: their rope forms, on pre-rotary q and k
+    with the llama tables) against their plain versions (evaluated in fp32
+    on the exactly upcast inputs; the backward's plain versions take the
+    kernel's own out and lse). Returns the max abs errors (out, dq, dkv)."""
     import torch
 
     from paddle_tpu_torch.ops.cuda import flash_attention as K
 
+    b, h, s, d, dt, causal, what = case
+    tag = "flash rope" if rope else "flash"
+    fwd, bdq, bdkv, p_fwd, p_dq, p_dkv = flash_calls(rope, s, d)
+    q, k, v, do = flash_inputs(gen, b * h, s, d, getattr(torch, dt))
+    scale = d ** -0.5
+    up = [t.float() for t in (q, k, v, do)]
+    out, lse = fwd(q, k, v, scale, causal)
+    w_out, w_lse = p_fwd(*up[:3], scale, causal)
+    e_out, x_out = compare(out, w_out, dt)
+    e_lse = float((lse - w_lse).abs().max())
+    del w_out, w_lse
+    res = (*up[:3], out.float(), lse, up[3])
+    dq = bdq(q, k, v, out, lse, do, scale, causal)
+    e_dq, x_dq = compare_grad(dq, p_dq(*res, scale, causal), dt)
+    dk, dv = bdkv(q, k, v, out, lse, do, scale, causal)
+    w_dk, w_dv = p_dkv(*res, scale, causal)
+    e_dk, x_dk = compare_grad(dk, w_dk, dt)
+    e_dv, x_dv = compare_grad(dv, w_dv, dt)
+    torch.cuda.synchronize()
+    route = K.flash_route(getattr(torch, dt), d)
+    check(route == ("tensor_core" if dt == "bfloat16" else "cuda_core"),
+          f"{tag} forward and backward route {route} for {dt}")
+    say(f"kernel {tag} B={b} H={h} S={s} D={d} {dt} causal={causal} "
+        f"({what}; forward, dq and dkv {route}): out {e_out:.3e} "
+        f"(tol {ATOL:g} + "
+        f"{RTOL[dt]:g}*|want|)"
+        f", lse {e_lse:.3e} (tol {LSE_ATOL:g}), dq {e_dq:.3e}, dk "
+        f"{e_dk:.3e}, dv {e_dv:.3e} (tol {RTOL[dt]:g}*|want| + "
+        f"{GRAD_FRAC:g}*max|want|)")
+    check(x_out <= 0 and e_lse <= LSE_ATOL, f"{tag} fwd {what}")
+    check(x_dq <= 0, f"{tag} dq {what}")
+    check(x_dk <= 0 and x_dv <= 0, f"{tag} dkv {what}")
+    del q, k, v, do, up, res, out, lse, dq, dk, dv, w_dk, w_dv
+    torch.cuda.empty_cache()
+    return e_out, e_dq, max(e_dk, e_dv)
+
+
+def phase_flash_kernels(gen, rope=False):
+    """Phase 2b: each flash kernel (``rope``: its rope form) against its
+    plain version over the cases below (``flash_case``). Returns {kernel:
+    max abs error}."""
     names = ROPE if rope else FLASH
     worst = dict.fromkeys(names, 0.0)
     cases = [  # (B, H, S, D, dtype, causal, what)
@@ -764,42 +844,9 @@ def phase_flash_kernels(gen, rope=False):
         (128, 12, 128, 64, "bfloat16", False, "BERT-base training"),
         (2, 4, 1000, 64, "bfloat16", True, "ragged S"),
         (1, 4, 1000, 128, "float32", False, "ragged S fp32 D=128")]
-    tag = "flash rope" if rope else "flash"
-    for b, h, s, d, dt, causal, what in cases:
-        fwd, bdq, bdkv, p_fwd, p_dq, p_dkv = flash_calls(rope, s, d)
-        q, k, v, do = flash_inputs(gen, b * h, s, d, getattr(torch, dt))
-        scale = d ** -0.5
-        up = [t.float() for t in (q, k, v, do)]
-        out, lse = fwd(q, k, v, scale, causal)
-        w_out, w_lse = p_fwd(*up[:3], scale, causal)
-        e_out, x_out = compare(out, w_out, dt)
-        e_lse = float((lse - w_lse).abs().max())
-        del w_out, w_lse
-        res = (*up[:3], out.float(), lse, up[3])
-        dq = bdq(q, k, v, out, lse, do, scale, causal)
-        e_dq, x_dq = compare_grad(dq, p_dq(*res, scale, causal), dt)
-        dk, dv = bdkv(q, k, v, out, lse, do, scale, causal)
-        w_dk, w_dv = p_dkv(*res, scale, causal)
-        e_dk, x_dk = compare_grad(dk, w_dk, dt)
-        e_dv, x_dv = compare_grad(dv, w_dv, dt)
-        torch.cuda.synchronize()
-        route = K.flash_route(getattr(torch, dt), d)
-        check(route == ("tensor_core" if dt == "bfloat16" else "cuda_core"),
-              f"{tag} forward and backward route {route} for {dt}")
-        say(f"kernel {tag} B={b} H={h} S={s} D={d} {dt} causal={causal} "
-            f"({what}; forward, dq and dkv {route}): out {e_out:.3e} "
-            f"(tol {ATOL:g} + "
-            f"{RTOL[dt]:g}*|want|)"
-            f", lse {e_lse:.3e} (tol {LSE_ATOL:g}), dq {e_dq:.3e}, dk "
-            f"{e_dk:.3e}, dv {e_dv:.3e} (tol {RTOL[dt]:g}*|want| + "
-            f"{GRAD_FRAC:g}*max|want|)")
-        check(x_out <= 0 and e_lse <= LSE_ATOL, f"{tag} fwd {what}")
-        check(x_dq <= 0, f"{tag} dq {what}")
-        check(x_dk <= 0 and x_dv <= 0, f"{tag} dkv {what}")
-        for name, e in zip(names, (e_out, e_dq, max(e_dk, e_dv))):
+    for case in cases:
+        for name, e in zip(names, flash_case(gen, case, rope)):
             worst[name] = max(worst[name], e)
-        del q, k, v, do, up, res, out, lse, dq, dk, dv, w_dk, w_dv
-        torch.cuda.empty_cache()
     flash_gqa_check(gen, rope)
     if not rope:
         sdpa_route_check(gen)
@@ -3916,7 +3963,8 @@ def phase_supervised_card_vs_cpu():
 def phase_supervised():
     """Phase 9: the supervised loop (9a-9g) on llama_125m at full width
     (flash #3-#5) and fp32 llama_tiny; its checkpoints live in a
-    temporary directory removed at the end."""
+    temporary directory removed at the end. Returns 9c's uninterrupted
+    losses (phase 16's reference)."""
     import shutil
     import tempfile
 
@@ -3936,6 +3984,7 @@ def phase_supervised():
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timed(phase_supervised_card_vs_cpu)
+    return whole
 
 
 # -- serving artifacts -------------------------------------------------------
@@ -6569,6 +6618,656 @@ def phase_serve_plan():
     return worst, launches
 
 
+# -- bench.py bert_varlen on the port (phase 15) ------------------------------
+
+# the arms of scripts/bench_bucketing.py:run_stream, in the order they run
+VARLEN_ARMS = ("naive", "pipeline", "jit")
+VARLEN_EPOCHS = 2
+# phase 15's kernel cases: BERT-base's heads at the stream's shortest and
+# longest bucket (B, H, S, D, dtype, causal, what)
+VARLEN_FLASH_CASES = [(32, 12, s, 64, "bfloat16", False, f"bert_varlen S={s}")
+                      for s in (72, 232)]
+
+
+def varlen_sizing(tiny):
+    """``(cfg, bs, lengths, boundaries, samples_per_len)`` as
+    ``scripts/bench_bucketing.py:default_sizing``: BERT-base (or
+    bert_tiny) with both dropouts 0, 32 x 10 lengths in [72, 232) into
+    buckets [96, 160, 232], 64 samples a length (tiny: 4, [8, 28), [12,
+    20, 28], 4)."""
+    from paddle_tpu_torch.models import bert_base, bert_tiny
+
+    cfg = (bert_tiny if tiny else bert_base)(
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    bs = 4 if tiny else 32
+    lengths = list(range(8, 28, 2)) if tiny else list(range(72, 232, 16))
+    boundaries = [12, 20, 28] if tiny else [96, 160, 232]
+    return cfg, bs, lengths, boundaries, bs * (1 if tiny else 2)
+
+
+def varlen_dataset(cfg, lengths, samples_per_len, seed=0):
+    """Map-style ``(ids[L], label)`` samples, every length
+    ``samples_per_len`` times, drawn from ``RandomState(seed)`` as
+    ``scripts/bench_bucketing.py:varlen_dataset`` draws them (ids in
+    [1, vocab): 0 is the pad)."""
+    import numpy as np
+
+    from paddle_tpu_torch import io
+
+    rng = np.random.RandomState(seed)
+    samples = [(rng.randint(1, cfg.vocab_size, (n,)).astype(np.int64),
+                np.int64(rng.randint(0, cfg.num_labels)))
+               for n in lengths for _ in range(samples_per_len)]
+
+    class VarLenDS(io.Dataset):
+        def __len__(self):
+            return len(samples)
+
+        def __getitem__(self, i):
+            return samples[i]
+
+    return VarLenDS()
+
+
+def varlen_step(cfg, dev, dtype, shape_buckets=None, state=None):
+    """``scripts/bench_bucketing.py:build_step`` on the port: a
+    ``BertForSequenceClassification`` (weights from the seed, or the
+    numpy ``state``) in training mode under ``fused_train_step`` with
+    AdamW(2e-5), loss ``o[0]`` and ``shape_buckets``."""
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         load_paddle_tpu_state_dict)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = BertForSequenceClassification(cfg, device=dev, dtype=dtype,
+                                          seed=SEED)
+    if state is not None:
+        load_paddle_tpu_state_dict(model, state)
+    model.train()
+    return fused_train_step(
+        model, AdamW(learning_rate=2e-5, parameters=model.parameters()),
+        loss_fn=lambda o: o[0], shape_buckets=shape_buckets)
+
+
+def varlen_stream(step, ds, bs, boundaries, arm, epochs):
+    """``scripts/bench_bucketing.py:run_stream`` on the port: the whole
+    stream through ``step`` under one arm. naive: shuffled batches padded
+    to their own longest sample (one capture a distinct shape); pipeline:
+    ``BucketedBatchSampler`` + ``PadToBucket`` (captures O(buckets));
+    jit: naive's batches, padded up to a bucket inside the step. Tokens
+    (real and padded) are counted over the batches that dispatch; wall
+    time includes the captures and ends at the one host sync that fetches
+    every step's loss. Returns the reference's record plus ``losses``
+    (per step) and ``batches`` (each step's ids)."""
+    import torch
+
+    from paddle_tpu_torch import io, jit
+
+    jit.reset_cache_stats()
+    spec = jit.BucketSpec.normalize(boundaries)
+    if arm == "pipeline":
+        sampler = io.BucketedBatchSampler(
+            ds, batch_size=bs, boundaries=boundaries, shuffle=True, seed=0,
+            drop_last=True)
+        collate = io.PadToBucket(boundaries, with_mask=False)
+        hist = sampler.bucket_histogram()
+    else:
+        sampler = io.BatchSampler(ds, batch_size=bs, shuffle=True,
+                                  drop_last=True)
+        collate = io.PadToBucket([], with_mask=False)  # exact-length pad
+        hist = None
+    loader = io.DataLoader(ds, batch_sampler=sampler, collate_fn=collate)
+    losses, batches, real_tokens, padded_tokens = [], [], 0, 0
+    sync(step._device)
+    t0 = time.perf_counter()
+    for epoch in range(epochs):
+        if hasattr(sampler, "set_epoch"):
+            sampler.set_epoch(epoch)
+        for ids, labels in loader:
+            real_tokens += int((ids != 0).sum())
+            w = ids.shape[1]
+            if arm == "jit":
+                w = spec.bucketed_dim(1, w)
+            padded_tokens += ids.shape[0] * w
+            batches.append(ids)
+            losses.append(step(ids.to(torch.int32), labels=labels))
+    losses = torch.stack(losses).tolist()
+    wall = time.perf_counter() - t0
+    stats = jit.cache_stats(step._stats_name) or {}
+    rec = {
+        "arm": arm,
+        "tokens_per_sec": round(real_tokens / wall, 1),
+        "wall_s": round(wall, 2),
+        "real_tokens": real_tokens,
+        "pad_waste": round(1.0 - real_tokens / max(padded_tokens, 1), 4),
+        "compiles": stats.get("compiles", 0),
+        "hits": stats.get("hits", 0),
+        "bucket_pads": stats.get("bucket_pads", 0),
+        "losses": losses, "batches": batches,
+    }
+    if hist is not None:
+        rec["bucket_histogram"] = {str(k): v for k, v in hist.items()}
+    return rec
+
+
+def varlen_arm(arm, sizing, ds, dev, dtype, epochs=VARLEN_EPOCHS,
+               state=None):
+    """One arm from a fresh model: ``varlen_stream``'s record plus the
+    kernel wrappers' launches over it. numpy's global generator (which the
+    naive and jit arms shuffle with) is seeded first."""
+    import numpy as np
+
+    cfg, bs, _, boundaries, _ = sizing
+    step = varlen_step(cfg, dev, dtype,
+                       boundaries if arm == "jit" else None, state)
+    np.random.seed(SEED)
+    reset_all_launch_counts()
+    rec = varlen_stream(step, ds, bs, boundaries, arm, epochs)
+    rec["launches"] = all_launch_counts()
+    return rec
+
+
+def varlen_tiny_card_vs_cpu():
+    """Phase 15b: fp32 bert_tiny (``tiny=True`` sizing, ``PT_FUSED_NORM``)
+    from the same numpy weights through the three arms on the CPU and on
+    the card: the same batches, capture counts and losses (rtol)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import BertForSequenceClassification
+
+    sizing = varlen_sizing(tiny=True)
+    cfg, _, lengths, _, per_len = sizing
+    state = bert_tiny_state(BertForSequenceClassification(cfg, device="cpu"),
+                            np.random.RandomState(SEED + 15))
+    ds = varlen_dataset(cfg, lengths, per_len)
+    worst = 0.0
+    with fused_switches(("PT_FUSED_NORM",)):
+        for arm in VARLEN_ARMS:
+            cpu, card = (varlen_arm(arm, sizing, ds, dev, torch.float32,
+                                    state=state) for dev in ("cpu", "cuda"))
+            dl = max(abs(a / b - 1) for a, b in zip(card["losses"],
+                                                     cpu["losses"]))
+            same = (len(card["batches"]) == len(cpu["batches"]) and all(
+                torch.equal(a, b) for a, b in zip(card["batches"],
+                                                  cpu["batches"])))
+            say(f"bert_varlen card vs cpu bert_tiny fp32 {arm}: "
+                f"{len(card['losses'])} steps, batches identical {same}, "
+                f"captures {card['compiles']} vs compiles "
+                f"{cpu['compiles']}, losses max rel diff {dl:.3e} (tol "
+                f"{TRAIN_LOSS_RTOL:g})")
+            check(same and card["compiles"] == cpu["compiles"]
+                  and dl <= TRAIN_LOSS_RTOL,
+                  f"bert_tiny {arm}: card and CPU agree")
+            worst = max(worst, dl)
+    return worst
+
+
+def phase_bert_varlen():
+    """Phase 15: ``bench.py bert_varlen``'s bucketed stream on the port.
+    (a) #3, #4 and #5 at BERT-base's heads (bf16, non-causal, B 32, H 12,
+    D 64) against their plain versions at S 72 and 232; (b) the three arms
+    of ``run_stream``, each from a fresh BERT-base (bf16, both dropouts 0,
+    ``PT_FUSED_NORM``, AdamW(2e-5)), 2 epochs of 20 batches of 32 over 10
+    lengths: tokens/s on real tokens and wall (captures included),
+    captures and hits, pad waste, the bucket histogram, the last loss and
+    the launches; naive captures equal its distinct batch shapes, pipeline
+    and jit at most one a bucket, every loss finite, each flash kernel
+    launched 12 x steps and #8 24 x steps; (c) fp32 bert_tiny card = CPU
+    (``varlen_tiny_card_vs_cpu``). Returns the flash kernels' worst errors
+    and each arm's launches."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    worst = dict.fromkeys(FLASH, 0.0)
+    for case in VARLEN_FLASH_CASES:
+        for name, e in zip(FLASH, flash_case(gen, case)):
+            worst[name] = max(worst[name], e)
+    sizing = varlen_sizing(tiny=False)
+    cfg, bs, lengths, boundaries, per_len = sizing
+    ds = varlen_dataset(cfg, lengths, per_len)
+    L = cfg.num_hidden_layers
+    launches = {}
+    with fused_switches(("PT_FUSED_NORM",)):
+        for arm in VARLEN_ARMS:
+            rec = varlen_arm(arm, sizing, ds, "cuda", torch.bfloat16)
+            free_cuda()
+            n = len(rec["losses"])
+            shapes = len({tuple(b.shape) for b in rec["batches"]})
+            counts = rec["launches"]
+            want = launches_want(fused_add_layer_norm_cuda=2 * L * n,
+                                 **{f"{k}_cuda": L * n for k in FLASH})
+            say(f"bert_varlen BERT-base {arm}: {n} steps, "
+                f"{rec['real_tokens']} real tokens in {rec['wall_s']} s "
+                f"(captures included) = {rec['tokens_per_sec']} tokens/s; "
+                f"captures {rec['compiles']}, hits {rec['hits']}, distinct "
+                f"loader batch shapes {shapes}; pad waste "
+                f"{rec['pad_waste']}; "
+                f"bucket histogram {rec.get('bucket_histogram')}; last loss "
+                f"{rec['losses'][-1]:.4f}; launches #3/#4/#5/#8 "
+                f"{[counts[k + '_cuda'] for k in FLASH]}/"
+                f"{counts['fused_add_layer_norm_cuda']} ({L} x {n}, "
+                f"{2 * L} x {n})")
+            check(all(math.isfinite(x) for x in rec["losses"]),
+                  f"bert_varlen {arm}: finite losses")
+            check(counts == want, f"bert_varlen {arm} launches {counts} "
+                  f"== {want}")
+            check(rec["compiles"] == shapes if arm == "naive"
+                  else rec["compiles"] <= len(boundaries),
+                  f"bert_varlen {arm}: {rec['compiles']} captures for "
+                  f"{shapes} batch shapes")
+            launches[arm] = counts
+    timed(varlen_tiny_card_vs_cpu)
+    return worst, launches
+
+
+# -- the launcher on the card (phase 16) --------------------------------------
+
+# each rank trains phase 9's run: SUP_CHILD_STEPS steps in windows of
+# SUP_LOG, a committed checkpoint every second window
+LAUNCH_STEPS = SUP_CHILD_STEPS
+LAUNCH_SAVE_EVERY = 2 * SUP_LOG
+LAUNCH_FAULT_RANK = 1          # the rank that is killed or hangs
+LAUNCH_PREEMPT_AT = SUP_LOG    # every rank SIGTERMs itself at this step
+# the hang job's FLAGS_worker_hang_timeout_s: this multiple of the largest
+# heartbeat gap of the kill job's first incarnation
+LAUNCH_HANG_MARGIN = 2.0
+# the hang job's FLAGS_worker_term_grace_s: the stalled rank sleeps
+# through SIGTERM, so only the SIGKILL after the grace ends it
+LAUNCH_HANG_GRACE_S = 2.0
+LAUNCH_JOB_S = 600.0
+LAUNCH_SCENARIOS = ("kill", "preempt", "hang")
+
+
+def launch_stack(dev):
+    """Phase 16's worker stack: phase 9's on the card (llama_125m bf16,
+    16 x 1024 batches), fp32 llama_tiny on 2 x 64 batches on the CPU."""
+    if dev == "cuda":
+        return sup_setup()
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama_tiny()
+    model = LlamaForCausalLM(cfg, device="cpu", seed=SEED)
+    step = fused_train_step(model, AdamW(learning_rate=1e-4,
+                                         parameters=model.parameters()))
+    return model, step, sup_loader(cfg.vocab_size, 2 * SUP_EPOCH, 64, 2,
+                                   SEED + 9)
+
+
+def launch_child(root, total):
+    """``chip_smoke.py --launch-child ROOT TOTAL``: phase 16's worker, one
+    process a rank under ``python -m paddle_tpu_torch.distributed.launch``
+    (``PADDLE_TRAINER_ID``). ``launch_stack`` on ``LAUNCH_DRILL_DEVICE``
+    (default ``cuda``) with a checkpoint directory of its own
+    (``ROOT/rank<r>/ckpt``), resumed if one is committed, trained to TOTAL
+    steps through ``drive`` (windows of 4, a committed checkpoint every
+    second window, the default heartbeats and SIGTERM handling). Each
+    window's losses go to ``ROOT/rank<r>/loss.log`` keyed by global step,
+    its events (``resumed``, ``fault``, ``done`` with this incarnation's
+    flash launches) to ``ROOT/rank<r>/events.jsonl``.
+    ``LAUNCH_DRILL_SCENARIO`` arms one fault a job (a marker file keeps a
+    later incarnation from arming it again): ``kill``/``hang``: rank
+    ``LAUNCH_FAULT_RANK`` fires ``proc.kill``/``train.stall`` at the
+    batch fetch after its first committed window; ``preempt``: every rank
+    raises SIGTERM at step ``LAUNCH_PREEMPT_AT``."""
+    import contextlib
+    import signal
+
+    from paddle_tpu_torch import CheckpointManager
+    from paddle_tpu_torch.distributed.launch import heartbeat as hb
+    from paddle_tpu_torch.utils import fault_injection
+
+    # beats between the bootstrap's and drive's first, as the reference's
+    # drill worker beats after its imports: the watchdog's timeout then
+    # need not cover the whole start-up in one gap
+    hb.write(step="imported")
+    rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+    scenario = os.environ.get("LAUNCH_DRILL_SCENARIO", "none")
+    rdir = os.path.join(root, f"rank{rank}")
+    os.makedirs(rdir, exist_ok=True)
+    marker = os.path.join(rdir, f"fired.{scenario}")
+    with open(os.path.join(rdir, "events.jsonl"), "a") as events, \
+            open(os.path.join(rdir, "loss.log"), "a") as log:
+
+        def note(event, **kw):
+            events.write(json.dumps({"t": time.time(), "event": event,
+                                     **kw}) + "\n")
+            events.flush()
+
+        net, step, loader = launch_stack(
+            os.environ.get("LAUNCH_DRILL_DEVICE", "cuda"))
+        hb.write(step="built")
+        mgr = CheckpointManager(os.path.join(rdir, "ckpt"), keep_last_n=2)
+        base = mgr.auto_resume(model=net, optimizer=step,
+                               sampler=loader) or 0
+        note("resumed", step=base)
+        fire = (scenario in ("kill", "hang") and rank == LAUNCH_FAULT_RANK
+                and base < LAUNCH_SAVE_EVERY and not os.path.exists(marker))
+
+        def on_window(win):
+            end = base + win["step"]
+            for i, loss in enumerate(win["losses"]):
+                log.write(f"{end - len(win['losses']) + i + 1} "
+                          f"{float(loss)!r}\n")
+            log.flush()
+            if end % LAUNCH_SAVE_EVERY == 0 and end < total:
+                mgr.save(end, model=net, optimizer=step, sampler=loader)
+                if fire and end == LAUNCH_SAVE_EVERY:
+                    note("fault")  # fires at the next batch fetch
+            if scenario == "preempt" and end >= LAUNCH_PREEMPT_AT \
+                    and not os.path.exists(marker):
+                open(marker, "w").close()
+                signal.raise_signal(signal.SIGTERM)
+
+        reset_all_launch_counts()
+        with contextlib.ExitStack() as stack:
+            if fire:
+                open(marker, "w").close()
+                stack.enter_context(fault_injection.inject(
+                    "proc.kill" if scenario == "kill" else "train.stall",
+                    every_n=LAUNCH_SAVE_EVERY - base + 1))
+            step.drive(loader, steps=total - base, log_every=SUP_LOG,
+                       checkpoint=mgr, on_window=on_window)
+        counts = all_launch_counts()
+        note("done", base=base, flash={n: counts[n + "_cuda"]
+                                       for n in FLASH})
+    return 0
+
+
+class BeatLog:
+    """Every heartbeat the launched workers write, read from the
+    heartbeat directory by a thread every 20 ms: ``beats[rank]`` lists
+    ``(time, step)`` as each new beat appears."""
+
+    def __init__(self, hb_dir):
+        self.hb_dir, self.beats = hb_dir, {}
+        self._stop = None
+
+    def _run(self):
+        from paddle_tpu_torch.distributed.launch import heartbeat as hb
+
+        while not self._stop.wait(0.02):
+            for rank, beat in hb.read_all(self.hb_dir).items():
+                seen = self.beats.setdefault(rank, [])
+                if not seen or seen[-1][0] != beat["time"]:
+                    seen.append((beat["time"], beat.get("step")))
+
+    def __enter__(self):
+        import threading
+
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def launcher(args, script_args, env, timeout):
+    """``python -m paddle_tpu_torch.distributed.launch ARGS SCRIPT_ARGS``
+    in a session of its own (the workers too), killed whole if it outlives
+    ``timeout``. Returns (exit code, stderr, wall s)."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch", *args,
+         *script_args], env=env, cwd=os.path.dirname(os.path.abspath(
+             __file__)), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        _, err = proc.communicate()
+        raise RuntimeError(f"check failed: the launcher outlived {timeout} "
+                           f"s: {err[-3000:]}")
+    return proc.returncode, err, time.perf_counter() - t0
+
+
+def launch_job(root, scenario, dev, **flags):
+    """One phase 16 job: two ``launch_child`` ranks under the launcher
+    (``--nproc_per_node 2 --max_restart 2 --log_dir ROOT/logs``, on the
+    card ``--devices 0``: both ranks share it), independent replicas
+    (``PADDLE_SKIP_DIST_INIT=1``, no process group), ``flags`` as
+    ``FLAGS_*`` in the launcher's environment. Returns {rc, stderr, wall,
+    t0 (epoch s), beats}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here, PADDLE_SKIP_DIST_INIT="1",
+               FLAGS_restart_backoff_s="0.1", LAUNCH_DRILL_SCENARIO=scenario,
+               LAUNCH_DRILL_DEVICE=dev)
+    env.update({f"FLAGS_{k}": str(v) for k, v in flags.items()})
+    if dev == "cpu":
+        # one thread a rank: with several, the two ranks' fp32 losses were
+        # seen to differ in their last bits in 5 of 16 jobs on one host
+        env["OMP_NUM_THREADS"] = "1"
+    logs = os.path.join(root, "logs")
+    args = ["--nproc_per_node", "2", "--max_restart", "2", "--log_dir", logs]
+    if dev == "cuda":
+        args += ["--devices", "0"]
+    os.makedirs(root, exist_ok=True)
+    t0 = time.time()
+    with BeatLog(os.path.join(logs, "heartbeats")) as beats:
+        rc, err, wall = launcher(
+            args, [os.path.join(here, "chip_smoke.py"), "--launch-child",
+                   root, str(LAUNCH_STEPS)], env, LAUNCH_JOB_S)
+    return {"rc": rc, "stderr": err, "wall": wall, "t0": t0,
+            "beats": beats.beats}
+
+
+def launch_losses(rdir):
+    """``{global step: loss repr}`` of one rank over every incarnation;
+    fails if a re-trained step's loss differs."""
+    seen = {}
+    with open(os.path.join(rdir, "loss.log")) as f:
+        for line in f:
+            step, val = line.split()
+            check(seen.setdefault(int(step), val) == val,
+                  f"{rdir}: step {step} re-trained with another loss "
+                  f"({seen[int(step)]} then {val})")
+    return seen
+
+
+def launch_events(rdir):
+    with open(os.path.join(rdir, "events.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def launch_liveness(logs):
+    """The launcher's ``liveness.log``: ``[(epoch s, live ranks)]``."""
+    with open(os.path.join(logs, "liveness.log")) as f:
+        return [(float(t), int(n)) for t, n in
+                (line.split() for line in f)]
+
+
+def launch_baseline(root, dev):
+    """An uninterrupted job (no fault): rank 0's losses, equal to rank
+    1's (the CPU drill's reference; on the card phase 9c's run is)."""
+    job = launch_job(root, "none", dev)
+    check(job["rc"] == 0, f"the baseline job exited {job['rc']}: "
+          f"{job['stderr'][-3000:]}")
+    losses = [launch_losses(os.path.join(root, f"rank{r}")) for r in (0, 1)]
+    check(losses[0] == losses[1]
+          and sorted(losses[0]) == list(range(1, LAUNCH_STEPS + 1)),
+          "the baseline's ranks logged the same contiguous run")
+    return [float(losses[0][s]) for s in sorted(losses[0])]
+
+
+def launch_report(name, root, job, whole, dev, layers):
+    """Checks and one line for a finished scenario job: exit 0; both ranks'
+    losses keyed by step bit for bit ``whole``; the restarts charged (kill
+    and hang 1, preempt 0) and the preemptions; ``liveness.log`` dipping
+    and recovering; each rank's flash launches in its last incarnation =
+    layers x the steps it trained (0 off the card). Returns ({rank: flash
+    launches}, the epoch s at which the launcher reaped the first
+    incarnation)."""
+    check(job["rc"] == 0, f"launch {name}: the job exited {job['rc']}: "
+          f"{job['stderr'][-3000:]}")
+    restarts = job["stderr"].count("[launch] worker failed")
+    preempts = job["stderr"].count("[launch] clean preemption")
+    live = launch_liveness(os.path.join(root, "logs"))
+    values = [n for _, n in live]
+    dip = next((i for i, n in enumerate(values) if n < 2), None)
+    rec = next((i for i in range(dip or 0, len(values)) if values[i] == 2),
+               None) if dip is not None else None
+    check(rec is not None, f"launch {name}: liveness {values} dips and "
+          "recovers")
+    reaped, relaunched = live[rec - 1][0], live[rec][0]
+    want = {i + 1: repr(float(x)) for i, x in enumerate(whole)}
+    ranks, resumed = {}, []
+    for r in (0, 1):
+        rdir = os.path.join(root, f"rank{r}")
+        losses = launch_losses(rdir)
+        check(losses == want, f"launch {name} rank {r}: losses bit for bit "
+              f"the uninterrupted run's ({len(losses)} of {len(want)} "
+              "steps logged)")
+        ev = launch_events(rdir)
+        last = max(i for i, e in enumerate(ev) if e["event"] == "resumed")
+        resumed.append(ev[last])
+        done = ev[-1]
+        check(done["event"] == "done", f"launch {name} rank {r}: finished")
+        n = layers * (LAUNCH_STEPS - done["base"]) if dev == "cuda" else 0
+        check(all(v == n for v in done["flash"].values()),
+              f"launch {name} rank {r}: flash launches {done['flash']} == "
+              f"{n} in its last incarnation")
+        ranks[f"rank{r}"] = done["flash"]
+    want_restarts = 0 if name == "preempt" else 1
+    check(restarts == want_restarts and preempts == int(name == "preempt"),
+          f"launch {name}: {restarts} restarts charged (want "
+          f"{want_restarts}), {preempts} clean preemptions")
+    detect = None
+    if name == "kill":
+        fault = next(e for e in launch_events(os.path.join(
+            root, f"rank{LAUNCH_FAULT_RANK}")) if e["event"] == "fault")
+        detect = reaped - fault["t"]
+    elif name == "hang":
+        last_beat = max(t for t, _ in job["beats"][str(LAUNCH_FAULT_RANK)]
+                        if t < reaped)
+        detect = reaped - last_beat
+    resume_s = max(e["t"] for e in resumed) - relaunched
+    say(f"launch {name}: exit {job['rc']} in {job['wall']:.1f} s; restarts "
+        f"charged {restarts}, preemptions {preempts}; detection "
+        + (f"{detect * 1e3:.0f} ms ("
+           + ("death" if name == "kill" else "last heartbeat")
+           + " to the launcher's kill)" if detect is not None else
+           "n/a (clean exits)")
+        + f"; relaunch to resume {resume_s:.1f} s (resumed at steps "
+        f"{[e['step'] for e in resumed]}); liveness {values}; losses of "
+        f"both ranks = the uninterrupted run's bit for bit "
+        f"({len(want)} steps); flash launches in the last incarnation "
+        f"{ranks}")
+    return ranks, reaped
+
+
+def launch_max_gap(job, until):
+    """The largest gap between consecutive heartbeats of any rank before
+    ``until`` (epoch s), the job's start counting as each rank's first:
+    (gap s, rank, the steps of the beats that bound it: "start", None
+    for the bootstrap's, "imported" and "built" for ``launch_child``'s
+    start-up beats)."""
+    best = (0.0, None, None)
+    for rank, beats in job["beats"].items():
+        prev = (job["t0"], "start")
+        for t, step in beats:
+            if t >= until:
+                break
+            best = max(best, (t - prev[0], rank, (prev[1], step)),
+                       key=lambda g: g[0])
+            prev = (t, step)
+    return best
+
+
+def launch_crash_loop(root):
+    """A job whose two workers always exit 3, under ``--max_restart 1``:
+    the launcher ends with exit 3 and its crash-loop message, and neither
+    the launcher's bootstrap nor the worker imported torch."""
+    os.makedirs(root, exist_ok=True)
+    script = os.path.join(root, "exit3.py")
+    with open(script, "w") as f:
+        f.write("import os, sys\n"
+                f"open(os.path.join({root!r}, 'torch.' + "
+                "os.environ['PADDLE_TRAINER_ID']), 'w').write(\n"
+                "    str('torch' in sys.modules))\n"
+                "sys.exit(3)\n")
+    env = dict(os.environ, FLAGS_restart_backoff_s="0.1",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    rc, err, wall = launcher(["--nproc_per_node", "2", "--max_restart", "1"],
+                             [script], env, 120)
+    with open(os.path.join(root, "torch.0")) as f:
+        torch_seen = f.read()
+    line = next((ln for ln in err.splitlines() if "crash loop" in ln), "")
+    say(f"launch crash loop (workers exit 3, --max_restart 1, no card, no "
+        f"torch: {torch_seen == 'False'}): exit {rc} in {wall:.1f} s; "
+        f"{line.strip()}")
+    check(rc == 3 and line.startswith("[launch] crash loop")
+          and torch_seen == "False", "the crash loop ends the launcher with "
+          "exit 3 and its message")
+
+
+def launch_drill(root, whole, dev):
+    """Phase 16's three scenario jobs in ``root`` (``launch_job`` and
+    ``launch_report`` each): kill, then preempt, then hang, whose
+    ``FLAGS_worker_hang_timeout_s`` is ``LAUNCH_HANG_MARGIN`` x the
+    largest heartbeat gap of the kill job's first incarnation. Returns
+    {scenario: {rank: flash launches of its last incarnation}}."""
+    import shutil
+
+    from paddle_tpu_torch.models import llama_125m, llama_tiny
+
+    layers = (llama_125m() if dev == "cuda" else
+              llama_tiny()).num_hidden_layers
+    out, flags = {}, {}
+    for name in LAUNCH_SCENARIOS:
+        sroot = os.path.join(root, name)
+        if name == "hang":
+            flags = dict(worker_hang_timeout_s=hang_s,
+                         worker_term_grace_s=LAUNCH_HANG_GRACE_S)
+        job = launch_job(sroot, name, dev, **flags)
+        out[name], reaped = launch_report(name, sroot, job, whole, dev,
+                                          layers)
+        for r in (0, 1):  # the next job's disk
+            shutil.rmtree(os.path.join(sroot, f"rank{r}", "ckpt"))
+        if name == "kill":
+            gap, rank, steps = launch_max_gap(job, reaped)
+            hang_s = round(LAUNCH_HANG_MARGIN * gap, 1)
+            say(f"launch hang timeout: the kill job's first incarnation's "
+                f"largest heartbeat gap (boot and first capture included) "
+                f"{gap:.2f} s, rank {rank} between its beats at steps "
+                f"{steps[0]} and {steps[1]}, x {LAUNCH_HANG_MARGIN:g} = "
+                f"FLAGS_worker_hang_timeout_s {hang_s:g}")
+    return out
+
+
+def phase_launch(whole):
+    """Phase 16: the launcher on the card (the port of
+    ``scripts/chaos_train.py``'s base drill). Three jobs of ``python -m
+    paddle_tpu_torch.distributed.launch --nproc_per_node 2 --devices 0
+    --max_restart 2`` over ``--launch-child``: both ranks train phase 9's
+    llama_125m run on the one card as independent replicas, each with its
+    own checkpoints. kill: rank 1 SIGKILLs itself after its first
+    committed window; preempt: every rank takes SIGTERM at a window
+    boundary and exits 123 with a checkpoint; hang: rank 1 stalls with
+    the stall guard off until the watchdog condemns it. Each ends in exit
+    0 with both ranks' losses bit for bit 9c's (``whole``), kill and hang
+    charging one restart and preempt none; then a crash loop with no card
+    and no torch. Returns each scenario's flash launches a rank."""
+    import shutil
+    import tempfile
+
+    free_cuda()
+    root = tempfile.mkdtemp(prefix="launch-")
+    try:
+        out = launch_drill(root, whole, "cuda")
+        launch_crash_loop(os.path.join(root, "crash-loop"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -6675,7 +7374,7 @@ def main():
     timed(phase_dropout_card)
     timed(phase_train_graphs)
     timed(phase_deepfm)
-    timed(phase_supervised)
+    whole = timed(phase_supervised)
     # phase 10's predictor runs, each counted on its own (not added to
     # phase 4's, which ``launches`` keeps)
     art = timed(phase_serve_artifact)
@@ -6689,6 +7388,11 @@ def main():
     tp_worst, tp_launches = timed(phase_serve_plan)
     for name, err in tp_worst.items():
         worst[name] = max(worst[name], err)
+    # phase 15's arms and phase 16's ranks, each counted on its own
+    varlen_worst, varlen_launches = timed(phase_bert_varlen)
+    for name, err in varlen_worst.items():
+        worst[name] = max(worst[name], err)
+    launch_launches = timed(phase_launch, whole)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
@@ -6730,6 +7434,13 @@ def main():
                                      for arm, c in fleet.items()}
             k["launches_phase14"] = {arm: c[k["name"] + "_cuda"]
                                      for arm, c in tp_launches.items()}
+        if k["name"] in FLASH + ("fused_add_layer_norm",):
+            k["launches_phase15"] = {arm: c[k["name"] + "_cuda"]
+                                     for arm, c in varlen_launches.items()}
+        if k["name"] in FLASH:
+            k["launches_phase16"] = {
+                job: {rank: c[k["name"]] for rank, c in ranks.items()}
+                for job, ranks in launch_launches.items()}
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {
@@ -6741,6 +7452,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--supervised-child"]:
         sys.exit(supervised_child(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--launch-child"]:
+        sys.exit(launch_child(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--tp-child"]:
         sys.exit(tp_child(int(sys.argv[2]), int(sys.argv[3]),
                           *sys.argv[4:8]))

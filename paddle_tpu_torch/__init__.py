@@ -19,22 +19,49 @@ and loads serving artifacts (plain and int8), hot-swaps an engine's
 weights in place and serves an artifact through ``create_predictor``;
 ``quantization`` is QAT and PTQ for ``nn.Linear``.
 
-It imports ``torch`` and never ``jax`` or ``paddle_tpu``. Entry points run
+It imports ``torch`` and never ``jax`` or ``paddle_tpu``; its exports load
+on first use, so the launcher (``python -m
+paddle_tpu_torch.distributed.launch``) and its worker bootstrap run
+without importing ``torch``. Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; asking for CUDA
 where there is none raises (see :func:`core.device.resolve_device`).
 """
 
-from .core.device import default_device, resolve_device
-from .core.dtype import get_default_dtype, set_default_dtype
-from .core.exceptions import TrainDivergenceError, TrainStallError
-from .core.flags import get_flags, set_flags
-from .distributed.checkpoint import CheckpointManager, PlanMismatchError
-from .framework.io import load, save
+import importlib
 
 __version__ = "0.1.0"
 
-__all__ = ["default_device", "resolve_device", "get_default_dtype",
-           "set_default_dtype", "get_flags", "set_flags",
-           "TrainDivergenceError", "TrainStallError", "CheckpointManager",
-           "PlanMismatchError",
-           "save", "load"]
+# Names resolve on first use, so a process that needs only the torch-free
+# parts (the launcher and its worker bootstrap) never imports torch.
+_EXPORTS = {
+    "default_device": ".core.device", "resolve_device": ".core.device",
+    "get_default_dtype": ".core.dtype", "set_default_dtype": ".core.dtype",
+    "TrainDivergenceError": ".core.exceptions",
+    "TrainStallError": ".core.exceptions",
+    "get_flags": ".core.flags", "set_flags": ".core.flags",
+    "CheckpointManager": ".distributed.checkpoint",
+    "PlanMismatchError": ".distributed.checkpoint",
+    "save": ".framework.io", "load": ".framework.io",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    """An exported name from its module, or a subpackage, imported on
+    first use."""
+    if name in _EXPORTS:
+        value = getattr(importlib.import_module(_EXPORTS[name], __name__),
+                        name)
+    elif name.startswith("_"):
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    else:
+        try:
+            value = importlib.import_module(f".{name}", __name__)
+        except ModuleNotFoundError as e:
+            if e.name != f"{__name__}.{name}":
+                raise
+            raise AttributeError(
+                f"module {__name__!r} has no attribute {name!r}") from None
+    globals()[name] = value
+    return value

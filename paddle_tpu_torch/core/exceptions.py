@@ -12,9 +12,10 @@ wall-clock timer around a blocking region and turns "no progress within
 — and the supervising launcher, via the nonzero exit it causes — can treat
 exactly like a crash. The out-of-process half is the launcher's heartbeat
 watchdog (a stall the guard cannot interrupt, e.g. code blocked in C
-holding the GIL, is caught there instead); the port writes the heartbeats
-(:mod:`..distributed.launch.heartbeat`) but has no launcher yet (ROADMAP
-Queue 1, item 3).
+holding the GIL, is caught there instead): workers write the heartbeats
+(:mod:`..distributed.launch.heartbeat`) and the launcher's
+``CollectiveController`` judges them
+(:mod:`..distributed.launch.controllers.collective`).
 """
 
 from __future__ import annotations

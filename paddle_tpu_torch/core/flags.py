@@ -13,7 +13,9 @@ window), the supervised loop's ``prefetch_depth``, ``step_timeout_s``,
 ``ckpt_save_retries`` and ``ckpt_quarantine_keep``, and the ten
 ``sentinel_*`` flags of the divergence sentinel here, and
 ``jit_compile_warn_threshold`` in :mod:`..jit.cache`, and
-``restart_window_s`` and ``restart_backoff_s`` in the restart budget
+``restart_window_s`` and ``restart_backoff_s`` in the restart budget,
+and ``worker_hang_timeout_s`` and ``worker_term_grace_s`` in the
+launcher's collective controller
 (:mod:`..distributed.launch.controllers`). The others are
 registered ``inert=True``: accepted and validated, with no effect until
 the subsystem that reads them is ported.
@@ -21,9 +23,7 @@ the subsystem that reads them is ported.
 per-op output scan lives in the reference's eager dispatch layer, which
 the port does not have (ROADMAP Queue 1, item 6), and the reference's
 bridge into ``jax_debug_nans`` has no PyTorch counterpart here. So are
-the launcher's ``worker_hang_timeout_s`` and ``worker_term_grace_s``
-(ROADMAP Queue 1, item 3) and the reference's own inert allocator and
-cuDNN flags.
+the reference's own inert allocator and cuDNN flags.
 """
 
 from __future__ import annotations
@@ -262,10 +262,12 @@ register_flag(
 
 # the launcher's supervision and elastic restart
 register_flag(
-    "worker_hang_timeout_s", 0.0, inert=True,
-    help="launcher watchdog: restart the worker group when the stalest "
-         "heartbeat is older than this many seconds; 0 disables"
-         + _NOT_PORTED,
+    "worker_hang_timeout_s", 0.0,
+    help="launcher watchdog: kill and restart the local worker group when "
+         "the stalest worker heartbeat (written by FusedTrainStep.drive at "
+         "every metric-fetch window boundary) is older than this many "
+         "seconds; 0 disables hang detection. Launcher-side: set via env "
+         "on the launch command",
     on_change=_validate_non_negative("worker_hang_timeout_s"))
 register_flag(
     "restart_window_s", 3600.0,
@@ -277,9 +279,11 @@ register_flag(
     help="base delay of the restart budget's exponential backoff",
     on_change=_validate_non_negative("restart_backoff_s"))
 register_flag(
-    "worker_term_grace_s", 10.0, inert=True,
-    help="grace period between the launcher's SIGTERM and SIGKILL"
-         + _NOT_PORTED,
+    "worker_term_grace_s", 10.0,
+    help="grace period between the launcher's SIGTERM and SIGKILL when "
+         "killing a worker group, and the wait for remaining workers to "
+         "finish their preemption checkpoint after one exits preempted. "
+         "Launcher-side env flag",
     on_change=_validate_non_negative("worker_term_grace_s"))
 
 # the reference's accepted-but-inert flags (allocator, cuDNN knobs)

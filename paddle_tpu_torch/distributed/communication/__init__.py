@@ -131,9 +131,12 @@ def barrier(group=None):
         group=pg, async_op=True), True)
 
 
-def all_gather(tensor_list, tensor, group=None, sync_op=True):
+def all_gather(tensor_list, tensor, group=None, sync_op=True, axis=0):
     """Append every rank's ``tensor`` to ``tensor_list`` (rank order).
-    gloo takes no CUDA tensors here."""
+    ``axis`` is the reference's keyword, with its meaning: each entry is
+    one rank's whole tensor, so the list is the same whatever the axis
+    (``paddle_tpu/distributed/communication/__init__.py:95``). gloo takes
+    no CUDA tensors here."""
     import torch
     import torch.distributed as dist
 

@@ -1,8 +1,8 @@
 """Launcher controllers (counterpart of
-``paddle_tpu/distributed/launch/controllers/``): so far only the restart
-budget and its typed error, which the serving fleet's supervisor uses.
-The collective controller itself is ROADMAP Queue 1 item 3."""
+``paddle_tpu/distributed/launch/controllers/``): the collective
+controller, its restart budget and its typed crash-loop error."""
 
-from .collective import CrashLoopError, RestartBudget
+from .collective import (CollectiveController, CrashLoopError,  # noqa: F401
+                         RestartBudget)
 
-__all__ = ["CrashLoopError", "RestartBudget"]
+__all__ = ["CollectiveController", "CrashLoopError", "RestartBudget"]

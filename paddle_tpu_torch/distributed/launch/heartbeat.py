@@ -1,7 +1,5 @@
 """Worker-side supervision contract: heartbeat files + graceful preemption
-(counterpart of ``paddle_tpu/distributed/launch/heartbeat.py``; the
-launcher's supervisor that reads them is not ported, ROADMAP Queue 1
-item 3).
+(counterpart of ``paddle_tpu/distributed/launch/heartbeat.py``).
 
 The supervisor (``CollectiveController``) can see a worker *die* (exit
 code) but not *wedge* — a rank parked in a collective whose peer is gone

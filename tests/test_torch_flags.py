@@ -36,8 +36,10 @@ READ_BY_THE_PORT = {
     "sentinel_patience", "sentinel_rollback_budget",
     "sentinel_budget_window_s", "sentinel_lr_cooldown",
     "sentinel_healthy_windows",
-    # the restart budget (the serving fleet's supervisor)
-    "restart_window_s", "restart_backoff_s"}
+    # the restart budget (the serving fleet's supervisor, the launcher)
+    "restart_window_s", "restart_backoff_s",
+    # the launcher's collective controller
+    "worker_hang_timeout_s", "worker_term_grace_s"}
 
 # (flag, a value its validator rejects, a value it takes)
 VALIDATED = [

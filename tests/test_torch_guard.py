@@ -57,6 +57,8 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.inference.serving.fleet.replica\n"
             "import paddle_tpu_torch.distributed.launch\n"
             "import paddle_tpu_torch.distributed.launch.controllers\n"
+            "import paddle_tpu_torch.distributed.launch.bootstrap\n"
+            "import paddle_tpu_torch.distributed.launch.main\n"
             "import paddle_tpu_torch.distributed.plan\n"
             "import paddle_tpu_torch.distributed.plan.mesh\n"
             "import paddle_tpu_torch.distributed.plan.strategies\n"
