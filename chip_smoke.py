@@ -38,9 +38,10 @@ Phases, one printed line per result:
    decode kernel also over an int8 pool, each decode line naming its
    body; the multi-query kernel also at the verify's shape;
 4. serving end to end: ``LLMEngine`` serves llama_1b (bf16, random weights
-   from a seed) to 8 greedy requests, per step (host sampling) and then
-   with decode windows of 8 (``decode_steps_per_sync=8``: one CUDA graph
-   replay a window) on the same model; the paged kernels' launch counts
+   from a seed) to 8 greedy requests of 16 new tokens, per step (host
+   sampling) and then with decode windows of 8
+   (``decode_steps_per_sync=8``: one CUDA graph replay a window) on the
+   same model; the paged kernels' launch counts
    over each run must equal layers x decode iterations (through graph
    replays for the windows) and layers x prefill chunks, and in a
    profiled repeat the kernels' device tally; the window's
@@ -205,7 +206,8 @@ Phases, one printed line per result:
    death-to-detection ms, respawn-to-ready s, restarts, redispatches, the
    liveness gauge's dip and recovery, every request complete with its
    pre-kill tokens unchanged, the agreement after the kill; (c) a
-   ``["prefill", "decode"]`` fleet: tokens equal (a)'s, page bytes,
+   ``["prefill", "decode"]`` fleet serving the four shortest prompts:
+   tokens equal (a)'s, page bytes,
    frames and GB/s on each pipe hop, no #1 on the prefill replica and no
    #2 on the decode replica; (e) fp32 llama_tiny: a colocated fleet on
    the card and a drill fleet of three (a crash, a hang under
@@ -265,7 +267,29 @@ Phases, one printed line per result:
    detection time (from the death, or from the last heartbeat, to the
    launcher's kill) and relaunch to resume; then a crash loop whose
    workers always exit 3 (``--max_restart 1``, no torch, no card) ends
-   the launcher with exit 3.
+   the launcher with exit 3;
+17. the high-level API (``paddle_tpu_torch.Model``): (a) BERT-base sequence
+   classification as ``bench.py bert`` sets it up (128 x 128, both dropouts
+   0, fp32 weights), ``Model(net).prepare(AdamW(2e-5),
+   nn.CrossEntropyLoss(), metric.Accuracy(), amp_configs={"level":
+   "O1"}).fit(...)`` with ``PT_FUSED_NORM`` over 20 seeded batches (each
+   row's first token names its label), then one eval of 4 batches: ms/step
+   on the host clock after 3 warm-up steps, tokens/s, peak memory, the
+   first and last losses, accuracy and eval_loss; every loss finite and the
+   last quarter's mean below the first quarter's; #3 launched layers x
+   (steps + eval batches), #4 and #5 layers x steps, #8 2 x layers x (steps
+   + eval batches), nothing else; q reaching the flash wrappers as bf16 in
+   training (the tensor-core bodies) and fp32 in the eval (``eval_batch``
+   runs outside ``auto_cast``, as the reference's); (d) ``flops`` of
+   BERT-base on a [1, 128] input equal to the Linear + LayerNorm count by
+   hand;
+   (b) ``amp.decorate(net, level="O2")`` on a fresh BERT-base: the
+   parameters bf16 but the LayerNorms' (fp32), 3 steps under O2, losses
+   finite, exact launches; (c) fp32 bert_tiny through ``Model.fit`` on the
+   card and on the CPU, the same batches with ``shuffle=False``: losses
+   within ``TRAIN_LOSS_RTOL``, accuracies equal; ``Model.save`` on the card
+   and ``Model.load`` into a CPU ``Model``: ``evaluate`` gives the same
+   eval_loss and accuracy.
 
 The five launch cross-checks of phases 4, 10a, 11a and 12a hold the
 wrappers' counts to the counts the paged kernels keep on the device
@@ -280,7 +304,8 @@ runs, ``launches_phase11``, each of phase 11's counted runs,
 prefill and decode replica, and ``launches_phase14``, phase 14a's two
 ranks; #3, #4, #5 and #8 ``launches_phase15``, each of phase 15's arms;
 #3, #4 and #5 ``launches_phase16``, each phase 16 job's ranks in their
-last incarnation), the card line, and last
+last incarnation; #3, #4, #5 and #8 ``launches_phase17``, phase 17's O1
+fit and O2 steps), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 1.
 """
@@ -844,6 +869,9 @@ def phase_flash_kernels(gen, rope=False):
         (128, 12, 128, 64, "bfloat16", False, "BERT-base training"),
         (2, 4, 1000, 64, "bfloat16", True, "ragged S"),
         (1, 4, 1000, 128, "float32", False, "ragged S fp32 D=128")]
+    if not rope:  # hapi O1's eval runs outside auto_cast: #3's fp32 body
+        cases.append((128, 12, 128, 64, "float32", False,
+                      "BERT-base eval fp32 (hapi O1)"))
     for case in cases:
         for name, e in zip(names, flash_case(gen, case, rope)):
             worst[name] = max(worst[name], e)
@@ -1183,17 +1211,20 @@ def phase_fused_times(gen):
 
 
 SERVE_WINDOW = 8   # decode_steps_per_sync of the window run
+SERVE_NEW = 16     # new tokens a request in phase 4's runs
 SPEC_K = 3         # spec_tokens of the speculative runs
 MQ_KERNELS = ("paged_multiquery_tc_kernel", "paged_multiquery_kernel")
 
 
-def serve_run(model, prompts, new, label, profile=True, **engine_kw):
+def serve_run(model, prompts, new, label, profile=True, cross_check=False,
+              **engine_kw):
     """One llama_1b serving run: a fresh engine (2048 blocks of 16, batch
     8), a warm-up request outside the counted run (cuBLAS handles, the
     allocator, and for a window engine the graph's capture), the counted
     run, then (``profile``) one profiled repeat whose paged-kernel launches
     (counted through graph replays) must equal the kernels' own device
-    tally of the split and multi-query kernels. The counted run's launches must be
+    tally of the split and multi-query kernels (``cross_check``: see
+    ``device_profile``). The counted run's launches must be
     layers x decode iterations (#1) and layers x prefill chunks (#2); with
     a draft, #1 the draft's layers x its decode iterations, and #2 the
     target's layers x (chunks + verify steps) plus the draft's x chunks
@@ -1233,7 +1264,8 @@ def serve_run(model, prompts, new, label, profile=True, **engine_kw):
         prof = device_profile(lambda: engine.generate(
             prompts, SamplingParams(max_new_tokens=new)),
             f"serve {label} (same batch again)",
-            mark=("paged_decode", "paged_multiquery"))
+            mark=("paged_decode", "paged_multiquery"),
+            cross_check=cross_check)
     if profile:
         check_device_launches(prof, K.launch_counts(), f"serve {label}")
     engine.close()
@@ -1336,7 +1368,9 @@ def phase_serve():
     step with synchronous staging, then speculative with ``SPEC_K`` drafts
     (a self-draft, fused and unfused catch-up; a random llama_125m draft),
     on the same model and prompts; then ``generate`` on 8 x 512 prompts.
-    Returns the paged kernels' launch counts over the per-step run."""
+    The per-step run's profile holds ``device_profile``'s reader to
+    ``prof.events()``. Returns the paged kernels' launch counts over the
+    per-step run."""
     import numpy as np
     import torch
 
@@ -1352,9 +1386,10 @@ def phase_serve():
     say(f"serve setup: llama_1b bf16 ({n_params} params) + 2048-block "
         f"pool in {time.perf_counter() - t0:.2f} s")
     prompts = serve_prompts(cfg.vocab_size)
-    new = 32
+    new = SERVE_NEW
     step_out, step_wall, counts, ms, ps = serve_run(model, prompts, new,
-                                                    "per-step")
+                                                    "per-step",
+                                                    cross_check=True)
     win_out, win_wall, _, mw, pw = serve_run(
         model, prompts, new, f"window {SERVE_WINDOW}",
         decode_steps_per_sync=SERVE_WINDOW)
@@ -1463,15 +1498,24 @@ def phase_generate_1b(model, LLMEngine, SamplingParams, B=8, S=512,
         f"of requests equal the per-step engine's tokens (reported)")
 
 
-def device_profile(run, label, top=8, mark=None):
+def device_profile(run, label, top=8, mark=None, cross_check=False):
     """``run()`` once under ``torch.profiler``: the device's busy time (the
     union of its kernel and copy intervals, so nothing is counted twice)
     and idle share of the wall time, and the top kernels by device time.
     ``mark`` names kernels whose shares are printed as well. Returns
     ``{"busy_ms", "idle", "kernels": {name: (device us, launches)}}``, or
-    None when the profiler recorded no device time."""
+    None when the profiler recorded no device time.
+
+    The device intervals are read from the profiler's own event records
+    as ``prof.events()`` reads them (its filter, its start and end in us
+    from the trace's start, its names), without building an event object
+    for every CPU op (which took longer than the serving runs it
+    profiled). ``cross_check`` also reads them through ``prof.events()``
+    and fails unless the two sorted lists are equal."""
     import torch
     from torch.autograd import DeviceType
+    from torch.autograd.profiler import _filter_name
+    from torch.autograd.profiler_util import _rewrite_name
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1480,12 +1524,24 @@ def device_profile(run, label, top=8, mark=None):
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        say(f"profile {label}: the profiler recorded no device time "
-            "(not measured)")
-        return None
+    records = prof.profiler.kineto_results
+    start_ns = records.trace_start_ns()
+    spans = sorted(
+        ((e.start_ns() - start_ns) / 1000, (e.end_ns() - start_ns) / 1000,
+         _rewrite_name(e.name(), with_wildcard=True))
+        for e in records.events()
+        if e.device_type() == DeviceType.CUDA and not _filter_name(e.name())
+        and not getattr(e, "is_hidden_event", lambda: False)())
+    if cross_check:
+        t1 = time.perf_counter()
+        old = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+        say(f"profile {label}: the records give {len(spans)} device "
+            f"intervals, prof.events() {len(old)} (read in "
+            f"{time.perf_counter() - t1:.1f} s); equal: {spans == old}")
+        check(spans == old, f"profile {label}: the device intervals read "
+              "from the records equal prof.events()'s")
     busy, reach, by_name = 0.0, spans[0][0], {}
     for a, b, name in spans:
         busy += max(0.0, b - max(a, reach))
@@ -5715,6 +5771,9 @@ def phase_serve_qos():
 FLEET_ENGINE = dict(ART_ENGINE)
 FLEET_NEW = ART_NEW
 FLEET_KILL_AFTER = 4
+# (c)'s split fleet serves the FLEET_SPLIT_REQUESTS shortest prompts: its
+# pages cross two pipes as base64 JSON at 0.03-0.07 GB/s
+FLEET_SPLIT_REQUESTS = 4
 # (e): fp32 llama_tiny, windows of 4; the drill's crash and hang fire at
 # each victim's 3rd busy tick, the hang condemned after FLEET_HANG_S
 FLEET_TINY = dict(num_blocks=64, block_size=8, max_batch_size=4,
@@ -6189,8 +6248,12 @@ def phase_serve_fleet():
                                roles=["prefill", "decode"])) as (
                 (kill_r, kill_b), (split_r, split_b)):
             fleet_kill_arm(kill_r, kill_b, prompts, ref)
-            pre, dec = fleet_split_arm(split_r, split_b, prompts, ref,
-                                       "cuda", layers)
+            short = sorted(range(len(prompts)),
+                           key=lambda i: len(prompts[i]))
+            short = short[:FLEET_SPLIT_REQUESTS]
+            pre, dec = fleet_split_arm(
+                split_r, split_b, [prompts[i] for i in short],
+                {"outs": [ref["outs"][i] for i in short]}, "cuda", layers)
         say(f"wall serve-fleet (b), (c): {time.perf_counter() - t0:.1f} s")
         timed(fleet_tiny_card_vs_cpu, root)
     finally:
@@ -6201,12 +6264,13 @@ def phase_serve_fleet():
 
 
 # phase 14: phase 10's engine arguments per step (a multi-process plan's
-# collectives cannot be captured in a window graph on the card); the
-# group's rank 1 is killed at its TP_KILL_AFTER-th busy tick in (b)
+# collectives cannot be captured in a window graph on the card), TP_NEW
+# new tokens; the group's rank 1 is killed at its TP_KILL_AFTER-th busy
+# tick in (b)
 TP_ENGINE = dict(ART_ENGINE, decode_steps_per_sync=1)
 TP_PLAN = {"axes": {"tp": 2}, "strategies": ["tp"]}
-TP_NEW = ART_NEW
-TP_KILL_AFTER = 24
+TP_NEW = 16
+TP_KILL_AFTER = 12   # mid-burst: before any request has its TP_NEW tokens
 TP_TINY = dict(num_blocks=64, block_size=8, max_batch_size=4)
 TP_CHILD_S = 300.0
 
@@ -7268,6 +7332,342 @@ def phase_launch(whole):
     return out
 
 
+# phase 17: bench.py bert's BERT-base (bench.py:401-447: 128 x 128, both
+# dropouts 0, fp32 weights) fine-tuned through the high-level API under AMP
+# O1 with PT_FUSED_NORM: HAPI_BATCHES distinct batches for HAPI_EPOCHS
+# epochs, then one eval of HAPI_EVAL_BATCHES batches; ms/step after
+# HAPI_WARMUP steps. Each row's first token names its label
+# (HAPI_LABEL_TOKEN + label), so the loss falls as the model learns to read
+# it, where random labels leave it at ln 2
+HAPI_BATCH, HAPI_SEQ, HAPI_BATCHES, HAPI_EPOCHS = 128, 128, 20, 1
+HAPI_LABEL_TOKEN = 1000
+HAPI_EVAL_BATCHES = 4
+HAPI_WARMUP = 3
+HAPI_O2_STEPS = 3
+# (c)'s fp32 bert_tiny: batch, sequence, train and eval batches, epochs
+HAPI_TINY = (4, 64, 3, 2, 2)
+# the flash kernels' device dispatchers (the CUDA wrappers they call count
+# the launches)
+HAPI_FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
+
+
+def hapi_data(cfg, batches, batch, seq, seed, label_token=None):
+    """``io.TensorDataset`` of ``batches`` x ``batch`` seeded rows: int64
+    ids [seq] and a label; with ``label_token`` each row's first id is
+    ``label_token + label``."""
+    import numpy as np
+
+    from paddle_tpu_torch import io
+
+    rng = np.random.RandomState(seed)
+    n = batches * batch
+    ids = rng.randint(0, cfg.vocab_size, (n, seq)).astype(np.int64)
+    labels = rng.randint(0, cfg.num_labels, n).astype(np.int64)
+    if label_token is not None:
+        ids[:, 0] = label_token + labels
+    return io.TensorDataset([ids, labels])
+
+
+def hapi_recorder(dev):
+    """A ``hapi`` callback recording each train step's loss, accuracy and
+    host time at its end (after a synchronize on the card: O1's
+    GradScaler and the Accuracy metric read the host every step anyway),
+    and each eval's logs."""
+    import torch
+
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Recorder(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.accs, self.times, self.evals = [], [], [], []
+
+        def on_train_batch_end(self, step, logs=None):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            self.times.append(time.perf_counter())
+            self.losses.append(float(logs["loss"]))
+            self.accs.append(float(logs.get("acc", math.nan)))
+
+        def on_eval_end(self, logs=None):
+            self.evals.append(dict(logs))
+
+    return Recorder()
+
+
+@contextlib.contextmanager
+def flash_dtypes():
+    """q's dtype at every call of the three flash kernels' dispatchers
+    (without rope) inside the block, by name; each call still goes to the
+    dispatcher, and on the card to the wrapper that launches and counts."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+
+    seen = {n: [] for n in HAPI_FLASH}
+    orig = {n: getattr(FA, n) for n in HAPI_FLASH}
+
+    def recording(name):
+        def call(q, *args, **kwargs):
+            seen[name].append(q.dtype)
+            return orig[name](q, *args, **kwargs)
+        return call
+
+    for n in HAPI_FLASH:
+        setattr(FA, n, recording(n))
+    try:
+        yield seen
+    finally:
+        for n in HAPI_FLASH:
+            setattr(FA, n, orig[n])
+
+
+def hapi_model(net, level=None, lr=2e-5, epsilon=1e-8):
+    """``Model(net).prepare(AdamW(lr), nn.CrossEntropyLoss(),
+    metric.Accuracy(), amp_configs={"level": level})``."""
+    from paddle_tpu_torch import Model, metric, nn
+    from paddle_tpu_torch.optimizer import AdamW
+
+    return Model(net).prepare(
+        AdamW(learning_rate=lr, epsilon=epsilon,
+              parameters=net.parameters()),
+        nn.CrossEntropyLoss(), metric.Accuracy(),
+        amp_configs={"level": level} if level else None)
+
+
+def phase_hapi_o1(cfg):
+    """Phase 17a: BERT-base (fp32 weights) through ``Model.fit`` under O1
+    with ``PT_FUSED_NORM``: ms/step (host clock, after HAPI_WARMUP
+    steps), tokens/s, peak memory, first and last loss, accuracy,
+    eval_loss; every loss finite and the last quarter's mean below the
+    first quarter's; #3 = layers x (steps + eval batches), #4 = #5 = layers x
+    steps, #8 = 2 x layers x (steps + eval batches), no other kernel; q
+    reaches every training call of the flash wrappers as bf16 (the
+    tensor-core bodies) and the eval's as fp32 (``eval_batch`` runs
+    outside ``auto_cast``, as the reference's); the parameters stay fp32.
+    Returns (the launch counts, the model)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import BertForSequenceClassification
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+
+    L = cfg.num_hidden_layers
+    steps = HAPI_BATCHES * HAPI_EPOCHS
+    t0 = time.perf_counter()
+    net = BertForSequenceClassification(cfg, device="cuda", seed=SEED)
+    train = hapi_data(cfg, HAPI_BATCHES, HAPI_BATCH, HAPI_SEQ, SEED + 20,
+                      HAPI_LABEL_TOKEN)
+    evald = hapi_data(cfg, HAPI_EVAL_BATCHES, HAPI_BATCH, HAPI_SEQ,
+                      SEED + 21, HAPI_LABEL_TOKEN)
+    model = hapi_model(net, "O1")
+    rec = hapi_recorder("cuda")
+    torch.cuda.synchronize()
+    say(f"hapi setup: BERT-base fp32 weights, batches {HAPI_BATCHES} x "
+        f"{HAPI_BATCH} x {HAPI_SEQ}, {HAPI_EPOCHS} epoch(s), eval "
+        f"{HAPI_EVAL_BATCHES} batches, in {time.perf_counter() - t0:.2f} s")
+    with fused_switches(("PT_FUSED_NORM",)), flash_dtypes() as seen:
+        reset_peak_memory()
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        model.fit(train, eval_data=evald, batch_size=HAPI_BATCH,
+                  epochs=HAPI_EPOCHS, eval_freq=HAPI_EPOCHS, shuffle=False,
+                  verbose=0, callbacks=[rec])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = rec.losses
+    check(len(losses) == steps and len(rec.evals) == 1,
+          f"hapi O1: {len(losses)} steps, {len(rec.evals)} evals")
+    quarter = steps // 4
+    first = np.mean(losses[:quarter])
+    last = np.mean(losses[-quarter:])
+    check(all(np.isfinite(losses)) and last < first,
+          f"hapi O1: losses finite and falling ({first:.4f} -> {last:.4f})")
+    n_eval = HAPI_EVAL_BATCHES
+    want = launches_want(
+        flash_attention_fwd_cuda=L * (steps + n_eval),
+        flash_attention_bwd_dq_cuda=L * steps,
+        flash_attention_bwd_dkv_cuda=L * steps,
+        fused_add_layer_norm_cuda=2 * L * (steps + n_eval))
+    check(counts == want, f"hapi O1 launches {counts} == {want}")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    dt = {n: [str(d).split(".")[1] for d in v] for n, v in seen.items()}
+    check(seen["flash_attention_fwd"]
+          == [bf16] * (L * steps) + [fp32] * (L * n_eval)
+          and seen["flash_attention_bwd_dq"] == [bf16] * (L * steps)
+          and seen["flash_attention_bwd_dkv"] == [bf16] * (L * steps)
+          and FA.flash_route(bf16, cfg.hidden_size
+                             // cfg.num_attention_heads) == "tensor_core",
+          f"hapi O1: q reached the flash wrappers as "
+          f"{ {n: sorted(set(v)) for n, v in dt.items()} }")
+    check(all(p.dtype == fp32 for p in net.parameters()),
+          "hapi O1: the parameters stay fp32")
+    ms = (rec.times[-1] - rec.times[HAPI_WARMUP - 1]) / (
+        steps - HAPI_WARMUP) * 1e3
+    ev = rec.evals[0]
+    say(f"hapi BERT-base O1 Model.fit: {steps} steps + {n_eval} eval "
+        f"batches in {wall:.2f} s; {ms:.1f} ms/step (host clock, after "
+        f"{HAPI_WARMUP} warm-up steps), "
+        f"{HAPI_BATCH * HAPI_SEQ / ms * 1e3:.0f} tokens/s, peak memory "
+        f"{peak:.2f} GiB; losses {[round(x, 4) for x in losses]} (first "
+        f"{losses[0]:.4f}, last {losses[-1]:.4f}); train acc "
+        f"{rec.accs[-1]:.4f}; eval_loss {ev['eval_loss']:.4f}, eval_acc "
+        f"{ev['eval_acc']:.4f}; q dtypes at the flash wrappers: train "
+        f"bf16 ({L * steps} forward, {L * steps} dq, {L * steps} dkv, "
+        f"tensor-core bodies), eval fp32 ({L * n_eval} forward); "
+        f"launches {counts}")
+    return counts, net
+
+
+def phase_hapi_o2(cfg):
+    """Phase 17b: ``amp.decorate(net, level="O2")`` on a fresh BERT-base:
+    every parameter bf16 but the LayerNorms' (fp32); HAPI_O2_STEPS steps
+    of ``Model.fit`` under O2 with ``PT_FUSED_NORM``, every loss finite;
+    #3-#5 layers x steps, #8 2 x layers x steps. Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import BertForSequenceClassification
+    from paddle_tpu_torch.nn import LayerNorm
+
+    L = cfg.num_hidden_layers
+    net = BertForSequenceClassification(cfg, device="cuda", seed=SEED)
+    amp.decorate(net, level="O2")
+    norms = {id(p) for m in net.modules() if isinstance(m, LayerNorm)
+             for p in m.parameters()}
+    dtypes = {p.dtype for p in net.parameters() if id(p) not in norms}
+    ln = {p.dtype for p in net.parameters() if id(p) in norms}
+    check(dtypes == {torch.bfloat16} and ln == {torch.float32},
+          f"hapi O2: parameters {dtypes}, LayerNorms {ln}")
+    model = hapi_model(net, "O2")
+    rec = hapi_recorder("cuda")
+    train = hapi_data(cfg, HAPI_O2_STEPS, HAPI_BATCH, HAPI_SEQ, SEED + 20,
+                      HAPI_LABEL_TOKEN)
+    with fused_switches(("PT_FUSED_NORM",)):
+        reset_all_launch_counts()
+        model.fit(train, batch_size=HAPI_BATCH, epochs=1, shuffle=False,
+                  verbose=0, callbacks=[rec])
+        torch.cuda.synchronize()
+        counts = all_launch_counts()
+    steps = HAPI_O2_STEPS
+    want = launches_want(
+        **{f"{n}_cuda": L * steps for n in FLASH},
+        fused_add_layer_norm_cuda=2 * L * steps)
+    check(np.isfinite(rec.losses).all() and len(rec.losses) == steps
+          and counts == want,
+          f"hapi O2: losses {rec.losses}, launches {counts} == {want}")
+    say(f"hapi BERT-base O2 (decorate): {len(norms)} LayerNorm parameters "
+        f"fp32, the other {sum(1 for _ in net.parameters()) - len(norms)} "
+        f"bf16; {steps} steps, losses "
+        f"{[round(x, 4) for x in rec.losses]}; "
+        f"{(rec.times[-1] - rec.times[0]) / (steps - 1) * 1e3:.1f} ms/step "
+        f"after the first; launches {counts}")
+    return counts
+
+
+def hapi_tiny_card_vs_cpu(root):
+    """Phase 17c: fp32 bert_tiny (numpy weights from a seed) through
+    ``Model.fit`` (AdamW, Accuracy, an eval each epoch, ``shuffle=False``,
+    ``PT_FUSED_NORM``) on the card and on the CPU: each step's loss
+    within TRAIN_LOSS_RTOL, accuracies and eval accuracies equal; then
+    ``Model.save`` on the card and ``Model.load`` into a CPU ``Model``:
+    its ``evaluate`` gives the card's eval_loss within TRAIN_LOSS_RTOL and
+    the same accuracy."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         bert_tiny,
+                                         load_paddle_tpu_state_dict)
+
+    batch, seq, n_train, n_eval, epochs = HAPI_TINY
+    cfg = bert_tiny(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    state = bert_tiny_state(BertForSequenceClassification(cfg, device="cpu"),
+                            np.random.RandomState(SEED + 22))
+    train = hapi_data(cfg, n_train, batch, seq, SEED + 23)
+    evald = hapi_data(cfg, n_eval, batch, seq, SEED + 24)
+    path = os.path.join(root, "bert_tiny")
+    runs, models = {}, {}
+    with fused_switches(("PT_FUSED_NORM",)):
+        for dev in ("cpu", "cuda"):
+            net = BertForSequenceClassification(cfg, device=dev)
+            load_paddle_tpu_state_dict(net, state)
+            models[dev] = hapi_model(net, lr=1e-3, epsilon=1e-6)
+            runs[dev] = hapi_recorder(dev)
+            models[dev].fit(train, eval_data=evald, batch_size=batch,
+                            epochs=epochs, shuffle=False, verbose=0,
+                            callbacks=[runs[dev]])
+        models["cuda"].save(path)
+        loaded = hapi_model(BertForSequenceClassification(cfg, device="cpu"),
+                            lr=1e-3, epsilon=1e-6).load(path)
+        ev_card = models["cuda"].evaluate(evald, batch_size=batch, verbose=0)
+        ev_load = loaded.evaluate(evald, batch_size=batch, verbose=0)
+    a, b = runs["cuda"], runs["cpu"]
+    dl = max(abs(x / y - 1) for x, y in zip(a.losses, b.losses))
+    de = abs(ev_load["eval_loss"] / ev_card["eval_loss"] - 1)
+    same_acc = (a.accs == b.accs and [e["eval_acc"] for e in a.evals]
+                == [e["eval_acc"] for e in b.evals])
+    say(f"hapi card vs cpu bert_tiny fp32 Model.fit, {len(a.losses)} steps "
+        f"and {epochs} evals: losses max rel diff {dl:.2e} (tol "
+        f"{TRAIN_LOSS_RTOL:g}); accuracies equal {same_acc}; saved on the "
+        f"card, loaded on the CPU: eval_loss "
+        f"{ev_load['eval_loss']:.6f} vs the card's "
+        f"{ev_card['eval_loss']:.6f} (rel diff {de:.2e}), eval_acc "
+        f"{ev_load['eval_acc']:.4f} vs {ev_card['eval_acc']:.4f}")
+    check(len(a.losses) == n_train * epochs and dl <= TRAIN_LOSS_RTOL
+          and same_acc, "hapi: card and CPU Model.fit agree")
+    check(de <= TRAIN_LOSS_RTOL and ev_load["eval_acc"] == ev_card["eval_acc"],
+          "hapi: the card's checkpoint evaluates the same on the CPU")
+
+
+def phase_hapi_flops(net, cfg):
+    """Phase 17d: ``flops`` of BERT-base on a [1, 128] input (int ids:
+    the synthetic float input of ``input_size`` cannot index an
+    embedding, in either package) under 17a's ``PT_FUSED_NORM``, whose
+    encoder norms run in #8's entry and not in their layers, against the
+    Linear + LayerNorm count by hand: rows x in x out per Linear (the
+    pooler and classifier on one row), 2 an element per LayerNorm."""
+    import torch
+
+    from paddle_tpu_torch import flops
+
+    s, h, i, L = (HAPI_SEQ, cfg.hidden_size, cfg.intermediate_size,
+                  cfg.num_hidden_layers)
+    want = (L * (4 * s * h * h + 2 * s * h * i) + h * h + h * cfg.num_labels
+            + (2 * L + 1) * 2 * s * h)
+    with fused_switches(("PT_FUSED_NORM",)):
+        got = flops(net, inputs=torch.zeros(1, s, dtype=torch.long,
+                                            device="cuda"))
+    say(f"hapi flops(BERT-base, [1, {s}]) under PT_FUSED_NORM=1: {got:,} "
+        f"MACs; Linear + LayerNorm by hand {want:,}")
+    check(got == want, f"hapi flops {got} == {want}")
+
+
+def phase_hapi():
+    """Phase 17: the high-level API on the card (17a-17d). Returns the
+    flash kernels' and #8's launches of (a) and (b)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.models import bert_base
+
+    cfg = bert_base(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    o1, net = phase_hapi_o1(cfg)
+    phase_hapi_flops(net, cfg)
+    del net
+    free_cuda()
+    o2 = phase_hapi_o2(cfg)
+    free_cuda()
+    root = tempfile.mkdtemp(prefix="hapi-")
+    try:
+        timed(hapi_tiny_card_vs_cpu, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"o1": o1, "o2": o2}
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -7393,6 +7793,8 @@ def main():
     for name, err in varlen_worst.items():
         worst[name] = max(worst[name], err)
     launch_launches = timed(phase_launch, whole)
+    # phase 17's O1 fit and O2 steps, each counted on its own
+    hapi_launches = timed(phase_hapi)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
@@ -7437,6 +7839,8 @@ def main():
         if k["name"] in FLASH + ("fused_add_layer_norm",):
             k["launches_phase15"] = {arm: c[k["name"] + "_cuda"]
                                      for arm, c in varlen_launches.items()}
+            k["launches_phase17"] = {arm: c[k["name"] + "_cuda"]
+                                     for arm, c in hapi_launches.items()}
         if k["name"] in FLASH:
             k["launches_phase16"] = {
                 job: {rank: c[k["name"]] for rank, c in ranks.items()}

@@ -17,7 +17,10 @@ as numpy payloads; ``get_default_dtype``/``set_default_dtype`` the
 default float dtype the artifact loader builds in. ``inference`` saves
 and loads serving artifacts (plain and int8), hot-swaps an engine's
 weights in place and serves an artifact through ``create_predictor``;
-``quantization`` is QAT and PTQ for ``nn.Linear``.
+``quantization`` is QAT and PTQ for ``nn.Linear``. ``Model`` (``hapi``)
+is the reference's high-level loop (``prepare``/``fit``/``evaluate``/
+``predict``/``save``/``load``) with ``callbacks``, ``metric``, the AMP
+levels of ``amp`` and ``flops``/``summary``.
 
 It imports ``torch`` and never ``jax`` or ``paddle_tpu``; its exports load
 on first use, so the launcher (``python -m
@@ -42,9 +45,14 @@ _EXPORTS = {
     "CheckpointManager": ".distributed.checkpoint",
     "PlanMismatchError": ".distributed.checkpoint",
     "save": ".framework.io", "load": ".framework.io",
+    "Model": ".hapi", "callbacks": ".hapi",
+    "flops": ".hapi.flops", "summary": ".hapi.flops",
 }
 
-__all__ = list(_EXPORTS)
+# subpackages, imported on first use like the names above
+_SUBPACKAGES = ["amp", "hapi", "metric"]
+
+__all__ = list(_EXPORTS) + _SUBPACKAGES
 
 
 def __getattr__(name):

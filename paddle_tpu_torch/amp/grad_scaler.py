@@ -15,6 +15,8 @@ host with the step's finite flag.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -25,11 +27,23 @@ def unscale_grads_(grads, inv_scale, found_inf):
     """``g *= inv_scale`` for every tensor of ``grads`` (fp32 arithmetic,
     stored in each gradient's dtype), and ``found_inf`` (a 1-element fp32
     tensor) set to 1 when any of them holds a NaN or an Inf; no host
-    sync. ``inv_scale`` is a 1-element fp32 tensor on their device."""
+    sync. ``inv_scale`` is a 1-element fp32 tensor on their device.
+
+    The fused op has no bfloat16 kernel on CUDA, so bf16 gradients (the
+    parameters ``amp.decorate`` O2 casts) take the same two steps as
+    separate passes on both devices: the finite check of each gradient
+    before the multiply, then one ``_foreach_mul_`` of ``g *= inv_scale``
+    computed in fp32 and rounded once, as the fused op does."""
     by_dtype = {}
     for g in grads:
         by_dtype.setdefault(g.dtype, []).append(g)
-    for group in by_dtype.values():
+    for dtype, group in by_dtype.items():
+        if dtype == torch.bfloat16:
+            peaks = torch.stack(torch._foreach_norm(group, math.inf))
+            bad = torch.logical_not(torch.isfinite(peaks).all())
+            found_inf.copy_(torch.maximum(found_inf, bad.float().reshape(1)))
+            torch._foreach_mul_(group, inv_scale.reshape(()))
+            continue
         torch._amp_foreach_non_finite_check_and_unscale_(group, found_inf,
                                                          inv_scale)
 

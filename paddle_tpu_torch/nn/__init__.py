@@ -8,11 +8,15 @@ from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
 from .layer.activation import ReLU, Sigmoid
 from .layer.common import Dropout, Embedding, Linear
 from .layer.layers import ParamAttr
+from .layer.loss import (BCELoss, BCEWithLogitsLoss, CrossEntropyLoss,
+                         KLDivLoss, L1Loss, MSELoss, NLLLoss, SmoothL1Loss)
 from .layer.norm import LayerNorm, RMSNorm
 from .layer.transformer import (MultiHeadAttention, TransformerEncoder,
                                 TransformerEncoderLayer)
 
-__all__ = ["functional", "initializer", "ClipGradByGlobalNorm",
+__all__ = ["functional", "initializer", "BCELoss", "BCEWithLogitsLoss",
+           "CrossEntropyLoss", "KLDivLoss", "L1Loss", "MSELoss", "NLLLoss",
+           "SmoothL1Loss", "ClipGradByGlobalNorm",
            "ClipGradByNorm", "ClipGradByValue", "clip_grad_norm_",
            "clip_grad_value_", "Dropout", "Embedding", "LayerNorm", "Linear",
            "MultiHeadAttention", "ParamAttr", "ReLU", "RMSNorm", "Sequential",

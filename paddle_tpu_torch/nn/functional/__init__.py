@@ -8,12 +8,14 @@ from .flash_attention import (flash_attn_unpadded, fused_rope_attention,
                               fused_rope_attention_enabled,
                               scaled_dot_product_attention, sdp_kernel)
 from .loss import (binary_cross_entropy, binary_cross_entropy_with_logits,
-                   cross_entropy)
+                   cross_entropy, kl_div, l1_loss, mse_loss, nll_loss,
+                   smooth_l1_loss)
 from .norm import layer_norm, rms_norm
 
 __all__ = ["binary_cross_entropy", "binary_cross_entropy_with_logits",
            "cross_entropy", "dropout", "embedding", "embedding_bag",
            "flash_attn_unpadded", "fused_rope_attention",
-           "fused_rope_attention_enabled", "gelu", "layer_norm", "linear",
-           "relu", "rms_norm", "scaled_dot_product_attention", "sdp_kernel",
-           "sdpa_reference", "sigmoid", "silu", "tanh"]
+           "fused_rope_attention_enabled", "gelu", "kl_div", "l1_loss",
+           "layer_norm", "linear", "mse_loss", "nll_loss", "relu",
+           "rms_norm", "scaled_dot_product_attention", "sdp_kernel",
+           "sdpa_reference", "sigmoid", "silu", "smooth_l1_loss", "tanh"]

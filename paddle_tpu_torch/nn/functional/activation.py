@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ...amp.amp_lists import maybe_cast
+
 __all__ = ["gelu", "relu", "sigmoid", "silu", "tanh"]
 
 
@@ -27,6 +29,8 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Under AMP the reference's ``sigmoid_f`` (a black op)."""
+    x, = maybe_cast("sigmoid_f", (x,))
     return torch.sigmoid(x)
 
 

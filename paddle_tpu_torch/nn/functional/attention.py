@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from ...amp.amp_lists import maybe_cast
+
 __all__ = ["sdpa_reference"]
 
 NEG_INF = -1e30
@@ -36,7 +38,11 @@ def sdpa_reference(q, k, v, attn_mask=None, causal=False, scale=None,
     Bernoulli(1 - p) keep mask over [B, H, S, Sk] drawn from ``generator``
     (the device's default one if None), kept values scaled by 1 / (1 - p)
     and dropped ones set to 0, in q's dtype. The bits cannot match
-    ``jax.random``'s; the semantics are the reference's."""
+    ``jax.random``'s; the semantics are the reference's.
+
+    Under AMP the reference's ``sdpa_ref`` (a white op): q, k, v and a
+    float mask in the AMP dtype."""
+    q, k, v, attn_mask = maybe_cast("sdpa_ref", (q, k, v, attn_mask))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     hq, hk = qt.shape[1], kt.shape[1]

@@ -15,13 +15,16 @@ from __future__ import annotations
 
 import torch
 
+from ...amp.amp_lists import maybe_cast
 from ...ops import sparse_grad
 
 __all__ = ["dropout", "embedding", "embedding_bag", "linear"]
 
 
 def linear(x, weight, bias=None):
-    """``x @ weight (+ bias)`` with ``weight`` [in, out]."""
+    """``x @ weight (+ bias)`` with ``weight`` [in, out]; under AMP the
+    reference's ``linear_op`` (a white op)."""
+    x, weight, bias = maybe_cast("linear_op", (x, weight, bias))
     y = x @ weight
     if bias is not None:
         y = y + bias

@@ -47,6 +47,7 @@ import os
 
 import torch
 
+from ...amp.amp_lists import maybe_cast
 from ...ops.cuda.flash_attention import HEAD_DIMS
 from ...ops.cuda.flash_attention import flash_attention as _flash_attention
 from ...ops.cuda.flash_attention import flash_attention_rope
@@ -88,8 +89,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training=True, generator=None):
     """paddle.nn.functional.scaled_dot_product_attention: q [B, S, H, D],
     k/v [B, Sk, Hkv, D] -> [B, S, H, D], scale 1/sqrt(D). ``generator``
-    draws the dropout mask of a training call with ``dropout_p > 0``."""
+    draws the dropout mask of a training call with ``dropout_p > 0``.
+    Under AMP the reference's ``sdpa_ref`` (a white op): q, k, v and a
+    float mask are cast before the route is chosen, so O1 routes bf16."""
     global LAST_PATH
+    query, key, value, attn_mask = maybe_cast(
+        "sdpa_ref", (query, key, value, attn_mask))
     dropout = training and dropout_p > 0.0
     LAST_PATH = sdpa_route(query.device.type, query.dtype, query.shape[-1],
                            attn_mask is not None,

@@ -1,10 +1,13 @@
 """Normalisation functions (counterpart of
 ``paddle_tpu/nn/functional/norm.py``). Statistics are fp32 whatever the
-input dtype, and the result is cast back to it."""
+input dtype, and the result is cast back to it (after the AMP cast, which
+makes both fp32: the norms are black ops)."""
 
 from __future__ import annotations
 
 import torch
+
+from ...amp.amp_lists import maybe_cast
 
 __all__ = ["layer_norm", "rms_norm"]
 
@@ -12,7 +15,9 @@ __all__ = ["layer_norm", "rms_norm"]
 def rms_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
              epsilon: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis, computed in fp32 and cast back to x's
-    dtype — the weight multiply happens in fp32 too, before the cast."""
+    dtype — the weight multiply happens in fp32 too, before the cast.
+    Under AMP the reference's ``rms_norm_op`` (a black op)."""
+    x, weight = maybe_cast("rms_norm_op", (x, weight))
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + epsilon)
@@ -26,7 +31,9 @@ def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
     """LayerNorm over the trailing ``normalized_shape`` axes: fp32 mean,
     then the variance as the mean of squared deviations (two passes, never
     E[x^2] - mean^2), the weight multiply and bias add in fp32, one cast
-    back to x's dtype at the end."""
+    back to x's dtype at the end. Under AMP the reference's
+    ``layer_norm_op`` (a black op)."""
+    x, weight, bias = maybe_cast("layer_norm_op", (x, weight, bias))
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
     axes = tuple(range(x.dim() - len(normalized_shape), x.dim()))

@@ -49,6 +49,7 @@ import math
 
 import torch
 
+from ...amp.amp_lists import maybe_cast
 from ._build import load
 
 __all__ = ["flash_attention", "FlashAttentionFunction",
@@ -483,7 +484,14 @@ def flash_attention(q, k, v, causal=True, scale=None):
     """q [B, S, H, D], k/v [B, S, Hkv, D] -> [B, S, H, D] (the port of
     ``_flash_attention_arrays``). GQA repeats the kv heads first
     (``repeat_interleave``, ``jnp.repeat``'s mapping), so autograd sums
-    each group's dK/dV. The default scale is 1/sqrt(D)."""
+    each group's dK/dV. The default scale is 1/sqrt(D).
+
+    The kernels take q, k and v in one dtype (the CUDA wrappers raise
+    ``ValueError`` on two). Under AMP this entry is the reference's
+    ``flash_attention_pallas``, a white op: q, k and v arrive in the AMP
+    dtype, so O1 and O2 hand the kernels one dtype and bf16 takes the
+    tensor-core bodies (:func:`flash_route`)."""
+    q, k, v = maybe_cast("flash_attention_pallas", (q, k, v))
     h, hk = q.shape[2], k.shape[2]
     if h != hk:
         k = k.repeat_interleave(h // hk, dim=2)

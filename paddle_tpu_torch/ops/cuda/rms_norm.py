@@ -21,6 +21,24 @@ Pallas. Each wrapper takes the plain version for a CPU tensor and launches
 its kernel for a CUDA tensor (or raises), and counts its launches in
 ``<wrapper>.launches``. :func:`use_fused_rms_norm` (``PT_FUSED_NORM=1``,
 read at call time, default off) is the models' switch for both.
+
+Dtypes: the reference's kernels read x, y, the weight and the bias each
+in fp32 and write both outputs in x's dtype, whatever the others' dtypes
+(``paddle_tpu/ops/pallas/rms_norm.py:53-60, 140-149``). The CUDA kernels
+take one dtype, so :func:`fused_add_rms_norm` and
+:func:`fused_add_layer_norm` widen every input narrower than x to x's
+dtype first: under AMP O1 the residual x stays fp32 while the branch y
+comes out of a bf16 ``Linear``, and widening a bf16 value to fp32 is
+exact, so the kernel computes what the reference's reads do. An input
+wider than x is passed on as it is: the plain version reads it in fp32,
+as the reference does, and the kernel's launch refuses it (``ValueError``:
+the kernel would have to round it first). Under AMP both entries are the
+reference's ``fused_add_*_pallas`` ops, in neither list: O1 leaves them
+alone, O2 casts all four inputs to the AMP dtype first.
+
+Both entries hand their normed output to each callable in
+:data:`NORM_OBSERVERS`: ``hapi.flops`` counts the norms they compute
+there, since no norm layer's forward runs for them.
 """
 
 from __future__ import annotations
@@ -30,13 +48,15 @@ import os
 
 import torch
 
+from ...amp.amp_lists import maybe_cast
 from ._build import load
 
 __all__ = ["fused_add_rms_norm", "FusedAddRMSNormFunction",
            "fused_add_rms_norm_plain", "fused_add_rms_norm_cuda",
            "fused_add_layer_norm", "FusedAddLayerNormFunction",
            "fused_add_layer_norm_plain", "fused_add_layer_norm_cuda",
-           "use_fused_rms_norm", "reset_launch_counts", "launch_counts"]
+           "use_fused_rms_norm", "reset_launch_counts", "launch_counts",
+           "NORM_OBSERVERS"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -176,14 +196,30 @@ class FusedAddRMSNormFunction(torch.autograd.Function):
         return dx, dx, dw.to(w.dtype), None
 
 
+# callables taking each fused entry's normed output (module docstring)
+NORM_OBSERVERS = []
+
+
+def _widen_to_x(x, *others):
+    """``others``, each one narrower than x widened to x's dtype (exact;
+    see the module docstring)."""
+    return [t.to(x.dtype) if torch.promote_types(t.dtype, x.dtype)
+            == x.dtype else t for t in others]
+
+
 def fused_add_rms_norm(x, y, weight, epsilon=1e-6):
     """``(normed, resid) = RMSNorm(x + y)`` over the last axis of x, y
-    [..., h] with weight [h] (the reference's ``_fused_add_rms_norm_nd``)."""
+    [..., h] with weight [h] (the reference's ``_fused_add_rms_norm_nd``);
+    y and the weight are widened to x's dtype (module docstring)."""
+    x, y, weight = maybe_cast("fused_add_rms_norm_pallas", (x, y, weight))
+    y, weight = _widen_to_x(x, y, weight)
     h = x.shape[-1]
     lead = x.shape[:-1]
     out, r = FusedAddRMSNormFunction.apply(
         x.reshape(-1, h).contiguous(), y.reshape(-1, h).contiguous(),
         weight.reshape(h).contiguous(), float(epsilon))
+    for observe in NORM_OBSERVERS:
+        observe(out)
     return out.reshape(*lead, h), r.reshape(*lead, h)
 
 
@@ -222,11 +258,17 @@ class FusedAddLayerNormFunction(torch.autograd.Function):
 def fused_add_layer_norm(x, y, weight, bias, epsilon=1e-12):
     """``(normed, resid) = LayerNorm(x + y)`` over the last axis of x, y
     [..., h] with weight and bias [h] (the reference's
-    ``_fused_add_layer_norm_nd``)."""
+    ``_fused_add_layer_norm_nd``); y, the weight and the bias are widened
+    to x's dtype (module docstring)."""
+    x, y, weight, bias = maybe_cast("fused_add_layer_norm_pallas",
+                                    (x, y, weight, bias))
+    y, weight, bias = _widen_to_x(x, y, weight, bias)
     h = x.shape[-1]
     lead = x.shape[:-1]
     out, r = FusedAddLayerNormFunction.apply(
         x.reshape(-1, h).contiguous(), y.reshape(-1, h).contiguous(),
         weight.reshape(h).contiguous(), bias.reshape(h).contiguous(),
         float(epsilon))
+    for observe in NORM_OBSERVERS:
+        observe(out)
     return out.reshape(*lead, h), r.reshape(*lead, h)

@@ -65,6 +65,15 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.distributed.parallel\n"
             "import paddle_tpu_torch.distributed.collective\n"
             "import paddle_tpu_torch.distributed.communication\n"
+            "import paddle_tpu_torch.hapi\n"
+            "import paddle_tpu_torch.hapi.callbacks\n"
+            "import paddle_tpu_torch.hapi.flops\n"
+            "import paddle_tpu_torch.hapi.model\n"
+            "import paddle_tpu_torch.metric\n"
+            "import paddle_tpu_torch.amp.amp_lists\n"
+            "import paddle_tpu_torch.nn.layer.loss\n"
+            "import paddle_tpu_torch\n"
+            "paddle_tpu_torch.Model, paddle_tpu_torch.flops\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"
