@@ -130,14 +130,16 @@ Phases, one printed line per result:
    bit for bit across it), with a global-norm clip; the eager lazy Adam
    on a ``SparseEmbedding``; a table read outside its lookup (warns,
    trains dense on both);
-9. the supervised loop (``drive``) on llama_125m: prefetch, checkpoints,
-   resume, rollback, preemption, the stall guard; then (9g) fp32
+9. the supervised loop (``drive``) on llama_125m's width at 4 layers
+   (``SUP_LAYERS``): prefetch, checkpoints, resume, rollback,
+   preemption, the stall guard; then (9g) fp32
    llama_tiny on the card against the CPU at AdamW lr 1e-4 and 1e-3,
    each beside each device's rounding floor (its run from weights
    perturbed by 1e-7), the card-vs-CPU parameter difference within 2x
    the larger floor (and within 1e-5 at lr 1e-4);
-10. serving artifacts on llama_1b, phase 4's eight prompts zero-padded
-   to 1536, windows of 8, artifacts in ``TMPDIR``: (a) a bf16 artifact
+10. serving artifacts on llama_1b's width at 8 layers
+   (``SERVE_CUT_LAYERS``; 22 in phase 4), phase 4's eight prompts
+   zero-padded to 1536, windows of 8, artifacts in ``TMPDIR``: (a) a bf16 artifact
    saved and served by ``create_predictor`` under
    ``set_default_dtype("bfloat16")``, tokens equal an engine over the
    in-memory model bit for bit, #1/#2 launches equal to the device tally;
@@ -153,8 +155,8 @@ Phases, one printed line per result:
    bit; (d) PTQ on llama_125m
    fp32: the converted logits equal the fake-quant simulation's within
    2e-4 and its int8 codes the CPU's bit for bit;
-11. KV pages that leave and re-enter the pool, llama_1b bf16 with phase
-   4's prompts, windows of 8, 32 new tokens: (a) a ``prefill_only``
+11. KV pages that leave and re-enter the pool, llama_1b bf16 (8 layers)
+   with phase 4's prompts, windows of 8, 32 new tokens: (a) a ``prefill_only``
    engine prefills each prompt, its pages are exported, packed, unpacked
    and imported by a second engine that decodes them: tokens equal a
    colocated engine's bit for bit, the prefill engine builds no window
@@ -169,7 +171,7 @@ Phases, one printed line per result:
    chains (every revived block equal to its stored payload) and runs
    fewer #2 launches; fp32 llama_tiny warm tokens card = CPU;
 12. deadlines, tenants and QoS tiers, and serving integrity, llama_1b
-   bf16 with phase 4's prompts, windows of 8, four slots, the host tier:
+   bf16 (8 layers) with phase 4's prompts, windows of 8, four slots, the host tier:
    (a) four "bronze" batch-tier requests decoding when four "gold"
    latency-tier ones arrive (weights 1:3), against the same engine
    arguments under FIFO: tokens bit for bit, yields = spills = revives
@@ -191,8 +193,8 @@ Phases, one printed line per result:
    llama_tiny with tenants, tiers, a quota, a deadline and a flipped
    spill: the card's admission order, tokens and tenant tokens equal the
    CPU's;
-13. the serving fleet (``inference.serving.fleet``), llama_1b bf16 from a
-   bf16 artifact in ``TMPDIR``, phase 4's prompts and phase 10's engine
+13. the serving fleet (``inference.serving.fleet``), llama_1b bf16 (8
+   layers) from a bf16 artifact in ``TMPDIR``, phase 4's prompts and phase 10's engine
    arguments in every replica process (the kernels built in this process
    first, so each replica only loads them): (a) two colocated replicas:
    tokens equal one in-process engine's bit for bit, each replica's
@@ -213,8 +215,8 @@ Phases, one printed line per result:
    the card and a drill fleet of three (a crash, a hang under
    ``hang_timeout_s``) equal a CPU fleet of the port bit for bit, with the
    hang's escalation times;
-14. sharding plans, llama_1b bf16 from a bf16 artifact in ``TMPDIR``,
-   phase 4's prompts and phase 10's engine arguments per step (a
+14. sharding plans, llama_1b bf16 (8 layers) from a bf16 artifact in
+   ``TMPDIR``, phase 4's prompts and phase 10's engine arguments per step (a
    multi-process plan's collectives cannot be captured in a window
    graph): #1 and #2 at a tensor-parallel rank's shape (8 query and 8
    KV heads) against their plain versions; (a) a tp=2 group of two
@@ -289,7 +291,30 @@ Phases, one printed line per result:
    card and on the CPU, the same batches with ``shuffle=False``: losses
    within ``TRAIN_LOSS_RTOL``, accuracies equal; ``Model.save`` on the card
    and ``Model.load`` into a CPU ``Model``: ``evaluate`` gives the same
-   eval_loss and accuracy.
+   eval_loss and accuracy;
+18. ``jit`` (``to_static`` on ``torch.compile``, the kernels as
+   ``torch.library`` ops, ``jit.save``/``jit.load`` on ``torch.export``,
+   the predictor): (a) BERT-base (fp32 weights, hidden dropout 0.1,
+   attention dropout 0, ``PT_FUSED_NORM``) through ``jit.to_static``
+   under AMP O1 with AdamW(2e-5), 20 seeded 128 x 128 batches (phase 17's
+   label token): the first step's wall (the compile), ms/step and
+   tokens/s on the host clock after 3 warm-up steps, peak memory, the
+   losses; the same for 10 eager steps from the same weights on the same
+   batches; losses finite and falling, one compile and 19 hits, no eager
+   fallback, no Dynamo graph break, q reaching every flash launch as bf16,
+   #3, #4 and #5 layers x steps and #8 2 x layers x steps, nothing else;
+   (b) a 1-layer BERT-base-width model, compiled against eager on the same
+   weights and one batch with dropout off: eval logits within 1e-4, one
+   fp32 training step's loss within ``TRAIN_LOSS_RTOL`` and each gradient
+   within 1e-3 of its largest magnitude (plus 1e-6 of the model's); (c)
+   ``jit.save`` of BERT-base with ``InputSpec([None, 128], "int64",
+   "input_ids")`` and ``create_predictor(Config(path))`` at batches 1, 8
+   and 32: logits within 1e-4 of eager's, #3 layers and #8 2 x layers a
+   run; two ``clone()``s on two threads equal to the predictor; save, load
+   and a batch of 32's ms; ``convert_to_mixed_precision(..., "bfloat16")``:
+   the stored weights half the bytes, logits within 1e-4 of eager on the
+   bf16-rounded weights; (d) ``torch.library.opcheck`` of every registered
+   op (#3-#9) on the card.
 
 The five launch cross-checks of phases 4, 10a, 11a and 12a hold the
 wrappers' counts to the counts the paged kernels keep on the device
@@ -305,7 +330,8 @@ prefill and decode replica, and ``launches_phase14``, phase 14a's two
 ranks; #3, #4, #5 and #8 ``launches_phase15``, each of phase 15's arms;
 #3, #4 and #5 ``launches_phase16``, each phase 16 job's ranks in their
 last incarnation; #3, #4, #5 and #8 ``launches_phase17``, phase 17's O1
-fit and O2 steps), the card line, and last
+fit and O2 steps, and ``launches_phase18``, phase 18a's compiled run and
+18c's three predictor runs), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 1.
 """
@@ -3394,6 +3420,11 @@ def phase_deepfm():
 SUP_BATCH, SUP_SEQ, SUP_LOG, SUP_EPOCH = 16, 1024, 4, 32
 # the preemption drill's run: the child's steps and the uninterrupted run's
 SUP_CHILD_STEPS = 16
+# phases 9 and 16 train llama_125m's width at this depth (12 layers in
+# phases 5 and 7): their boots, captures and checkpoint files scale with
+# the layers, and the whole smoke has to fit its time limit on the slower
+# hosts
+SUP_LAYERS = 4
 SUP_CHILD_MARK = "supervised-child result "
 # 9g's AdamW step sizes. Adam scales an update's sensitivity to a
 # gradient near zero by lr / epsilon, and over 9g's 16 steps at lr 1e-3
@@ -3428,6 +3459,15 @@ def sup_loader(vocab, n, seq, batch, seed, weighted=False):
     return io.DataLoader(ds, batch_sampler=sampler)
 
 
+def sup_config():
+    """Phase 9's and 16's model: llama_125m's width at SUP_LAYERS layers."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import llama_125m
+
+    return dataclasses.replace(llama_125m(), num_hidden_layers=SUP_LAYERS)
+
+
 def sup_setup(weighted=False):
     """Phase 9's stack: llama_125m (bf16, weights from the seed) with a
     fused AdamW(1e-4) step, and its loader (the same batches on every
@@ -3435,10 +3475,10 @@ def sup_setup(weighted=False):
     import torch
 
     from paddle_tpu_torch.incubate import fused_train_step
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_125m
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = llama_125m()
+    cfg = sup_config()
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                              seed=SEED)
     net = loss_weighted(model) if weighted else model
@@ -3573,7 +3613,7 @@ def phase_supervised_prefetch():
         f"{fmt(True, 'event_ms')}; losses identical {same} "
         f"{[round(x, 4) for x in ref]}; prefetcher stats {on['stats']}; "
         f"flash launches {[on['counts'][n + '_cuda'] for n in FLASH]} "
-        f"(12 layers x 10), profiled 4 steps: profiler "
+        f"({SUP_LAYERS} layers x 10), profiled 4 steps: profiler "
         f"{on['seen'] if on['seen'] is not None else 'not measured'}")
     return stack, statistics.median(r["event_ms"] for r in runs[True])
 
@@ -4017,8 +4057,8 @@ def phase_supervised_card_vs_cpu():
 
 
 def phase_supervised():
-    """Phase 9: the supervised loop (9a-9g) on llama_125m at full width
-    (flash #3-#5) and fp32 llama_tiny; its checkpoints live in a
+    """Phase 9: the supervised loop (9a-9g) on llama_125m's full width at
+    SUP_LAYERS layers (flash #3-#5) and fp32 llama_tiny; its checkpoints live in a
     temporary directory removed at the end. Returns 9c's uninterrupted
     losses (phase 16's reference)."""
     import shutil
@@ -4046,6 +4086,22 @@ def phase_supervised():
 # -- serving artifacts -------------------------------------------------------
 
 # phase 10: LLMEngine's arguments (phase 4's pool and batch, windows of 8)
+# phases 10 to 14 serve llama_1b's width at this depth (22 layers in
+# phase 4): their artifact files, boots and captures scale with the
+# layers, and the whole smoke has to fit its time limit on the slower
+# hosts
+SERVE_CUT_LAYERS = 8
+
+
+def serve_cut_config():
+    """llama_1b's width at SERVE_CUT_LAYERS layers."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import llama_1b
+
+    return dataclasses.replace(llama_1b(), num_hidden_layers=SERVE_CUT_LAYERS)
+
+
 ART_ENGINE = dict(num_blocks=2048, block_size=16, max_batch_size=8,
                   decode_steps_per_sync=SERVE_WINDOW)
 ART_NEW = 32
@@ -4166,10 +4222,10 @@ def phase_artifact_bf16(root, where, prompts, batch):
                                             create_predictor)
     from paddle_tpu_torch.inference.serving import (quantize_state_dict,
                                                     save_llama_artifact)
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.ops.cuda import paged_attention as K
 
-    cfg = llama_1b()
+    cfg = serve_cut_config()
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                              seed=SEED)
     n_params = sum(p.numel() for p in model.parameters())
@@ -4184,7 +4240,8 @@ def phase_artifact_bf16(root, where, prompts, batch):
         f"quantize_state_dict of this bf16 model quantizes {len(scales)} "
         f"and passes {passthrough} of {len(packed)} through (the "
         f"reference's rule: bf16 is not a numpy float kind)")
-    check(len(scales) == 0 and passthrough == len(packed) == 201,
+    check(len(scales) == 0
+          and passthrough == len(packed) == len(model.state_dict()),
           "a bf16 model's int8 packing is all passthrough")
     del packed
     ref = engine_tokens(model, prompts)
@@ -4303,7 +4360,7 @@ def phase_artifact_int8(root, where, prompts, batch):
 
     from paddle_tpu_torch.inference.serving import (load_llama_artifact,
                                                     quantize_state_dict)
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b, llama_tiny
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
     from paddle_tpu_torch.nn.layer.layers import set_state_dict
     from paddle_tpu_torch.quantization.base import per_channel_int8
 
@@ -4325,7 +4382,7 @@ def phase_artifact_int8(root, where, prompts, batch):
           f"rel err {tiny_rel} < {LOGIT_REL_TOL}")
     del tiny, pred
 
-    cfg = llama_1b()
+    cfg = serve_cut_config()
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.float32,
                              seed=SEED)
     n_params = sum(p.numel() for p in model.parameters())
@@ -4471,8 +4528,8 @@ def phase_ptq():
 
 
 def phase_serve_artifact():
-    """Phase 10: serving artifacts on llama_1b (10a-c) and PTQ on
-    llama_125m (10d); the artifacts live in a temporary directory under
+    """Phase 10: serving artifacts on llama_1b's width at SERVE_CUT_LAYERS
+    layers (10a-c) and PTQ on llama_125m (10d); the artifacts live in a temporary directory under
     ``TMPDIR``, removed at the end. Returns the paged kernels' launches
     in each counted predictor run, {"bf16": (a)'s, "int8": (c)'s}, each
     read from its own run with the counts set to 0 just before it."""
@@ -4979,7 +5036,7 @@ def store_card_vs_cpu(root):
 
 def phase_serve_disagg():
     """Phase 11: pages that leave and re-enter the pool, llama_1b bf16 at
-    full width with phase 4's prompts: (a) the disaggregated handoff, (a')
+    full width and SERVE_CUT_LAYERS layers with phase 4's prompts: (a) the disaggregated handoff, (a')
     the same on int8 pools, (b) the host tier under pool pressure, (c) the
     prefix store's warm restart (the store under ``TMPDIR``, removed at
     the end) and its fp32 llama_tiny card-vs-CPU check. Returns the paged
@@ -4990,9 +5047,9 @@ def phase_serve_disagg():
 
     import torch
 
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b
+    from paddle_tpu_torch.models import LlamaForCausalLM
 
-    cfg = llama_1b()
+    cfg = serve_cut_config()
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                              seed=SEED)
     prompts = serve_prompts(cfg.vocab_size)
@@ -5726,7 +5783,8 @@ def qos_card_vs_cpu():
 
 def phase_serve_qos():
     """Phase 12: deadlines, tenants and QoS tiers, and serving integrity,
-    llama_1b bf16 at full width with phase 4's prompts: (a) QoS against
+    llama_1b bf16 at full width and SERVE_CUT_LAYERS layers with phase
+    4's prompts: (a) QoS against
     FIFO, the quota arm; (b) deadlines; (c) page checksums, the
     host_entry drill, a sealed handoff, the weight audit and the pool-page
     flip (the artifact under ``TMPDIR``, removed at the end); (d) fp32
@@ -5738,9 +5796,9 @@ def phase_serve_qos():
 
     import torch
 
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b
+    from paddle_tpu_torch.models import LlamaForCausalLM
 
-    cfg = llama_1b()
+    cfg = serve_cut_config()
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                              seed=SEED)
     prompts = serve_prompts(cfg.vocab_size)
@@ -6178,8 +6236,8 @@ def fleet_tiny_card_vs_cpu(root):
 
 
 def phase_serve_fleet():
-    """Phase 13: the serving fleet, llama_1b bf16 at full width from a
-    bf16 artifact (``TMPDIR``, removed at the end) with phase 4's prompts
+    """Phase 13: the serving fleet, llama_1b bf16 at full width and
+    SERVE_CUT_LAYERS layers from a bf16 artifact (``TMPDIR``, removed at the end) with phase 4's prompts
     and phase 10's engine arguments in each replica process: (a) two
     colocated replicas against one in-process engine, then (d) a
     drain-reload on the same fleet; (b) a replica killed mid-burst and
@@ -6197,12 +6255,12 @@ def phase_serve_fleet():
     from paddle_tpu_torch.inference.serving import (LLMEngine,
                                                     SamplingParams,
                                                     save_llama_artifact)
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_1b
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.ops.cuda import _build
 
     _build.build_all()  # every replica only loads the libraries
     free_cuda()
-    cfg = llama_1b()
+    cfg = serve_cut_config()
     layers = cfg.num_hidden_layers
     prompts = serve_prompts(cfg.vocab_size)
     root = tempfile.mkdtemp(prefix="serve-fleet-")
@@ -6441,7 +6499,7 @@ def tp_group_direct(art, tiny_art, stale, root):
 def tp_direct_report(ranks, ref, layers):
     """Phase 14a's checks and line: both ranks' tokens identical, their
     agreement with the single-process engine, each rank's #1/#2 launches
-    against 22 x its iterations and chunks (wrapper and device tally),
+    against layers x its iterations and chunks (wrapper and device tally),
     tokens/s, TTFT p50 and the all_reduce share of the wall. Returns the
     ranks' launches."""
     import numpy as np
@@ -6591,8 +6649,8 @@ def tp_fleet_kill(r, boot, prompts, direct):
 
 
 def phase_serve_plan():
-    """Phase 14: sharding plans, llama_1b bf16 at full width from a bf16
-    artifact (``TMPDIR``) with phase 4's prompts and phase 10's engine
+    """Phase 14: sharding plans, llama_1b bf16 at full width and
+    SERVE_CUT_LAYERS layers from a bf16 artifact (``TMPDIR``) with phase 4's prompts and phase 10's engine
     arguments per step: #1 and #2 at a rank's shape against their plain
     versions; (a) a tp=2 group of two ``--tp-child`` processes on the one
     card, against the single-process engine; (b) a ``Router`` whose slot
@@ -6611,13 +6669,12 @@ def phase_serve_plan():
     from paddle_tpu_torch.inference.serving import (LLMEngine,
                                                     SamplingParams,
                                                     save_llama_artifact)
-    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_1b,
-                                         llama_tiny)
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
     worst = tp_kernel_cases(gen)
     free_cuda()
-    cfg = llama_1b()
+    cfg = serve_cut_config()
     prompts = serve_prompts(cfg.vocab_size)
     root = tempfile.mkdtemp(prefix="serve-plan-")
     try:
@@ -7280,9 +7337,9 @@ def launch_drill(root, whole, dev):
     {scenario: {rank: flash launches of its last incarnation}}."""
     import shutil
 
-    from paddle_tpu_torch.models import llama_125m, llama_tiny
+    from paddle_tpu_torch.models import llama_tiny
 
-    layers = (llama_125m() if dev == "cuda" else
+    layers = (sup_config() if dev == "cuda" else
               llama_tiny()).num_hidden_layers
     out, flags = {}, {}
     for name in LAUNCH_SCENARIOS:
@@ -7346,10 +7403,6 @@ HAPI_WARMUP = 3
 HAPI_O2_STEPS = 3
 # (c)'s fp32 bert_tiny: batch, sequence, train and eval batches, epochs
 HAPI_TINY = (4, 64, 3, 2, 2)
-# the flash kernels' device dispatchers (the CUDA wrappers they call count
-# the launches)
-HAPI_FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
-              "flash_attention_bwd_dkv")
 
 
 def hapi_data(cfg, batches, batch, seq, seed, label_token=None):
@@ -7398,27 +7451,26 @@ def hapi_recorder(dev):
 
 @contextlib.contextmanager
 def flash_dtypes():
-    """q's dtype at every call of the three flash kernels' dispatchers
-    (without rope) inside the block, by name; each call still goes to the
-    dispatcher, and on the card to the wrapper that launches and counts."""
+    """q's dtype at every launch of the three flash kernels (without
+    rope) inside the block, by name (``FLASH``): recorded where the CUDA
+    wrappers launch (``flash_attention._launch``, after their check that
+    k and v share q's dtype), so launches from inside a compiled graph
+    count too."""
     from paddle_tpu_torch.ops.cuda import flash_attention as FA
 
-    seen = {n: [] for n in HAPI_FLASH}
-    orig = {n: getattr(FA, n) for n in HAPI_FLASH}
+    seen = {n: [] for n in FLASH}
+    orig = FA._launch
 
-    def recording(name):
-        def call(q, *args, **kwargs):
-            seen[name].append(q.dtype)
-            return orig[name](q, *args, **kwargs)
-        return call
+    def recording(name, q, ptrs, tables, *args):
+        if tables is None:
+            seen[f"flash_attention_{name}"].append(q.dtype)
+        return orig(name, q, ptrs, tables, *args)
 
-    for n in HAPI_FLASH:
-        setattr(FA, n, recording(n))
+    FA._launch = recording
     try:
         yield seen
     finally:
-        for n in HAPI_FLASH:
-            setattr(FA, n, orig[n])
+        FA._launch = orig
 
 
 def hapi_model(net, level=None, lr=2e-5, epsilon=1e-8):
@@ -7668,6 +7720,423 @@ def phase_hapi():
     return {"o1": o1, "o2": o2}
 
 
+# phase 18: jit.to_static, jit.save and the predictor. (a)'s run: steps
+# compiled, the warm-up its ms/step skips, the eager steps beside it
+JIT_STEPS, JIT_WARMUP, JIT_EAGER_STEPS = 20, 3, 10
+JIT_BATCHES = (1, 8, 32)     # the predictor's batches (c)
+JIT_TIMED_RUNS = 10          # runs timed at the largest batch (c)
+# compiled against eager in fp32 (b, c): logits within 1e-4 (the same
+# kernels; inductor fuses the elementwise work and the embeddings'
+# LayerNorm in another summation order, across 12 layers); one training
+# step's loss within TRAIN_LOSS_RTOL and each gradient within 1e-3 of its
+# largest magnitude plus 1e-6 of the model's largest (the key projections'
+# biases have a zero gradient, softmax being invariant to a shift of a
+# row of scores: both sides' values there are rounding noise)
+JIT_LOGIT_ATOL = 1e-4
+JIT_GRAD_FRAC = 1e-3
+JIT_GRAD_FLOOR = 1e-6
+# the bf16 predictor against the eager model on the same bf16-rounded
+# weights (what convert_to_mixed_precision computes: the program in fp32
+# on the stored bf16 values)
+JIT_MIXED_ATOL = 1e-4
+
+
+def jit_batches(cfg, n, seed):
+    """``n`` seeded BERT batches on the card (HAPI_BATCH x HAPI_SEQ int64
+    ids whose first token names the label, as phase 17's)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, cfg.vocab_size, (HAPI_BATCH, HAPI_SEQ))
+        labels = rng.randint(0, cfg.num_labels, HAPI_BATCH)
+        ids[:, 0] = HAPI_LABEL_TOKEN + labels
+        out.append((torch.from_numpy(ids).cuda(),
+                    torch.from_numpy(labels).cuda()))
+    return out
+
+
+def jit_train_run(net, batches, steps):
+    """``steps`` AdamW(2e-5) steps of ``net`` (compiled or not) under AMP
+    O1 on ``batches``: (losses, host times after each step's synchronize,
+    the first step's forward and whole walls, each step's launches)."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=2e-5, parameters=net.parameters())
+    losses, times, per_step = [], [], []
+    before = all_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        ids, labels = batches[i]
+        with amp.auto_cast(level="O1"):
+            loss, _ = net(ids, labels=labels)
+        if i == 0:
+            torch.cuda.synchronize()
+            first_fwd = time.perf_counter() - t0
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        losses.append(float(loss))
+        now = all_launch_counts()
+        per_step.append({k: now[k] - before[k] for k in now})
+        before = now
+    return losses, times, (first_fwd, times[0] - t0), per_step
+
+
+def jit_ms(times, warmup):
+    return (times[-1] - times[warmup - 1]) / (len(times) - warmup) * 1e3
+
+
+def phase_jit_train(cfg):
+    """Phase 18a: BERT-base (fp32 weights, hidden dropout 0.1, attention
+    dropout 0) through ``jit.to_static`` under AMP O1 with
+    ``PT_FUSED_NORM``, AdamW(2e-5), JIT_STEPS seeded 128 x 128 batches:
+    the first step's wall (the compile) on its own line, ms/step and
+    tokens/s after JIT_WARMUP steps, peak memory, first and last loss;
+    the same for JIT_EAGER_STEPS eager steps from the same weights on the
+    same batches. Every loss finite and the last quarter's mean below the
+    first quarter's; one compile, JIT_STEPS - 1 hits, no eager fallback,
+    no graph break; q reaching every flash launch as bf16; in every step
+    #3, #4 and #5 launched layers times and #8 2 x layers times, nothing
+    else. Returns the compiled run's launch counts."""
+    import numpy as np
+    import torch
+    from torch._dynamo.utils import counters
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import BertForSequenceClassification
+
+    L = cfg.num_hidden_layers
+    batches = jit_batches(cfg, JIT_STEPS, SEED + 30)
+    tokens = HAPI_BATCH * HAPI_SEQ
+    runs = {}
+    with fused_switches(("PT_FUSED_NORM",)):
+        for arm, steps in (("to_static", JIT_STEPS),
+                           ("eager", JIT_EAGER_STEPS)):
+            torch.manual_seed(SEED)
+            net = BertForSequenceClassification(cfg, device="cuda",
+                                                seed=SEED)
+            if arm == "to_static":
+                net = jit.to_static(net)
+                jit.reset_cache_stats()
+            breaks = sum(counters["graph_break"].values())
+            reset_peak_memory()
+            reset_all_launch_counts()
+            with flash_dtypes() as seen:
+                losses, times, first, per_step = jit_train_run(
+                    net, batches, steps)
+            runs[arm] = dict(
+                losses=losses, first=first, per_step=per_step,
+                ms=jit_ms(times, JIT_WARMUP),
+                peak=torch.cuda.max_memory_allocated() / 2**30,
+                counts=all_launch_counts(), seen=seen,
+                breaks=sum(counters["graph_break"].values()) - breaks,
+                stats=(jit.cache_stats(net.forward._stats_name)
+                       if arm == "to_static" else None))
+            del net
+            free_cuda()
+    for arm, r in runs.items():
+        steps = len(r["losses"])
+        q = steps // 4
+        ms = r["ms"]
+        say(f"jit BERT-base O1 {arm} first step: {r['first'][1]:.2f} s, its "
+            f"forward call {r['first'][0]:.2f} s"
+            + (" (the compile: Dynamo's capture, AOTAutograd's forward and "
+               "backward graphs, inductor's code)"
+               if arm == "to_static" else ""))
+        say(f"jit BERT-base O1 {arm}: {steps} steps; {ms:.1f} ms/step "
+            f"(host clock, after "
+            f"{JIT_WARMUP} warm-up steps), {tokens / ms * 1e3:.0f} "
+            f"tokens/s, peak memory {r['peak']:.2f} GiB; losses "
+            f"{[round(x, 4) for x in r['losses']]} (first "
+            f"{r['losses'][0]:.4f}, last {r['losses'][-1]:.4f}); launches "
+            f"{r['counts']}")
+        check(np.isfinite(r["losses"]).all() and np.mean(r["losses"][-q:])
+              < np.mean(r["losses"][:q]),
+              f"jit {arm}: losses finite and falling")
+        want = launches_want(**{f"{n}_cuda": L for n in FLASH},
+                             fused_add_layer_norm_cuda=2 * L)
+        check(all(c == want for c in r["per_step"]),
+              f"jit {arm} launches a step {r['per_step']} == {want}")
+        dts = {n: sorted({str(d) for d in v}) for n, v in r["seen"].items()}
+        check(all(v == [torch.bfloat16] * (L * steps)
+                  for v in r["seen"].values()),
+              f"jit {arm}: q reached the flash launches as {dts}")
+    st, r = runs["to_static"]["stats"], runs["to_static"]
+    say(f"jit to_static cache_stats: compiles {st['compiles']}, hits "
+        f"{st['hits']}, eager fallbacks {st['eager_fallbacks']}; Dynamo "
+        f"graph breaks {r['breaks']}; compiled vs eager "
+        f"{r['ms']:.1f} vs {runs['eager']['ms']:.1f} ms/step")
+    check((st["compiles"], st["hits"], st["eager_fallbacks"], r["breaks"])
+          == (1, JIT_STEPS - 1, 0, 0),
+          "jit to_static: one compile, the rest hits, no fallback or break")
+    return r["counts"]
+
+
+def jit_grads(net):
+    return {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+
+
+def phase_jit_vs_eager(net, cfg):
+    """Phase 18b: BERT-base (``net``: fp32, both dropouts 0, seed weights,
+    the model 18c saves), one batch, ``PT_FUSED_NORM``, compiled and eager
+    on the same weights in one fp32 training forward and backward: one
+    inductor compile at full depth, whose logits are the eval logits (no
+    layer but dropout depends on the mode, and both dropouts are 0).
+    Logits within JIT_LOGIT_ATOL, loss within TRAIN_LOSS_RTOL, each
+    gradient within JIT_GRAD_FRAC of its largest magnitude plus
+    JIT_GRAD_FLOOR of the model's. Leaves ``net`` in eval mode with no
+    gradients and returns the batch."""
+    import torch
+
+    from paddle_tpu_torch import jit
+
+    ids, labels = jit_batches(cfg, 1, SEED + 31)[0]
+    with fused_switches(("PT_FUSED_NORM",)):
+        net.train()
+        jit.to_static(net)
+        t0 = time.perf_counter()
+        loss_c, logits_c = net(ids, labels=labels)
+        loss_c.backward()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        g_c = jit_grads(net)
+        net.zero_grad(set_to_none=True)
+        jit.enable_to_static(False)
+        try:
+            loss_e, logits_e = net(ids, labels=labels)
+            loss_e.backward()
+        finally:
+            jit.enable_to_static(True)
+        g_e = jit_grads(net)
+        net.zero_grad(set_to_none=True)
+        net.eval()
+    err = float((logits_c - logits_e).abs().max())
+    dl = abs(float(loss_c) / float(loss_e) - 1)
+    top = max(float(g.abs().max()) for g in g_e.values())
+    worst = max(float((g_c[n] - g_e[n]).abs().max())
+                / (float(g_e[n].abs().max()) + JIT_GRAD_FLOOR / JIT_GRAD_FRAC
+                   * top) for n in g_e)
+    say(f"jit compiled vs eager BERT-base fp32, "
+        f"{cfg.num_hidden_layers} layers, batch {tuple(ids.shape)}, one "
+        f"training step (compile + run {train_s:.2f} s): logits max abs "
+        f"diff {err:.3e} (tol {JIT_LOGIT_ATOL:g}); loss "
+        f"{float(loss_c):.6f} vs {float(loss_e):.6f} (rel diff {dl:.2e}, "
+        f"tol {TRAIN_LOSS_RTOL:g}), worst gradient diff over its largest "
+        f"magnitude (+ {JIT_GRAD_FLOOR / JIT_GRAD_FRAC:g} of the model's "
+        f"largest) {worst:.2e} (tol {JIT_GRAD_FRAC:g})")
+    check(err <= JIT_LOGIT_ATOL, "jit: compiled logits equal eager's")
+    check(dl <= TRAIN_LOSS_RTOL and worst <= JIT_GRAD_FRAC,
+          "jit: a compiled fp32 training step equals eager's")
+    return ids
+
+
+def jit_logits(net, ids):
+    """``net``'s eager logits (a ``to_static`` forward taken uncompiled)."""
+    import torch
+
+    from paddle_tpu_torch import jit
+
+    jit.enable_to_static(False)
+    try:
+        with torch.no_grad():
+            return net(ids).float().cpu().numpy()
+    finally:
+        jit.enable_to_static(True)
+
+
+def phase_jit_predictor(net, ids, root):
+    """Phase 18c: ``jit.save`` of BERT-base (``net``: seed weights, eval
+    mode) with ``InputSpec([None, 128], "int64", "input_ids")`` under
+    ``PT_FUSED_NORM``, then ``create_predictor(Config(path))`` on the
+    card at JIT_BATCHES: logits within JIT_LOGIT_ATOL of eager's, #3
+    layers and #8 2 x layers a run, nothing else; two ``clone()``s on two
+    threads equal to the predictor on the same rows; the save, load and
+    a batch of 32's ms; then ``convert_to_mixed_precision(..., "bfloat16")``:
+    stored weights half the bytes, logits within JIT_MIXED_ATOL of eager
+    on the bf16-rounded weights. Returns the launches of the
+    JIT_BATCHES runs, summed."""
+    import pickle
+    import threading
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.static import InputSpec
+
+    L = len(net.bert.encoder.layers)
+    path = os.path.join(root, "bert")
+    x = ids.cpu().numpy()
+    with fused_switches(("PT_FUSED_NORM",)):
+        t0 = time.perf_counter()
+        jit.save(net, path, input_spec=[InputSpec([None, HAPI_SEQ], "int64",
+                                                  "input_ids")])
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(path))
+        load_s = time.perf_counter() - t0
+    total = dict.fromkeys(all_launch_counts(), 0)
+    errs = {}
+    for b in JIT_BATCHES:
+        reset_all_launch_counts()
+        (out,) = pred.run([x[:b]])
+        torch.cuda.synchronize()
+        counts = all_launch_counts()
+        want = launches_want(flash_attention_fwd_cuda=L,
+                             fused_add_layer_norm_cuda=2 * L)
+        check(counts == want, f"jit predictor batch {b}: launches {counts} "
+              f"== {want}")
+        for k, v in counts.items():
+            total[k] += v
+        errs[b] = float(np.abs(out - jit_logits(net, ids[:b])).max())
+        check(out.shape == (b, 2) and errs[b] <= JIT_LOGIT_ATOL,
+              f"jit predictor batch {b}: logits max abs diff {errs[b]:.3e}")
+    big = x[:JIT_BATCHES[-1]]
+    pred.run([big])
+    t0 = time.perf_counter()
+    for _ in range(JIT_TIMED_RUNS):
+        pred.run([big])
+    ms = (time.perf_counter() - t0) / JIT_TIMED_RUNS * 1e3
+    halves = (x[:8], x[8:16])
+    want = [pred.run([h])[0] for h in halves]
+    got = {}
+
+    def worker(i):
+        got[i] = pred.clone().run([halves[i]])[0]
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    clone_diff = max(float(np.abs(got[i] - want[i]).max()) for i in (0, 1))
+    check(len(got) == 2 and clone_diff <= JIT_LOGIT_ATOL,
+          f"jit predictor clones on two threads agree ({clone_diff:.3e})")
+    mixed = os.path.join(root, "bert_bf16")
+    t0 = time.perf_counter()
+    inference.convert_to_mixed_precision(
+        path + ".pdmodel", path + ".pdiparams", mixed + ".pdmodel",
+        mixed + ".pdiparams", "bfloat16")
+    convert_s = time.perf_counter() - t0
+    sizes = [os.path.getsize(p + ".pdmodel") for p in (path, mixed)]
+    weights = []
+    for p in (path, mixed):
+        with open(p + ".pdmodel", "rb") as f:
+            weights.append(sum(a.nbytes for a in pickle.load(f)["consts"]))
+    mpred = inference.create_predictor(inference.Config(mixed))
+    (mout,) = mpred.run([x[:8]])
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(p.to(torch.bfloat16).float())
+    rounded = jit_logits(net, ids[:8])
+    merr = float(np.abs(mout - rounded).max())
+    mfull = float(np.abs(mout - want[0]).max())
+    say(f"jit predictor BERT-base: jit.save {save_s:.2f} s, "
+        f"create_predictor {load_s:.2f} s, .pdmodel {sizes[0]:,} bytes; "
+        f"logits vs eager max abs diff "
+        f"{ {b: f'{e:.2e}' for b, e in errs.items()} } (tol "
+        f"{JIT_LOGIT_ATOL:g}); {ms:.2f} ms a batch of {len(big)} (host, "
+        f"run() with its copies); two clones on two threads within "
+        f"{clone_diff:.2e} (bit for bit: {clone_diff == 0.0}); launches "
+        f"over batches {JIT_BATCHES}: {total}")
+    say(f"jit convert_to_mixed_precision bf16: {convert_s:.2f} s, weights "
+        f"{weights[1]:,} bytes ({weights[1] / weights[0]:.3f} of fp32's), "
+        f".pdmodel {sizes[1]:,} bytes ({sizes[1] / sizes[0]:.3f}); "
+        f"logits vs eager on the bf16-rounded weights max abs diff "
+        f"{merr:.2e} (tol {JIT_MIXED_ATOL:g}), vs the fp32 predictor "
+        f"{mfull:.2e}")
+    check(weights[1] * 2 == weights[0] and merr <= JIT_MIXED_ATOL,
+          "jit: the bf16 conversion halves the weights and computes on them")
+    return total
+
+
+def jit_op_args(gen):
+    """Small arguments on the card for each registered op (bf16 and fp32
+    flash at D 64, rope tables, norms and the MoE FFN in fp32)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+
+    out = []
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = flash_inputs(gen, 4, 128, 64, dt)
+        o, lse = FA.flash_attention_fwd_cuda(q, k, v, 0.125, True)
+        c2, s2 = rope_tables(128, 64)
+        bwd = (q, k, v, o, lse, do)
+        out += [("flash_attention_fwd", (q, k, v, 0.125, True)),
+                ("flash_attention_bwd_dq", bwd + (0.125, True)),
+                ("flash_attention_bwd_dkv", bwd + (0.125, False)),
+                ("flash_attention_rope_fwd", (q, k, v, c2, s2, 0.125, True)),
+                ("flash_attention_rope_bwd_dq", bwd + (c2, s2, 0.125, True)),
+                ("flash_attention_rope_bwd_dkv",
+                 bwd + (c2, s2, 0.125, True))]
+    out += [("fused_add_rms_norm", (*rms_inputs(gen, 37, 256,
+                                                torch.float32), RMS_EPS)),
+            ("fused_add_layer_norm", (*ln_inputs(gen, 37, 256,
+                                                 torch.float32), LN_EPS))]
+    x, ws = moe_inputs(gen, 2, 20, 128, 384, torch.float32)
+    out.append(("moe_ffn", (x, *ws)))
+    return out
+
+
+def phase_jit_opcheck(gen):
+    """Phase 18d: ``torch.library.opcheck`` (schema, autograd
+    registration, fake tensor, AOT dispatch) of every registered op on the
+    card."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import library
+
+    results = {}
+    for name, args in jit_op_args(gen):
+        got = torch.library.opcheck(library.OPS[name], args)
+        results.setdefault(name, []).append(
+            all(v == "SUCCESS" for v in got.values()))
+    torch.cuda.synchronize()
+    passed = {n: all(v) for n, v in results.items()}
+    say(f"jit opcheck on the card: {passed}")
+    check(set(results) == set(library.OPS)
+          and all(all(v) for v in results.values()), "jit: opcheck")
+
+
+def phase_jit():
+    """Phase 18: ``jit.to_static``, ``jit.save`` and the predictor on the
+    card (18a-18d). Returns #3-#5 and #8's launches of (a) and (c)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.models import BertForSequenceClassification, bert_base
+
+    train = phase_jit_train(bert_base(hidden_dropout_prob=0.1,
+                                      attention_probs_dropout_prob=0.0))
+    cfg = bert_base(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    net = BertForSequenceClassification(cfg, device="cuda", seed=SEED)
+    ids = phase_jit_vs_eager(net, cfg)
+    free_cuda()
+    root = tempfile.mkdtemp(prefix="jit-")
+    try:
+        pred = phase_jit_predictor(net, ids, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del net
+    free_cuda()
+    phase_jit_opcheck(torch.Generator(device="cuda").manual_seed(SEED + 32))
+    from torch._inductor.async_compile import shutdown_compile_workers
+
+    shutdown_compile_workers()
+    return {"to_static": train, "predictor": pred}
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -7795,6 +8264,8 @@ def main():
     launch_launches = timed(phase_launch, whole)
     # phase 17's O1 fit and O2 steps, each counted on its own
     hapi_launches = timed(phase_hapi)
+    # phase 18's compiled training run and predictor runs
+    jit_launches = timed(phase_jit)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
@@ -7841,6 +8312,8 @@ def main():
                                      for arm, c in varlen_launches.items()}
             k["launches_phase17"] = {arm: c[k["name"] + "_cuda"]
                                      for arm, c in hapi_launches.items()}
+            k["launches_phase18"] = {arm: c[k["name"] + "_cuda"]
+                                     for arm, c in jit_launches.items()}
         if k["name"] in FLASH:
             k["launches_phase16"] = {
                 job: {rank: c[k["name"]] for rank, c in ranks.items()}

@@ -20,7 +20,11 @@ weights in place and serves an artifact through ``create_predictor``;
 ``quantization`` is QAT and PTQ for ``nn.Linear``. ``Model`` (``hapi``)
 is the reference's high-level loop (``prepare``/``fit``/``evaluate``/
 ``predict``/``save``/``load``) with ``callbacks``, ``metric``, the AMP
-levels of ``amp`` and ``flops``/``summary``.
+levels of ``amp`` and ``flops``/``summary``. ``jit`` is ``to_static``
+(``torch.compile`` around the hand-written kernels, each a
+``torch.library`` op) and ``jit.save``/``jit.load`` (``torch.export``),
+which ``inference.create_predictor`` serves; ``static.InputSpec``
+describes an export's inputs.
 
 It imports ``torch`` and never ``jax`` or ``paddle_tpu``; its exports load
 on first use, so the launcher (``python -m
@@ -50,7 +54,7 @@ _EXPORTS = {
 }
 
 # subpackages, imported on first use like the names above
-_SUBPACKAGES = ["amp", "hapi", "metric"]
+_SUBPACKAGES = ["amp", "hapi", "jit", "metric"]
 
 __all__ = list(_EXPORTS) + _SUBPACKAGES
 

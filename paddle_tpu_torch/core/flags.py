@@ -13,6 +13,7 @@ window), the supervised loop's ``prefetch_depth``, ``step_timeout_s``,
 ``ckpt_save_retries`` and ``ckpt_quarantine_keep``, and the ten
 ``sentinel_*`` flags of the divergence sentinel here, and
 ``jit_compile_warn_threshold`` in :mod:`..jit.cache`, and
+``to_static_fallback`` in :mod:`..jit`, and
 ``restart_window_s`` and ``restart_backoff_s`` in the restart budget,
 and ``worker_hang_timeout_s`` and ``worker_term_grace_s`` in the
 launcher's collective controller
@@ -179,6 +180,12 @@ register_flag(
          "accumulate on the device and are fetched every N steps (N=1 "
          "restores per-step fetch)",
     on_change=_validate_positive_int("metric_fetch_interval"))
+
+# to_static's eager fallback (jit/__init__.py)
+register_flag(
+    "to_static_fallback", True,
+    help="fall back to eager when to_static capture hits data-dependent "
+         "control flow (SOT semantics); 0 raises RuntimeError instead")
 
 # checkpoints, prefetch and the stall guard of the supervised loop
 register_flag(

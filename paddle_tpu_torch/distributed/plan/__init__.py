@@ -9,8 +9,9 @@ as Megatron tensor parallelism in the serving engine::
     plan = Plan.build({"tp": 2}, ["tp"])
     LLMEngine(model, plan=plan)
 
-``compile_step_with_plan`` has no counterpart: eager PyTorch has no
-compile layer (ROADMAP Queue 1 item 3's ``jit/``).
+``compile_step_with_plan`` is not ported: it hands sharding specs to the
+compiler, and only ``tp`` executes (ROADMAP Queue 1, item 8; the compile
+layer itself, ``jit.to_static`` on ``torch.compile``, is ported).
 """
 
 from .mesh import AXES, RankMesh, make_mesh, mesh_axes  # noqa: F401

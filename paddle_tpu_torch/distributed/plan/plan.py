@@ -23,9 +23,8 @@ The mesh is over ranks (:mod:`.mesh`), and executing a plan is
 rank's block, and the model's own ``adopt_plan`` (llama's Megatron forms)
 wires the collectives. The port executes the ``tp`` axis only; any other
 axis of degree > 1, and ``sep``, raise ``NotImplementedError`` there
-(ROADMAP Queue 1 item 8). There is no ``compile_step_with_plan``: eager
-PyTorch has no compile layer to hand a plan to (ROADMAP item 3's
-``jit/``).
+(ROADMAP Queue 1 item 8). ``compile_step_with_plan`` (a plan handed to
+the compiler) waits for the other axes too (item 8).
 """
 
 from __future__ import annotations

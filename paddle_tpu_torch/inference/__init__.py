@@ -1,23 +1,31 @@
 """Inference surface of the port (counterpart of
-``paddle_tpu.inference``): the reference's ``Config``, handles and
-predictor factory, over the paged-KV serving engine.
+``paddle_tpu.inference``): the reference's ``Config``, handles, predictor
+factory and offline precision pass.
 
-``create_predictor(Config(path).enable_llm_engine(...))`` on a llama
-serving artifact (``serving.save_llama_artifact`` output, detected by its
-``.llamacfg.json``) returns an :class:`LLMEnginePredictor`: the artifact
-loaded by ``serving.load_llama_artifact`` and served by
-``serving.LLMEngine``, on ``cuda:<device_id>`` (``Config.disable_gpu()``:
-the CPU). The reference's StableHLO :class:`Predictor` and
-:func:`convert_to_mixed_precision` replay ``jit.save`` programs, which the
-port does not have: they raise ``NotImplementedError`` (ROADMAP Queue 1,
-item 3, ``jit/``), as ``create_predictor`` does for any other artifact.
-Graph-level knobs (``switch_ir_optim``, ``enable_memory_optim``, ...) are
-recorded for parity.
+``create_predictor(Config(path))`` on a ``jit.save`` export
+(``path.pdmodel``) returns a :class:`Predictor`: the handle API over
+the program :func:`paddle_tpu_torch.jit.load` rebuilds
+(``torch.export``, the weights as its inputs), on ``cuda:<device_id>``
+(``Config.disable_gpu()``: the CPU). ``clone()`` shares the program and
+weights and gives a thread its own handles and lock.
+:func:`convert_to_mixed_precision` stores an export's floating weights at
+fp16 or bf16 and records their dtypes; the predictor casts them back up
+when it loads them, so the program computes in its original dtypes (the
+reference's ``call(cast_fp32(weights_lp), *inputs)``).
+
+With ``enable_llm_engine(...)``, a llama serving artifact
+(``serving.save_llama_artifact`` output, detected by its
+``.llamacfg.json``) gets an :class:`LLMEnginePredictor` instead: the
+artifact loaded by ``serving.load_llama_artifact`` and served by
+``serving.LLMEngine``. Graph-level knobs (``switch_ir_optim``,
+``enable_memory_optim``, ...) are recorded for parity.
 """
 
 from __future__ import annotations
 
+import copy
 import os
+import threading
 
 import numpy as np
 
@@ -29,10 +37,6 @@ __all__ = ["Config", "Predictor", "Tensor", "create_predictor",
            "get_num_bytes_of_data_type", "get_trt_compile_version",
            "get_trt_runtime_version", "convert_to_mixed_precision",
            "XpuConfig", "PredictorPool", "_get_phi_kernel_name"]
-
-_NO_JIT = ("the StableHLO predictor replays jit.save programs, and jit.save "
-           "is not ported yet (ROADMAP Queue 1, item 3, jit/)")
-
 
 class PrecisionType:
     Float32 = "float32"
@@ -188,13 +192,77 @@ class Tensor:
 
 
 class Predictor:
-    """The reference's handle-based session over a deserialized StableHLO
-    program: not ported (``jit.save`` is not)."""
+    """The reference's handle-based predictor (analysis_predictor.h:100) over
+    a ``jit.save`` export, loaded by :func:`paddle_tpu_torch.jit.load` on
+    ``Config._torch_device()``. ``run`` returns the outputs as numpy
+    arrays (bfloat16 ones as float32: numpy has no bfloat16)."""
 
     def __init__(self, config):
-        raise NotImplementedError(
-            f"Predictor({config.prog_file()!r}): {_NO_JIT}; llama serving "
-            "artifacts are served through Config.enable_llm_engine()")
+        from ..jit import load as jit_load
+
+        self._config = config
+        if config.prog_file() is None:
+            raise ValueError("Config has no model path; use "
+                             "Config(prog_file) or set_model()")
+        self._layer = jit_load(config.prog_file(),
+                               device=config._torch_device())
+        self._inputs = {}
+        for i, (shape, dtype, name) in enumerate(self._layer._specs):
+            name = name or f"x{i}"
+            self._inputs[name] = Tensor(name, (shape, dtype))
+        # placeholder handle so every advertised output name is fetchable
+        # even before the first run() (its value stays None until then)
+        self._outputs = {"out0": Tensor("out0")}
+        self._lock = threading.Lock()
+
+    # ---- handles --------------------------------------------------------
+    def get_input_names(self):
+        return list(self._inputs)
+
+    def get_input_handle(self, name):
+        return self._inputs[name]
+
+    def get_output_names(self):
+        return list(self._outputs)
+
+    def get_output_handle(self, name):
+        return self._outputs[name]
+
+    # ---- execution ------------------------------------------------------
+    def run(self, inputs=None):
+        """Execute; returns the list of output numpy arrays (and fills the
+        output handles). ``inputs`` may be passed positionally like the
+        reference's ``predictor.run([x, y])``."""
+        import torch
+
+        if inputs is not None:
+            for h, arr in zip(self._inputs.values(), inputs):
+                h.copy_from_cpu(np.asarray(arr))
+        args = [h._value for h in self._inputs.values()]
+        with self._lock, torch.no_grad():
+            out = self._layer._run(*args)
+        outs = [(o.float() if o.dtype == torch.bfloat16 else o).cpu().numpy()
+                for o in out]
+        fresh = {}
+        for i, o in enumerate(outs):
+            t = Tensor(f"out{i}")
+            t._value = o
+            fresh[f"out{i}"] = t
+        self._outputs = fresh or {"out0": Tensor("out0")}
+        return outs
+
+    def clone(self):
+        """A predictor for another thread: the same loaded program and
+        weights, its own handles and lock (the reference clones the
+        executor, sharing the program)."""
+        c = copy.copy(self)
+        c._inputs = {n: Tensor(n, h._spec) for n, h in self._inputs.items()}
+        c._outputs = {"out0": Tensor("out0")}
+        c._lock = threading.Lock()
+        return c
+
+    def try_shrink_memory(self):
+        pass
 
 
 class LLMEnginePredictor:
@@ -289,14 +357,18 @@ class LLMEnginePredictor:
         self.engine.close()
 
 
+def _llm_engine_artifact(config):
+    path = config.prog_file()
+    return (config._llm_engine and path is not None
+            and serving.is_llama_artifact(path))
+
+
 def create_predictor(config: Config):
     """An :class:`LLMEnginePredictor` for a llama serving artifact under
-    ``enable_llm_engine()``; anything else is the StableHLO
-    :class:`Predictor`, which raises ``NotImplementedError``."""
-    if config._llm_engine:
-        path = config.prog_file()
-        if path is not None and serving.is_llama_artifact(path):
-            return LLMEnginePredictor(config)
+    ``enable_llm_engine()``; a :class:`Predictor` for anything else (a
+    ``jit.save`` export), as in the reference."""
+    if _llm_engine_artifact(config):
+        return LLMEnginePredictor(config)
     return Predictor(config)
 
 
@@ -346,19 +418,19 @@ class XpuConfig:
 
 class PredictorPool:
     """reference paddle_infer.PredictorPool: N predictors over one config,
-    each further one a ``clone()`` of the first. Only the StableHLO
-    ``Predictor`` has ``clone`` in the reference; the port's predictor,
-    ``LLMEnginePredictor``, has none, so a pool holds one predictor and
-    ``size > 1`` raises before anything is loaded."""
+    each further one a ``clone()`` of the first (thread serving; the
+    clones share the program and weights). ``LLMEnginePredictor`` has no
+    ``clone``, so over a llama serving artifact ``size > 1`` raises before
+    anything is loaded."""
 
     def __init__(self, config, size=1):
-        if size > 1:
+        if size > 1 and _llm_engine_artifact(config):
             raise NotImplementedError(
                 f"PredictorPool(size={size}): further predictors are clones "
-                f"of the first, and only the StableHLO predictor clones; "
-                f"{_NO_JIT}. LLMEnginePredictor has no clone: build one "
-                f"engine per predictor with create_predictor")
-        self._preds = [create_predictor(config)]
+                "of the first, and LLMEnginePredictor has no clone: build "
+                "one engine per predictor with create_predictor")
+        first = create_predictor(config)
+        self._preds = [first] + [first.clone() for _ in range(size - 1)]
 
     def retrive(self, idx):  # reference spells it this way
         return self._preds[idx]
@@ -370,6 +442,48 @@ def convert_to_mixed_precision(model_file, params_file, mixed_model_file,
                                mixed_params_file, mixed_precision,
                                backend=None, keep_io_types=True,
                                black_list=None, **kwargs):
-    """The reference's offline precision rewrite of a ``jit.save``
-    program: not ported."""
-    raise NotImplementedError(f"convert_to_mixed_precision: {_NO_JIT}")
+    """Offline precision pass: a ``jit.save`` export -> one whose floating
+    weights are stored at ``mixed_precision`` (float16 or bfloat16),
+    about half the bytes (reference: python/paddle/inference/wrapper.py:79).
+
+    The program is kept as exported; the payload records each weight's
+    original dtype (``orig_dtypes``) and ``mixed_precision``, and
+    :func:`paddle_tpu_torch.jit.load` casts the stored weights back up, so
+    the program computes on the low-precision values in its original
+    dtypes: the reference's ``call(cast_fp32(weights_lp), *inputs)``.
+    I/O dtypes are unchanged (``keep_io_types`` is accepted for parity);
+    op-level ``black_list``s do not apply to a whole program and are
+    accepted. ``params_file`` is copied to ``mixed_params_file``."""
+    import pickle
+    import shutil
+
+    import torch
+
+    from ..core.dtype import dtype_name
+    from ..framework.io import numpy_to_tensor, tensor_to_numpy
+    from ..jit import _read_payload, _strip
+
+    if mixed_precision in ("int8", PrecisionType.Int8):
+        raise NotImplementedError(
+            "int8 conversion lives in paddle.quantization (PTQ); "
+            "convert_to_mixed_precision handles float16/bfloat16")
+    lp = (torch.bfloat16 if mixed_precision in ("bfloat16", "bf16")
+          else torch.float16)
+    path = _strip(model_file)
+    payload = _read_payload(path)
+    stored = payload["const_dtypes"]
+    orig = payload.get("orig_dtypes") or list(stored)
+    consts, dtypes = [], []
+    for arr, d in zip(payload["consts"], stored):
+        t = numpy_to_tensor(arr, d)
+        if t.is_floating_point():
+            arr, d = tensor_to_numpy(t.to(lp))
+        consts.append(arr)
+        dtypes.append(d)
+    new_payload = dict(payload, consts=consts, const_dtypes=dtypes,
+                       orig_dtypes=orig, mixed_precision=dtype_name(lp))
+    with open(_strip(mixed_model_file) + ".pdmodel", "wb") as f:
+        pickle.dump(new_payload, f, protocol=4)
+    src_params = path + ".pdiparams" if params_file is None else params_file
+    if mixed_params_file and os.path.exists(src_params):
+        shutil.copyfile(src_params, mixed_params_file)

@@ -10,15 +10,17 @@ pass through unchanged, and each costs its own compile, which the
 counters below make visible.
 
 In the port a "compile" is the first use of a new input signature by an
-entry point: on the card the step that is then captured into a CUDA
-graph, on the CPU its first eager run. ``cache_stats()`` counts compiles,
-hits, bucket pads and scaler fallbacks per entry point, with the same
-meaning on both devices, and ``FLAGS_jit_compile_warn_threshold`` warns
-once when one entry point compiles too often.
+entry point: for ``fused_train_step`` on the card the step that is then
+captured into a CUDA graph, on the CPU its first eager run; for
+``jit.to_static`` a ``torch.compile`` of a new cache key.
+``cache_stats()`` counts compiles, hits, bucket pads and scaler fallbacks
+per entry point, with the same meaning on both devices, and
+``FLAGS_jit_compile_warn_threshold`` warns once when one entry point
+compiles too often.
 
 Padding is zeros, applied only where bucketing was registered. The
 reference's ``CountingJit`` (``jax.jit`` with these counters) has no
-counterpart here: ``to_static`` is not ported yet.
+counterpart here: ``jit.to_static``'s cache records into them itself.
 """
 
 from __future__ import annotations
@@ -119,8 +121,8 @@ _GLOBAL_SPEC: BucketSpec | None = None
 
 def set_shape_buckets(boundaries=None, axis=1):
     """Register process-global shape buckets for every bucketing entry
-    point (``fused_train_step``); ``None`` clears. Returns the previous
-    spec. Per-step ``shape_buckets=`` overrides."""
+    point (``fused_train_step``, ``jit.to_static``); ``None`` clears.
+    Returns the previous spec. Per-step ``shape_buckets=`` overrides."""
     global _GLOBAL_SPEC
     prev = _GLOBAL_SPEC
     _GLOBAL_SPEC = (None if boundaries is None

@@ -13,9 +13,14 @@ The port of ``paddle_tpu/ops/pallas/flash_attention.py`` (without rope):
 
 Kernels and plain versions work on ``[B*H, S, D]`` (bf16 or fp32; lse
 ``[B*H, S]`` fp32) and compute the same functions from the same residuals;
-the plain versions materialise the full S x S scores in fp32. The
-dispatchers (:func:`flash_attention_fwd` etc.) take the plain version only
-for a tensor on the CPU; a CUDA tensor launches the kernel or raises.
+the plain versions materialise the full S x S scores in fp32. Each
+kernel entry is a ``torch.library`` op (:mod:`.library`; for example
+``paddle_tpu_torch::flash_attention_fwd``) whose CUDA implementation is
+the wrapper and whose CPU implementation is the plain version; the
+dispatchers (:func:`flash_attention_fwd` etc.) call the op while a graph
+is traced and its implementation directly when eager, so a CPU tensor
+takes the plain version and a CUDA tensor launches the kernel or raises,
+eagerly and inside a compiled or exported graph alike.
 :func:`flash_attention` is the array-level entry (``_flash_attention_arrays``)
 on ``[B, S, H, D]``. Each CUDA wrapper counts its launches in ``launches``.
 
@@ -51,6 +56,7 @@ import torch
 
 from ...amp.amp_lists import maybe_cast
 from ._build import load
+from .library import define
 
 __all__ = ["flash_attention", "FlashAttentionFunction",
            "FlashAttentionBHSDFunction", "attention_block_bhsd",
@@ -381,37 +387,69 @@ def launch_counts():
 
 
 # ---------------------------------------------------------------------------
-# dispatch by device, the autograd Function and the array-level entry
+# the kernels as torch.library ops, dispatch by device, the autograd
+# Functions and the array-level entry
 # ---------------------------------------------------------------------------
 
-def _on_cpu(t):
-    return t.device.type == "cpu"
+def _fwd_fake(q, k, v, *rest):
+    return (q.new_empty(q.shape),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+def _dq_fake(q, *rest):
+    return q.new_empty(q.shape)
+
+
+def _dkv_fake(q, k, v, *rest):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+_QKV = "Tensor q, Tensor k, Tensor v"
+_BWD = f"{_QKV}, Tensor out, Tensor lse, Tensor dout"
+_TAIL = "float scale, bool causal"
+_TABLES = "Tensor c2, Tensor s2"
+_fwd_op = define("flash_attention_fwd",
+                 f"({_QKV}, {_TAIL}) -> (Tensor, Tensor)",
+                 flash_attention_fwd_cuda, flash_attention_fwd_plain,
+                 _fwd_fake)
+_dq_op = define("flash_attention_bwd_dq", f"({_BWD}, {_TAIL}) -> Tensor",
+                flash_attention_bwd_dq_cuda, flash_attention_bwd_dq_plain,
+                _dq_fake)
+_dkv_op = define("flash_attention_bwd_dkv",
+                 f"({_BWD}, {_TAIL}) -> (Tensor, Tensor)",
+                 flash_attention_bwd_dkv_cuda, flash_attention_bwd_dkv_plain,
+                 _dkv_fake)
+_rope_fwd_op = define(
+    "flash_attention_rope_fwd",
+    f"({_QKV}, {_TABLES}, {_TAIL}) -> (Tensor, Tensor)",
+    flash_attention_rope_fwd_cuda, flash_attention_rope_fwd_plain, _fwd_fake)
+_rope_dq_op = define(
+    "flash_attention_rope_bwd_dq", f"({_BWD}, {_TABLES}, {_TAIL}) -> Tensor",
+    flash_attention_rope_bwd_dq_cuda, flash_attention_rope_bwd_dq_plain,
+    _dq_fake)
+_rope_dkv_op = define(
+    "flash_attention_rope_bwd_dkv",
+    f"({_BWD}, {_TABLES}, {_TAIL}) -> (Tensor, Tensor)",
+    flash_attention_rope_bwd_dkv_cuda, flash_attention_rope_bwd_dkv_plain,
+    _dkv_fake)
 
 
 def flash_attention_fwd(q, k, v, scale, causal):
-    """Forward on [BH, S, D]: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if _on_cpu(q):
-        return flash_attention_fwd_plain(q, k, v, scale, causal)
-    return flash_attention_fwd_cuda(q, k, v, scale, causal)
+    """Forward on [BH, S, D] through its op: the kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    return _fwd_op(q, k, v, float(scale), bool(causal))
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, scale, causal):
-    """dq on [BH, S, D], dispatched by device like the forward."""
-    if _on_cpu(q):
-        return flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, scale,
-                                            causal)
-    return flash_attention_bwd_dq_cuda(q, k, v, out, lse, dout, scale,
-                                       causal)
+    """dq on [BH, S, D] through its op, dispatched by device like the
+    forward."""
+    return _dq_op(q, k, v, out, lse, dout, float(scale), bool(causal))
 
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, dout, scale, causal):
-    """(dk, dv) on [BH, S, D], dispatched by device like the forward."""
-    if _on_cpu(q):
-        return flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, scale,
-                                             causal)
-    return flash_attention_bwd_dkv_cuda(q, k, v, out, lse, dout, scale,
-                                        causal)
+    """(dk, dv) on [BH, S, D] through its op, dispatched by device like the
+    forward."""
+    return _dkv_op(q, k, v, out, lse, dout, float(scale), bool(causal))
 
 
 def _heads_first(x):
@@ -501,26 +539,22 @@ def flash_attention(q, k, v, causal=True, scale=None):
 
 
 def flash_attention_rope_fwd(q, k, v, c2, s2, scale, causal):
-    """Rope forward on [BH, S, D], dispatched by device."""
-    if _on_cpu(q):
-        return flash_attention_rope_fwd_plain(q, k, v, c2, s2, scale, causal)
-    return flash_attention_rope_fwd_cuda(q, k, v, c2, s2, scale, causal)
+    """Rope forward on [BH, S, D] through its op, dispatched by device."""
+    return _rope_fwd_op(q, k, v, c2, s2, float(scale), bool(causal))
 
 
 def flash_attention_rope_bwd_dq(q, k, v, out, lse, dout, c2, s2, scale,
                                 causal):
-    """Rope dq on [BH, S, D], dispatched by device."""
-    fn = (flash_attention_rope_bwd_dq_plain if _on_cpu(q)
-          else flash_attention_rope_bwd_dq_cuda)
-    return fn(q, k, v, out, lse, dout, c2, s2, scale, causal)
+    """Rope dq on [BH, S, D] through its op, dispatched by device."""
+    return _rope_dq_op(q, k, v, out, lse, dout, c2, s2, float(scale),
+                       bool(causal))
 
 
 def flash_attention_rope_bwd_dkv(q, k, v, out, lse, dout, c2, s2, scale,
                                  causal):
-    """Rope (dk, dv) on [BH, S, D], dispatched by device."""
-    fn = (flash_attention_rope_bwd_dkv_plain if _on_cpu(q)
-          else flash_attention_rope_bwd_dkv_cuda)
-    return fn(q, k, v, out, lse, dout, c2, s2, scale, causal)
+    """Rope (dk, dv) on [BH, S, D] through its op, dispatched by device."""
+    return _rope_dkv_op(q, k, v, out, lse, dout, c2, s2, float(scale),
+                        bool(causal))
 
 
 class FlashAttentionRopeFunction(torch.autograd.Function):

@@ -7,15 +7,16 @@ Both compute, per expert, ``(silu(x Wg) * (x Wu)) Wd`` on x [E, C, h],
 Wg/Wu [E, h, I] and Wd [E, I, h] in fp32 and round the result to x's dtype;
 the kernel never writes the [E, C, I] intermediates to device memory.
 
-:func:`moe_expert_ffn` is the entry the model calls. Its forward takes the
-plain version for a tensor on the CPU and launches the kernel for a CUDA
-tensor (or raises); it saves only the inputs. Its backward is the
-reference's ``_ffn_bwd``, which runs in XLA outside any Pallas kernel:
-here it is plain PyTorch in fp32, and it never launches the forward
-kernel. :func:`use_fused_moe_ffn` (``PT_FUSED_MOE=1``, read at call time,
-default off) and :func:`moe_ffn_shapes_ok` (h and I multiples of 128) are
-the reference's routing rule, ported as they stand. The CUDA wrapper
-counts its launches in ``moe_ffn_cuda.launches``.
+:func:`moe_expert_ffn` is the entry the model calls. Its forward is the
+``torch.library`` op ``paddle_tpu_torch::moe_ffn`` (:mod:`.library`),
+which takes the plain version for a tensor on the CPU and launches the
+kernel for a CUDA tensor (or raises); it saves only the inputs. Its
+backward is the reference's ``_ffn_bwd``, which runs in XLA outside any
+Pallas kernel: here it is plain PyTorch in fp32, and it never launches
+the forward kernel. :func:`use_fused_moe_ffn` (``PT_FUSED_MOE=1``, read
+at call time, default off) and :func:`moe_ffn_shapes_ok` (h and I
+multiples of 128) are the reference's routing rule, ported as they
+stand. The CUDA wrapper counts its launches in ``moe_ffn_cuda.launches``.
 
 The kernel has two bodies, chosen by x's dtype alone (:func:`moe_ffn_route`,
 never on a failure): bf16 takes the tensor-core body (``mma.sync`` with the
@@ -33,6 +34,7 @@ import os
 import torch
 
 from ._build import load
+from .library import define
 
 __all__ = ["moe_expert_ffn", "MoEExpertFFNFunction", "moe_ffn_plain",
            "moe_ffn_cuda", "moe_ffn_route", "use_fused_moe_ffn",
@@ -143,6 +145,15 @@ moe_ffn_cuda.launches = 0
 _WRAPPERS = (moe_ffn_cuda,)
 
 
+# the kernel as a torch.library op (ops/cuda/library.py): the CUDA wrapper
+# on CUDA tensors, the plain version on CPU tensors
+_moe_op = define("moe_ffn",
+                 "(Tensor x, Tensor gate_w, Tensor up_w, Tensor down_w) -> "
+                 "Tensor",
+                 moe_ffn_cuda, moe_ffn_plain,
+                 lambda x, *w: x.new_empty(x.shape))
+
+
 def reset_launch_counts():
     moe_ffn_cuda.launches = 0
 
@@ -180,9 +191,7 @@ class MoEExpertFFNFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gate_w, up_w, down_w):
         ctx.save_for_backward(x, gate_w, up_w, down_w)
-        if x.device.type == "cpu":
-            return moe_ffn_plain(x, gate_w, up_w, down_w)
-        return moe_ffn_cuda(x, gate_w, up_w, down_w)
+        return _moe_op(x, gate_w, up_w, down_w)
 
     @staticmethod
     def backward(ctx, dout):

@@ -17,9 +17,12 @@ both in fp32 and rounded once, returning ``(out, resid)``; the norm reads
 the rounded residual, as the unfused composition does. The backwards are
 the reference's ``_fused_bwd`` and ``_ln_vjp_bwd`` in plain PyTorch (fp32;
 dx = dy, dw and db summed over rows): they are XLA in the JAX package, not
-Pallas. Each wrapper takes the plain version for a CPU tensor and launches
-its kernel for a CUDA tensor (or raises), and counts its launches in
-``<wrapper>.launches``. :func:`use_fused_rms_norm` (``PT_FUSED_NORM=1``,
+Pallas. Each forward is a ``torch.library`` op
+(``paddle_tpu_torch::fused_add_rms_norm`` and
+``paddle_tpu_torch::fused_add_layer_norm``, :mod:`.library`): the plain
+version for a CPU tensor, the wrapper, which launches its kernel (or
+raises) and counts the launch in ``<wrapper>.launches``, for a CUDA
+tensor. :func:`use_fused_rms_norm` (``PT_FUSED_NORM=1``,
 read at call time, default off) is the models' switch for both.
 
 Dtypes: the reference's kernels read x, y, the weight and the bias each
@@ -50,6 +53,7 @@ import torch
 
 from ...amp.amp_lists import maybe_cast
 from ._build import load
+from .library import define
 
 __all__ = ["fused_add_rms_norm", "FusedAddRMSNormFunction",
            "fused_add_rms_norm_plain", "fused_add_rms_norm_cuda",
@@ -167,6 +171,24 @@ def launch_counts():
     return {w.__name__: w.launches for w in _WRAPPERS}
 
 
+def _norm_fake(x, *rest):
+    return x.new_empty(x.shape), x.new_empty(x.shape)
+
+
+# the kernels as torch.library ops (ops/cuda/library.py): the CUDA wrapper
+# on CUDA tensors, the plain version on CPU tensors
+_rms_op = define("fused_add_rms_norm",
+                 "(Tensor x, Tensor y, Tensor w, float eps) -> "
+                 "(Tensor, Tensor)",
+                 fused_add_rms_norm_cuda, fused_add_rms_norm_plain,
+                 _norm_fake)
+_ln_op = define("fused_add_layer_norm",
+                "(Tensor x, Tensor y, Tensor w, Tensor b, float eps) -> "
+                "(Tensor, Tensor)",
+                fused_add_layer_norm_cuda, fused_add_layer_norm_plain,
+                _norm_fake)
+
+
 class FusedAddRMSNormFunction(torch.autograd.Function):
     """The port of ``_fused_add_rms_norm``'s ``custom_vjp`` on [rows, h]:
     saves the rounded residual and the weight; the backward recomputes
@@ -174,10 +196,7 @@ class FusedAddRMSNormFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, y, w, eps):
-        if x.device.type == "cpu":
-            out, r = fused_add_rms_norm_plain(x, y, w, eps)
-        else:
-            out, r = fused_add_rms_norm_cuda(x, y, w, eps)
+        out, r = _rms_op(x, y, w, eps)
         ctx.save_for_backward(r, w)
         ctx.eps = eps
         return out, r
@@ -230,10 +249,7 @@ class FusedAddLayerNormFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, y, w, b, eps):
-        if x.device.type == "cpu":
-            out, r = fused_add_layer_norm_plain(x, y, w, b, eps)
-        else:
-            out, r = fused_add_layer_norm_cuda(x, y, w, b, eps)
+        out, r = _ln_op(x, y, w, b, eps)
         ctx.save_for_backward(r, w)
         ctx.eps = eps
         return out, r

@@ -2,9 +2,9 @@
 """One phase of chip_smoke.py end to end, two checkouts in turns on one
 card.
 
-    python3 scripts/serve_ab.py [--phase serve|deepfm] DIR [DIR ...]
+    python3 scripts/serve_ab.py [--phase serve|deepfm|hapi] DIR [DIR ...]
 
-Needs one NVIDIA GPU (and nvcc for ``serve``). Each DIR is a checkout of
+Needs one NVIDIA GPU (and nvcc for ``serve`` and ``hapi``). Each DIR is a checkout of
 the repository (say the parent commit unpacked by ``git archive`` into a
 git-ignored directory, and this tree); give them in the order to run, for
 an A/B ``parent change change parent``. For each, in a fresh process with
@@ -17,7 +17,12 @@ the directory's name:
   ``profile serve`` lines;
 - ``deepfm``: phase 8a, DeepFM at the criteo width through ``drive``
   (lazy, dense, lazy, dense; no kernel of the repo's runs): its ``deepfm
-  criteo`` and ``profile deepfm`` lines.
+  criteo`` and ``profile deepfm`` lines;
+- ``hapi``: builds the flash-attention and fused-norm kernels and runs
+  phase 17a twice (BERT-base, 128 x 128, eager ``Model.fit`` under AMP O1
+  with ``PT_FUSED_NORM``): its ``hapi BERT-base O1`` lines; then the host
+  time of one eager ``FusedAddLayerNormFunction`` call at [8, 768] fp32
+  (2000 calls, kernel time negligible), its ``dispatch`` line.
 
 Prints the card's name and power limit first. Host-bound runs spread
 between processes, so compare only within one call, in turns.
@@ -44,6 +49,31 @@ cs.phase_serve()
     "deepfm": (HEAD + """
 cs.phase_deepfm_criteo()
 """, ("deepfm criteo", "profile deepfm")),
+    "hapi": (HEAD + """
+import time
+from paddle_tpu_torch.models import bert_base
+from paddle_tpu_torch.ops.cuda import _build
+from paddle_tpu_torch.ops.cuda import rms_norm as RN
+_build.build_all([_build.CSRC + "/flash_attention.cu",
+                  _build.CSRC + "/rms_norm.cu"])
+for _ in range(2):
+    cs.phase_hapi_o1(bert_base(hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0))
+    cs.free_cuda()
+g = torch.Generator(device="cuda").manual_seed(0)
+x, y, w, b = (torch.randn(s, generator=g, device="cuda")
+              for s in ((8, 768), (8, 768), (768,), (768,)))
+with torch.no_grad():
+    for n in (200, 2000):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            RN.FusedAddLayerNormFunction.apply(x, y, w, b, 1e-12)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / n * 1e6
+print(f"dispatch FusedAddLayerNormFunction [8, 768] fp32: {us:.2f} us a "
+      f"call (host, 2000 calls after 200)", flush=True)
+""", ("hapi BERT-base O1", "dispatch")),
 }
 
 

@@ -19,8 +19,8 @@ weights (fp32 ``llama_tiny``, seed 7 in the reference).
 - ``create_predictor`` gives the JAX package's predictor's greedy tokens
   on the same artifact; the ``seq_lens`` handle trims, resets and refuses
   a count mismatch; output names resolve before ``run``; a
-  ``PredictorPool`` holds one predictor (more need ``clone``); what needs
-  ``jit.save`` raises ``NotImplementedError``.
+  ``PredictorPool`` over a llama artifact holds one predictor (more need
+  ``clone``); any other path goes to the ``jit.save`` predictor.
 """
 
 import json
@@ -477,13 +477,18 @@ def test_config_surface(artifact):
 
 
 def test_what_needs_jit_save_is_not_ported(tmp_path):
+    """What needed ``jit.save`` is ported now: a path that is no llama
+    serving artifact goes to the ``jit.save`` predictor, with or without
+    ``enable_llm_engine``, and it and ``convert_to_mixed_precision`` read
+    ``<path>.pdmodel`` (tests/test_torch_predictor.py serves them)."""
     c = inference.Config(str(tmp_path / "dense"))
-    with pytest.raises(NotImplementedError, match="item 3"):
+    c.disable_gpu()
+    with pytest.raises(FileNotFoundError, match="dense.pdmodel"):
         inference.create_predictor(c)
-    c.enable_llm_engine()  # not a llama artifact: still the StableHLO path
-    with pytest.raises(NotImplementedError, match="item 3"):
+    c.enable_llm_engine()  # not a llama artifact: still the jit.save path
+    with pytest.raises(FileNotFoundError, match="dense.pdmodel"):
         inference.create_predictor(c)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(FileNotFoundError, match="a.pdmodel"):
         inference.convert_to_mixed_precision("a", "b", "c", "d", "bfloat16")
 
 
@@ -501,6 +506,6 @@ def test_predictor_pool_holds_one_predictor(artifact):
         assert out.shape == (9,)
     finally:
         pred.close()
-    # further predictors are clones, which only the StableHLO one has
+    # further predictors are clones, which only the jit.save one has
     with pytest.raises(NotImplementedError, match="clone"):
         inference.PredictorPool(c, size=2)

@@ -27,6 +27,8 @@ REGISTRIES = {"jax": (jax_flags, paddle_tpu), "port": (port_flags,
 READ_BY_THE_PORT = {
     "check_nan_inf_action", "metric_fetch_interval",
     "jit_compile_warn_threshold",
+    # to_static's eager fallback (jit/__init__.py)
+    "to_static_fallback",
     # the supervised loop: prefetcher, stall guard, checkpoint writes
     "prefetch_depth", "step_timeout_s", "ckpt_save_retries",
     "ckpt_quarantine_keep",
