@@ -294,8 +294,9 @@ Phases, one printed line per result:
    eval_loss and accuracy;
 18. ``jit`` (``to_static`` on ``torch.compile``, the kernels as
    ``torch.library`` ops, ``jit.save``/``jit.load`` on ``torch.export``,
-   the predictor): (a) BERT-base (fp32 weights, hidden dropout 0.1,
-   attention dropout 0, ``PT_FUSED_NORM``) through ``jit.to_static``
+   the predictor): (a) BERT-base's width at ``JIT_TRAIN_LAYERS`` (4) of
+   its 12 layers (fp32 weights, hidden dropout 0.1, attention dropout 0,
+   ``PT_FUSED_NORM``) through ``jit.to_static``
    under AMP O1 with AdamW(2e-5), 20 seeded 128 x 128 batches (phase 17's
    label token): the first step's wall (the compile), ms/step and
    tokens/s on the host clock after 3 warm-up steps, peak memory, the
@@ -314,7 +315,29 @@ Phases, one printed line per result:
    and a batch of 32's ms; ``convert_to_mixed_precision(..., "bfloat16")``:
    the stored weights half the bytes, logits within 1e-4 of eager on the
    bf16-rounded weights; (d) ``torch.library.opcheck`` of every registered
-   op (#3-#9) on the card.
+   op (#3-#9) on the card;
+19. the cost ledger and the profiler: (a) llama_125m's step as phase 5
+   trains it (bf16, AdamW(1e-4), 16 x 1024) through ``hlo_cost_report``
+   and ``lowered_flops`` (fake-mode traces: no launch, no
+   ``jit.cache_stats`` entry, no gradient, the card's RNG state bit for
+   bit; the attention on the card's route): 12 nodes each of #3-#5 and no
+   other kernel node, each costing phase 3's ops and bytes (the ops'
+   formulas, ``kernel_cost``), the top 10 ops by bytes, the FLOPs a token
+   beside the hand formula's; then one replayed step under
+   ``profiler.Profiler(targets=[CPU, GPU], scheduler=(1, 2))``: 12
+   launches of each flash kernel, the three ``flash_*_tc_kernel`` names in
+   the device trace's chrome file and the profiler's summary, the
+   window's ``RecordEvent`` span in the exported host trace,
+   ``step_info``'s tokens/s, the profiler's kernel count printed; (b)
+   the Llama-MoE's ledger under the three fused switches (4 #9, 8 #7 and
+   8 of each rope op, each at phase 3's cost) and BERT-base's under
+   ``PT_FUSED_NORM`` (24 #8 at phase 3's cost, 12 of each flash op,
+   non-causal); (c) DeepFM criteo's dense and lazy steps:
+   ``vocab_sized_ops`` of the top 10 non-empty dense, empty lazy; (d) a
+   ``to_static`` compile's ``jit::compile::<name>`` span in a CPU-target
+   profile; (e) ``device.memory_stats`` against ``torch.cuda``'s figures,
+   and a product on a ``device.Stream`` under ``stream_guard``, ordered
+   by a ``device.Event``, equal to the default stream's.
 
 The five launch cross-checks of phases 4, 10a, 11a and 12a hold the
 wrappers' counts to the counts the paged kernels keep on the device
@@ -331,7 +354,8 @@ ranks; #3, #4, #5 and #8 ``launches_phase15``, each of phase 15's arms;
 #3, #4 and #5 ``launches_phase16``, each phase 16 job's ranks in their
 last incarnation; #3, #4, #5 and #8 ``launches_phase17``, phase 17's O1
 fit and O2 steps, and ``launches_phase18``, phase 18a's compiled run and
-18c's three predictor runs), the card line, and last
+18c's three predictor runs; #3, #4 and #5 ``launches_phase19``, phase
+19a's profiled step), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 1.
 """
@@ -752,6 +776,17 @@ def phase_times(gen):
     return report_times(out)
 
 
+def kernel_cost(name, *args):
+    """``{"ops", "bytes"}`` of one call of kernel op ``name`` on ``args``
+    (its arguments in the op's order): the op's cost formulas
+    (``ops/cuda/library.cost``), which ``jit.hlo_audit``'s ledger and
+    ``FlopCounterMode`` use too."""
+    from paddle_tpu_torch.ops.cuda import library
+
+    c = library.cost(name, *args)
+    return {"ops": c["flops"], "bytes": c["bytes"]}
+
+
 def report_times(out):
     """Add each kernel's bound (the larger of bytes / 3.35 TB/s and
     operations / the bf16 peak) to its timing record and print it."""
@@ -980,23 +1015,26 @@ def phase_flash_times(gen, rope=False):
     D 64, bf16, causal), without or with rope. Library:
     ``scaled_dot_product_attention`` forward on [B, H, S, D] (with rope, on
     q and k rotated beforehand, outside the timed call), and its autograd
-    backward (dq, dk and dv together) beside dq and dkv. With rope the
-    bound adds the two fp32 [S, D] tables to the bytes and the rotation of
-    q and k (6 operations an element) to the operations."""
+    backward (dq, dk and dv together) beside dq and dkv. The bound's bytes
+    and operations are the ops' cost formulas (``kernel_cost``): with rope
+    they add the two fp32 [S, D] tables to the bytes and the rotation of q
+    and k (6 operations an element) to the operations."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.cuda.flash_attention import rope_rotate
 
     b, h, s, d = 16, 12, 1024, 64
-    bh, scale, el = b * h, d ** -0.5, 2
+    bh, scale = b * h, d ** -0.5
     fwd, bdq, bdkv, p_fwd, p_dq, p_dkv = flash_calls(rope, s, d)
     q, k, v, do = flash_inputs(gen, bh, s, d, torch.bfloat16)
     out, lse = fwd(q, k, v, scale, True)
+    # with rope the tables go after q, k, v (and after the backward's six
+    # tensors) in the ops' cost formulas
+    tabs = rope_tables(s, d) if rope else ()
     qk = (q, k)
     if rope:
-        c2, s2 = rope_tables(s, d)
-        qk = tuple(rope_rotate(t, c2, s2).to(t.dtype) for t in qk)
+        qk = tuple(rope_rotate(t, *tabs).to(t.dtype) for t in qk)
     lib = [t.view(b, h, s, d).clone().requires_grad_() for t in (*qk, v)]
     lib_out = F.scaled_dot_product_attention(*lib, is_causal=True)
     lib_do = do.view(b, h, s, d)
@@ -1005,9 +1043,6 @@ def phase_flash_times(gen, rope=False):
     fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
         *lib, is_causal=True))
     pairs = bh * s * (s + 1) // 2               # causal visible pairs
-    tile = bh * s * d * el                      # one [B*H, S, D] tensor
-    extra_b = 2 * s * d * 4 if rope else 0      # the fp32 tables
-    extra_o = 2 * 6 * bh * s * d if rope else 0  # rotating q and k
     shape = f"B={b} H={h} S={s} D={d} bf16 causal" + (" rope" if rope
                                                       else "")
     res = (q, k, v, out, lse, do, scale, True)
@@ -1017,20 +1052,17 @@ def phase_flash_times(gen, rope=False):
             ms=time_ms(lambda: fwd(q, k, v, scale, True)),
             plain_ms=time_ms(lambda: p_fwd(q, k, v, scale, True)),
             library_ms=fwd_ms, library="sdpa forward",
-            bytes=4 * tile + bh * s * 4 + extra_b, ops=4 * d * pairs
-            + extra_o),
+            **kernel_cost(names[0], q, k, v, *tabs, scale, True)),
         names[1]: dict(
             ms=time_ms(lambda: bdq(*res)),
             plain_ms=time_ms(lambda: p_dq(*res)),
             library_ms=bwd_ms, library="sdpa backward, dq+dk+dv",
-            bytes=6 * tile + bh * s * 4 + extra_b, ops=6 * d * pairs
-            + extra_o),
+            **kernel_cost(names[1], *res[:6], *tabs, scale, True)),
         names[2]: dict(
             ms=time_ms(lambda: bdkv(*res)),
             plain_ms=time_ms(lambda: p_dkv(*res)),
             library_ms=bwd_ms, library="sdpa backward, dq+dk+dv",
-            bytes=7 * tile + bh * s * 4 + extra_b, ops=8 * d * pairs
-            + extra_o)}
+            **kernel_cost(names[2], *res[:6], *tabs, scale, True))}
     for r in times.values():
         r["shape"] = shape
     report_times(times)
@@ -1058,7 +1090,7 @@ def phase_flash_times(gen, rope=False):
         f"work; tensor-core work with the splits ({tc_ops[0] // d}*D, "
         f"{tc_ops[1] // d}*D a pair): dq {rates[0][1]:.1f}, dkv "
         f"{rates[1][1]:.1f} TFLOP/s")
-    del q, k, v, do, out, lse, lib, lib_out, qk
+    del q, k, v, do, out, lse, lib, lib_out, qk, tabs
     torch.cuda.empty_cache()
     return times
 
@@ -1205,7 +1237,7 @@ def phase_fused_times(gen):
         ms=time_ms(lambda: MF.moe_ffn_cuda(x, gw, uw, dw)),
         plain_ms=time_ms(lambda: MF.moe_ffn_plain(x, gw, uw, dw)),
         library_ms=time_ms(moe_library), library="3 x torch.bmm",
-        bytes=2 * (2 * e * c * h + 3 * e * h * i), ops=3 * 2 * e * c * h * i,
+        **kernel_cost("moe_ffn", x, gw, uw, dw),
         shape=f"E={e} C={c} h={h} I={i} bf16",
         note=f"{MF.moe_ffn_route(x.dtype)} body, L2 reads %d B of which "
              "weights %d B" % moe_l2_bytes(e, c, h, i))}
@@ -1219,8 +1251,9 @@ def phase_fused_times(gen):
                                                              RMS_EPS)),
         library_ms=None if lib_rms is None else time_ms(
             lambda: lib_rms(x + y, (h,), w, RMS_EPS)),
-        library="x + y, then F.rms_norm", bytes=2 * (4 * rows * h + h),
-        ops=5 * rows * h, shape=f"{rows}x{h} bf16")
+        library="x + y, then F.rms_norm",
+        **kernel_cost("fused_add_rms_norm", x, y, w, RMS_EPS),
+        shape=f"{rows}x{h} bf16")
     del x, y, w
     rows, h = LN_SHAPE
     x, y, w, b = ln_inputs(gen, rows, h, torch.bfloat16)
@@ -1229,8 +1262,9 @@ def phase_fused_times(gen):
         plain_ms=time_ms(lambda: RN.fused_add_layer_norm_plain(x, y, w, b,
                                                                LN_EPS)),
         library_ms=time_ms(lambda: F.layer_norm(x + y, (h,), w, b, LN_EPS)),
-        library="x + y, then F.layer_norm", bytes=2 * (4 * rows * h + 2 * h),
-        ops=8 * rows * h, shape=f"{rows}x{h} bf16")
+        library="x + y, then F.layer_norm",
+        **kernel_cost("fused_add_layer_norm", x, y, w, b, LN_EPS),
+        shape=f"{rows}x{h} bf16")
     del x, y, w, b
     torch.cuda.empty_cache()
     return report_times(times)
@@ -7723,6 +7757,10 @@ def phase_hapi():
 # phase 18: jit.to_static, jit.save and the predictor. (a)'s run: steps
 # compiled, the warm-up its ms/step skips, the eager steps beside it
 JIT_STEPS, JIT_WARMUP, JIT_EAGER_STEPS = 20, 3, 10
+# (a)'s depth: BERT-base's width at 4 of its 12 layers. Inductor's first
+# compile grows with the graph (72-209 s of first step at 12 layers on
+# the card's hosts); (b) still compiles all 12 layers, (c) exports them
+JIT_TRAIN_LAYERS = 4
 JIT_BATCHES = (1, 8, 32)     # the predictor's batches (c)
 JIT_TIMED_RUNS = 10          # runs timed at the largest batch (c)
 # compiled against eager in fp32 (b, c): logits within 1e-4 (the same
@@ -7795,8 +7833,9 @@ def jit_ms(times, warmup):
 
 
 def phase_jit_train(cfg):
-    """Phase 18a: BERT-base (fp32 weights, hidden dropout 0.1, attention
-    dropout 0) through ``jit.to_static`` under AMP O1 with
+    """Phase 18a: BERT-base's width at ``cfg``'s depth (fp32 weights,
+    hidden dropout 0.1, attention dropout 0) through ``jit.to_static``
+    under AMP O1 with
     ``PT_FUSED_NORM``, AdamW(2e-5), JIT_STEPS seeded 128 x 128 batches:
     the first step's wall (the compile) on its own line, ms/step and
     tokens/s after JIT_WARMUP steps, peak memory, first and last loss;
@@ -7851,7 +7890,8 @@ def phase_jit_train(cfg):
             + (" (the compile: Dynamo's capture, AOTAutograd's forward and "
                "backward graphs, inductor's code)"
                if arm == "to_static" else ""))
-        say(f"jit BERT-base O1 {arm}: {steps} steps; {ms:.1f} ms/step "
+        say(f"jit BERT-base O1 {arm} ({L} layers): {steps} steps; "
+            f"{ms:.1f} ms/step "
             f"(host clock, after "
             f"{JIT_WARMUP} warm-up steps), {tokens / ms * 1e3:.0f} "
             f"tokens/s, peak memory {r['peak']:.2f} GiB; losses "
@@ -8117,7 +8157,8 @@ def phase_jit():
 
     from paddle_tpu_torch.models import BertForSequenceClassification, bert_base
 
-    train = phase_jit_train(bert_base(hidden_dropout_prob=0.1,
+    train = phase_jit_train(bert_base(num_hidden_layers=JIT_TRAIN_LAYERS,
+                                      hidden_dropout_prob=0.1,
                                       attention_probs_dropout_prob=0.0))
     cfg = bert_base(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
     net = BertForSequenceClassification(cfg, device="cuda", seed=SEED)
@@ -8135,6 +8176,365 @@ def phase_jit():
 
     shutdown_compile_workers()
     return {"to_static": train, "predictor": pred}
+
+
+# -- phase 19: the cost ledger and the profiler -----------------------------
+
+def ledger_kernels(rep):
+    """{kernel op: [(flops, bytes), ...]} of an audit report's kernel op
+    nodes."""
+    from paddle_tpu_torch.ops.cuda import library
+
+    out = {}
+    for o in rep["ops"]:
+        if o["op_name"].startswith(library.NAMESPACE + "."):
+            out.setdefault(o["opcode"], []).append((int(o["flops"]),
+                                                    int(o["bytes"])))
+    return out
+
+
+def check_ledger(rep, want, rows, label):
+    """The report holds ``want`` ({op: nodes}) kernel nodes and no other;
+    the nodes of each op in ``rows`` ({op: (ops, bytes)}) cost exactly
+    that."""
+    got = ledger_kernels(rep)
+    check({k: len(v) for k, v in got.items()} == want,
+          f"{label}: kernel nodes {({k: len(v) for k, v in got.items()})} "
+          f"== {want}")
+    for name, row in rows.items():
+        check(set(got[name]) == {row}, f"{label}: {name} nodes cost "
+              f"{sorted(set(got[name]))}, not {row}")
+
+
+def table_rows(table, names):
+    """{op: (ops, bytes)} of phase 3's kernel table for ``names``."""
+    return {n: (table[n]["ops"], table[n]["bytes"]) for n in names}
+
+
+def audit_unchanged(step, before, label):
+    """After a cost trace: no launch counter moved, no gradient or
+    ``jit.cache_stats`` entry appeared and the card's RNG state is
+    bit for bit what ``before`` (``(cache stats, RNG state)``) held."""
+    import torch
+
+    from paddle_tpu_torch import jit
+
+    stats, rng = before
+    counts = all_launch_counts()
+    check(counts == launches_want(), f"{label}: the trace launched "
+          f"nothing ({counts})")
+    check(jit.cache_stats(step._stats_name) == stats,
+          f"{label}: the trace recorded no compile, hit or pad")
+    check(torch.equal(torch.cuda.get_rng_state(), rng),
+          f"{label}: the card's RNG state is unchanged")
+    check(all(p.grad is None for p in step._params),
+          f"{label}: no gradient appeared")
+
+
+def audit_trace(step, args, kwargs, label, lowered=False):
+    """``hlo_cost_report`` (and with ``lowered`` ``lowered_flops``, a
+    second trace) of ``step`` on the inputs, checked to change nothing.
+    Returns (report, its FLOPs, seconds of the traces)."""
+    import torch
+
+    from paddle_tpu_torch import jit
+
+    reset_all_launch_counts()
+    before = (jit.cache_stats(step._stats_name), torch.cuda.get_rng_state())
+    t0 = time.perf_counter()
+    rep = step.hlo_cost_report(*args, **kwargs)
+    flops = rep["backend_flops"]
+    if lowered:
+        flops = step.lowered_flops(*args, **kwargs)
+    secs = time.perf_counter() - t0
+    audit_unchanged(step, before, label)
+    check(flops == rep["backend_flops"] > 0,
+          f"{label}: lowered_flops {flops} == the report's backend_flops "
+          f"{rep['backend_flops']}")
+    return rep, flops, secs
+
+
+def phase_audit_llama(table):
+    """Phase 19a: the ledger of llama_125m's step as phase 5 trains it
+    (bf16, AdamW(1e-4), 16 x 1024), then one real replayed step under
+    ``profiler.Profiler(targets=[CPU, GPU], scheduler=(1, 2))``. Returns
+    the flash kernels' launches in the profiled step."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.jit import hlo_audit
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_125m
+    from paddle_tpu_torch.nn.functional import flash_attention as sdpa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama_125m()
+    batch, seq = 16, 1024
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=SEED)
+    step = fused_train_step(model, AdamW(learning_rate=1e-4,
+                                         parameters=model.parameters()))
+    rng = np.random.RandomState(SEED + 4)
+    ids, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                (batch, seq))).cuda()
+                   for _ in range(2))
+    rep, flops, secs = audit_trace(step, (ids, labels), {},
+                                   "audit llama_125m", lowered=True)
+    check(sdpa.LAST_PATH == "cuda", f"the trace took the card's attention "
+          f"route ({sdpa.LAST_PATH})")
+    check_ledger(rep, {n: L for n in FLASH}, table_rows(table, FLASH),
+                 "audit llama_125m")
+    say(hlo_audit.format_table(
+        rep, top_n=10, title=f"audit llama_125m bf16 16 x 1024 AdamW step "
+        f"(traces {secs:.1f} s): top 10 of {rep['n_ops']} ops by bytes"))
+    tokens = batch * seq
+    n_params = sum(p.numel() for p in model.parameters())
+    hand = 6.0 * n_params + 12.0 * L * cfg.hidden_size * seq
+    kernel = sum(f for costs in ledger_kernels(rep).values()
+                 for f, _ in costs)
+    say(f"audit llama_125m: lowered_flops {flops:.0f} = "
+        f"{flops / tokens / 1e6:.1f} MFLOP/token (products "
+        f"{(flops - kernel) / tokens / 1e6:.1f}, flash kernels "
+        f"{kernel / tokens / 1e6:.1f}) vs the hand formula's "
+        f"{hand / 1e6:.1f} (6N + 12 L h s): ratio "
+        f"{flops / tokens / hand:.4f}; "
+        f"per-op estimate {rep['total_flops'] / tokens / 1e6:.1f} MFLOP and "
+        f"{rep['total_bytes'] / tokens / 1e3:.1f} kB a token")
+    # one real replayed step under the profiler: the first call is the
+    # eager warm-up, the second captures and replays
+    step(ids, labels)
+    step(ids, labels)
+    torch.cuda.synchronize()
+    out_dir = tempfile.mkdtemp(prefix="audit-profile-")
+    p = profiler.Profiler(
+        targets=[profiler.ProfilerTarget.CPU, profiler.ProfilerTarget.GPU],
+        scheduler=(1, 2))
+    states = []
+    with p:
+        for i in range(2):
+            if i == 1:
+                reset_all_launch_counts()
+            states.append(p.current_state.name)
+            with profiler.RecordEvent(f"audit.train_step{i}"):
+                step(ids, labels)
+            if i == 1:
+                torch.cuda.synchronize()
+                counts = all_launch_counts()
+            p.step(num_samples=tokens)
+    host = p.export(os.path.join(out_dir, "host.json"))
+    doc = profiler.load_profiler_result(host)
+    spans = {e["name"] for e in doc["traceEvents"]}
+    dev_dir = doc["metadata"]["device_trace_dir"]
+    with open(os.path.join(dev_dir, "device_trace.json")) as f:
+        device = _json.load(f)
+    names = [e.get("name", "") for e in device.get("traceEvents", ())
+             if e.get("cat") == "kernel"]
+    seen = {k: sum(k in name for name in names)
+            for k in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                      "flash_bwd_dkv_tc_kernel")}
+    info = p.step_info("tokens/s")
+    say(f"audit profile llama_125m (scheduler (1, 2), states {states}): "
+        f"{info}; launches {counts}; the profiler's kernel count {seen} "
+        f"(not checked); {len(set(names))} kernel names in the device "
+        "trace; "
+        f"host spans {sorted(s for s in spans if s.startswith('audit.'))}")
+    check(states == ["READY", "RECORD_AND_RETURN"],
+          f"profiler states {states}")
+    check(counts == launches_want(**{f"{n}_cuda": L for n in FLASH}),
+          f"a replayed step launches each flash kernel {L} times ({counts})")
+    summary = p.summary()
+    shutil.rmtree(out_dir)
+    shutil.rmtree(dev_dir)
+    for k, n in seen.items():
+        check(n > 0 and k in summary, f"the device trace and the "
+              f"profiler's summary name {k}")
+    check("audit.train_step1" in spans and "audit.train_step0" not in spans,
+          "the host trace holds the window's RecordEvent span only")
+    check("tokens/s" in info and p._benchmark.ips > 0,
+          f"step_info reports the window's tokens/s ({info})")
+    del model, step
+    free_cuda()
+    return {f"{n}_cuda": counts[f"{n}_cuda"] for n in FLASH}
+
+
+def phase_audit_fused(table):
+    """Phase 19b: the ledgers of phase 5's Llama-MoE under the three
+    fused switches and of BERT-base under ``PT_FUSED_NORM``, their kernel
+    nodes costed by the ops' formulas."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         LlamaForCausalLM, bert_base)
+    from paddle_tpu_torch.ops.cuda import library
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama_moe_config()
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=SEED)
+    step = fused_train_step(model, AdamW(learning_rate=1e-4,
+                                         parameters=model.parameters()))
+    rng = np.random.RandomState(SEED + 6)
+    ids, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                (16, 1024))).cuda()
+                   for _ in range(2))
+    with fused_switches():
+        rep, flops, secs = audit_trace(step, (ids, labels), {},
+                                       "audit Llama-MoE")
+    want = {"moe_ffn": L // cfg.moe_every, "fused_add_rms_norm": L,
+            **{n: L for n in ROPE}}
+    check_ledger(rep, want, table_rows(table, want), "audit Llama-MoE")
+    say(f"audit Llama-MoE (PT_FUSED_MOE/NORM/ROPE, 16 x 1024): kernel "
+        f"nodes {({k: len(v) for k, v in ledger_kernels(rep).items()})}, "
+        f"each costing the kernel table's ops and bytes; backend_flops "
+        f"{flops / (16 * 1024) / 1e6:.1f} MFLOP/token; traces "
+        f"{secs:.1f} s")
+    del model, step
+    free_cuda()
+    cfg = bert_base(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    L = cfg.num_hidden_layers
+    model = BertForSequenceClassification(cfg, device="cuda",
+                                          dtype=torch.bfloat16, seed=SEED)
+    step = fused_train_step(model, AdamW(learning_rate=2e-5,
+                                         parameters=model.parameters()),
+                            loss_fn=lambda out: out[0])
+    rng = np.random.RandomState(SEED + 8)
+    data = {"input_ids": torch.from_numpy(
+                rng.randint(0, cfg.vocab_size, (128, 128))).cuda(),
+            "labels": torch.from_numpy(
+                rng.randint(0, cfg.num_labels, 128)).cuda()}
+    with fused_switches(("PT_FUSED_NORM",)):
+        rep, flops, secs = audit_trace(step, (), data, "audit BERT-base")
+    # the flash nodes at BERT-base's heads, non-causal: their formulas at
+    # [128 x 12, 128, 64] bf16 (the kernel table's flash rows are llama's)
+    bh, s, d = 128 * cfg.num_attention_heads, 128, cfg.hidden_size \
+        // cfg.num_attention_heads
+    q = torch.empty(bh, s, d, dtype=torch.bfloat16, device="meta")
+    lse = torch.empty(bh, s, dtype=torch.float32, device="meta")
+    non_causal = {n: library.cost(n, *((q,) * 3 if n == FLASH[0] else
+                                       (q, q, q, q, lse, q)),
+                                  d ** -0.5, False) for n in FLASH}
+    rows = {n: (c["flops"], c["bytes"]) for n, c in non_causal.items()}
+    rows.update(table_rows(table, ["fused_add_layer_norm"]))
+    check_ledger(rep, {"fused_add_layer_norm": 2 * L,
+                       **{n: L for n in FLASH}}, rows, "audit BERT-base")
+    say(f"audit BERT-base (PT_FUSED_NORM, 128 x 128): kernel nodes "
+        f"{({k: len(v) for k, v in ledger_kernels(rep).items()})}, the "
+        f"flash nodes non-causal ({non_causal[FLASH[0]]['flops']} FLOPs a "
+        "forward), the LayerNorms the kernel table's; "
+        f"backend_flops {flops / (128 * 128) / 1e6:.1f} MFLOP/token; "
+        f"traces {secs:.1f} s")
+    del model, step, data
+    free_cuda()
+
+
+def phase_audit_deepfm():
+    """Phase 19c: the reference's acceptance probe on DeepFM criteo at
+    phase 8's width: the dense path's top 10 ops by bytes stream
+    vocab-sized tensors, the lazy path's none."""
+    import numpy as np
+
+    from paddle_tpu_torch.incubate import fused_train_step
+    from paddle_tpu_torch.jit import hlo_audit
+    from paddle_tpu_torch.models import deepfm_criteo
+    from paddle_tpu_torch.optimizer import Adam
+
+    vocab = 1_000_001
+    batch = deepfm_batch(np.random.RandomState(SEED + 30))
+    hits = {}
+    for lazy in (False, True):
+        model = deepfm_criteo(device="cuda", seed=SEED)
+        step = fused_train_step(deepfm_with_loss(model), Adam(
+            learning_rate=1e-3, parameters=model.parameters(),
+            lazy_mode=lazy))
+        arm = "lazy" if lazy else "dense"
+        rep, _, secs = audit_trace(step, batch, {}, f"audit deepfm {arm}")
+        hits[arm] = hlo_audit.vocab_sized_ops(rep, vocab, top_n=10)
+        say(hlo_audit.format_table(
+            rep, top_n=5, title=f"audit deepfm criteo {arm} (traces "
+            f"{secs:.1f} s): top 5 of {rep['n_ops']} ops; vocab-sized in "
+            f"the top 10: {[o['opcode'] for o in hits[arm]]}"))
+        del model, step
+        free_cuda()
+    check(hits["dense"], "audit deepfm: the dense path streams vocab-sized "
+          "ops in its top 10")
+    check(not hits["lazy"], "audit deepfm: the lazy path streams none")
+
+
+def phase_audit_compile_span():
+    """Phase 19d: a ``to_static`` compile's ``jit::compile::<name>`` span
+    in a CPU-target profile."""
+    import torch
+
+    from paddle_tpu_torch import jit, profiler
+
+    def audit_scaled(x):
+        return x * 2 + 1
+
+    fn = jit.to_static(audit_scaled)
+    p = profiler.Profiler(targets=[profiler.ProfilerTarget.CPU])
+    with p:
+        fn(torch.ones(64, device="cuda"))
+        fn(torch.ones(64, device="cuda"))
+    names = [e[0] for e in p._events_snapshot]
+    say(f"audit compile span: {names}")
+    check(names == ["jit::compile::audit_scaled"],
+          f"one compile span in the profile ({names})")
+
+
+def phase_audit_device():
+    """Phase 19e: ``device/`` on the card: the allocator's figures under
+    the reference's keys equal ``torch.cuda``'s, and work queued on a
+    ``device.Stream`` inside ``stream_guard`` is ordered by a
+    ``device.Event``."""
+    import torch
+
+    from paddle_tpu_torch import device
+
+    x = torch.randn(4096, 4096, device="cuda")
+    stats = device.memory_stats()
+    check(stats["bytes_in_use"] == torch.cuda.memory_allocated()
+          == device.cuda.memory_allocated("gpu:0")
+          and stats["pool_bytes"] == torch.cuda.memory_reserved()
+          and stats["bytes_limit"] > stats["peak_bytes_in_use"] > 0,
+          f"device.memory_stats under the reference's keys ({stats})")
+    side, done = device.Stream(), device.Event()
+    side.wait_stream(device.current_stream())
+    with device.stream_guard(side):
+        check(device.current_stream() == side, "stream_guard makes the "
+              "stream current")
+        y = x @ x
+        done.record()
+    check(device.current_stream() != side, "stream_guard restores")
+    device.current_stream().wait_event(done)
+    want = x @ x
+    device.synchronize()
+    check(torch.equal(y, want), "work on a device.Stream, ordered by a "
+          "device.Event, equals the same work on the default stream")
+    say(f"audit device: memory_stats {stats}; a product on a "
+        f"device.Stream equal to the default stream's")
+    del x, y, want
+
+
+def phase_audit(table):
+    """Phase 19 (19a-19e): the cost ledger of the training steps phase 5
+    and phase 8 run, the profiler and ``device/`` on the card. ``table`` is phase 3's
+    kernel records. Returns the flash kernels' launches in 19a's profiled
+    step."""
+    launches = timed(phase_audit_llama, table)
+    timed(phase_audit_fused, table)
+    timed(phase_audit_deepfm)
+    timed(phase_audit_compile_span)
+    timed(phase_audit_device)
+    return launches
 
 
 def tensor_core_ptxas(built):
@@ -8266,6 +8666,8 @@ def main():
     hapi_launches = timed(phase_hapi)
     # phase 18's compiled training run and predictor runs
     jit_launches = timed(phase_jit)
+    # phase 19's profiled replay
+    audit_launches = timed(phase_audit, times)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
@@ -8315,6 +8717,7 @@ def main():
             k["launches_phase18"] = {arm: c[k["name"] + "_cuda"]
                                      for arm, c in jit_launches.items()}
         if k["name"] in FLASH:
+            k["launches_phase19"] = audit_launches[k["name"] + "_cuda"]
             k["launches_phase16"] = {
                 job: {rank: c[k["name"]] for rank, c in ranks.items()}
                 for job, ranks in launch_launches.items()}

@@ -24,7 +24,11 @@ levels of ``amp`` and ``flops``/``summary``. ``jit`` is ``to_static``
 (``torch.compile`` around the hand-written kernels, each a
 ``torch.library`` op) and ``jit.save``/``jit.load`` (``torch.export``),
 which ``inference.create_predictor`` serves; ``static.InputSpec``
-describes an export's inputs.
+describes an export's inputs. ``jit.hlo_audit`` is the per-op cost ledger
+of a traced program (``FusedTrainStep.hlo_cost_report``,
+``lowered_flops``); ``profiler`` records host spans and ``torch.profiler``
+device traces around scheduled windows; ``device`` is memory stats,
+streams and events on ``torch.cuda``.
 
 It imports ``torch`` and never ``jax`` or ``paddle_tpu``; its exports load
 on first use, so the launcher (``python -m
@@ -54,7 +58,7 @@ _EXPORTS = {
 }
 
 # subpackages, imported on first use like the names above
-_SUBPACKAGES = ["amp", "hapi", "jit", "metric"]
+_SUBPACKAGES = ["amp", "device", "hapi", "jit", "metric", "profiler"]
 
 __all__ = list(_EXPORTS) + _SUBPACKAGES
 

@@ -80,6 +80,10 @@ window boundary (a committed save, exit 123), the stall guard
 reference's fault sites (``train.grad_nan``, ``train.spike``,
 ``train.stall``, ``proc.kill``). Training under a sharding plan
 (``plan=``) and multi-process agreement are ROADMAP Queue 1 item 8.
+
+:meth:`FusedTrainStep.lowered_flops` and :meth:`hlo_cost_report` count a
+step's work without running it: :meth:`_lower` traces one step body in
+fake mode into an aten graph, which ``jit.hlo_audit`` costs op by op.
 """
 
 from __future__ import annotations
@@ -457,10 +461,11 @@ class FusedTrainStep:
                         lr_ratio=self._lr_ratios[i])
 
     # -- dispatch ---------------------------------------------------------
-    def _prepare(self, data, kwdata):
+    def _prepare(self, data, kwdata, record=True):
         """Call inputs with every top-level tensor or numpy array as a
         tensor on the model's device, padded up to its shape bucket when
-        buckets are registered (per step or global)."""
+        buckets are registered (per step or global). ``record=False``
+        keeps the pads out of ``jit.cache_stats`` (the cost trace)."""
         def tensor(x):
             if isinstance(x, np.ndarray):
                 x = torch.from_numpy(x)
@@ -492,7 +497,8 @@ class FusedTrainStep:
 
         data = tuple(pad(x, i) for i, x in enumerate(data))
         kwdata = {k: pad(v, k) for k, v in kwdata.items()}
-        jit_cache.record_bucket_pads(self._stats_name, n_pad)
+        if record:
+            jit_cache.record_bucket_pads(self._stats_name, n_pad)
         return data, kwdata
 
     @staticmethod
@@ -691,6 +697,63 @@ class FusedTrainStep:
             if hasattr(sched, "step"):
                 sched.step()
         return loss
+
+    def _lower(self, *data, **kwdata):
+        """Trace (but do not run) one whole step body for these inputs,
+        guard off and grad-norm tracking off (the plain steady-state
+        program), into an aten graph (``make_fx`` in fake mode). The
+        inputs go through :meth:`_prepare`'s padding, unrecorded. For the
+        trace every tensor the body reads has a fake twin (a fake made
+        from a ``cuda`` tensor keeps its device, so the trace takes the
+        card's route): the parameters and buffers of the model, the
+        moments, ``_acc``, the learning rate and the loss scale; the
+        sparse route's row leaves and the dropout masks are made inside
+        it. Nothing runs: no kernel launches, no launch counter, RNG
+        state, gradient or ``jit.cache_stats`` entry moves, and the step's
+        own state is swapped back however the trace ends."""
+        from torch.fx.experimental.proxy_tensor import make_fx
+        from torch.nn.utils.stateless import _reparametrize_module
+
+        data, kwdata = self._prepare(data, kwdata, record=False)
+        model = self.model
+        tensors = dict(model.named_parameters(remove_duplicate=False))
+        tensors.update(model.named_buffers(remove_duplicate=False))
+        names = list(tensors)
+        saved = (self._params, self._m1, self._m2, self._acc,
+                 self._sparse_idx)
+
+        def body(values, m1, m2, acc, lr, scale, data, kwdata):
+            fakes = dict(zip(names, values))
+            self._params = [fakes[n] for n in self._names]
+            self._m1, self._m2, self._acc = m1, m2, acc
+            with _reparametrize_module(model, fakes):
+                return self._step_body(data, kwdata, lr, scale, "off")[0]
+
+        try:
+            return make_fx(body, tracing_mode="fake")(
+                [tensors[n] for n in names], self._m1, self._m2, self._acc,
+                self._lr_dev, self._scale_dev, data, kwdata)
+        finally:
+            (self._params, self._m1, self._m2, self._acc,
+             self._sparse_idx) = saved
+
+    def lowered_flops(self, *data, **kwdata):
+        """FLOPs of one full fused step (forward + backward + update) on
+        these inputs: ``FlopCounterMode``'s count over the traced program
+        (:meth:`_lower`), the kernels' ops costed by their registered
+        formulas. Self-measured, no hand-derived formula. A failed trace
+        raises (the reference returns None)."""
+        from ..jit import hlo_audit
+
+        return float(hlo_audit.backend_flops(self._lower(*data, **kwdata)))
+
+    def hlo_cost_report(self, *data, top_n=None, **kwdata):
+        """Per-op cost ledger of this step's traced program for the given
+        inputs: each aten or kernel op with its bytes and FLOPs, ranked by
+        bytes (``jit.hlo_audit.audit``)."""
+        from ..jit import hlo_audit
+
+        return hlo_audit.audit(self._lower(*data, **kwdata), top_n=top_n)
 
     def device_metrics(self):
         """The device accumulators, fetched in one host sync:

@@ -53,8 +53,12 @@ rebuilds a :class:`TranslatedLayer` on ``cuda`` unless asked for the CPU
 (``torch.export.passes.move_to_device_pass``); a reference ``.pdmodel``
 holds StableHLO, which the port cannot run, and raises ``ValueError``.
 
-Not ported: ``hlo_audit`` and ``FusedTrainStep.hlo_report`` (ROADMAP
-Queue 1, item 3's last part) and the reference's ``CountingJit``.
+Each compile runs inside a ``RecordEvent("jit::compile::<name>")`` span
+(``profiler``), each eager fallback call inside a
+``jit::eager_fallback::<name>`` one. :mod:`.hlo_audit` is the per-op cost
+ledger of a traced program (``FusedTrainStep.hlo_cost_report``).
+
+Not ported: the reference's ``CountingJit``.
 """
 
 from __future__ import annotations
@@ -73,8 +77,10 @@ import torch
 from ..core import state
 from ..core.dtype import convert_dtype, dtype_name
 from ..core.flags import flag_value
+from ..profiler.utils import RecordEvent
 from ..static.input_spec import InputSpec
 from . import cache as cache_mod
+from . import hlo_audit  # noqa: F401
 from .cache import (BucketSpec, cache_stats, get_shape_buckets,
                     reset_cache_stats, set_shape_buckets)
 
@@ -82,7 +88,7 @@ __all__ = ["to_static", "not_to_static", "save", "load", "TranslatedLayer",
            "StaticFunction", "enable_to_static", "ignore_module",
            "set_code_level", "set_verbosity", "cache_stats",
            "reset_cache_stats", "set_shape_buckets", "get_shape_buckets",
-           "BucketSpec"]
+           "BucketSpec", "hlo_audit"]
 
 _TO_STATIC_ENABLED = True
 # torch.compile's backend for every key (tests substitute a cheaper one)
@@ -361,8 +367,7 @@ class StaticFunction:
         entry = torch.compile(self._dygraph_function, fullgraph=True,
                               dynamic=False, backend=_BACKEND)
         try:
-            with torch.profiler.record_function(
-                    f"jit::compile::{self.__name__}"), \
+            with RecordEvent(f"jit::compile::{self.__name__}"), \
                     _dynamo_limits(self._code):
                 out = self._run(entry, args, kwargs)
         except (torch._dynamo.exc.Unsupported,

@@ -352,25 +352,16 @@ def record_hit(name):
     _M_HITS.inc(function=name)
 
 
-class _Span:
-    """A started ``torch.profiler.record_function`` range; ``end()``
-    closes it."""
-
-    def __init__(self, label):
-        self._rf = torch.profiler.record_function(label)
-        self._rf.__enter__()
-
-    def end(self):
-        self._rf.__exit__(None, None, None)
-
-
 def record_eager_fallback(name):
-    """Count one uncompiled invocation and return a started profiler range
-    (``jit::eager_fallback::<name>``) the caller ``end()``s after the
-    eager call returns."""
+    """Count one uncompiled invocation and return a started
+    ``RecordEvent`` span (``jit::eager_fallback::<name>``) the caller
+    ``end()``s after the eager call returns, so the per-call cliff shows
+    in profiler timelines."""
+    from ..profiler.utils import RecordEvent
+
     _stats_for(name)
     _M_EAGER.inc(function=name)
-    return _Span(f"jit::eager_fallback::{name}")
+    return RecordEvent(f"jit::eager_fallback::{name}").begin()
 
 
 def record_scaler_fallback(name):

@@ -75,11 +75,20 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.static\n"
             "import paddle_tpu_torch.static.input_spec\n"
             "import paddle_tpu_torch.ops.cuda.library\n"
+            "import paddle_tpu_torch.jit.hlo_audit\n"
+            "import paddle_tpu_torch.profiler\n"
+            "import paddle_tpu_torch.profiler.profiler\n"
+            "import paddle_tpu_torch.profiler.profiler_statistic\n"
+            "import paddle_tpu_torch.profiler.timer\n"
+            "import paddle_tpu_torch.profiler.utils\n"
+            "import paddle_tpu_torch.device\n"
+            "import paddle_tpu_torch.device.cuda\n"
             "import paddle_tpu_torch\n"
             "paddle_tpu_torch.Model, paddle_tpu_torch.flops\n"
             "paddle_tpu_torch.jit.to_static, paddle_tpu_torch.jit.save\n"
             "paddle_tpu_torch.static.InputSpec\n"
             "paddle_tpu_torch.inference.Predictor\n"
+            "paddle_tpu_torch.profiler.Profiler, paddle_tpu_torch.device\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"
