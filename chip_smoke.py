@@ -337,11 +337,30 @@ Phases, one printed line per result:
    ``to_static`` compile's ``jit::compile::<name>`` span in a CPU-target
    profile; (e) ``device.memory_stats`` against ``torch.cuda``'s figures,
    and a product on a ``device.Stream`` under ``stream_guard``, ordered
-   by a ``device.Event``, equal to the default stream's.
+   by a ``device.Event``, equal to the default stream's;
+20. serving the Llama-MoE (phase 5b's configuration: llama_125m's width,
+   8 layers, 8 experts, top-2, MoE every 2nd layer; bf16, seeded weights,
+   ``PT_FUSED_MOE=1``) through ``LLMEngine`` (1024 blocks of 16, batch 8,
+   512-token prefill chunks): 8 greedy requests of 96-880 tokens + 16,
+   (a) per step and (b) in decode windows of 8 (one graph replay a
+   window): tokens/s, TTFT and ITL p50, a profiled repeat's idle share;
+   #1, #2 and #9 equal to their device tallies and to layers x decode
+   iterations, layers x chunks and MoE layers x (chunks + iterations);
+   (b)'s tokens against (a)'s reported (capacity is shared across the
+   batch at factor 1.25, and the schedules differ); (c) at capacity
+   factor 4.0 (nothing drops; whole-prompt chunks): windows = per step
+   bit for bit, the longest and the shortest prompt served alone = in
+   the batch; (d) fp32 llama_tiny with 4 experts at 1.25 on one schedule:
+   card = CPU per step and in windows, and on the card #9's fp32 body
+   against ``PT_FUSED_MOE=0`` (tokens equal, logits within 1e-4); (e) #9
+   against its plain version at E 8, C 3 and C 160 in both bodies, and
+   its bf16 times there (kernel, plain, three ``torch.bmm``, the bound).
 
 The five launch cross-checks of phases 4, 10a, 11a and 12a hold the
 wrappers' counts to the counts the paged kernels keep on the device
-(``device_tally``), not to the profiler's (printed beside them).
+(``device_tally``), not to the profiler's (printed beside them); phase
+20's hold #1, #2 and #9 to theirs (``paged_attention.device_tally`` and
+``moe_ffn.device_tally``).
 
 Then one JSON line with every kernel's numbers (``launches`` from the
 run named in the phase that returns them; #1 and #2 also
@@ -355,7 +374,9 @@ ranks; #3, #4, #5 and #8 ``launches_phase15``, each of phase 15's arms;
 last incarnation; #3, #4, #5 and #8 ``launches_phase17``, phase 17's O1
 fit and O2 steps, and ``launches_phase18``, phase 18a's compiled run and
 18c's three predictor runs; #3, #4 and #5 ``launches_phase19``, phase
-19a's profiled step), the card line, and last
+19a's profiled step; #1, #2 and #9 ``launches_phase20``, phase 20a's and
+20b's counted runs, and #9 ``serving_shapes``, phase 20e's times at C 3
+and C 160), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 1.
 """
@@ -8537,6 +8558,350 @@ def phase_audit(table):
     return launches
 
 
+# -- phase 20: serving the Llama-MoE ----------------------------------------
+
+MOE_SERVE_ENGINE = dict(num_blocks=1024, block_size=16, max_batch_size=8,
+                        max_model_len=1024, max_prefill_tokens_per_step=512)
+MOE_SERVE_NEW = 16
+MOE_SERVE_WINDOW = 8
+# num_experts / num_experts_per_tok: every expert's capacity is the rows of
+# the forward, so no choice is dropped and a row's output does not depend
+# on its neighbours (phase 20c)
+MOE_NODROP_FACTOR = 4.0
+MOE_TINY_ENGINE = dict(num_blocks=64, block_size=16, max_batch_size=3,
+                       ingest_async=False)
+# fp32 logits of the tiny MoE, #9's fp32 body against PT_FUSED_MOE=0's
+# einsum composition on the card: fp32 sums in another order
+MOE_LOGIT_ATOL = 1e-4
+# (E, C) of #9 in serving: decode (moe_capacity(8, 8, 2, 1.25)) and a
+# 512-token prefill chunk (moe_capacity(512, 8, 2, 1.25))
+MOE_SERVE_SHAPES = ((8, 3), (8, 160))
+
+
+def moe_serve_prompts(vocab):
+    """Phase 20's eight greedy prompts (96-880 tokens, int32)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 40)
+    lens = rng.randint(96, 881, 8)
+    lens[0], lens[1] = 880, 96
+    return [rng.randint(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def serving_counts():
+    """The launches of #1, #2 and #9's wrappers, and of their kernels by
+    their device tallies."""
+    from paddle_tpu_torch.ops.cuda import moe_ffn as MF
+    from paddle_tpu_torch.ops.cuda import paged_attention as K
+
+    counts = dict(K.launch_counts(), **MF.launch_counts())
+    tally = K.device_tally()
+    dev = {"paged_decode_attention_cuda": tally["paged_decode_split_kernel"],
+           "paged_multiquery_attention_cuda": sum(tally[k]
+                                                  for k in MQ_KERNELS),
+           "moe_ffn_cuda": sum(MF.device_tally().values())}
+    return counts, dev
+
+
+def reset_serving_counts():
+    from paddle_tpu_torch.ops.cuda import moe_ffn as MF
+    from paddle_tpu_torch.ops.cuda import paged_attention as K
+
+    for mod in (K, MF):
+        mod.reset_launch_counts()
+        mod.device_tally(reset=True)
+
+
+def check_serving_counts(label, want):
+    """#1, #2 and #9: the wrappers' counts since ``reset_serving_counts``
+    equal the kernels' device tallies and ``want``. Returns the counts."""
+    counts, dev = serving_counts()
+    say(f"{label}: launches {counts}, the kernels' device tally {dev}, "
+        f"expected {want}")
+    for name, n in want.items():
+        check(counts[name] == dev[name] == n,
+              f"{label}: {name} launches {counts[name]}, device tally "
+              f"{dev[name]}, expected {n}")
+    return counts
+
+
+def moe_serve_run(model, prompts, label, profile=True, engine=None,
+                  **engine_kw):
+    """One Llama-MoE serving run: a fresh engine, a warm-up request outside
+    the counted run (for a window engine the graph's capture), the counted
+    run with #1, #2 and #9 held to their device tallies and to layers x
+    decode iterations, layers x prefill chunks and MoE layers x (chunks +
+    decode iterations), then (``profile``) a profiled repeat for the busy
+    and idle share. Returns (outputs, wall s, launch counts, metrics,
+    profile)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+
+    cfg = model.config
+    engine = dict(MOE_SERVE_ENGINE if engine is None else engine,
+                  **engine_kw)
+    eng = LLMEngine(model, device="cuda", **engine)
+    rng = np.random.RandomState(SEED + 41)
+    eng.generate([rng.randint(0, cfg.vocab_size, 64)],
+                 SamplingParams(max_new_tokens=2))
+    replays = 0 if eng._window is None else eng._window.replays
+    eng.reset_metrics()
+    reset_serving_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, SamplingParams(max_new_tokens=MOE_SERVE_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = eng.metrics()
+    L = cfg.num_hidden_layers
+    n_moe = L // cfg.moe_every
+    chunks, steps = m["prefill_chunks"], m["decode_steps"]
+    counts = check_serving_counts(f"serve-moe {label}", {
+        "paged_decode_attention_cuda": L * steps,
+        "paged_multiquery_attention_cuda": L * chunks,
+        "moe_ffn_cuda": n_moe * (chunks + steps)})
+    check(chunks > 0 and steps > 0, f"{label}: chunks and decode steps ran")
+    if eng._window is not None:
+        w = eng._window
+        check(w.graph is not None and w.captures == 1
+              and w.replays - replays == m["host_syncs"],
+              f"{label}: one capture, one replay a window ({w.captures} "
+              f"captures, {w.replays - replays} replays, {m['host_syncs']} "
+              "windows)")
+    prof = None
+    if profile:
+        prof = device_profile(lambda: eng.generate(
+            prompts, SamplingParams(max_new_tokens=MOE_SERVE_NEW)),
+            f"serve-moe {label} (same batch again)",
+            mark=("paged_decode", "paged_multiquery", "moe_ffn"))
+    eng.close()
+    for p, o in zip(prompts, outs):
+        check(len(o) == len(p) + MOE_SERVE_NEW
+              and ((o[len(p):] >= 0) & (o[len(p):] < cfg.vocab_size)).all(),
+              f"{label}: every request finished inside the vocab")
+    toks = len(prompts) * MOE_SERVE_NEW
+    busy = ("busy/idle not measured" if prof is None else
+            f"busy {prof['busy_ms']:.1f} ms, idle share {prof['idle']:.3f}")
+    say(f"serve-moe {label}: {len(prompts)} requests, prompts "
+        f"{sorted(len(p) for p in prompts)}, {MOE_SERVE_NEW} new tokens "
+        f"each: wall {wall:.3f} s, {toks / wall:.1f} tokens/s, ttft p50 "
+        f"{m['ttft_ms'].get('p50')} ms, itl p50 {m['itl_ms'].get('p50')} "
+        f"ms, prefill chunks {chunks}, decode iterations {steps}, host "
+        f"syncs {m['host_syncs']}; {busy}")
+    return outs, wall, counts, m, prof
+
+
+def set_capacity_factor(model, factor):
+    from paddle_tpu_torch.models import LlamaMoE
+
+    model.config.moe_capacity_factor = factor
+    for mod in model.modules():
+        if isinstance(mod, LlamaMoE):
+            mod.capacity_factor = factor
+
+
+def phase_serve_moe_full():
+    """Phase 20a-c on the Llama-MoE at full width (bf16, seeded weights,
+    ``PT_FUSED_MOE=1``). Returns {arm: launch counts}."""
+    import torch
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cfg = llama_moe_config()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"serve-moe setup: Llama-MoE bf16 ({n_params} params), "
+        f"capacity factor {cfg.moe_capacity_factor}, engine "
+        f"{MOE_SERVE_ENGINE}")
+    prompts = moe_serve_prompts(cfg.vocab_size)
+    launches = {}
+    with fused_switches(("PT_FUSED_MOE",)):
+        step = moe_serve_run(model, prompts, "(a) per-step")
+        win = moe_serve_run(model, prompts,
+                            f"(b) window {MOE_SERVE_WINDOW}",
+                            decode_steps_per_sync=MOE_SERVE_WINDOW)
+        launches["per_step"], launches["window"] = step[2], win[2]
+        toks = len(prompts) * MOE_SERVE_NEW
+        say(f"serve-moe (a) vs (b): {same_share(win[0], step[0]):.3f} of "
+            f"requests with identical tokens (reported: capacity is shared "
+            f"across the batch and the schedules differ); tokens/s "
+            f"{toks / step[1]:.1f} vs {toks / win[1]:.1f}; itl p50 "
+            f"{step[3]['itl_ms'].get('p50')} vs "
+            f"{win[3]['itl_ms'].get('p50')} ms; idle share "
+            f"{step[4] and round(step[4]['idle'], 3)} vs "
+            f"{win[4] and round(win[4]['idle'], 3)}")
+        # (c) nothing drops: windows = per step, alone = batched. Each
+        # prompt is prefilled in one chunk, so its chunks do not depend on
+        # its neighbours either
+        set_capacity_factor(model, MOE_NODROP_FACTOR)
+        whole = dict(MOE_SERVE_ENGINE, max_prefill_tokens_per_step=None)
+        ns = moe_serve_run(model, prompts, "(c) no-drop per-step",
+                           profile=False, engine=whole)
+        nw = moe_serve_run(model, prompts,
+                           f"(c) no-drop window {MOE_SERVE_WINDOW}",
+                           profile=False, engine=whole,
+                           decode_steps_per_sync=MOE_SERVE_WINDOW)
+        same_w = all((a == b).all() for a, b in zip(ns[0], nw[0]))
+        alone = []
+        for i in (0, 1):
+            out = moe_serve_run(model, [prompts[i]], f"(c) no-drop alone "
+                                f"{len(prompts[i])}", profile=False,
+                                engine=whole)[0][0]
+            alone.append(bool((out == ns[0][i]).all()))
+        say(f"serve-moe (c) capacity factor {MOE_NODROP_FACTOR}: windows "
+            f"equal per step: {same_w}; prompts of {len(prompts[0])} and "
+            f"{len(prompts[1])} tokens served alone equal the batch: "
+            f"{alone}")
+        check(same_w and all(alone), "no-drop serving: windows = per step, "
+              "alone = batched")
+    del model
+    free_cuda()
+    return launches
+
+
+def moe_tiny_run(dev, state, prompts, **kw):
+    """Tokens and per-step logits rows of fp32 llama_tiny with 4 experts
+    from ``state`` on ``dev`` (phase 20d)."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         load_paddle_tpu_state_dict,
+                                         llama_tiny)
+
+    m = LlamaForCausalLM(llama_tiny(num_experts=4), device=dev)
+    load_paddle_tpu_state_dict(m, state)
+    logits = []
+    with LLMEngine(m, device=dev, **MOE_TINY_ENGINE, **kw) as eng:
+        rids = [eng.add_request(p, SamplingParams(max_new_tokens=16))
+                for p in prompts]
+        while eng.has_work():
+            for out in eng.step():
+                row = eng.request(out.rid).last_logits
+                if out.token >= 0 and row is not None:
+                    logits.append(np.array(row))
+        toks = [eng.output_tokens(r) for r in rids]
+    return toks, logits
+
+
+def phase_serve_moe_tiny():
+    """Phase 20d: fp32 llama_tiny with 4 experts at capacity factor 1.25
+    (choices drop), from numpy weights, on one schedule (synchronous
+    staging): per step and in windows, the card's tokens equal the CPU's
+    with ``PT_FUSED_MOE=1`` (the kernel's fp32 body on the card, its plain
+    version on the CPU); on the card, ``PT_FUSED_MOE=1`` against ``=0``:
+    tokens equal, logits within ``MOE_LOGIT_ATOL``, #9 launched (and
+    tallied) only with the switch."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.ops.cuda import moe_ffn as MF
+
+    cfg = llama_tiny(num_experts=4)
+    rng = np.random.RandomState(SEED + 42)
+    ref = LlamaForCausalLM(cfg, device="cpu")
+    state = {k: (np.ones(v.shape, np.float32) if "norm" in k else
+                 (rng.standard_normal(v.shape) * 0.02).astype(np.float32))
+             for k, v in ref.state_dict().items()}
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 40, 77, 130)]
+
+    def same(a, b):
+        return all((x == y).all() for x, y in zip(a, b))
+
+    runs = {}
+    with fused_switches(("PT_FUSED_MOE",)):
+        for dev in ("cpu", "cuda"):
+            for k in (1, MOE_SERVE_WINDOW):
+                reset_serving_counts()
+                runs[dev, k] = moe_tiny_run(
+                    dev, state, prompts, decode_steps_per_sync=k,
+                    capture_logits=k == 1)
+                if dev == "cuda":
+                    counts, tally = serving_counts()
+                    fp32 = MF.device_tally()["moe_ffn_kernel"]
+                    check(counts["moe_ffn_cuda"] == tally["moe_ffn_cuda"]
+                          == fp32 > 0, f"tiny MoE k={k}: #9 launches "
+                          f"{counts['moe_ffn_cuda']} == its fp32 body's "
+                          f"tally {fp32} > 0")
+    reset_serving_counts()
+    unfused = moe_tiny_run("cuda", state, prompts, capture_logits=True)
+    counts, _ = serving_counts()
+    check(counts["moe_ffn_cuda"] == 0, "PT_FUSED_MOE=0 launches no #9")
+    cpu_card = [same(runs["cpu", k][0], runs["cuda", k][0])
+                for k in (1, MOE_SERVE_WINDOW)]
+    fused, plain = runs["cuda", 1], unfused
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(fused[1], plain[1]))
+    say(f"serve-moe (d) llama_tiny MoE fp32, capacity factor 1.25, 4 "
+        f"prompts + 16: card = CPU per step {cpu_card[0]}, windows of "
+        f"{MOE_SERVE_WINDOW} {cpu_card[1]}; on the card PT_FUSED_MOE=1 vs "
+        f"=0: tokens identical {same(fused[0], plain[0])}, logits max abs "
+        f"diff {err:.3e} over {len(fused[1])} rows (tol {MOE_LOGIT_ATOL:g})")
+    check(all(cpu_card), "tiny MoE: the card's tokens equal the CPU's")
+    check(same(fused[0], plain[0]) and len(fused[1]) == len(plain[1])
+          and err <= MOE_LOGIT_ATOL, "tiny MoE: #9's fp32 body = the "
+          "einsum composition")
+
+
+def phase_serve_moe_kernel(gen):
+    """Phase 20e: #9 at its serving shapes (E 8, C 3 and C 160; h 768, I
+    2048) against its plain version in both bodies, and its times in bf16:
+    kernel, plain, library (three ``torch.bmm``) and the bound. Returns
+    {"C<c>": timing record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import moe_ffn as MF
+
+    _, _, h, i = MOE_SHAPE
+    times = {}
+    for e, c in MOE_SERVE_SHAPES:
+        for dt in ("bfloat16", "float32"):
+            x, ws = moe_inputs(gen, e, c, h, i, getattr(torch, dt))
+            got = MF.moe_ffn_cuda(x, *ws)
+            err, excess = compare(got, MF.moe_ffn_plain(
+                x.float(), *(w.float() for w in ws)), dt)
+            torch.cuda.synchronize()
+            say(f"kernel moe_ffn E={e} C={c} h={h} I={i} {dt} (serving, "
+                f"{MF.moe_ffn_route(x.dtype)} body): max_abs_err {err:.3e} "
+                f"(tol {ATOL:g} + {RTOL[dt]:g}*|want|)")
+            check(excess <= 0, f"moe_ffn serving C={c} {dt}")
+            if dt == "bfloat16":
+                gw, uw, dw = ws
+                times[f"C{c}"] = dict(
+                    ms=time_ms(lambda: MF.moe_ffn_cuda(x, gw, uw, dw)),
+                    plain_ms=time_ms(lambda: MF.moe_ffn_plain(x, gw, uw,
+                                                              dw)),
+                    library_ms=time_ms(lambda: torch.bmm(
+                        F.silu(torch.bmm(x, gw)) * torch.bmm(x, uw), dw)),
+                    library="3 x torch.bmm",
+                    **kernel_cost("moe_ffn", x, gw, uw, dw),
+                    shape=f"E={e} C={c} h={h} I={i} bf16",
+                    note=f"{e * -(-c // 64)} clusters, L2 reads %d B of "
+                         "which weights %d B" % moe_l2_bytes(e, c, h, i))
+            del x, ws, got
+    report_times(times)
+    free_cuda()
+    return times
+
+
+def phase_serve_moe():
+    """Phase 20: the Llama-MoE through ``LLMEngine`` (a-d) and #9 at its
+    serving shapes (e). Returns ({arm: launch counts of (a) and (b)},
+    {shape: #9's timing record})."""
+    import torch
+
+    launches = timed(phase_serve_moe_full)
+    timed(phase_serve_moe_tiny)
+    times = timed(phase_serve_moe_kernel,
+                  torch.Generator(device="cuda").manual_seed(SEED + 43))
+    return launches, times
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -8668,6 +9033,9 @@ def main():
     jit_launches = timed(phase_jit)
     # phase 19's profiled replay
     audit_launches = timed(phase_audit, times)
+    # phase 20's per-step and window runs of the Llama-MoE, and #9 at its
+    # serving shapes
+    moe_serve, moe_times = timed(phase_serve_moe)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
@@ -8716,6 +9084,15 @@ def main():
                                      for arm, c in hapi_launches.items()}
             k["launches_phase18"] = {arm: c[k["name"] + "_cuda"]
                                      for arm, c in jit_launches.items()}
+        if k["name"] in ("paged_decode_attention",
+                         "paged_multiquery_attention", "moe_ffn"):
+            k["launches_phase20"] = {arm: c[k["name"] + "_cuda"]
+                                     for arm, c in moe_serve.items()}
+        if k["name"] == "moe_ffn":
+            k["serving_shapes"] = {
+                shape: {key: r[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for shape, r in moe_times.items()}
         if k["name"] in FLASH:
             k["launches_phase19"] = audit_launches[k["name"] + "_cuda"]
             k["launches_phase16"] = {

@@ -64,6 +64,17 @@
 
 namespace {
 
+// The launch tally, kept on the device: thread 0 of block (0, 0, 0) of
+// each body's kernel adds one a launch (a graph replay's too), so the host
+// can read how many times each body really ran, a count independent of
+// the wrapper's own (moe_ffn_tally). Slot 0 the fp32 body, 1 the bf16 one.
+__device__ unsigned long long g_tally[2];
+
+__device__ __forceinline__ void tally(int body) {
+  if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x) == 0)
+    atomicAdd(&g_tally[body], 1ull);
+}
+
 constexpr int kThreads = 256;
 constexpr int kBC = 32;        // tokens per block
 constexpr int kBI = 64;        // intermediate columns per tile
@@ -106,6 +117,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* uwe = uw + static_cast<size_t>(e) * h * I;
   const T* dwe = dw + static_cast<size_t>(e) * I * h;
   const int rows = min(kBC, C - c0);
+  tally(0);
 
   for (int c = tid; c < h; c += kThreads)
 #pragma unroll
@@ -273,6 +285,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   const int hc0 = (blockIdx.x >> 1) * (2 * kHC) + rank * kHC;
   const int c0 = blockIdx.y * kBM, e = blockIdx.z;
   const int rows = min(kBM, C - c0);
+  tally(1);
   const bf16* xe = x + (static_cast<size_t>(e) * C + c0) * h;
   const bf16* gwe = gw + static_cast<size_t>(e) * h * I;
   const bf16* uwe = uw + static_cast<size_t>(e) * h * I;
@@ -472,6 +485,18 @@ cudaError_t launch(const void* x, const void* gw, const void* uw,
 }  // namespace
 
 extern "C" {
+
+// Copy the launch tally (fp32 body, bf16 body) into out[2]; with reset,
+// zero it after. Synchronous: call it with the device idle. Returns the
+// cudaError (0 = success).
+int moe_ffn_tally(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_tally, sizeof(g_tally));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero[2] = {0, 0};
+    e = cudaMemcpyToSymbol(g_tally, zero, sizeof(zero));
+  }
+  return static_cast<int>(e);
+}
 
 // Dynamic shared memory one block needs at hidden size h for dtype
 // (0 fp32, 1 bf16).

@@ -17,7 +17,8 @@ import os
 from .collective import (Group, destroy_process_group, get_group,
                          is_available, new_group)
 from .communication import (ReduceOp, all_gather, all_gather_object,
-                            all_reduce, barrier, broadcast,
+                            all_reduce, all_to_all, alltoall,
+                            alltoall_single, barrier, broadcast,
                             broadcast_object_list)
 from .compat import CountFilterEntry, ProbabilityEntry
 from .parallel import (ParallelEnv, get_rank, get_world_size,
@@ -32,6 +33,7 @@ __all__ = ["CountFilterEntry", "ProbabilityEntry", "init_parallel_env",
            "Group", "new_group", "get_group", "destroy_process_group",
            "is_available", "ReduceOp", "all_reduce", "broadcast", "barrier",
            "all_gather", "all_gather_object", "broadcast_object_list",
+           "alltoall", "all_to_all", "alltoall_single",
            "plan", "Plan", "PlanError", "spawn", "launch",
            "save_state_dict", "load_state_dict", "CheckpointManager",
            "PlanMismatchError"]

@@ -8,10 +8,26 @@ expert's capacity is dropped. Dispatch is a scatter-add of tokens into
 away), combine a gather back weighted by the renormalised router
 probabilities, so no ``[T, E, C]`` tensor is built.
 
-Ported: :func:`top_k_capacity_gating`, :func:`dispatch_to_experts`,
-:func:`combine_from_experts` and :func:`moe_capacity`, which the Llama-MoE
-layer (``models/llama.py``) runs. ``MoELayer`` and the expert-parallel
-``_moe_sparse_op`` are not ported yet (ROADMAP Queue 1).
+:func:`top_k_capacity_gating`, :func:`dispatch_to_experts`,
+:func:`combine_from_experts` and :func:`moe_capacity` are what the
+Llama-MoE layer (``models/llama.py``) runs. :class:`MoELayer` takes a list
+of structurally identical expert modules and a gate, and runs them through
+:func:`_moe_sparse_op` in one of two forms:
+
+* single shard (no ``moe_group``, or one of one rank): C is computed over
+  all T tokens, the experts' parameters are stacked per name (a taped
+  ``torch.stack``, so eager gradients reach every expert) and the template
+  expert is ``torch.func.vmap``-ed over the stack (:func:`_expert_apply`);
+* expert parallel (a ``distributed.Group`` of n > 1 ranks, one rank a
+  process): each rank passes its own block of T/n tokens (the reference's
+  ``P(ep)`` rows) and gets its block back. It gates locally with
+  C = ``moe_capacity(T/n, ...)``, dispatches to [E, C, h], exchanges by an
+  all-to-all to [E/n, n·C, h] (its E/n experts' slots from every rank, in
+  rank order), applies its experts [r·E/n, (r+1)·E/n), exchanges back and
+  combines; ``l_aux`` is the mean over the ranks. The exchanges and the
+  mean run under autograd (``communication.alltoall_single_grad``,
+  ``all_reduce_mean_grad``), so a backward on every rank gives each rank
+  its experts' gradients of the sum of the ranks' losses.
 """
 
 from __future__ import annotations
@@ -20,7 +36,7 @@ import math
 
 import torch
 
-__all__ = ["top_k_capacity_gating", "dispatch_to_experts",
+__all__ = ["MoELayer", "top_k_capacity_gating", "dispatch_to_experts",
            "combine_from_experts", "moe_capacity"]
 
 
@@ -105,3 +121,126 @@ def combine_from_experts(expert_out, expert_idx, slot_idx, keep, weights):
 def moe_capacity(num_tokens, num_experts, top_k, factor):
     """Slots per expert: ceil(top_k * tokens / experts * factor), >= 1."""
     return max(int(math.ceil(top_k * num_tokens / num_experts * factor)), 1)
+
+
+def _expert_apply(template, names, stacked_leaves, expert_in):
+    """``template`` mapped over the leading expert dim: expert e runs on
+    ``expert_in[e]`` with the parameters ``stacked_leaves[i][e]`` under
+    ``names[i]``."""
+    from .....utils import functional_call
+
+    def one(leaves, xs):
+        return functional_call(template, dict(zip(names, leaves)), xs)
+
+    return torch.func.vmap(one)(tuple(stacked_leaves), expert_in)
+
+
+def _moe_sparse_op(x, logits, *stacked_leaves, names=(), top_k=2,
+                   capacity_factor=1.25, group=None, template=None):
+    """x [T, h] and router logits [T, E] of this rank's tokens;
+    ``stacked_leaves`` the parameters of this rank's experts stacked on a
+    leading dim (all E in a single shard, E/n over a group of n ranks).
+    Returns (out [T, h], aux scalar)."""
+    from .....distributed import communication as comm
+
+    num_experts = logits.shape[-1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    n = 1 if group is None or comm._solo(group) else group.nranks
+    T, h = x.shape
+    C = moe_capacity(T, num_experts, top_k, capacity_factor)
+    ei, si, keep, w, aux = top_k_capacity_gating(probs, top_k, C)
+    expert_in = dispatch_to_experts(x, ei, si, keep, num_experts, C)
+    if n == 1:
+        expert_out = _expert_apply(template, names, stacked_leaves,
+                                   expert_in)
+        return combine_from_experts(expert_out, ei, si, keep, w), aux
+    if num_experts % n:
+        raise ValueError(f"{num_experts} experts do not split over {n} "
+                         "ranks")
+    local = num_experts // n
+    # chunk j (experts [j E/n, (j+1) E/n)) to rank j; what arrives is
+    # [source rank, E/n, C, h], laid out as [E/n, n C, h]
+    got = comm.alltoall_single_grad(
+        expert_in.reshape(n, local, C, h).contiguous(), group)
+    mine = got.transpose(0, 1).reshape(local, n * C, h)
+    out_l = _expert_apply(template, names, stacked_leaves, mine)
+    back = comm.alltoall_single_grad(
+        out_l.reshape(local, n, C, h).transpose(0, 1).contiguous(), group)
+    out = combine_from_experts(back.reshape(num_experts, C, h), ei, si,
+                               keep, w)
+    return out, comm.all_reduce_mean_grad(aux, group)
+
+
+class MoELayer(torch.nn.Module):
+    """The reference's ``MoELayer`` (``moe_layer.py:169``): ``experts`` is
+    the full list of structurally identical modules (one an expert),
+    ``gate`` the router (a module mapping [T, d_model] to [T, E] logits).
+    ``moe_group`` (a ``distributed.Group``) of n > 1 ranks runs the
+    expert-parallel form, rank i computing experts [i E/n, (i+1) E/n) on
+    its own block of tokens; otherwise the single-shard form.
+    ``forward`` takes [..., d_model] and stores the load-balancing loss in
+    ``l_aux``. ``mp_group`` and ``recompute_interval`` are accepted as the
+    reference accepts them and not used.
+
+    Usage::
+
+        experts = [Expert(d) for _ in range(E)]
+        moe = MoELayer(d, experts, gate=Linear(d, E, bias_attr=False,
+                                               device="cpu"), top_k=2)
+        y = moe(x)                       # [B, S, d] or [T, d]
+        loss = task_loss + 0.01 * moe.l_aux
+    """
+
+    def __init__(self, d_model, experts, gate=None, moe_group=None,
+                 mp_group=None, recompute_interval=0, top_k=2,
+                 capacity_factor=1.25):
+        super().__init__()
+        from .....utils import params_dict
+
+        self.d_model = d_model
+        self.experts = list(experts)
+        self.num_experts = len(self.experts)
+        self.top_k = top_k
+        self.capacity_factor = capacity_factor
+        self.l_aux = None
+        self._group = moe_group
+        names = sorted(params_dict(self.experts[0]))
+        for e in self.experts[1:]:
+            if sorted(params_dict(e)) != names:
+                raise ValueError("experts must be structurally identical")
+        self._names = tuple(names)
+        for i, e in enumerate(self.experts):
+            self.add_module(f"expert_{i}", e)
+        if gate is not None:
+            self.add_module("gate_layer", gate)
+
+    @property
+    def gate(self):
+        return getattr(self, "gate_layer", None)
+
+    def _local_experts(self):
+        """This rank's experts: all of them, or its block of the group."""
+        from .....distributed import communication as comm
+
+        g = self._group
+        if g is None or comm._solo(g):
+            return self.experts
+        local = self.num_experts // g.nranks
+        return self.experts[g.rank * local:(g.rank + 1) * local]
+
+    def forward(self, x):
+        if self.gate is None:
+            raise ValueError("MoELayer needs a gate layer")
+        shape = x.shape
+        flat = x.reshape(-1, shape[-1])
+        logits = self.gate(flat)
+        per_expert = [dict(e.named_parameters())
+                      for e in self._local_experts()]
+        stacked = [torch.stack([pe[n] for pe in per_expert])
+                   for n in self._names]
+        out, aux = _moe_sparse_op(
+            flat, logits, *stacked, names=self._names, top_k=self.top_k,
+            capacity_factor=self.capacity_factor, group=self._group,
+            template=self.experts[0])
+        self.l_aux = aux
+        return out.reshape(shape)

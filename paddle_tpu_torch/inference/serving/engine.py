@@ -107,6 +107,27 @@ server over a paged KV pool on one device (``cuda`` by default):
   CPU the window runs eagerly, collectives included. ``plan=None``, or a
   plan whose every degree is 1, is today's engine exactly.
 
+* **a Llama-MoE** (``num_experts > 0``, target or draft) serves on every
+  path: each MoE layer routes the rows of the forward it is in, exactly
+  the rows the reference feeds (a prefill chunk's bucket with its padding,
+  all ``max_batch_size`` decode rows with idle slots as id 0 at position
+  0, a window's frozen rows repeating their input id, the verify's
+  B x (K + 1) rows), and its expert capacity is shared across them: each
+  row takes slots in row order and a choice past capacity is dropped.
+  Under the default ``moe_capacity_factor`` 1.25 a request's tokens
+  therefore depend on its neighbours and on the schedule, as in the
+  reference: comparisons on one schedule hold (port = reference, card =
+  CPU, ``PT_FUSED_MOE`` on = off), while batch-of-one = batched, windows
+  = per step, speculative = plain and re-prefill after eviction hold only
+  where nothing drops, at ``moe_capacity_factor = num_experts /
+  num_experts_per_tok`` (capacity = rows). The MoE body reads nothing on
+  the host, so decode windows and catch-ups capture it; with
+  ``PT_FUSED_MOE=1`` its experts are kernel #9 (``ops.cuda.moe_ffn``).
+  Rows that write the same pool place write the last one's values
+  (:meth:`LLMEngine._last_writers`), so the null block an idle row reads
+  holds what the reference's leaves there. Under ``plan=`` (tp) the expert
+  stacks and the router stay whole on every rank.
+
 Prefill chunks, the per-step decode and the verify run eagerly; pools are
 written in place (see ``kv_cache``).
 """
@@ -454,10 +475,6 @@ class LLMEngine:
                     f"LLMEngine serves LlamaForCausalLM models"
                     f"{' (draft_model too)' if m is draft_model else ''}; "
                     f"got {type(m).__name__}")
-            if m.config.num_experts > 0:
-                raise NotImplementedError(
-                    "serving a Llama-MoE model is not ported yet (ROADMAP "
-                    "Queue 1); the port trains it")
         # prefill-only mode: the disaggregated prefill worker prefills and
         # samples each request's FIRST token, but never decodes; requests
         # wait decode-ready for export_kv_pages and cancel
@@ -1090,10 +1107,30 @@ class LLMEngine:
     # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
-    def _write_rows(self, cache, layer, index, k, v):
+    def _last_writers(self, model, key):
+        """For a Llama-MoE, the index of the last row landing on each
+        row's place (``key``: a page, or block * block_size + offset);
+        None for a dense model. Rows that land on the same place (padding
+        pages and parked rows, all on the null block) then write the last
+        one's values, as the reference's row-by-row writes leave them,
+        whereas ``index_put_`` alone leaves the winner unspecified on the
+        card. Only a MoE reads that back into a real row: an idle row
+        attends over the null block, and its output competes with the
+        real rows for expert capacity."""
+        if model.config.num_experts == 0:
+            return None
+        order = torch.arange(key.shape[0], device=key.device)
+        return torch.where(key[:, None] == key[None, :], order[None, :],
+                           -1).amax(dim=1)
+
+    def _write_rows(self, cache, layer, index, k, v, last=None):
         """Write K/V rows into ``cache``'s layer ``layer`` pools at
         ``index`` (a tuple of index tensors for ``index_put_``), quantizing
-        on int8 pools. In place."""
+        on int8 pools; with ``last`` (:meth:`_last_writers`) each row
+        writes the values of the last row that lands on its place. In
+        place."""
+        if last is not None:
+            k, v = k[last], v[last]
         if cache.quantized:
             qk, sk = quantize_kv_rows(k)
             qv, sv = quantize_kv_rows(v)
@@ -1140,6 +1177,7 @@ class LLMEngine:
         cos = llama.rope_cos[start:start + C]
         sin = llama.rope_sin[start:start + C]
         scale = 1.0 / math.sqrt(model.config.head_dim)
+        last = self._last_writers(model, page_blocks)
         x = llama.embed(ids)
         for li, layer in enumerate(llama.layers):
             attn = layer.self_attn
@@ -1148,7 +1186,7 @@ class LLMEngine:
             k = _rope_apply(k, cos, sin)
             geo = (pages, bs, attn.num_kv_heads, attn.head_dim)
             self._write_rows(cache, li, (page_blocks,), k.reshape(geo),
-                             v.reshape(geo))
+                             v.reshape(geo), last)
             kp, vp, ks, vs = self._pool_args(cache, li)
             out = paged_multiquery_attention(
                 q, kp, vp, tables, lens, starts, scale=scale,
@@ -1186,13 +1224,14 @@ class LLMEngine:
         c = llama.rope_cos[pos][:, None, None, :]
         s = llama.rope_sin[pos][:, None, None, :]
         scale = 1.0 / math.sqrt(model.config.head_dim)
+        last = self._last_writers(model, blk * self.block_size + off)
         x = llama.embed(ids[:, None])
         for li, layer in enumerate(llama.layers):
             attn = layer.self_attn
             q, k, v = attn.project(layer.input_layernorm(x))
             q = _rotate(q, c.to(q.dtype), s.to(q.dtype))
             k = _rotate(k, c.to(k.dtype), s.to(k.dtype))
-            self._write_rows(cache, li, (blk, off), k[:, 0], v[:, 0])
+            self._write_rows(cache, li, (blk, off), k[:, 0], v[:, 0], last)
             kp, vp, ks, vs = self._pool_args(cache, li)
             out = paged_decode_attention(q, kp, vp, tables, lens,
                                          scale=scale, k_scale=ks,
@@ -1279,6 +1318,7 @@ class LLMEngine:
         c = llama.rope_cos[grid][:, :, None, :]
         s = llama.rope_sin[grid][:, :, None, :]
         scale = 1.0 / math.sqrt(model.config.head_dim)
+        last = self._last_writers(model, blk * bs + off)
         x = llama.embed(ids)
         for li, layer in enumerate(llama.layers):
             attn = layer.self_attn
@@ -1287,7 +1327,7 @@ class LLMEngine:
             k = _rotate(k, c.to(k.dtype), s.to(k.dtype))
             geo = (B * T, attn.num_kv_heads, attn.head_dim)
             self._write_rows(cache, li, (blk, off), k.reshape(geo),
-                             v.reshape(geo))
+                             v.reshape(geo), last)
             kp, vp, ks, vs = self._pool_args(cache, li)
             out = paged_multiquery_attention(
                 q, kp, vp, tables, lens, starts, scale=scale, k_scale=ks,

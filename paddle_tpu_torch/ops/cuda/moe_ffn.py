@@ -16,7 +16,9 @@ Pallas kernel: here it is plain PyTorch in fp32, and it never launches
 the forward kernel. :func:`use_fused_moe_ffn` (``PT_FUSED_MOE=1``, read
 at call time, default off) and :func:`moe_ffn_shapes_ok` (h and I
 multiples of 128) are the reference's routing rule, ported as they
-stand. The CUDA wrapper counts its launches in ``moe_ffn_cuda.launches``.
+stand. The CUDA wrapper counts its launches in ``moe_ffn_cuda.launches``;
+:func:`device_tally` reads a second count that each body keeps on the
+device itself (one atomic add a launch, graph replays included).
 
 The kernel has two bodies, chosen by x's dtype alone (:func:`moe_ffn_route`,
 never on a failure): bf16 takes the tensor-core body (``mma.sync`` with the
@@ -38,7 +40,8 @@ from .library import define
 
 __all__ = ["moe_expert_ffn", "MoEExpertFFNFunction", "moe_ffn_plain",
            "moe_ffn_cuda", "moe_ffn_route", "use_fused_moe_ffn",
-           "moe_ffn_shapes_ok", "reset_launch_counts", "launch_counts"]
+           "moe_ffn_shapes_ok", "reset_launch_counts", "launch_counts",
+           "device_tally", "TALLIED"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the C entry's body codes: 0 the fp32 CUDA-core body, 1 the bf16 tensor-core
@@ -83,6 +86,8 @@ def _lib():
         lib.moe_ffn_launch.restype = _I
         lib.moe_ffn_smem_bytes.argtypes = [_I, _I]
         lib.moe_ffn_smem_bytes.restype = ctypes.c_long
+        lib.moe_ffn_tally.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), _I]
+        lib.moe_ffn_tally.restype = _I
         lib._moe_typed = True
     return lib
 
@@ -160,6 +165,28 @@ def reset_launch_counts():
 
 def launch_counts():
     return {"moe_ffn_cuda": moe_ffn_cuda.launches}
+
+
+#: the bodies whose launches :func:`device_tally` counts, in its order
+TALLIED = ("moe_ffn_kernel", "moe_ffn_bf16_kernel")
+
+
+def device_tally(reset=False):
+    """``{body: launches}`` that each kernel body counted on the device
+    since the last reset (thread 0 of its block (0, 0, 0) adds one a
+    launch, graph replays included): the fp32 CUDA-core body and the bf16
+    tensor-core body. Independent of ``moe_ffn_cuda.launches``, so a run
+    can be checked against it exactly: their sum is the wrapper's count.
+    Synchronises the device first; ``reset`` zeroes the tally after
+    reading it."""
+    lib = _lib()
+    out = (ctypes.c_ulonglong * len(TALLIED))()
+    torch.cuda.synchronize()
+    err = lib.moe_ffn_tally(out, int(bool(reset)))
+    if err:
+        raise RuntimeError(f"reading the moe_ffn kernel's device tally "
+                           f"failed (cudaError {err})")
+    return dict(zip(TALLIED, (int(n) for n in out)))
 
 
 def _ffn_bwd(x, gate_w, up_w, down_w, dout):

@@ -83,12 +83,19 @@ def test_import_leaves_jax_and_paddle_tpu_out():
             "import paddle_tpu_torch.profiler.utils\n"
             "import paddle_tpu_torch.device\n"
             "import paddle_tpu_torch.device.cuda\n"
+            "import paddle_tpu_torch.utils\n"
+            "import paddle_tpu_torch.utils.functional_call\n"
+            "import paddle_tpu_torch.incubate.distributed.models.moe."
+            "moe_layer\n"
+            "import paddle_tpu_torch.ops.cuda.moe_ffn\n"
             "import paddle_tpu_torch\n"
             "paddle_tpu_torch.Model, paddle_tpu_torch.flops\n"
             "paddle_tpu_torch.jit.to_static, paddle_tpu_torch.jit.save\n"
             "paddle_tpu_torch.static.InputSpec\n"
             "paddle_tpu_torch.inference.Predictor\n"
             "paddle_tpu_torch.profiler.Profiler, paddle_tpu_torch.device\n"
+            "paddle_tpu_torch.incubate.distributed.models.moe.MoELayer\n"
+            "paddle_tpu_torch.distributed.alltoall_single\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"

@@ -170,13 +170,25 @@ def test_moe_layers_and_state_dict_round_trip():
 
 
 def test_engine_refuses_a_moe_model():
-    """Serving the Llama-MoE is not ported: the engine says so at once."""
-    from paddle_tpu_torch.inference.serving import LLMEngine
+    """The engine once refused the Llama-MoE; it serves it now (the name
+    is kept): greedy tokens of two prompts, each inside the vocabulary,
+    with the MoE layer's routing run in every prefill chunk and decode
+    step (tests/test_torch_moe_serving.py holds them to the reference)."""
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
 
     tm = torch_llama.LlamaForCausalLM(
         torch_llama.llama_tiny(**_moe_config()), device="cpu")
-    with pytest.raises(NotImplementedError, match="Llama-MoE"):
-        LLMEngine(tm, device="cpu")
+    calls = []
+    moe = tm.llama.layers[1].mlp
+    moe.register_forward_hook(lambda m, a, out: calls.append(a[0].shape))
+    prompts = [np.arange(5, dtype=np.int32), np.arange(9, dtype=np.int32)]
+    with LLMEngine(tm, num_blocks=16, block_size=8, max_batch_size=2,
+                   device="cpu") as eng:
+        outs = eng.generate(prompts, SamplingParams(max_new_tokens=4))
+        m = eng.metrics()
+    for p, o in zip(prompts, outs):
+        assert len(o) == len(p) + 4 and ((o >= 0) & (o < 512)).all()
+    assert len(calls) == m["prefill_chunks"] + m["decode_steps"]
 
 
 def test_seeded_init_draws_the_expert_stacks():

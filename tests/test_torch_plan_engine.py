@@ -51,13 +51,23 @@ def _ref_state(seed):
                    for k, v in model.state_dict().items()}
 
 
-def _port_model(state, device="cpu"):
+def _port_model(state, device="cpu", **cfg):
     from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
                                          load_paddle_tpu_state_dict)
 
-    model = LlamaForCausalLM(llama_tiny(), device=device, seed=0)
+    model = LlamaForCausalLM(llama_tiny(**cfg), device=device, seed=0)
     load_paddle_tpu_state_dict(model, state)
     return model
+
+
+def _ref_moe_state(seed):
+    """A reference Llama-MoE llama_tiny's weights (4 experts, numpy)."""
+    import paddle_tpu as paddle
+    from paddle_tpu.models import LlamaForCausalLM, llama_tiny
+
+    paddle.seed(seed)
+    model = LlamaForCausalLM(llama_tiny(num_experts=4))
+    return {k: np.asarray(v._data) for k, v in model.state_dict().items()}
 
 
 def _serve(eng, prompts, new=NEW, **sampling):
@@ -124,6 +134,21 @@ def _rank_main(rank, port, work):
         m = eng.metrics()
         out["metrics"] = {k: m[k] for k in ("decode_steps",
                                             "prefill_chunks")}
+    # a Llama-MoE: the expert stacks and the router stay whole on each
+    # rank (the tp rules name none of them); attention and the dense MLP
+    # are cut
+    moe_state = dict(np.load(os.path.join(work, "moe_weights.npz")))
+    model = _port_model(moe_state, num_experts=4)
+    with LLMEngine(model, plan=tp2(), device="cpu", **ENGINE) as eng:
+        out["moe_tokens"] = [o.tolist() for o in eng.generate(
+            prompts, SamplingParams(max_new_tokens=NEW))]
+        moe = model.llama.layers[1].mlp
+        out["moe_local"] = {
+            "gate_w": list(moe.gate_w.shape),
+            "down_w": list(moe.down_w.shape),
+            "router": list(moe.router.weight.shape),
+            "down_proj": list(model.llama.layers[0].mlp.down_proj.weight
+                              .shape)}
     # decode windows: on the CPU the window runs eagerly, collectives in
     with LLMEngine(_port_model(state), plan=tp2(), device="cpu",
                    decode_steps_per_sync=4, **ENGINE) as eng:
@@ -229,6 +254,8 @@ def run(tmp_path_factory):
     ref_model, state = _ref_state(5)
     _, state6 = _ref_state(6)
     np.savez(os.path.join(work, "weights.npz"), **state)
+    moe_state = _ref_moe_state(7)
+    np.savez(os.path.join(work, "moe_weights.npz"), **moe_state)
     prompts = _prompts()
     # what the ranks reload: a whole checkpoint recorded under tp=2, a
     # stale one recorded under tp=4, and an artifact (all seed-6 weights)
@@ -244,6 +271,10 @@ def run(tmp_path_factory):
         base_tokens, base_logits = _serve(eng, prompts)
     with LLMEngine(_port_model(state6), device="cpu", **ENGINE) as eng:
         other_tokens = [o.tolist() for o in eng.generate(
+            prompts, SamplingParams(max_new_tokens=NEW))]
+    with LLMEngine(_port_model(moe_state, num_experts=4), device="cpu",
+                   **ENGINE) as eng:
+        moe_tokens = [o.tolist() for o in eng.generate(
             prompts, SamplingParams(max_new_tokens=NEW))]
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
@@ -267,7 +298,8 @@ def run(tmp_path_factory):
             ranks.append(json.load(f))
     return {"ranks": ranks, "base_tokens": base_tokens,
             "base_logits": base_logits, "other_tokens": other_tokens,
-            "ref_model": ref_model, "prompts": prompts}
+            "moe_tokens": moe_tokens, "ref_model": ref_model,
+            "prompts": prompts}
 
 
 def test_tp2_tokens_equal_the_unplanned_engine(run):
@@ -313,6 +345,18 @@ def test_each_rank_holds_its_megatron_shard(run):
             "q_proj": [128, 64], "o_proj": [64, 128],
             "embed": [256, 128], "lm_head": [128, 256],
             "down": [192, 128], "norm": [128]}
+
+
+def test_tp2_serves_a_moe_model_with_whole_expert_stacks(run):
+    """``adopt_plan`` takes a Llama-MoE under tp 2: the expert stacks and
+    the router stay whole on each rank, the dense MLP is cut, and both
+    ranks give the unplanned engine's tokens."""
+    for r in run["ranks"]:
+        assert r["moe_tokens"] == run["moe_tokens"]
+        assert r["moe_local"] == {"gate_w": [4, 128, 384],
+                                  "down_w": [4, 384, 128],
+                                  "router": [128, 4],
+                                  "down_proj": [192, 128]}
 
 
 def test_eager_window_equals_per_step(run):

@@ -206,11 +206,21 @@ def test_vocab_mismatch_rejected(model):
 
 
 def test_draft_must_be_a_dense_llama(model):
+    """A draft must be a llama; a Llama-MoE draft, once refused, serves
+    now (the name is kept): its proposals leave the target's greedy
+    tokens as they are."""
     with pytest.raises(TypeError, match="draft_model"):
         engine(model, num_blocks=16, block_size=8, draft_model=object())
     moe = LlamaForCausalLM(llama_tiny(num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="Llama-MoE"):
-        engine(model, num_blocks=16, block_size=8, draft_model=moe)
+    prompts = prompts_fixed([5, 9], seed=8)
+    kw = dict(num_blocks=32, block_size=8, max_batch_size=2)
+    with engine(model, draft_model=moe, **kw) as eng:
+        spec = eng.generate(prompts, SamplingParams(max_new_tokens=6))
+        assert eng.metrics()["spec_proposed"] > 0
+    with engine(model, **kw) as eng:
+        plain = eng.generate(prompts, SamplingParams(max_new_tokens=6))
+    for a, b in zip(spec, plain):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_spec_decode_bit_exact_vs_plain_int8(model):

@@ -13,7 +13,9 @@ bookkeeping. The fused step with a scaler and a skipped step runs on
 fp32 llama_tiny against the JAX ``FusedTrainStep`` (losses rtol 1e-5,
 parameters and moments atol 1e-5, as ``tests/test_torch_training.py``).
 Last, the step body of ``llama_tiny``, ``bert_tiny`` and the tiny
-Llama-MoE runs under a dispatch mode that fails on any host sync.
+Llama-MoE runs under a dispatch mode that fails on any host sync, and so
+do the serving engine's decode, window and verify bodies on the tiny
+Llama-MoE.
 """
 
 import warnings
@@ -507,3 +509,46 @@ def test_step_body_does_no_host_sync(kind, guard, monkeypatch):
     assert torch.isfinite(loss)
     assert (finite is None) == (guard == "off")
     assert step.device_metrics()["step_count"] == 1
+
+
+@pytest.mark.parametrize("body", ["decode", "window", "verify"])
+def test_engine_moe_bodies_do_no_host_sync(body, monkeypatch):
+    """The serving engine's bodies that the card captures as CUDA graphs
+    (the decode step, a decode window, the verify), on the tiny Llama-MoE
+    with ``PT_FUSED_MOE=1``, read no device value on the host: the MoE's
+    sort, cumsum slots, ``index_add`` dispatch and gather combine
+    included."""
+    from paddle_tpu_torch.inference.serving import LLMEngine
+
+    monkeypatch.setenv("PT_FUSED_MOE", "1")
+    model = torch_llama.LlamaForCausalLM(
+        torch_llama.llama_tiny(num_experts=4), device="cpu", seed=1)
+    B, K = 3, 2
+    kw = {"decode": {}, "window": {"decode_steps_per_sync": 4},
+          "verify": {"draft_model": model, "spec_tokens": K}}[body]
+    eng = LLMEngine(model, num_blocks=32, block_size=8, max_batch_size=B,
+                    ingest_async=False, device="cpu", **kw)
+    rng = np.random.RandomState(3)
+    tables = torch.zeros(B, eng.max_pages, dtype=torch.int32)
+    tables[:2, :3] = torch.tensor([[1, 2, 3], [4, 5, 6]])
+    ids = torch.from_numpy(rng.randint(0, 512, B))
+    pos = torch.tensor([9, 4, 0])
+    try:
+        with _NoHostSync(), torch.inference_mode():
+            if body == "decode":
+                blk = tables[torch.arange(B), pos // 8].long()
+                out = eng._decode_layers(ids, pos, blk, pos % 8,
+                                         (pos + 1).int(), tables)
+            elif body == "window":
+                meta = torch.stack([ids, pos, torch.tensor([1, 1, 0]),
+                                    torch.tensor([4, 2, 0]),
+                                    torch.tensor([-1, -1, -1])])
+                out = eng._window_forward(meta, tables)
+            else:
+                drafts = torch.from_numpy(rng.randint(0, 512, (B, K)))
+                meta = torch.cat([ids[:, None], drafts, pos[:, None],
+                                  drafts], dim=1)
+                out = eng._verify_forward(meta, tables)
+    finally:
+        eng.close()
+    assert torch.isfinite(out.float()).all()
