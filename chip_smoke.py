@@ -355,6 +355,29 @@ Phases, one printed line per result:
    against ``PT_FUSED_MOE=0`` (tokens equal, logits within 1e-4); (e) #9
    against its plain version at E 8, C 3 and C 160 in both bodies, and
    its bf16 times there (kernel, plain, three ``torch.bmm``, the bound).
+21. the transformer stack: (a) Transformer-base (``Transformer()`` at its
+   defaults, bf16, ``attn_dropout=0.0``) behind a shared 37000-token
+   embedding scaled by sqrt(d_model), sinusoid positions and a tied head,
+   trained eagerly with AdamW(1e-4) on one batch of 16 x 256 source and
+   target tokens under ``PT_FUSED_NORM=1`` (2 warm-up and 10 timed
+   steps): losses finite and falling, ms/step, source+target tokens/s,
+   peak memory, #3, #4, #5 and #8 exactly 12 a step; one forward at a
+   128-token target: #3 6 (the cross-attentions take ``sdpa_reference``);
+   the trained weights' bf16 step with dropout off through the kernels,
+   each of its launches held to its plain version on its own inputs, its
+   loss and gradients against the same step on the plain route (no
+   launch) and in fp32; a padded batch (lengths of one bucket,
+   key-padding masks): every attention takes ``sdpa_reference``, #8
+   alone 12 a step; (b) fp32 at full width cut to 2 + 2 layers, card against CPU: an eval
+   forward and one training step's loss and gradients, within the fp32
+   card-vs-CPU tolerances; (c) ``gen_cache`` and 32 cached decoder steps
+   (the caller re-pairing the static caches) within 1e-4 of the uncached
+   decoder under the square mask; (d) ``FusedMultiTransformer`` at
+   BERT-base's width (4 layers, bf16, [16, 512]) against fp32 on the CPU
+   within 8 x 2^-8 of its largest magnitude, #3 4 a forward, each launch
+   held to its plain version on its own inputs; a post-norm
+   ``FusedTransformerEncoderLayer`` (#3 1, #8 0) and
+   ``fused_layer_norm(residual=)`` (#8 1, held as phase 2 holds #8).
 
 The five launch cross-checks of phases 4, 10a, 11a and 12a hold the
 wrappers' counts to the counts the paged kernels keep on the device
@@ -376,9 +399,12 @@ fit and O2 steps, and ``launches_phase18``, phase 18a's compiled run and
 18c's three predictor runs; #3, #4 and #5 ``launches_phase19``, phase
 19a's profiled step; #1, #2 and #9 ``launches_phase20``, phase 20a's and
 20b's counted runs, and #9 ``serving_shapes``, phase 20e's times at C 3
-and C 160), the card line, and last
-``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
-then non-zero and no result line is printed. Without CUDA it exits 1.
+and C 160; #3, #4, #5 and #8 ``launches_phase21``, phase 21a's 12 steps,
+cross-length forward and padded steps, and 21d's three counted calls;
+every kernel's ``max_abs_err`` includes phase 21's held launches), the
+card line, and last ``{"ok": true, "device": {...}}``. Any failed check
+raises: the exit code is then non-zero and no result line is printed.
+Without CUDA it exits 1.
 """
 
 from __future__ import annotations
@@ -952,8 +978,10 @@ def phase_flash_kernels(gen, rope=False):
         (2, 4, 1000, 64, "bfloat16", True, "ragged S"),
         (1, 4, 1000, 128, "float32", False, "ragged S fp32 D=128")]
     if not rope:  # hapi O1's eval runs outside auto_cast: #3's fp32 body
-        cases.append((128, 12, 128, 64, "float32", False,
-                      "BERT-base eval fp32 (hapi O1)"))
+        cases += [(128, 12, 128, 64, "float32", False,
+                   "BERT-base eval fp32 (hapi O1)"),
+                  (TB_BATCH, 8, TB_SEQ, 64, "bfloat16", False,
+                   "Transformer-base training")]
     for case in cases:
         for name, e in zip(names, flash_case(gen, case, rope)):
             worst[name] = max(worst[name], e)
@@ -1205,6 +1233,7 @@ def phase_fused_kernels(gen):
         check(excess <= 0 and same_r, f"fused_add_rms_norm {rows}x{h} {dt}")
         worst["fused_add_rms_norm"] = max(worst["fused_add_rms_norm"], err)
     for (rows, h), dt in ((LN_SHAPE, "bfloat16"), (LN_SHAPE, "float32"),
+                          ((TB_BATCH * TB_SEQ, 512), "bfloat16"),
                           ((37, 200), "bfloat16"), ((9, 13000), "float32")):
         x, y, w, b = ln_inputs(gen, rows, h, getattr(torch, dt))
         out, r = RN.fused_add_layer_norm_cuda(x, y, w, b, LN_EPS)
@@ -8902,6 +8931,638 @@ def phase_serve_moe():
     return launches, times
 
 
+# -- phase 21: the transformer stack, Transformer-base ----------------------
+
+TB_VOCAB = 37000         # WMT14 en-de shared BPE vocabulary of the base model
+TB_BATCH, TB_SEQ = 16, 256   # 4096 source and 4096 target tokens a step
+TB_CROSS_SEQ = 128       # (a): a target length other than the source's
+# (a) padded arm: a length bucket (Vaswani et al. 2017, sec. 5.1: "Sentence
+# pairs were batched together by approximate sequence length"); lengths
+# are drawn uniformly inside it, not from WMT14's own statistics
+TB_BUCKET = (225, 256)
+# (a) kernel step vs plain step: the gradients' distance from the fp32
+# step may be at most this multiple of the plain bf16 step's distance
+TB_GRAD_FACTOR = 2.0
+TB_CUT = 2               # (b), (c): layers a stack at full width
+TB_CMP_BATCH, TB_CMP_SEQ = 2, 64
+TB_DECODE = 32           # (c): cached decoder steps
+TB_DECODE_ATOL = 1e-4
+FUSED_WIDTH = dict(embed_dim=768, num_heads=12, dim_feedforward=3072,
+                   num_layers=4)     # (d): BERT-base's width, 4 layers
+FUSED_BATCH, FUSED_SEQ = 16, 512
+# (d) bf16 stack against fp32: each of the stack's 8 residual adds rounds
+# the stream to bf16, at most 2^-8 of it (RTOL["bfloat16"]) each
+FUSED_STACK_REL_TOL = 8 * 2.0 ** -8
+
+
+def sinusoid_positions(n, d):
+    """The base model's sinusoid position table [n, d] (fp32 numpy)."""
+    import numpy as np
+
+    pos = np.arange(n, dtype=np.float64)[:, None]
+    div = np.exp(np.arange(0, d, 2, dtype=np.float64) * (-math.log(1e4) / d))
+    table = np.zeros((n, d))
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div)
+    return table.astype(np.float32)
+
+
+def seq2seq_logits(model, emb, pos, src, tgt, tgt_mask, src_mask=None,
+                   memory_mask=None):
+    """The harness around ``model`` (a ``Transformer``): the shared
+    embedding scaled by sqrt(d_model) plus sinusoid positions on both
+    sides, and the head tied to the embedding."""
+    scale = math.sqrt(model.d_model)
+    s = emb(src) * scale + pos[:src.shape[1]]
+    t = emb(tgt) * scale + pos[:tgt.shape[1]]
+    h = model(s, t, src_mask=src_mask, tgt_mask=tgt_mask,
+              memory_mask=memory_mask)
+    return h @ emb.weight.t()
+
+
+def detached(x):
+    """x, or each tensor in the tuple x, detached."""
+    return tuple(t.detach() for t in x) if isinstance(x, tuple) else (
+        x.detach())
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Inside, every call the flash autograd core makes to the forward, dq
+    and dk/dv entries of ``ops.cuda.flash_attention``, and every fused add
+    + LayerNorm of a post-norm ``nn`` transformer layer, appends (entry,
+    inputs, outputs) to the yielded list, detached: the tensors each
+    launch of a phase 21 run saw and gave, for ``hold_recorded``."""
+    from paddle_tpu_torch.nn.layer import transformer as T
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+
+    sites = [(FA, "flash_attention_fwd"), (FA, "flash_attention_bwd_dq"),
+             (FA, "flash_attention_bwd_dkv"), (T, "fused_add_layer_norm")]
+    saved = [getattr(mod, name) for mod, name in sites]
+    records = []
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            records.append((name, [detached(a) if hasattr(a, "detach")
+                                   else a for a in args],
+                            kwargs, detached(out)))
+            return out
+        return call
+
+    for (mod, name), fn in zip(sites, saved):
+        setattr(mod, name, recorder(name, fn))
+    try:
+        yield records
+    finally:
+        for (mod, name), fn in zip(sites, saved):
+            setattr(mod, name, fn)
+
+
+def hold_recorded(records, label):
+    """Each recorded call (``recorded_launches``) against its plain version
+    on its own inputs, exactly upcast, as phases 2b and 2c hold the
+    kernels: the flash output within ATOL + RTOL*|want| and lse within
+    LSE_ATOL, dq, dk and dv within RTOL*|want| + GRAD_FRAC*max|want|, the
+    add + LayerNorm's output within ATOL + RTOL*|want| of the fp32 norm of
+    its residual, and the residual identical. Returns {kernel: max abs
+    error}."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as K
+    from paddle_tpu_torch.ops.cuda import rms_norm as RN
+
+    worst, calls, bad = {}, {}, []
+
+    def note(name, err, excess):
+        worst[name] = max(worst.get(name, 0.0), err)
+        calls[name] = calls.get(name, 0) + 1
+        if excess > 0:
+            bad.append((name, calls[name], err))
+
+    for entry, args, kwargs, out in records:
+        if entry == "fused_add_layer_norm":
+            x, y, w, b = args
+            eps = kwargs["epsilon"]
+            dt = str(x.dtype).split(".")[1]
+            _, w_r = RN.fused_add_layer_norm_plain(x, y, w, b, eps)
+            w_out, _ = RN.fused_add_layer_norm_plain(
+                w_r.float(), torch.zeros_like(w_r, dtype=torch.float32),
+                w.float(), b.float(), eps)
+            err, excess = compare(out[0], w_out, dt)
+            if not torch.equal(out[1], w_r):
+                excess = max(excess, 1.0)
+            note("fused_add_layer_norm", err, excess)
+            continue
+        q, k, v = args[:3]
+        dt = str(q.dtype).split(".")[1]
+        up = [a.float() for a in args[:3]]
+        scale, causal = args[-2:]
+        if entry == "flash_attention_fwd":
+            w_out, w_lse = K.flash_attention_fwd_plain(*up, scale, causal)
+            err, excess = compare(out[0], w_out, dt)
+            e_lse = float((out[1] - w_lse).abs().max())
+            note(entry, err, max(excess, e_lse - LSE_ATOL))
+            continue
+        o, lse, do = args[3:6]
+        res = (*up, o.float(), lse, do.float())
+        if entry == "flash_attention_bwd_dq":
+            note(entry, *compare_grad(
+                out, K.flash_attention_bwd_dq_plain(*res, scale, causal), dt))
+            continue
+        w_dk, w_dv = K.flash_attention_bwd_dkv_plain(*res, scale, causal)
+        e_dk, x_dk = compare_grad(out[0], w_dk, dt)
+        e_dv, x_dv = compare_grad(out[1], w_dv, dt)
+        note(entry, max(e_dk, e_dv), max(x_dk, x_dv))
+    torch.cuda.synchronize()
+    say(f"transformer {label}: every launch held to its plain version on "
+        f"its own inputs: calls {calls}, max abs errors "
+        + ", ".join(f"{n} {e:.3e}" for n, e in worst.items())
+        + f" (tolerances of phases 2b and 2c); outside them {bad}")
+    check(not bad, f"{label}: each launch = its plain version")
+    return worst
+
+
+def step_grads(model, emb, pos, src, tgt, labels, mask, **masks):
+    """(loss, {name: fp32 gradient}) of one eval-mode (dropout off)
+    forward and backward of the harness, the optimizer untouched."""
+    from paddle_tpu_torch.nn import functional as F
+
+    params = dict(model.named_parameters(), emb=emb.weight)
+    for p in params.values():
+        p.grad = None
+    logits = seq2seq_logits(model, emb, pos, src, tgt, mask, **masks)
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1))
+    loss.backward()
+    grads = {k: p.grad.float() for k, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def grad_distance(got, want):
+    """|got - want| / |want| over all gradients as one vector (L2)."""
+    num = sum(float((got[k] - want[k]).square().sum()) for k in want)
+    den = sum(float(want[k].square().sum()) for k in want)
+    return math.sqrt(num / den)
+
+
+def transformer_base_plain_check(model, emb, pos, src, tgt, labels, mask):
+    """Phase 21a's bf16 step against the plain route, from the trained
+    weights, dropout off: the kernel step (``PT_FUSED_NORM=1``, no
+    encoder or memory mask: #3-#5 and #8 12 each), every launch of it held
+    to its plain version on its own inputs (``hold_recorded``); the plain
+    step (``PT_FUSED_NORM=0`` and all-zero additive encoder and memory
+    masks, so every attention takes ``sdpa_reference``: no launch); and
+    the plain step in fp32 from the same weights. The kernel step's loss
+    within RTOL["bfloat16"] of the plain step's; its gradients no farther
+    from the fp32 step's than ``TB_GRAD_FACTOR`` times the plain bf16
+    step's. Returns {kernel: max abs error}."""
+    import torch
+
+    from paddle_tpu_torch.models import (load_paddle_tpu_state_dict,
+                                         to_numpy_state_dict)
+    from paddle_tpu_torch.nn import Embedding, Transformer
+
+    model.eval()
+    zero = torch.zeros(TB_SEQ, TB_SEQ, device="cuda")
+    plain = dict(src_mask=zero, memory_mask=zero)
+    reset_all_launch_counts()
+    with fused_switches(("PT_FUSED_NORM",)), recorded_launches() as rec:
+        l_k, g_k = step_grads(model, emb, pos, src, tgt, labels, mask)
+    kernel = all_launch_counts()
+    check(kernel == launches_want(fused_add_layer_norm_cuda=12,
+                                  **{f"{k}_cuda": 12 for k in FLASH}),
+          f"kernel step launches {kernel}")
+    worst = hold_recorded(rec, "Transformer-base bf16 step")
+    del rec
+    reset_all_launch_counts()
+    l_p, g_p = step_grads(model, emb, pos, src, tgt, labels, mask, **plain)
+    none = all_launch_counts()
+    check(none == launches_want(), f"plain step launches {none}")
+    m32 = Transformer(attn_dropout=0.0, device="cuda")
+    load_paddle_tpu_state_dict(m32, to_numpy_state_dict(model))
+    e32 = Embedding(TB_VOCAB, model.d_model, device="cuda")
+    with torch.no_grad():
+        e32.weight.copy_(emb.weight.float())
+    m32.eval()
+    l_32, g_32 = step_grads(m32, e32, pos.float(), src, tgt, labels, mask,
+                            **plain)
+    d_k, d_p = grad_distance(g_k, g_32), grad_distance(g_p, g_32)
+    d_kp = grad_distance(g_k, g_p)
+    dl = abs(l_k / l_p - 1)
+    say(f"transformer Transformer-base bf16 step, kernels vs plain route "
+        f"(same weights, dropout off): loss {l_k} vs {l_p} (fp32 {l_32}), "
+        f"rel diff {dl:.2e} (tol {RTOL['bfloat16']:g}); gradients' L2 "
+        f"distance from the fp32 step: kernels {d_k:.3e}, plain bf16 "
+        f"{d_p:.3e} (tol {TB_GRAD_FACTOR:g} x plain), kernels vs plain "
+        f"{d_kp:.3e}; launches kernel step {kernel}, plain step {none}")
+    check(dl <= RTOL["bfloat16"] and d_k <= TB_GRAD_FACTOR * d_p,
+          "Transformer-base kernel step = plain step")
+    del m32, e32, g_k, g_p, g_32
+    return worst
+
+
+def padded_batch_arm(model, emb, pos, opt, rng):
+    """Phase 21a's padded arm: one batch of 16 pairs whose source and
+    target lengths are drawn from the ``TB_BUCKET`` bucket, padded to the
+    longest of each side, with key-padding masks (bool, visible = True) on
+    the encoder, the decoder (with the causal mask) and the memory, and
+    the padded labels ignored; 1 warm-up and 3 timed training steps. Every
+    attention is masked, so each takes ``sdpa_reference``: #3-#5 never
+    launch, #8 12 times a step. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+
+    lo, hi = TB_BUCKET
+    src_len, tgt_len = (rng.randint(lo, hi + 1, TB_BATCH) for _ in range(2))
+    s_src, s_tgt = int(src_len.max()), int(tgt_len.max())
+    src = torch.from_numpy(rng.randint(0, TB_VOCAB, (TB_BATCH, s_src))).cuda()
+    out = torch.from_numpy(rng.randint(0, TB_VOCAB,
+                                       (TB_BATCH, s_tgt + 1))).cuda()
+    tgt, labels = out[:, :-1], out[:, 1:].clone()
+    keep_src = (torch.arange(s_src, device="cuda")[None]
+                < torch.from_numpy(src_len).cuda()[:, None])
+    keep_tgt = (torch.arange(s_tgt, device="cuda")[None]
+                < torch.from_numpy(tgt_len).cuda()[:, None])
+    labels[~keep_tgt] = -100
+    src_mask = keep_src[:, None, None, :]
+    causal = torch.ones(s_tgt, s_tgt, dtype=torch.bool, device="cuda").tril()
+    tgt_mask = causal[None, None] & keep_tgt[:, None, None, :]
+
+    def step():
+        logits = seq2seq_logits(model, emb, pos, src, tgt, tgt_mask,
+                                src_mask=src_mask, memory_mask=src_mask)
+        loss = F.cross_entropy(logits.reshape(-1, TB_VOCAB),
+                               labels.reshape(-1))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    warmup, steps = 1, 3
+    model.train()
+    with fused_switches(("PT_FUSED_NORM",)):
+        reset_all_launch_counts()
+        losses = [step() for _ in range(warmup)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step() for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_launch_counts()
+    losses = [float(x) for x in losses]
+    n = warmup + steps
+    check(counts == launches_want(fused_add_layer_norm_cuda=12 * n),
+          f"padded batch launches {counts}")
+    check(all(np.isfinite(losses)), f"finite padded losses {losses}")
+    say(f"transformer Transformer-base padded batch: source lengths "
+        f"{sorted(src_len.tolist())} (padded to {s_src}), target lengths "
+        f"{sorted(tgt_len.tolist())} (padded to {s_tgt}), bucket "
+        f"{TB_BUCKET}: every attention masked, so sdpa_reference; "
+        f"{steps} timed steps {wall / steps * 1e3:.1f} ms/step, "
+        f"{int(src_len.sum() + tgt_len.sum()) * steps / wall:.0f} real "
+        f"source+target tokens/s; losses {[round(x, 4) for x in losses]}; "
+        f"launches {counts}")
+    return counts
+
+
+def transformer_base_train():
+    """Phase 21a: Transformer-base (``Transformer()`` at its defaults, bf16,
+    ``attn_dropout=0.0``; sublayer dropout 0.1 from a seeded generator)
+    behind the shared-embedding harness over a 37000-token vocabulary,
+    trained with AdamW(1e-4) on one fixed batch of 16 x 256 source and
+    target tokens under ``PT_FUSED_NORM=1``: 2 warm-up and 10 timed eager
+    steps, then one profiled step (not counted). Each step launches #3 12
+    times (6 encoder self-attentions, 6 cross-attentions between equal
+    lengths), #4 and #5 12 each and #8 12 (two a post-norm encoder layer);
+    the decoder's self-attention (causal mask) takes ``sdpa_reference``.
+    Then one forward at a 128-token target: its cross-attentions take
+    ``sdpa_reference`` too, so #3 launches 6 times. Then the trained
+    weights' step against the plain route
+    (``transformer_base_plain_check``) and the padded arm
+    (``padded_batch_arm``: every attention masked, #8 alone). Returns
+    ({arm: launch counts}, {kernel: max abs error of the checked step's
+    launches})."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.nn import Embedding, Transformer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.functional import flash_attention as sdpa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    warmup, steps = 2, 10
+    torch.manual_seed(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    t0 = time.perf_counter()
+    model = Transformer(attn_dropout=0.0, device="cuda", dtype=torch.bfloat16,
+                        generator=gen)
+    emb = Embedding(TB_VOCAB, model.d_model, device="cuda",
+                    dtype=torch.bfloat16)
+    pos = torch.from_numpy(sinusoid_positions(TB_SEQ, model.d_model)).to(
+        "cuda", torch.bfloat16)
+    params = list(model.parameters()) + [emb.weight]
+    opt = AdamW(learning_rate=1e-4, parameters=params)
+    rng = np.random.RandomState(SEED + 51)
+    src = torch.from_numpy(rng.randint(0, TB_VOCAB, (TB_BATCH, TB_SEQ))).cuda()
+    out = torch.from_numpy(rng.randint(0, TB_VOCAB,
+                                       (TB_BATCH, TB_SEQ + 1))).cuda()
+    tgt, labels = out[:, :-1], out[:, 1:]
+    mask = model.generate_square_subsequent_mask(TB_SEQ)
+    n_params = sum(p.numel() for p in params)
+    torch.cuda.synchronize()
+    say(f"transformer setup: Transformer-base bf16 ({n_params} params with "
+        f"the {TB_VOCAB}-token shared embedding), batch {TB_BATCH} x "
+        f"{TB_SEQ} + {TB_SEQ}, in {time.perf_counter() - t0:.2f} s")
+
+    def step():
+        logits = seq2seq_logits(model, emb, pos, src, tgt, mask)
+        loss = F.cross_entropy(logits.reshape(-1, TB_VOCAB),
+                               labels.reshape(-1))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    with fused_switches(("PT_FUSED_NORM",)):
+        model.train()
+        reset_peak_memory()
+        reset_all_launch_counts()
+        losses = [step() for _ in range(warmup)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step() for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        train = all_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        device_profile(step, "transformer Transformer-base (one step)",
+                       top=10, mark=("fused_add_layer_norm", "flash_fwd",
+                                     "flash_bwd_dq", "flash_bwd_dkv"))
+        n = warmup + steps
+        want = launches_want(fused_add_layer_norm_cuda=12 * n,
+                             **{f"{k}_cuda": 12 * n for k in FLASH})
+        check(train == want, f"Transformer-base launches {train} == {want}")
+        losses = [float(x) for x in losses]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"finite falling losses {losses}")
+        tok_s = TB_BATCH * 2 * TB_SEQ * steps / wall
+        say(f"transformer Transformer-base train: losses "
+            f"{[round(x, 4) for x in losses]}; {steps} timed steps in "
+            f"{wall:.3f} s = {wall / steps * 1e3:.1f} ms/step, {tok_s:.0f} "
+            f"source+target tokens/s, peak memory {peak:.2f} GiB, "
+            f"launches {train}")
+        reset_all_launch_counts()
+        model.eval()
+        with torch.no_grad():
+            short = seq2seq_logits(model, emb, pos, src, tgt[:, :TB_CROSS_SEQ],
+                                   mask[:TB_CROSS_SEQ, :TB_CROSS_SEQ])
+        cross = all_launch_counts()
+        path = sdpa.LAST_PATH
+    check(bool(torch.isfinite(short.float()).all()), "finite logits")
+    check(cross == launches_want(flash_attention_fwd_cuda=6,
+                                 fused_add_layer_norm_cuda=12),
+          f"S_tgt {TB_CROSS_SEQ} launches {cross}")
+    check(path == "reference", f"cross-attention took {path}")
+    say(f"transformer S_src {TB_SEQ} != S_tgt {TB_CROSS_SEQ}: the "
+        f"cross-attentions take sdpa_reference (last path {path}), #3 "
+        f"{cross['flash_attention_fwd_cuda']} (the encoder's 6)")
+    worst = transformer_base_plain_check(model, emb, pos, src, tgt, labels,
+                                         mask)
+    padded = padded_batch_arm(model, emb, pos, opt, rng)
+    del model, emb, opt, params
+    free_cuda()
+    return {"train": train, "cross_length": cross, "padded": padded}, worst
+
+
+def transformer_card_vs_cpu():
+    """Phase 21b, c: fp32 ``Transformer`` at full width cut to 2 + 2
+    layers, dropout 0, ``PT_FUSED_NORM=1``, from one set of weights on the
+    card and on the CPU. (b) One eval forward under the square mask, and
+    one training step's loss and gradients (loss ``sum(out * w) / B``):
+    outputs within ``TRAIN_PARAM_ATOL``, the loss within
+    ``TRAIN_LOSS_RTOL``, every gradient within ``TRAIN_PARAM_ATOL`` of the
+    model's largest gradient magnitude (the fp32 card-vs-CPU phases'
+    tolerances); on the card #3 and #8 4 a forward, #4 and #5 4 a
+    backward. (c) ``gen_cache`` and 32 cached decoder steps on the card,
+    the caller re-pairing each layer's returned 1-tuple with its static
+    cache (the returned caches fed back as they are raise ``IndexError``,
+    as in the reference); each step within 1e-4 of the uncached decoder
+    at that position under ``generate_square_subsequent_mask``."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import (load_paddle_tpu_state_dict,
+                                         to_numpy_state_dict)
+    from paddle_tpu_torch.nn import Transformer
+
+    torch.manual_seed(SEED + 52)
+    kw = dict(num_encoder_layers=TB_CUT, num_decoder_layers=TB_CUT,
+              dropout=0.0)
+    state = to_numpy_state_dict(Transformer(**kw, device="cpu"))
+    rng = np.random.RandomState(SEED + 53)
+    d = 512
+    src, tgt, w = (rng.standard_normal((TB_CMP_BATCH, TB_CMP_SEQ, d))
+                   .astype(np.float32) for _ in range(3))
+    res = {}
+    with fused_switches(("PT_FUSED_NORM",)):
+        for dev in ("cpu", "cuda"):
+            model = Transformer(**kw, device=dev)
+            load_paddle_tpu_state_dict(model, state)
+            s, t, wt = (torch.from_numpy(a).to(dev) for a in (src, tgt, w))
+            mask = model.generate_square_subsequent_mask(TB_CMP_SEQ)
+            reset_all_launch_counts()
+            model.eval()
+            with torch.no_grad():
+                out = model(s, t, tgt_mask=mask).cpu()
+            model.train()
+            loss = (model(s, t, tgt_mask=mask) * wt).sum() / TB_CMP_BATCH
+            loss.backward()
+            res[dev] = (out, float(loss.detach()),
+                        {k: p.grad.cpu() for k, p in model.named_parameters()})
+            if dev == "cuda":
+                counts = all_launch_counts()
+                want = launches_want(
+                    flash_attention_fwd_cuda=8, flash_attention_bwd_dq_cuda=4,
+                    flash_attention_bwd_dkv_cuda=4,
+                    fused_add_layer_norm_cuda=8)
+                check(counts == want, f"card vs cpu launches {counts}")
+    (oc, lc, gc), (og, lg, gg) = res["cpu"], res["cuda"]
+    do = float((og - oc).abs().max())
+    dl = abs(lg / lc - 1)
+    gmax = max(float(g.abs().max()) for g in gc.values())
+    dg = max(float((gg[k] - gc[k]).abs().max()) for k in gc)
+    say(f"transformer card vs cpu fp32 {TB_CUT}+{TB_CUT} layers at full "
+        f"width, PT_FUSED_NORM=1: eval output max abs diff {do:.2e} (tol "
+        f"{TRAIN_PARAM_ATOL:g}); loss cuda {lg} cpu {lc}, rel diff "
+        f"{dl:.2e} (tol {TRAIN_LOSS_RTOL:g}); gradients max abs diff "
+        f"{dg:.2e} of max |grad| {gmax:.3e} (tol {TRAIN_PARAM_ATOL:g} of "
+        f"it); launches {counts}")
+    check(do <= TRAIN_PARAM_ATOL and dl <= TRAIN_LOSS_RTOL
+          and dg <= TRAIN_PARAM_ATOL * gmax, "card and CPU Transformer agree")
+
+    # (c) on the card model of (b)
+    model.eval()
+    with torch.no_grad():
+        memory = model.encoder(s)
+        steps = torch.from_numpy(
+            rng.standard_normal((TB_CMP_BATCH, TB_DECODE, d)).astype(
+                np.float32)).cuda()
+        whole = model.decoder(
+            steps, memory, model.generate_square_subsequent_mask(TB_DECODE))
+        cache = model.decoder.gen_cache(memory)
+        worst = 0.0
+        for i in range(TB_DECODE):
+            out, new = model.decoder(steps[:, i:i + 1], memory, cache=cache)
+            worst = max(worst, float((out[:, 0] - whole[:, i]).abs().max()))
+            if i == 0:
+                try:
+                    model.decoder(steps[:, 1:2], memory, cache=new)
+                    raised = False
+                except IndexError:
+                    raised = True
+                check(raised, "the returned caches fed back raise IndexError")
+            cache = [(n[0], c[1]) for n, c in zip(new, cache)]
+        check(cache[0][0].k.shape[1] == TB_DECODE, "the cache grew a step "
+              "at a time")
+    say(f"transformer incremental decoding fp32 full width {TB_CUT} "
+        f"layers: {TB_DECODE} cached steps (static caches re-paired by the "
+        f"caller) vs the uncached decoder under the square mask: max abs "
+        f"diff {worst:.2e} (tol {TB_DECODE_ATOL:g})")
+    check(worst <= TB_DECODE_ATOL, "cached decoding = uncached")
+    del model
+    free_cuda()
+
+
+def fused_state(model, rng):
+    """Random fp32 weights for a fused stack: norm scales near one, the
+    packed QKV projection Xavier-normal (std sqrt(2 / (E + H*D)), so the
+    attention logits have a standard deviation near one and the softmax is
+    far from uniform), everything else N(0, 0.02)."""
+    import numpy as np
+
+    def draw(k, shape):
+        if "scale" in k:
+            return 1 + 0.1 * rng.standard_normal(shape)
+        std = 0.02
+        if k.endswith("qkv_weight"):
+            _, h, d, e = shape
+            std = math.sqrt(2.0 / (e + h * d))
+        return rng.standard_normal(shape) * std
+
+    return {k: draw(k, tuple(v.shape)).astype(np.float32)
+            for k, v in model.state_dict().items()}
+
+
+def transformer_fused_surface():
+    """Phase 21d: ``FusedMultiTransformer`` at BERT-base's width (768, 12
+    heads, FFN 3072, 4 layers; pre-norm) in bf16 on [16, 512, 768],
+    unmasked, eval: #3 exactly 4 a forward, the output within
+    ``FUSED_STACK_REL_TOL`` (relative to its largest magnitude) of the
+    same weights and input, bf16-rounded, in fp32 on the CPU. Then a
+    post-norm ``FusedTransformerEncoderLayer`` (#3 1, #8 0: its norms are
+    plain ``layer_norm``, as in the reference) and ``fused_layer_norm``
+    with a residual (#8 1, within the kernel tolerance of
+    ``layer_norm(residual + x)``). Every #3 launch of the stack and the
+    layer is held to its plain version on its own inputs
+    (``hold_recorded``). Returns ({arm: launch counts}, {kernel: max abs
+    error})."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.incubate.nn import (FusedMultiTransformer,
+                                              FusedTransformerEncoderLayer)
+    from paddle_tpu_torch.incubate.nn.functional import fused_layer_norm
+    from paddle_tpu_torch.models import (load_paddle_tpu_state_dict,
+                                         to_numpy_state_dict)
+    from paddle_tpu_torch.nn.functional import flash_attention as sdpa
+    from paddle_tpu_torch.nn.functional import layer_norm
+    from paddle_tpu_torch.ops.cuda import rms_norm as RN
+
+    rng = np.random.RandomState(SEED + 54)
+    card = FusedMultiTransformer(**FUSED_WIDTH, device="cuda",
+                                 dtype=torch.bfloat16).eval()
+    load_paddle_tpu_state_dict(card, fused_state(card, rng))
+    x = torch.from_numpy(rng.standard_normal(
+        (FUSED_BATCH, FUSED_SEQ, FUSED_WIDTH["embed_dim"])).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+    reset_all_launch_counts()
+    with torch.no_grad(), recorded_launches() as rec:
+        got = card(x).float().cpu()
+    stack = all_launch_counts()
+    worst = hold_recorded(rec, "FusedMultiTransformer bf16")
+    del rec
+    check(stack == launches_want(flash_attention_fwd_cuda=4),
+          f"FusedMultiTransformer launches {stack}")
+    check(sdpa.LAST_PATH == "cuda", f"attention took {sdpa.LAST_PATH}")
+    cpu = FusedMultiTransformer(**FUSED_WIDTH, device="cpu").eval()
+    load_paddle_tpu_state_dict(cpu, to_numpy_state_dict(card))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu(x.float().cpu())
+    cpu_s = time.perf_counter() - t0
+    rel = float((got - want).abs().max() / want.abs().max())
+    say(f"transformer FusedMultiTransformer 768/12/3072 x 4 bf16 "
+        f"[{FUSED_BATCH}, {FUSED_SEQ}]: "
+        f"vs fp32 CPU ({cpu_s:.1f} s) max abs diff / max |want| {rel:.2e} "
+        f"(tol {FUSED_STACK_REL_TOL:g}); launches {stack}")
+    check(rel <= FUSED_STACK_REL_TOL, "bf16 fused stack = fp32 CPU")
+    layer = FusedTransformerEncoderLayer(768, 12, 3072, dropout_rate=0.0,
+                                         device="cuda",
+                                         dtype=torch.bfloat16).eval()
+    w, b = (torch.from_numpy(rng.standard_normal(768).astype(np.float32))
+            .to("cuda", torch.bfloat16) for _ in range(2))
+    r = torch.randn(x.shape, device="cuda", dtype=torch.bfloat16)
+    reset_all_launch_counts()
+    with torch.no_grad(), recorded_launches() as rec:
+        y = layer(x)
+    enc = all_launch_counts()
+    held = hold_recorded(rec, "FusedTransformerEncoderLayer bf16")
+    worst = {k: max(worst.get(k, 0.0), e) for k, e in held.items()}
+    check(enc == launches_want(flash_attention_fwd_cuda=1),
+          f"FusedTransformerEncoderLayer launches {enc}")
+    reset_all_launch_counts()
+    out, resid = fused_layer_norm(x, w, b, 1e-5, 2, residual=r)
+    norm = all_launch_counts()
+    check(norm == launches_want(fused_add_layer_norm_cuda=1),
+          f"fused_layer_norm launches {norm}")
+    # the norm in fp32 from the rounded residual, as phase 2 holds #8
+    _, want_r = RN.fused_add_layer_norm_plain(r, x, w, b, 1e-5)
+    want_out = layer_norm(resid.float(), [768], w.float(), b.float(), 1e-5)
+    err, excess = compare(out, want_out, "bfloat16")
+    check(bool(torch.isfinite(y.float()).all()) and excess <= 0
+          and bool(torch.equal(resid, want_r)),
+          f"fused_layer_norm within tolerance ({err})")
+    say(f"transformer FusedTransformerEncoderLayer post-norm bf16: launches "
+        f"{enc} (its norms plain, as the reference's); fused_layer_norm("
+        f"residual=) [{FUSED_BATCH}, {FUSED_SEQ}, 768] bf16: launches {norm}, "
+        f"out max_abs_err "
+        f"{err:.3e} (tol {ATOL:g} + {RTOL['bfloat16']:g}*|want|), residual "
+        f"identical")
+    worst["fused_add_layer_norm"] = err
+    del card, cpu, layer, rec
+    free_cuda()
+    return ({"fused_stack": stack, "fused_layer": enc, "fused_norm": norm},
+            worst)
+
+
+def phase_transformer():
+    """Phase 21: the transformer stack (a)-(d). Returns ({arm: launch
+    counts} of (a) and (d), {kernel: max abs error of its recorded
+    launches in (a) and (d)})."""
+    out, worst = timed(transformer_base_train)
+    timed(transformer_card_vs_cpu)
+    fused, fused_worst = timed(transformer_fused_surface)
+    out.update(fused)
+    for name, err in fused_worst.items():
+        worst[name] = max(worst[name], err)
+    return out, worst
+
+
 def tensor_core_ptxas(built):
     """Registers and spills (``ptxas -v``) of each tensor-core kernel (the
     ``tcr`` namespace of moe_ffn.cu, paged_attention.cu and
@@ -9036,6 +9697,10 @@ def main():
     # phase 20's per-step and window runs of the Llama-MoE, and #9 at its
     # serving shapes
     moe_serve, moe_times = timed(phase_serve_moe)
+    # phase 21's Transformer-base steps and forwards, each counted alone
+    transformer, transformer_worst = timed(phase_transformer)
+    for name, err in transformer_worst.items():
+        worst[name] = max(worst[name], err)
     sources = {"paged": "paddle_tpu_torch/csrc/paged_attention.cu",
                "flash": "paddle_tpu_torch/csrc/flash_attention.cu",
                "moe": "paddle_tpu_torch/csrc/moe_ffn.cu",
@@ -9084,6 +9749,8 @@ def main():
                                      for arm, c in hapi_launches.items()}
             k["launches_phase18"] = {arm: c[k["name"] + "_cuda"]
                                      for arm, c in jit_launches.items()}
+            k["launches_phase21"] = {arm: c[k["name"] + "_cuda"]
+                                     for arm, c in transformer.items()}
         if k["name"] in ("paged_decode_attention",
                          "paged_multiquery_attention", "moe_ffn"):
             k["launches_phase20"] = {arm: c[k["name"] + "_cuda"]

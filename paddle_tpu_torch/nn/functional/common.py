@@ -1,7 +1,9 @@
 """Common functionals (counterpart of ``paddle_tpu/nn/functional/common.py``):
-``linear`` with the reference's ``[in, out]`` weight, ``dropout``, and the
-lookups ``embedding`` and ``embedding_bag``, which consult the row-sparse
-capture (:mod:`paddle_tpu_torch.ops.sparse_grad`) as the reference's do.
+``linear`` with the reference's ``[in, out]`` weight, the dropouts
+(``dropout``, along an ``axis`` too, ``dropout2d``, ``dropout3d`` and
+``alpha_dropout``), and the lookups ``embedding`` and ``embedding_bag``,
+which consult the row-sparse capture (:mod:`paddle_tpu_torch.ops.sparse_grad`)
+as the reference's do.
 
 Dropout draws its mask from the ``torch.Generator`` it is given (the
 device's default generator without one). Its bits cannot match
@@ -9,7 +11,9 @@ device's default generator without one). Its bits cannot match
 masks: a Bernoulli(1 - p) keep mask, kept values scaled by 1 / (1 - p) in
 ``upscale_in_train``, left as they are in ``downscale_in_infer`` (which
 scales by 1 - p at inference instead), and the identity at p = 0 or
-outside training."""
+outside training. Along an ``axis`` the mask varies only over the listed
+axes and is broadcast over the rest (the reference's ``_dropout_axis``,
+which takes the axes as given: a negative one matches no axis)."""
 
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import torch
 from ...amp.amp_lists import maybe_cast
 from ...ops import sparse_grad
 
-__all__ = ["dropout", "embedding", "embedding_bag", "linear"]
+__all__ = ["alpha_dropout", "dropout", "dropout2d", "dropout3d", "embedding",
+           "embedding_bag", "linear"]
 
 
 def linear(x, weight, bias=None):
@@ -33,21 +38,64 @@ def linear(x, weight, bias=None):
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             generator=None):
-    """paddle.nn.functional.dropout, one keep decision per element
-    (``axis`` is not ported)."""
+    """paddle.nn.functional.dropout: one keep decision per element, or
+    with ``axis`` (an int or a list of ints) one per index of those axes,
+    broadcast over the others."""
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"unknown dropout mode {mode!r}")
-    if axis is not None:
-        raise NotImplementedError("dropout along an axis is not ported yet")
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)
         return x
+    axes = None if axis is None else (
+        (axis,) if isinstance(axis, int) else tuple(axis))
+    return _dropout_mask(x, p, axes, mode, generator)
+
+
+def _dropout_mask(x, p, axes, mode="upscale_in_train", generator=None):
+    """A Bernoulli(1 - p) keep mask over ``x`` (``axes`` None) or over the
+    axes in ``axes`` (size 1 on the rest), applied as ``mode`` says."""
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = (x.shape if axes is None else
+             [x.shape[i] if i in axes else 1 for i in range(x.dim())])
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
     kept = x / keep if mode == "upscale_in_train" else x
     return torch.where(mask, kept, torch.zeros((), dtype=x.dtype,
                                                device=x.device))
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW", generator=None):
+    """Whole channels of a 4-D ``x`` dropped (one decision per sample and
+    channel), upscaled in training; no ``mode``, as in the reference."""
+    if not training or p == 0.0:
+        return x
+    axes = (0, 1) if data_format == "NCHW" else (0, 3)
+    return _dropout_mask(x, p, axes, generator=generator)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW", generator=None):
+    """:func:`dropout2d` for a 5-D ``x``."""
+    if not training or p == 0.0:
+        return x
+    axes = (0, 1) if data_format == "NCDHW" else (0, 4)
+    return _dropout_mask(x, p, axes, generator=generator)
+
+
+def alpha_dropout(x, p=0.5, training=True, generator=None):
+    """Dropout for SELU networks: dropped elements take SELU's negative
+    saturation value, then an affine map restores zero mean and unit
+    variance (``a * where(keep, x, alpha') + b``)."""
+    if not training or p == 0.0:
+        return x
+    alpha, scale = 1.6732632423543772, 1.0507009873554805
+    alpha_p = -alpha * scale
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    a = (keep + alpha_p ** 2 * keep * (1 - keep)) ** -0.5
+    b = -a * alpha_p * (1 - keep)
+    return (a * torch.where(mask, x, torch.full((), alpha_p, dtype=x.dtype,
+                                                  device=x.device))
+            + b).to(x.dtype)
 
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):

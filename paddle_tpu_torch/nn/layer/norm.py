@@ -7,7 +7,7 @@ from torch import nn
 
 from ...core.device import resolve_device
 from ..functional.norm import layer_norm, rms_norm
-from ..initializer import Constant
+from ..initializer import Constant, default_bias_init
 from .layers import create_parameter
 
 __all__ = ["LayerNorm", "RMSNorm"]
@@ -32,7 +32,7 @@ class RMSNorm(nn.Module):
 class LayerNorm(nn.Module):
     """LayerNorm over the trailing ``normalized_shape`` axes with a weight
     from ``weight_attr`` (default ones) and a bias from ``bias_attr``
-    (default zeros) of that shape."""
+    (default zeros, or the global bias initializer) of that shape."""
 
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None, *, device=None, dtype=None):
@@ -45,7 +45,8 @@ class LayerNorm(nn.Module):
         self.weight = create_parameter(self._normalized_shape, weight_attr,
                                        Constant(1.0), device=dev, dtype=dtype)
         self.bias = create_parameter(self._normalized_shape, bias_attr,
-                                     Constant(0.0), device=dev, dtype=dtype)
+                                     default_bias_init(), device=dev,
+                                     dtype=dtype)
 
     def forward(self, x):
         return layer_norm(x, self._normalized_shape, self.weight, self.bias,

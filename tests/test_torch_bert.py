@@ -265,8 +265,9 @@ def test_dropout_semantics_with_an_explicit_generator():
     assert torch.equal(F.dropout(x, 0.25, training=False,
                                  mode="downscale_in_infer"), x * 0.75)
     assert F.dropout(x, 0.0) is x
-    with pytest.raises(NotImplementedError):
-        F.dropout(x, 0.5, axis=1)
+    # along axis 1 one decision a column, the same in every row
+    cols = F.dropout(x, 0.5, axis=1, generator=gen) != 0
+    assert torch.equal(cols, cols[:1].expand_as(cols))
     layer = Dropout(0.5, generator=torch.Generator().manual_seed(1))
     assert not torch.equal(layer(x), x)
     layer.eval()
